@@ -1,0 +1,163 @@
+"""ReBranch (paper §3.2, Fig. 7): frozen ROM trunk + small trainable
+branch (port of ``repro.core.rebranch``, CNN part).
+
+    y = Trunk_ROM(x) + Decompress(ResCore(Compress(x)))
+
+Parameter convention: every subtree under a ``"rom"`` dict key is frozen
+(no gradient, no optimizer state); ``partition``/``combine`` implement
+that split.  The trunk ops are ``torch.autograd.Function``s whose
+backward is the straight-through estimator: dx only, never a dW (the ROM
+cannot be written).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import cim as cim_lib
+from repro_torch.core import quant
+
+ROM_KEY = "rom"
+
+
+@dataclasses.dataclass(frozen=True)
+class ReBranchSpec:
+    d_ratio: int = 4                 # compression ratio D (paper Fig. 11)
+    u_ratio: int = 4                 # decompression ratio U
+    enabled: bool = True             # False -> plain trainable layer ("SRAM")
+    # trunk execution backend: a name in the repro_torch.engine registry
+    trunk_impl: str = "int8_native"
+    cim: cim_lib.CiMConfig = dataclasses.field(
+        default_factory=lambda: cim_lib.CiMConfig(mode="ideal"))
+    param_dtype: Any = torch.float32  # branch/scale dtype
+    branch_enabled: bool = True      # trunk-only (no adapter) if False
+    # speculative-draft mode: skip the ROM trunk, run only the branch
+    trunk_skip: bool = False
+
+    @property
+    def compression(self) -> int:
+        return self.d_ratio * self.u_ratio
+
+
+# ---------------------------------------------------------------------------
+# ROM (frozen) vs SRAM (trainable) split of a parameter tree
+# ---------------------------------------------------------------------------
+
+def partition(params):
+    """Split params into (trainable, frozen) trees; non-members are None."""
+    def walk(node, in_rom):
+        if isinstance(node, dict):
+            train, froz = {}, {}
+            for k, v in node.items():
+                train[k], froz[k] = walk(v, in_rom or k == ROM_KEY)
+            return train, froz
+        if isinstance(node, (list, tuple)):
+            pairs = [walk(v, in_rom) for v in node]
+            return (type(node)(p[0] for p in pairs),
+                    type(node)(p[1] for p in pairs))
+        return (None, node) if in_rom else (node, None)
+
+    return walk(params, False)
+
+
+def combine(trainable, frozen):
+    """Inverse of :func:`partition`."""
+    if isinstance(trainable, dict):
+        return {k: combine(trainable[k], frozen[k]) for k in trainable}
+    if isinstance(trainable, (list, tuple)):
+        return type(trainable)(combine(a, b)
+                               for a, b in zip(trainable, frozen))
+    return trainable if trainable is not None else frozen
+
+
+# ---------------------------------------------------------------------------
+# trunk matmul / conv: frozen int8 path with a straight-through backward
+# ---------------------------------------------------------------------------
+
+class _TrunkMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q, w_scale, cfg):
+        x_q, sx = quant.quantize_activations(x)
+        out = cim_lib.cim_matmul_model(x_q, w_q, cfg)
+        ctx.save_for_backward(w_q, w_scale)
+        return (out * sx).to(x.dtype) * w_scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, w_scale = ctx.saved_tensors
+        w_deq = w_q.to(g.dtype) * w_scale.to(g.dtype)          # [K, N]
+        return g @ w_deq.T, None, None, None
+
+
+def trunk_matmul(cfg, x, w_q, w_scale):
+    """y = CiM(quantize(x), w_q) * (sx * w_scale); STE backward."""
+    return _TrunkMatmul.apply(x, w_q, w_scale, cfg)
+
+
+def conv_nhwc(x, w, stride: int = 1, padding: str = "SAME"):
+    """The port's one NHWC/HWIO conv: explicit XLA-style pads (the odd
+    SAME pad at the bottom/right), then an unpadded ``F.conv2d``."""
+    kh, kw = w.shape[0], w.shape[1]
+    (ph0, ph1), oh = cim_lib.conv_pads(x.shape[1], kh, stride, padding)
+    (pw0, pw1), ow = cim_lib.conv_pads(x.shape[2], kw, stride, padding)
+    if x.shape[0] * oh * ow == 0:           # F.conv2d rejects empty maps
+        return x.new_zeros((x.shape[0], oh, ow, w.shape[3]))
+    xp = F.pad(x, (0, 0, pw0, pw1, ph0, ph1)).permute(0, 3, 1, 2)
+    y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def trunk_conv_ste_bwd(stride: int, padding: str, x_shape, w_q, w_scale, g):
+    """Shared STE backward: dx = conv_transpose(g, dequant(w)), no dW."""
+    w_deq = w_q.to(g.dtype) * w_scale.reshape(1, 1, 1, -1).to(g.dtype)
+    with torch.enable_grad():
+        x0 = torch.zeros(x_shape, dtype=g.dtype, device=g.device,
+                         requires_grad=True)
+        y = conv_nhwc(x0, w_deq, stride, padding)
+        (dx,) = torch.autograd.grad(y, x0, g)
+    return dx
+
+
+class _TrunkConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q, w_scale, cfg, stride, padding):
+        kh, kw, c_in, c_out = w_q.shape
+        patches, _ = cim_lib.im2col(x, kh, kw, stride, padding)
+        p_q, sp = quant.quantize_activations(patches)
+        out = cim_lib.cim_matmul_model(
+            p_q, w_q.reshape(kh * kw * c_in, c_out), cfg)
+        ctx.save_for_backward(w_q, w_scale)
+        ctx.geom = (stride, padding, x.shape)
+        return (out * sp).to(x.dtype) * w_scale.reshape(-1).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        stride, padding, x_shape = ctx.geom
+        w_q, w_scale = ctx.saved_tensors
+        dx = trunk_conv_ste_bwd(stride, padding, x_shape, w_q, w_scale, g)
+        return dx, None, None, None, None, None
+
+
+def trunk_conv(cfg, stride: int, padding: str, x, w_q, w_scale):
+    """Frozen int8 ROM trunk conv: im2col, per-patch-row quantisation, the
+    CiM macro model; STE backward.  x [N, H, W, C_in] float, w_q
+    [KH, KW, C_in, C_out] int8, w_scale per output channel."""
+    return _TrunkConv.apply(x, w_q, w_scale, cfg, stride, padding)
+
+
+def trunk_matmul_dequant(cfg, x, w_q, w_scale):
+    """Float baseline: dequantised weights, fake-quantised activations."""
+    del cfg
+    w = w_q.to(x.dtype) * w_scale.to(x.dtype)
+    return quant.fake_quant_ste(x) @ w
+
+
+def trunk_conv_dequant(cfg, stride: int, padding: str, x, w_q, w_scale):
+    """Conv analogue of :func:`trunk_matmul_dequant` on a plain conv."""
+    del cfg
+    w = w_q.to(x.dtype) * w_scale.to(x.dtype)
+    return conv_nhwc(quant.fake_quant_ste(x), w, stride, padding)
