@@ -19,7 +19,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    requests of 8, 8 and 5 images.  The launch count must rise by exactly
    20 per served chunk (one per conv site), the outputs must be finite,
    and the 5-image request's rows must equal, bit for bit, the same images
-   served in a full chunk.
+   served in a full chunk.  Then a sustained window: three runs of one
+   request of 32 full chunks each (256 images), images/s as all images
+   over the whole request, with the spread across the runs.
 4. CPU reference: one image through the served model on the card, every
    conv layer's call recorded; each layer is run again on the CPU (the
    plain versions) on the same input and held within 1e-5 of its output's
@@ -56,6 +58,7 @@ PEAK_BYTES = 3.35e12
 
 SIZE, BATCH, SLOTS = 416, 8, 8
 REQUESTS = (8, 8, 5)
+SUSTAINED_CHUNKS, SUSTAINED_RUNS = 32, 3
 FUSED_RTOL = 1e-5        # phase 2, of the fused output's absmax
 LAYER_RTOL = 1e-5        # phase 4, of each layer output's absmax
 
@@ -260,6 +263,27 @@ def phase_serve(cfg):
           f"(max diff {np.abs(full[:len(short)] - outs[-1]).max()})")
     print(f"pad rows invisible: {len(short)}-image request bitwise equal to "
           f"the same rows of a full chunk")
+
+    # sustained window: requests of many full chunks, back to back
+    n_img = SUSTAINED_CHUNKS * SLOTS
+    batch = rng.standard_normal((n_img, SIZE, SIZE, 3), dtype=np.float32)
+    rates = []
+    for run in range(SUSTAINED_RUNS):
+        before = rc.launches
+        t0 = time.perf_counter()
+        out = srv.submit(batch)
+        dt = time.perf_counter() - t0
+        check(rc.launches - before == n_sites * SUSTAINED_CHUNKS,
+              "sustained window launch count")
+        check(out.shape[0] == n_img and bool(np.isfinite(out).all()),
+              "sustained window output")
+        rates.append(n_img / dt)
+        print(f"sustained run {run}: {n_img} images in {SUSTAINED_CHUNKS} "
+              f"chunks, {dt * 1e3:.2f} ms, {n_img / dt:.2f} images/s")
+    spread = (max(rates) - min(rates)) / min(rates)
+    print(f"sustained images/s: mean {sum(rates) / len(rates):.2f}, min "
+          f"{min(rates):.2f}, max {max(rates):.2f}, spread {spread:.2%}")
+    del batch, out
 
     # where a chunk's time goes: the device forward vs the host copy
     chunk = torch.from_numpy(images[:SLOTS])

@@ -6,7 +6,7 @@
 // UNSCALED trunk of a ReBranch conv from the im2col patch matrix:
 //
 //   P f32 [M, R] (R = kh*kw*C_in, tap-major), W int8 [R, N]  ->  f32 [M, N]
-//   for each k-block [k0, k1) of k_partition(R, block_k, 128), ascending:
+//   for each k-block [k0, k1) of k_partition(R, 128), ascending:
 //     scale = f32(max(absmax(P[m, k0:k1]), 1e-8) * f32(1/127))
 //     q     = clip(rint(P[m, k] * (1/scale)), -127, 127)        (int8)
 //     out  += f32(sum_k q * W[k, n]) * scale
@@ -169,15 +169,16 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  `bk` is
+// the k-block width of the partition, kernels/tiling.py::block_k(r, 128).
 extern "C" int trunk_conv_ideal(const float* p, const int8_t* w, float* out,
-                                int m, int r, int n, int block_k,
+                                int m, int r, int n, int bk,
                                 cudaStream_t stream) {
-  if (m <= 0 || r <= 0 || n <= 0 || block_k <= 0 || block_k % kKC != 0) {
+  if (m <= 0 || r <= 0 || n <= 0 || bk <= 0 || bk % kKC != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
   trunk_conv_ideal_kernel<<<grid, kThreads, 0, stream>>>(p, w, out, m, r, n,
-                                                         block_k);
+                                                         bk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,7 @@ stays outside the Pallas kernel in JAX.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +29,7 @@ from repro_torch.core import cim as cim_lib
 from repro_torch.core import quant
 from repro_torch.kernels import _build
 from repro_torch.kernels.cim_matmul import cim_block_dot
-from repro_torch.kernels.tiling import BLOCK_K, k_partition
+from repro_torch.kernels import tiling
 
 IDEAL = cim_lib.CiMConfig(mode="ideal")
 
@@ -45,8 +46,7 @@ def patch_matrix(x: torch.Tensor, kh: int, kw: int, stride: int,
 
 
 def trunk_patch_dot_plain(p: torch.Tensor, w2d: torch.Tensor,
-                          cfg: cim_lib.CiMConfig = IDEAL,
-                          block_k: int = BLOCK_K) -> torch.Tensor:
+                          cfg: cim_lib.CiMConfig = IDEAL) -> torch.Tensor:
     """Plain PyTorch version of the trunk kernel: P f32 [M, R] x W int8
     [R, C_out] -> UNscaled f32 [M, C_out].
 
@@ -58,7 +58,7 @@ def trunk_patch_dot_plain(p: torch.Tensor, w2d: torch.Tensor,
     rows = cfg.rows_per_subarray
     w_f = w2d.float()
     acc = None
-    for k0, k1 in k_partition(p.shape[1], block_k, rows):
+    for k0, k1 in tiling.k_partition(p.shape[1], rows):
         pb = p[:, k0:k1]
         if cfg.mode == "ideal":
             q, scale = quant.quant_rows_f32(pb)
@@ -73,7 +73,9 @@ def trunk_patch_dot_plain(p: torch.Tensor, w2d: torch.Tensor,
     return acc
 
 
+@functools.cache
 def _kernel():
+    """The C entry of ``csrc/trunk_conv.cu``, built and bound once."""
     fn = _build.library("trunk_conv").trunk_conv_ideal
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
@@ -82,8 +84,7 @@ def _kernel():
 
 
 def trunk_patch_dot(p: torch.Tensor, w2d: torch.Tensor,
-                    cfg: cim_lib.CiMConfig = IDEAL,
-                    block_k: int = BLOCK_K) -> torch.Tensor:
+                    cfg: cim_lib.CiMConfig = IDEAL) -> torch.Tensor:
     """UNscaled trunk accumulation [M, C_out] of P [M, R] and W [R, C_out].
 
     A CUDA tensor launches ``csrc/trunk_conv.cu`` (ideal mode only; a
@@ -91,7 +92,7 @@ def trunk_patch_dot(p: torch.Tensor, w2d: torch.Tensor,
     :func:`trunk_patch_dot_plain`.
     """
     if p.device.type == "cpu":
-        return trunk_patch_dot_plain(p, w2d, cfg, block_k)
+        return trunk_patch_dot_plain(p, w2d, cfg)
     if cfg.mode != "ideal":
         raise NotImplementedError(
             f"CiM mode {cfg.mode!r} has no CUDA trunk kernel yet (ROADMAP "
@@ -110,7 +111,7 @@ def trunk_patch_dot(p: torch.Tensor, w2d: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=p.device)
     if m == 0 or n == 0:
         return out
-    bk = min(block_k, -(-r // cfg.rows_per_subarray) * cfg.rows_per_subarray)
+    bk = tiling.block_k(r, cfg.rows_per_subarray)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         rc = _kernel()(p.data_ptr(), w2d.data_ptr(), out.data_ptr(),

@@ -2,14 +2,11 @@
 JAX package, on the CPU, batch 2, at 32 px (Tiny-YOLO at 64 px: its six
 pools leave no pixel of a 32 px image).
 
-Parameters come from the JAX init (converted through ``repro_torch.bridge``)
-with the zero-initialised ReBranch cores replaced by seeded non-zero ones
-in both trees, so every branch contributes.
-
-Parameters are drawn by the port's own init (a torch.Generator) and handed
-to both packages as numpy; their tree is checked against the JAX init's
-shapes (``jax.eval_shape``).  The JAX side runs eagerly, as the
-package's own tests run it on the CPU.
+Parameters are drawn by the port's own init (a torch.Generator), their
+zero-initialised ReBranch cores replaced by seeded non-zero ones so every
+branch contributes, and handed to both packages as numpy; their tree is
+checked against the JAX init's shapes (``jax.eval_shape``).  The JAX side
+runs eagerly, as the package's own tests run it on the CPU.
 
 Tolerances.  One conv layer on identical inputs: 1e-5 of the output's
 absmax — the trunk is exact, and only float rounding differs (BN's rsqrt

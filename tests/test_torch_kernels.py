@@ -22,6 +22,7 @@ import torch
 from repro.core import cim as jcim
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import tiling as jtiling
 from repro.kernels.cim_matmul import cim_block_dot as j_cim_block_dot
 from repro.kernels.rebranch_conv import (rebranch_conv_pallas,
                                          trunk_conv_pallas)
@@ -30,6 +31,7 @@ from repro_torch.kernels import cim_matmul as tcm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rebranch_conv as trc
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import tiling as ttiling
 
 IDEAL_J, IDEAL_T = jcim.CiMConfig(mode="ideal"), tcim.CiMConfig(mode="ideal")
 
@@ -156,3 +158,12 @@ def test_blocked_oracle_matches_jax_oracle():
     want = np.asarray(jref.trunk_conv_ref(x, w_q, w_scale, IDEAL_J))
     got = tref.trunk_conv_ref(*_t(x, w_q, w_scale), IDEAL_T).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 27, 128, 180, 512, 576, 1170, 9216])
+def test_k_partition_matches_jax_default(k):
+    """The port's fixed k-partition is the JAX package's default one
+    (block_k 512, 128-row subarrays): it fixes the quantisation groups."""
+    assert ttiling.k_partition(k, 128) == jtiling.k_partition(k, 512, 128)
+    k0, k1 = ttiling.k_partition(k, 128)[0]
+    assert k1 - k0 == min(k, ttiling.block_k(k, 128))
