@@ -32,8 +32,43 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    layer's per-row quantiser moves an int8 code), so the script also
    prints how far the card's own output moves under a 1e-7 relative
    input perturbation.
+5. LM kernels: at Gemma-2B's four (K, N) linear geometries, at M = 1, 8
+   and 128 rows, the fused ReBranch matmul kernel's unscaled trunk is
+   ``torch.equal`` to its plain version and its sketch t1 within 1e-5 of
+   its absmax; the CiM matmul kernel is ``torch.equal`` to its plain
+   version; the rows of an M = 1 launch equal the same rows of an M = 8
+   launch, bit for bit.  Times from CUDA events with the weights cycled
+   through copies larger than the L2 cache (a decode step reads each
+   layer's weights once), beside the bound, the plain version's time and,
+   for the CiM matmul, ``torch._int_mm`` where it accepts the shape.
+6. LM serving, the slice's main path: a registry entry ``gemma-2b`` (the
+   full Gemma-2B config, all-ROM plan, engine ``pallas_fused``), seeded
+   parameters drawn on the card with non-zero ReBranch cores,
+   ``serve.load(..., n_slots=8, max_len=256)`` (the default paged pool).
+   Five requests of mixed prompt lengths, 32 new tokens each: the fused
+   kernel launches 126 times per solo prefill and per decode step, tokens
+   lie in the vocabulary; two requests are run solo on the card too and
+   must give the same tokens and the same first-decode-step logits, bit
+   for bit (the batch-variant GEMMs and reductions run on bucketed rows,
+   ``repro_torch/core/rows.py``).  Then a sustained window: three runs of 16 requests x 64
+   new tokens, tokens/s with the spread, and one decode step split into
+   the kernel, its epilogue, the readout and the rest (attention, norms,
+   embedding).
+7. The ``pallas`` engine: the same parameters through ``gemma-2b-pallas``
+   (the CiM matmul kernel behind every ROM linear), four requests x 16
+   tokens; 126 launches per prefill and per decode step; the decode step
+   time.
+8. CPU replay: the seven linears and the attention of layer 0 in one
+   decode step of phase 6 are recorded on the card and run again on the
+   CPU plain versions with the same inputs.  The unscaled trunk is
+   ``torch.equal``; each bf16 output is within one bf16 ulp at its absmax
+   (2**(e-7) for an absmax in [2**e, 2**(e+1)), i.e. 2**-8 to 2**-7 of the
+   absmax): the float epilogue sums in another order on the two devices
+   and may move one rounding of the cast to bf16.
 
-It needs one card, exits non-zero without one, and prints as its last line
+Each phase that drives a serving path sets every kernel's launch count to
+0 just before it and reads the counts just after.  It needs one card,
+exits non-zero without one, and prints as its last line
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table
 as JSON.
 """
@@ -42,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -52,15 +88,30 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet, dense: int8 tensor-core rate, HBM3 rate
+# NVIDIA H100 SXM data sheet, dense: int8 tensor-core rate, HBM3 rate,
+# float32 rate outside the tensor cores
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+PEAK_F32_OPS = 67e12
 
 SIZE, BATCH, SLOTS = 416, 8, 8
 REQUESTS = (8, 8, 5)
 SUSTAINED_CHUNKS, SUSTAINED_RUNS = 32, 3
 FUSED_RTOL = 1e-5        # phase 2, of the fused output's absmax
 LAYER_RTOL = 1e-5        # phase 4, of each layer output's absmax
+
+# Gemma-2B linears per layer as (K, N): q and o, k and v, gate and up, down
+LM_GEOMS = {(2048, 2048): 2, (2048, 256): 2, (2048, 16384): 2,
+            (16384, 2048): 1}
+LM_ROWS = (1, 8, 128)
+LM_LAYERS = 18
+SKETCH_RTOL = 1e-5       # phase 5, of t1's absmax
+L2_BYTES = 50 << 20      # H100 L2; timed weights cycle through 2.5x this
+LM_SLOTS, LM_MAX_LEN = 8, 256
+LM_PROMPTS, LM_NEW = (12, 40, 7, 100, 25), 32
+SUSTAINED_REQS, SUSTAINED_NEW = 16, 64
+SUSTAINED_PROMPTS = (16, 128)     # prompt lengths drawn uniformly in range
+PALLAS_PROMPTS, PALLAS_NEW = (10, 30, 60, 90), 16
 
 
 def check(ok: bool, what: str):
@@ -90,6 +141,44 @@ def trunk_bound_ms(m: int, r: int, n: int) -> tuple[float, str]:
     ops_ms = 2.0 * m * r * n / PEAK_INT8_OPS * 1e3
     bytes_ms = (4.0 * m * r + r * n + 4.0 * m * n) / PEAK_BYTES * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_conv as rc
+    from repro_torch.kernels import rebranch_matmul as rm
+    rc.launches = cm.launches = rm.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_conv as rc
+    from repro_torch.kernels import rebranch_matmul as rm
+    return {"trunk_conv": rc.launches, "cim_matmul": cm.launches,
+            "rebranch_matmul": rm.launches}
+
+
+def time_cycled_ms(fn, args: list, reps: int) -> float:
+    """Mean device time of ``fn(*a)`` over ``reps`` launches that cycle
+    through ``args`` (copies whose bytes exceed the L2 cache), after one
+    warm-up pass over all of them."""
+    for a in args:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*args[i % len(args)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
 
 
 def with_cores(tree, gen: torch.Generator):
@@ -227,7 +316,7 @@ def phase_serve(cfg):
 
     srv.submit(images[:SLOTS])                     # warm-up, not counted
     torch.cuda.synchronize()
-    rc.launches = 0
+    reset_launches()
     outs, lo, t_all = [], 0, time.perf_counter()
     for i, b in enumerate(REQUESTS):
         t0 = time.perf_counter()
@@ -238,7 +327,10 @@ def phase_serve(cfg):
         outs.append(out)
         lo += b
     wall = time.perf_counter() - t_all
-    launches = rc.launches
+    counts = read_launches()
+    launches = counts["trunk_conv"]
+    check(counts["cim_matmul"] == counts["rebranch_matmul"] == 0,
+          f"the CNN path launched an LM kernel: {counts}")
     chunks = sum(-(-b // SLOTS) for b in REQUESTS)
     n_sites = len(sites)
     print(f"served {sum(REQUESTS)} images in {wall * 1e3:.2f} ms "
@@ -349,6 +441,515 @@ def phase_cpu(model, params, image):
           f"{self_moved:.3e}")
 
 
+def lm_bound_ms(m: int, k: int, n: int, cdim: int = 0) -> tuple[float, str]:
+    """Least time for the fused matmul (cdim > 0: x f32 [m, k], W int8
+    [k, n], C f32 [k, cdim] -> trunk f32 [m, n], t1 f32 [m, cdim]) or the
+    CiM matmul (cdim = 0: X int8 [m, k], W int8 [k, n] -> f32 [m, n]):
+    each input read once and each output written once over the HBM rate,
+    or the int8 and f32 operations over their peak rates, whichever is
+    larger."""
+    x_bytes = (4.0 if cdim else 1.0) * m * k
+    nbytes = x_bytes + k * n + 4.0 * m * n + 4.0 * (k * cdim + m * cdim)
+    ops_ms = (2.0 * m * k * n / PEAK_INT8_OPS
+              + 2.0 * m * k * cdim / PEAK_F32_OPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_lm_kernels(dev) -> dict:
+    """Both LM kernels vs their plain versions at Gemma-2B's geometries."""
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_matmul as rm
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "bytes_ms": 0.0, "max_abs_err": 0.0, "library_ms": None}
+           for name in ("rebranch_matmul", "cim_matmul")}
+    print("kernel K N M equal err ms plain_ms bound_ms bound_by library_ms")
+    for (k, n), per_layer in LM_GEOMS.items():
+        cdim = k // 4
+        m_max = max(LM_ROWS)
+        x = torch.randn((m_max, k), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        xq = torch.randint(-127, 128, (m_max, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        copies3 = max(1, math.ceil(2.5 * L2_BYTES / (k * n + 4 * k * cdim)))
+        copies4 = max(1, math.ceil(2.5 * L2_BYTES / (k * n)))
+        ws = [torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8)
+              for _ in range(max(copies3, copies4))]
+        cs = [torch.randn((k, cdim), generator=gen, device=dev) / k ** .5
+              for _ in range(copies3)]
+        w, c = ws[0], cs[0]
+        rows = {}
+        for m in LM_ROWS:
+            xm, xqm = x[:m].contiguous(), xq[:m].contiguous()
+            trunk, t1 = rm.rebranch_trunk_sketch(xm, w, c)
+            want_trunk, want_t1 = rm.rebranch_matmul_plain(xm, w, c)
+            got4 = cm.cim_matmul(xqm, w)
+            want4 = cm.cim_matmul_plain(xqm, w)
+            torch.cuda.synchronize()
+            eq3 = torch.equal(trunk, want_trunk)
+            err3 = (t1 - want_t1).abs().max().item()
+            rel3 = err3 / want_t1.abs().max().item()
+            check(eq3, f"rebranch kernel trunk != plain ({k}x{n}, M={m})")
+            check(rel3 <= SKETCH_RTOL,
+                  f"rebranch sketch off by {rel3} of its absmax")
+            eq4 = torch.equal(got4, want4)
+            check(eq4, f"cim_matmul kernel != plain ({k}x{n}, M={m})")
+            rows[m] = (trunk, t1, got4)
+            out["rebranch_matmul"]["max_abs_err"] = max(
+                out["rebranch_matmul"]["max_abs_err"], err3)
+
+            args3 = [(xm, wi, ci) for wi, ci in zip(ws, cs)]
+            args4 = [(xqm, wi) for wi in ws[:copies4]]
+            ms3 = time_cycled_ms(rm.rebranch_trunk_sketch, args3, 3 * copies3)
+            plain3 = time_cycled_ms(rm.rebranch_matmul_plain, args3, copies3)
+            ms4 = time_cycled_ms(cm.cim_matmul, args4, 3 * copies4)
+            plain4 = time_cycled_ms(cm.cim_matmul_plain, args4, copies4)
+            lib4 = None
+            if m > 16:               # torch._int_mm refuses M <= 16
+                lib_args = [(a, b.t().contiguous().t()) for a, b in args4]
+                lib4 = time_cycled_ms(torch._int_mm, lib_args, 3 * copies4)
+                del lib_args
+            b3, by3 = lm_bound_ms(m, k, n, cdim)
+            b4, by4 = lm_bound_ms(m, k, n)
+            lib_txt = "none" if lib4 is None else f"{lib4:.4f}"
+            print(f"rebranch_matmul {k} {n} {m} {eq3} {rel3:.2e} {ms3:.4f} "
+                  f"{plain3:.4f} {b3:.4f} {by3} none")
+            print(f"cim_matmul {k} {n} {m} {eq4} 0 {ms4:.4f} {plain4:.4f} "
+                  f"{b4:.4f} {by4} {lib_txt}", flush=True)
+            if m == LM_SLOTS:        # the decode step's shapes: per step
+                count = per_layer * LM_LAYERS
+                for name, t, p, b, by in (("rebranch_matmul", ms3, plain3,
+                                           b3, by3),
+                                          ("cim_matmul", ms4, plain4, b4,
+                                           by4)):
+                    out[name]["ms"] += t * count
+                    out[name]["plain_ms"] += p * count
+                    out[name]["bound_ms"] += b * count
+                    out[name]["bytes_ms"] += b * count if by == "bytes" \
+                        else 0.0
+            if m == max(LM_ROWS) and lib4 is not None:
+                out["cim_matmul"].setdefault("int_mm_m128", {})[(k, n)] = (
+                    ms4, lib4)
+        # rows of an M = 1 launch equal the same rows of an M = 8 launch
+        for a, b in zip(rows[1], rows[8]):
+            check(torch.equal(a, b[:1]), f"row 0 differs between M = 1 and "
+                  f"M = 8 launches ({k}x{n})")
+        del ws, cs, rows
+        torch.cuda.empty_cache()
+    for name, row in out.items():
+        print(f"{name} per decode step at M = {LM_SLOTS} "
+              f"({7 * LM_LAYERS} launches): "
+              f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.3f} ms")
+    m128 = out["cim_matmul"].pop("int_mm_m128", {})
+    for (k, n), (ms4, lib4) in m128.items():
+        print(f"cim_matmul vs torch._int_mm at M = 128, {k}x{n}: kernel "
+              f"{ms4:.4f} ms, _int_mm {lib4:.4f} ms")
+    return out
+
+
+def lm_config():
+    from repro_torch import configs
+    return configs.get("gemma_2b")
+
+
+def _solo_run(model, params, prompt, n_new, max_len):
+    """Batch-1 prefill + greedy decode on the card: (tokens, logits of the
+    first decode step)."""
+    dev = params["ln_f"]["sram"]["scale"].device
+    cache = model.init_cache(1, max_len, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        logits, cache = model.prefill(
+            params, {"tokens": torch.as_tensor(prompt[None], device=dev)},
+            cache)
+        check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+        toks = [int(logits[0, -1].argmax())]
+        first = None
+        for _ in range(n_new - 1):
+            logits, cache = model.decode_step(
+                params, torch.tensor([[toks[-1]]], device=dev), cache)
+            check(bool(torch.isfinite(logits).all()),
+                  "non-finite decode logits")
+            if first is None:
+                first = logits[0, -1].float().cpu()
+            toks.append(int(logits[0, -1].argmax()))
+    return toks, first
+
+
+def phase_lm_serve():
+    """The main path: registry -> compile_entry -> load -> LMServer."""
+    from repro_torch.serve import registry, server
+    from repro_torch.serve.pool import PagedPool
+
+    cfg = lm_config()
+    registry.register(registry.ModelEntry(
+        model_id="gemma-2b", config=lm_config, engine="pallas_fused"))
+    model, plan = registry.compile_entry("gemma-2b")
+    for site in ("blocks.attn", "blocks.mlp"):
+        spec = model.layer_spec(site)
+        check(spec.enabled and spec.branch_enabled
+              and spec.trunk_impl == "pallas_fused",
+              f"{site}: the solved plan is not all-ROM pallas_fused ({spec})")
+    check([s for s, _ in plan.entries] == [], "plan flips sites to SRAM")
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    params = with_cores(params, torch.Generator().manual_seed(2))
+    torch.cuda.synchronize()
+    print(f"gemma-2b params drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    srv = server.load("gemma-2b", params=params, n_slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN)
+    check(isinstance(srv.pool, PagedPool), "load did not build a paged pool")
+    rng = np.random.default_rng(7)
+    vocab = cfg.vocab_size
+    warm = srv.submit(rng.integers(0, vocab, size=9), 3)    # not counted
+    srv.drain()
+    check(len(warm.tokens) == 3, "warm-up request")
+
+    # record the first decode step's logits of every request in the batch
+    first_logits = {}
+    decode = model.decode_step
+
+    def recording(p, tok, cache):
+        logits, cache = decode(p, tok, cache)
+        for slot, req in srv.batcher._active.items():
+            if len(req.tokens) == 1:
+                first_logits[req.rid] = logits[slot, -1].float().cpu()
+        return logits, cache
+
+    prompts = [rng.integers(0, vocab, size=n) for n in LM_PROMPTS]
+    torch.cuda.synchronize()
+    reset_launches()
+    model.decode_step = recording
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, LM_NEW) for p in prompts]
+    steps = srv.drain()
+    wall = time.perf_counter() - t0
+    del model.decode_step
+    counts = read_launches()
+    launches = counts["rebranch_matmul"]
+    n_tok = sum(len(r.tokens) for r in reqs)
+    print(f"served {len(reqs)} requests (prompts {LM_PROMPTS}), {n_tok} "
+          f"tokens in {wall * 1e3:.1f} ms ({n_tok / wall:.2f} tokens/s), "
+          f"{steps} decode steps; launches {counts}")
+    per_pass = 7 * cfg.num_layers              # 126 at full depth
+    check(launches == per_pass * (len(reqs) + steps),
+          f"expected {per_pass} fused-kernel launches per prefill and per "
+          f"decode step, got {launches} for {len(reqs)} prefills + {steps} "
+          f"steps")
+    check(counts["cim_matmul"] == counts["trunk_conv"] == 0,
+          f"pallas_fused serving launched another kernel: {counts}")
+    for r in reqs:
+        check(len(r.tokens) == LM_NEW and all(0 <= t < vocab
+                                              for t in r.tokens),
+              f"request {r.rid}: tokens {r.tokens}")
+    check(srv.pool.blocks_in_use == 0, "blocks leaked after drain")
+
+    # two requests against a solo run on the card
+    for r, p in list(zip(reqs, prompts))[:2]:
+        toks, first = _solo_run(model, params, p, LM_NEW, LM_MAX_LEN)
+        agree = sum(a == b for a, b in zip(toks, r.tokens))
+        diff = (first - first_logits[r.rid]).abs().max().item()
+        print(f"request {r.rid} (prompt {len(p)}): batched vs solo on the "
+              f"card, {agree}/{LM_NEW} tokens agree, first decode step "
+              f"logits max abs diff {diff:.3e} (absmax "
+              f"{first.abs().max().item():.3e})")
+        check(agree == LM_NEW and diff == 0.0,
+              f"request {r.rid}: batched decode != solo decode on the card")
+
+    # sustained window
+    rates, steps_ms, lat = [], [], []
+    for run in range(SUSTAINED_RUNS):
+        batch = [rng.integers(SUSTAINED_PROMPTS[0], SUSTAINED_PROMPTS[1] + 1)
+                 for _ in range(SUSTAINED_REQS)]
+        t0 = time.perf_counter()
+        rs = [srv.submit(rng.integers(0, vocab, size=n), SUSTAINED_NEW)
+              for n in batch]
+        n_steps = srv.drain()
+        dt = time.perf_counter() - t0
+        toks = sum(len(r.tokens) for r in rs)
+        check(toks == SUSTAINED_REQS * SUSTAINED_NEW, "sustained tokens")
+        rates.append(toks / dt)
+        lat += [r.latency_s for r in rs]
+        steps_ms.append(dt / n_steps * 1e3)
+        print(f"sustained run {run}: {SUSTAINED_REQS} requests, {toks} tokens "
+              f"in {dt * 1e3:.1f} ms, {n_steps} decode steps, "
+              f"{toks / dt:.2f} tokens/s")
+    spread = (max(rates) - min(rates)) / min(rates)
+    lat.sort()
+    print(f"sustained tokens/s: mean {sum(rates) / len(rates):.2f}, min "
+          f"{min(rates):.2f}, max {max(rates):.2f}, spread {spread:.2%}; "
+          f"wall per decode step (prefills included) "
+          f"{sum(steps_ms) / len(steps_ms):.2f} ms; request latency p50 "
+          f"{lat[len(lat) // 2]:.3f} s, max {lat[-1]:.3f} s")
+    step_split(model, params, srv)
+    return model, params, srv, launches
+
+
+def step_split(model, params, srv):
+    """One decode step at 8 rows, split by part: the fused kernel, its
+    epilogue, the readout, and the rest (attention, norms, embedding)."""
+    from repro_torch.core import rebranch as rebranch_lib
+    from repro_torch.core import rows as rows_lib
+    from repro_torch.kernels import rebranch_matmul as rm
+    from repro_torch.models import layers, transformer
+
+    rng = np.random.default_rng(8)
+    rs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=20), 8)
+          for _ in range(LM_SLOTS)]
+    srv.step()                                # admit all 8, one decode
+    cache = srv.pool.cache
+    tok = torch.as_tensor(srv.batcher._tok, device=srv.batcher.device)
+    calls, heads, attends = [], [], []
+    apply_linear, apply_head = rebranch_lib.apply_linear, \
+        transformer.apply_head
+    write_decode, decode_attention = layers._write_decode, \
+        layers._decode_attention
+
+    def rec_linear(p, x, spec):
+        calls.append((p, x.reshape(-1, x.shape[-1]).contiguous()))
+        return apply_linear(p, x, spec)
+
+    def rec_head(p, x, cfg):
+        heads.append(x)
+        return apply_head(p, x, cfg)
+
+    def rec_write(cache_l, k, v, length, rows):
+        attends.append([cache_l, k, v, length, rows])
+        return write_decode(cache_l, k, v, length, rows)
+
+    def rec_attend(q, k_view, v_view, valid):
+        attends[-1].append((q, valid))
+        return decode_attention(q, k_view, v_view, valid)
+
+    snapshot = {k: v.clone() for k, v in cache["layers"].items()}
+    rebranch_lib.apply_linear, transformer.apply_head = rec_linear, rec_head
+    layers._write_decode, layers._decode_attention = rec_write, rec_attend
+    try:
+        with torch.no_grad():
+            model.decode_step(params, tok, cache)
+    finally:
+        rebranch_lib.apply_linear, transformer.apply_head = apply_linear, \
+            apply_head
+        layers._write_decode, layers._decode_attention = write_decode, \
+            decode_attention
+    per_pass = 7 * model.cfg.num_layers
+    check(len(calls) == per_pass,
+          f"recorded {len(calls)} linears, not {per_pass}")
+    parts = []
+    with torch.no_grad():
+        for p, x in calls:
+            parts.append(rm.rebranch_trunk_sketch(x, p["rom"]["w_q"],
+                                                  p["rom"]["C"]))
+
+        def kernels():
+            for p, x in calls:
+                rm.rebranch_trunk_sketch(x, p["rom"]["w_q"], p["rom"]["C"])
+
+        def epilogues():
+            for (p, x), (trunk, t1) in zip(calls, parts):
+                rm.epilogue(x.dtype, trunk, t1, p["rom"]["w_scale"],
+                            p["sram"]["core"], p["rom"]["U"])
+
+        def readout():
+            apply_head(params, heads[0], model.cfg)
+
+        def attention():      # cache writes, paged gather, softmax
+            for cache_l, k, v, length, rows, (q, valid) in attends:
+                kv, vv = write_decode(cache_l, k, v, length, rows)
+                decode_attention(q, kv, vv, valid)
+
+        def step():
+            for k, v in snapshot.items():
+                cache["layers"][k].copy_(v)
+            model.decode_step(params, tok, cache)
+
+        copy_ms = time_ms(lambda: [cache["layers"][k].copy_(v)
+                                   for k, v in snapshot.items()], 5)
+        step_ms = time_ms(step, 5) - copy_ms
+        # what the batch-invariant row buckets cost: the same step with
+        # them off (a bucket of 1 row pads nothing), in turns
+        bucket, by_bucket = rows_lib.ROW_BUCKET, {}
+        try:
+            for b in (bucket, 1, 1, bucket):
+                rows_lib.ROW_BUCKET = b
+                by_bucket.setdefault(b, []).append(time_ms(step, 5) - copy_ms)
+        finally:
+            rows_lib.ROW_BUCKET = bucket
+        k_ms, e_ms, r_ms, a_ms = (time_ms(kernels, 5),
+                                  time_ms(epilogues, 5), time_ms(readout, 5),
+                                  time_ms(attention, 5))
+        for k, v in snapshot.items():          # back to the batcher's state
+            cache["layers"][k].copy_(v)
+        # which parts give row 0 the same bits alone as in a batch of 8
+        p, x = calls[-1]                      # the last layer's down
+        trunk, t1 = parts[-1]
+        one = rm.rebranch_trunk_sketch(x[:1].contiguous(), p["rom"]["w_q"],
+                                       p["rom"]["C"])
+        eargs = (p["rom"]["w_scale"], p["sram"]["core"], p["rom"]["U"])
+        e8 = rm.epilogue(x.dtype, trunk, t1, *eargs)
+        e1 = rm.epilogue(x.dtype, one[0], one[1], *eargs)
+        r8 = apply_head(params, heads[0], model.cfg)
+        r1 = apply_head(params, heads[0][:1], model.cfg)
+        ln = params["ln_f"]
+        n8 = layers.apply_rmsnorm(ln, heads[0], model.cfg.norm_eps)
+        n1 = layers.apply_rmsnorm(ln, heads[0][:1], model.cfg.norm_eps)
+        cache_l, k, v, length, rows, (q, valid) = attends[0]
+        kv, vv = write_decode(cache_l, k, v, length, rows)
+        a8 = decode_attention(q, kv, vv, valid)
+        a1 = decode_attention(q[:1], kv[:1], vv[:1], valid[:1])
+        for k_, v_ in snapshot.items():
+            cache["layers"][k_].copy_(v_)
+    same = {"kernel trunk": torch.equal(one[0], trunk[:1]),
+            "kernel sketch": torch.equal(one[1], t1[:1]),
+            "epilogue (cuBLAS f32)": torch.equal(e1, e8[:1]),
+            "readout (cuBLAS bf16)": torch.equal(r1, r8[:1]),
+            "rmsnorm": torch.equal(n1, n8[:1]),
+            "decode attention": torch.equal(a1, a8[:1])}
+    print("row 0 alone vs in a batch of 8, bitwise: " + ", ".join(
+        f"{k} {v}" for k, v in same.items()) + f"; epilogue max diff "
+        f"{(e1.float() - e8[:1].float()).abs().max().item():.3e}, readout "
+        f"max diff {(r1.float() - r8[:1].float()).abs().max().item():.3e}")
+    print(f"decode step with rows bucketed to {bucket}: "
+          f"{sum(by_bucket[bucket]) / 2:.3f} ms, unbucketed (batch-variant "
+          f"bits): {sum(by_bucket[1]) / 2:.3f} ms (in turns, CUDA events)")
+    rest = step_ms - k_ms - e_ms - r_ms - a_ms
+    print(f"one decode step at {LM_SLOTS} rows (CUDA events): whole "
+          f"{step_ms:.3f} ms = fused kernel {k_ms:.3f} ms ({per_pass} "
+          f"launches) + epilogue {e_ms:.3f} ms + readout {r_ms:.3f} ms + "
+          f"attention {a_ms:.3f} ms (cache writes, paged gather, softmax) "
+          f"+ rest (RoPE, norms, embedding, host gaps) {rest:.3f} ms")
+    srv.drain()
+    check(all(len(r.tokens) == 8 for r in rs), "split-step requests")
+
+
+def phase_lm_pallas(params):
+    """The 'pallas' engine: the CiM matmul kernel behind every linear."""
+    from repro_torch import plan as plan_lib
+    from repro_torch.serve import registry, server
+
+    registry.register(registry.ModelEntry(
+        model_id="gemma-2b-pallas", config=lm_config,
+        plan=lambda cfg: plan_lib.solve(cfg, engine="pallas")))
+    model, _ = registry.compile_entry("gemma-2b-pallas")
+    check(model.layer_spec("blocks.mlp").trunk_impl == "pallas",
+          "gemma-2b-pallas does not run the pallas engine")
+    srv = server.load("gemma-2b-pallas", params=params, n_slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN)
+    rng = np.random.default_rng(9)
+    torch.cuda.synchronize()
+    reset_launches()
+    reqs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=n),
+                       PALLAS_NEW) for n in PALLAS_PROMPTS]
+    srv.step()                       # admits all four, one decode step
+    torch.cuda.synchronize()
+    first = srv.batcher.step_count
+    t0 = time.perf_counter()
+    srv.drain()
+    dt = time.perf_counter() - t0
+    steps = srv.batcher.step_count - first
+    counts = read_launches()
+    launches = counts["cim_matmul"]
+    per_pass = 7 * model.cfg.num_layers
+    check(launches == per_pass * (len(reqs) + 1 + steps),
+          f"expected {per_pass} CiM-matmul launches per prefill and decode "
+          f"step, got {launches}")
+    check(counts["rebranch_matmul"] == counts["trunk_conv"] == 0,
+          f"pallas serving launched another kernel: {counts}")
+    check(all(len(r.tokens) == PALLAS_NEW for r in reqs), "pallas tokens")
+    print(f"pallas engine: {len(reqs)} requests x {PALLAS_NEW} tokens, "
+          f"launches {counts}; decode step (host clock, {steps} steps) "
+          f"{dt / steps * 1e3:.2f} ms")
+    return launches
+
+
+def phase_lm_cpu(model, params, srv):
+    """Layer 0 of one decode step on the card, replayed on the CPU."""
+    from repro_torch import bridge
+    from repro_torch.core import rebranch as rebranch_lib
+    from repro_torch.kernels import rebranch_matmul as rm
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(10)
+    rs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=n), 4)
+          for n in (5, 17, 33)]
+    srv.step()                                   # admit; one decode step
+    linears, attn = [], []
+    apply_linear, apply_attention = rebranch_lib.apply_linear, \
+        layers.apply_attention
+
+    def rec_linear(p, x, spec):
+        y = apply_linear(p, x, spec)
+        if len(linears) < 7:
+            linears.append((p, x, spec, y))
+        return y
+
+    def rec_attention(p, x, cfg, layer_idx, positions=None, cache=None,
+                      decode=False):
+        before = {k: v.clone() for k, v in cache.items()}
+        y, nc = apply_attention(p, x, cfg, layer_idx, positions, cache,
+                                decode)
+        if not attn:
+            attn.append((p, x, cfg, before, y))
+        return y, nc
+
+    live = sorted(srv.batcher._active)           # rows with a request
+    rebranch_lib.apply_linear = rec_linear
+    layers.apply_attention = rec_attention
+    try:
+        srv.step()
+    finally:
+        rebranch_lib.apply_linear = apply_linear
+        layers.apply_attention = apply_attention
+    srv.drain()
+    check(len(linears) == 7 and len(attn) == 1, "layer-0 recording")
+    check(len(live) == len(rs), f"replay rows {live}")
+
+    def cpu(tree):
+        return bridge.tree_map(tree, lambda t: t.detach().cpu())
+
+    worst = 0.0
+    names = ("q", "k", "v", "o", "gate", "up", "down")
+    for name, (p, x, spec, y) in zip(names, linears):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        with torch.no_grad():
+            trunk, _ = rm.rebranch_trunk_sketch(x2, p["rom"]["w_q"],
+                                                p["rom"]["C"])
+            ref_trunk, _ = rm.rebranch_matmul_plain(
+                x2.cpu(), p["rom"]["w_q"].cpu(), p["rom"]["C"].cpu())
+            ref = apply_linear(cpu(p), x.cpu(), spec)
+        check(torch.equal(trunk.cpu(), ref_trunk),
+              f"layer 0 {name}: card trunk != CPU trunk")
+        amax = ref.abs().max().item()
+        diff = (ref.float() - y.cpu().float()).abs().max().item()
+        worst = max(worst, diff / bf16_ulp(amax))
+        print(f"layer 0 {name}: trunk equal, output max abs diff "
+              f"{diff:.3e} = {diff / bf16_ulp(amax):.2f} bf16 ulp at the "
+              f"absmax {amax:.3e}")
+        check(diff <= bf16_ulp(amax), f"layer 0 {name} off by more than one "
+              f"bf16 ulp at its absmax")
+    # attention: the live rows only.  Free rows all write their (never
+    # read) K/V into the one trash block, and which duplicate write lands
+    # differs between the card's scatter and the CPU's, so their own
+    # garbage outputs differ too.
+    p, x, cfg, before, y = attn[0]
+    with torch.no_grad():
+        ref, _ = apply_attention(cpu(p), x.cpu(), cfg, 0, cache=cpu(before),
+                                 decode=True)
+    ref, y = ref[live], y[live]
+    amax = ref.abs().max().item()
+    diff = (ref.float() - y.cpu().float()).abs().max().item()
+    print(f"layer 0 attention, live rows {live}: output max abs diff "
+          f"{diff:.3e} = "
+          f"{diff / bf16_ulp(amax):.2f} bf16 ulp at the absmax {amax:.3e}")
+    check(diff <= bf16_ulp(amax),
+          "layer 0 attention off by more than one bf16 ulp at its absmax")
+    check(all(len(r.tokens) == 4 for r in rs), "replay requests")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -371,21 +972,33 @@ def main() -> int:
     tot = phase_kernels(dev, cfg)
     model, params, image, launches = phase_serve(cfg)
     phase_cpu(model, params, image)
+    del model, params
+    torch.cuda.empty_cache()
 
-    by = "bytes" if tot["bytes_ms"] >= tot["bound_ms"] / 2 else "operations"
-    print(json.dumps({"kernels": [{
-        "name": "trunk_conv",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/trunk_conv.cu",
-        "replaces": "src/repro/kernels/rebranch_conv.py:105",
-        "launches": launches,
-        "max_abs_err": tot["max_abs_err"],
-        "ms": tot["ms"],
-        "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": by,
-        "library_ms": None,
-    }]}))
+    lm = phase_lm_kernels(dev)
+    lm_model, lm_params, lm_srv, lm_launches = phase_lm_serve()
+    pallas_launches = phase_lm_pallas(lm_params)
+    phase_lm_cpu(lm_model, lm_params, lm_srv)
+
+    def row(name, source, replaces, launches, t):
+        by = "bytes" if t["bytes_ms"] >= t["bound_ms"] / 2 else "operations"
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": by, "library_ms": t.get("library_ms")}
+
+    print(json.dumps({"kernels": [
+        row("trunk_conv", "trunk_conv.cu",
+            "src/repro/kernels/rebranch_conv.py:105", launches, tot),
+        row("rebranch_matmul", "rebranch_matmul.cu",
+            "src/repro/kernels/rebranch_matmul.py:40", lm_launches,
+            lm["rebranch_matmul"]),
+        row("cim_matmul", "cim_matmul.cu",
+            "src/repro/kernels/cim_matmul.py:101", pallas_launches,
+            lm["cim_matmul"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,11 @@ Leaves are named with the keystr scheme of the JAX checkpoint manager
 (``checkpoint/manager.py::_flatten``): ``['convs'][0]['rom']['w_q']``,
 dict keys in sorted order, ``None`` leaves dropped — so a checkpoint
 written by either package can be addressed leaf by leaf.
+
+LM trees keep the JAX package's stacked layout (every leaf under
+``['layers']`` carries a leading L dim), so they cross unchanged.  numpy
+has no bfloat16 of its own: JAX hands bfloat16 leaves over as
+``ml_dtypes.bfloat16`` arrays, which cross through float32 (exact).
 """
 
 from __future__ import annotations
@@ -26,14 +31,35 @@ def tree_map(tree, fn):
     return None if tree is None else fn(tree)
 
 
+def tree_map2(a, b, fn):
+    """``fn(leaf_a, leaf_b)`` over two trees of the same structure."""
+    if isinstance(a, dict):
+        return {k: tree_map2(a[k], b[k], fn) for k in a}
+    if isinstance(a, (list, tuple)):
+        return type(a)(tree_map2(x, y, fn) for x, y in zip(a, b))
+    return None if a is None else fn(a, b)
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
 def to_torch(tree, device) -> dict:
     """numpy (or array-like) leaves -> tensors on ``device``, dtype kept."""
-    return tree_map(tree, lambda a: torch.from_numpy(np.array(a)).to(device))
+    return tree_map(tree, lambda a: _leaf_to_torch(a, device))
 
 
 def to_numpy(tree) -> dict:
-    """Tensor leaves -> host numpy arrays, dtype kept."""
-    return tree_map(tree, lambda t: t.detach().cpu().numpy())
+    """Tensor leaves -> host numpy arrays, dtype kept (bfloat16 leaves come
+    back as float32, which holds them exactly)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(tree, leaf)
 
 
 def flatten(tree, prefix: str = "") -> dict:

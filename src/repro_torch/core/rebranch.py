@@ -1,7 +1,7 @@
 """ReBranch (paper §3.2, Fig. 7): frozen ROM trunk + small trainable
-branch (port of ``repro.core.rebranch``, CNN part).
+branch (port of ``repro.core.rebranch``).
 
-    y = Trunk_ROM(x) + Decompress(ResCore(Compress(x)))
+    y = Trunk_ROM(x) + Decompress(ResCore(Compress(x))) (+ bias)
 
 Parameter convention: every subtree under a ``"rom"`` dict key is frozen
 (no gradient, no optimizer state); ``partition``/``combine`` implement
@@ -13,13 +13,14 @@ cannot be written).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import cim as cim_lib
-from repro_torch.core import quant
+from repro_torch.core import quant, rows
 
 ROM_KEY = "rom"
 
@@ -161,3 +162,86 @@ def trunk_conv_dequant(cfg, stride: int, padding: str, x, w_q, w_scale):
     del cfg
     w = w_q.to(x.dtype) * w_scale.to(x.dtype)
     return conv_nhwc(quant.fake_quant_ste(x), w, stride, padding)
+
+
+# ---------------------------------------------------------------------------
+# ReBranch linear layer
+# ---------------------------------------------------------------------------
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                spec: ReBranchSpec, *, w_init=None, use_bias: bool = False,
+                name_scale: float = 1.0):
+    """ReBranch linear params, drawn from ``gen`` on the generator's device.
+
+    If ``w_init`` is given the trunk ROM image is built from it (freeze a
+    pretrained matrix); otherwise the trunk is drawn N(0, 1/d_in) and
+    frozen.  C and U are fixed scaled-Gaussian projections (ROM), the
+    core starts at zero.  Draw order: trunk, C, U.
+    """
+    dt, dev = spec.param_dtype, gen.device
+    if w_init is None:
+        w_init = torch.randn((d_in, d_out), generator=gen, device=dev,
+                             dtype=dt) * (name_scale / math.sqrt(d_in))
+    if not spec.enabled:
+        p = {"sram": {"w": w_init.to(dt)}}
+        if use_bias:
+            p["sram"]["b"] = torch.zeros((d_out,), dtype=dt, device=dev)
+        return p
+    w_q, w_scale = quant.quantize_weights(w_init, axis=0)
+    del w_init
+    rom = {"w_q": w_q, "w_scale": w_scale.to(dt)}
+    p = {"rom": rom, "sram": {}}
+    if spec.branch_enabled:
+        d_c = max(1, d_in // spec.d_ratio)
+        d_u = max(1, d_out // spec.u_ratio)
+        rom["C"] = torch.randn((d_in, d_c), generator=gen, device=dev,
+                               dtype=dt) / math.sqrt(d_in)
+        rom["U"] = torch.randn((d_u, d_out), generator=gen, device=dev,
+                               dtype=dt) / math.sqrt(d_u)
+        p["sram"]["core"] = torch.zeros((d_c, d_u), dtype=dt, device=dev)
+    if use_bias:
+        p["sram"]["b"] = torch.zeros((d_out,), dtype=dt, device=dev)
+    return p
+
+
+def _bias(y, sram):
+    b = sram.get("b")
+    return y if b is None else y + b.to(y.dtype)
+
+
+def apply_linear(params, x, spec: ReBranchSpec):
+    """Apply a ReBranch linear layer (or a plain linear if disabled).
+
+    Routes as the JAX package does: ``trunk_skip`` runs the branch alone;
+    an engine with a fused matmul computes trunk and sketch in one pass;
+    otherwise the engine's trunk matmul plus the reassociated branch
+    ``(x @ C) @ (core @ U)``.
+    """
+    if not spec.enabled:
+        return _bias(x @ params["sram"]["w"].to(x.dtype), params["sram"])
+
+    rom, sram = params["rom"], params["sram"]
+    live = spec.branch_enabled and "core" in sram
+    if spec.trunk_skip:
+        # branch-only draft path: the ROM trunk never runs
+        if live:
+            c, u = rom["C"].to(x.dtype), rom["U"].to(x.dtype)
+            y = (x @ c) @ (sram["core"].to(x.dtype) @ u)
+        else:
+            y = x.new_zeros((*x.shape[:-1], rom["w_q"].shape[-1]))
+        return _bias(y, sram)
+    from repro_torch import engine as engine_lib   # deferred: import cycle
+    eng = engine_lib.resolve(spec)                 # strict + capability-gated
+    if live and "matmul" in eng.capabilities.fused_ops:
+        y = eng.fused_matmul(spec.cim, x, rom["w_q"], rom["w_scale"],
+                             rom["C"], sram["core"], rom["U"])
+        return _bias(y, sram)
+    y = eng.matmul(spec.cim, x, rom["w_q"], rom["w_scale"])
+    if live:
+        c, u = rom["C"].to(x.dtype), rom["U"].to(x.dtype)
+        cu = sram["core"].to(x.dtype) @ u
+        # reassociated epilogue, as the reference: (x @ C) @ (core @ U),
+        # on bucketed rows (batch-invariant bits, see core.rows)
+        x2 = x.reshape(-1, x.shape[-1])
+        y = y + rows.rowwise(lambda a: (a @ c) @ cu, x2).reshape(y.shape)
+    return _bias(y, sram)

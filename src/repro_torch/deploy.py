@@ -1,5 +1,5 @@
 """``compile_model``: the deployment entry point (port of
-``repro.deploy``, CNN surface).
+``repro.deploy``).
 
     from repro_torch import deploy, plan
     cfg = cnn.CNNConfig(name="darknet19", input_size=416)
@@ -8,11 +8,15 @@
     params = model.init(seed=0)             # on the CUDA card
     y = model.forward(params, images)       # NHWC images on the same device
 
+LM configs (``models.config.ArchConfig``, the transformer family) get the
+serve surface too: ``prefill``, ``decode_step``, ``init_cache`` and
+``init_paged_cache``, with the reference's cache-geometry errors.
+
 It resolves the engine through the strict registry, folds the per-site
 placement (a ``PlacementPlan`` or a ``layer_overrides`` map) into the
 config's ``rebranch_overrides``, and returns a :class:`CompiledModel`.
-The ``mesh=``/``tune=`` arguments and the LM surface wait for later
-slices (ROADMAP Queue 1).
+The ``mesh=``/``tune=`` arguments and the speculative-decode surface
+(``verify_step``, ``draft_cfg``) wait for later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -27,8 +31,8 @@ from repro_torch import engine as engine_lib
 from repro_torch import plan as plan_lib
 from repro_torch.core.rebranch import ReBranchSpec
 from repro_torch.engine.base import TrunkEngine
-from repro_torch.models import cnn
-from repro_torch.models.config import spec_for
+from repro_torch.models import api, cnn
+from repro_torch.models.config import ArchConfig, spec_for
 
 
 def valid_sites(cfg) -> set | None:
@@ -39,29 +43,127 @@ def valid_sites(cfg) -> set | None:
 
 
 class CompiledModel:
-    """A CNN bound to its resolved engine(s) and per-site mapping."""
+    """A model bound to its resolved engine(s) and per-site mapping.  LM
+    configs expose the serve surface; CNN configs init/forward only."""
 
     def __init__(self, cfg, engine: TrunkEngine):
         self.cfg = cfg
         self.engine = engine
-        self._init, self._apply = cnn.MODEL_REGISTRY[cfg.name]
+        self._is_cnn = isinstance(cfg, cnn.CNNConfig)
+        if self._is_cnn:
+            self._init, self._apply = cnn.MODEL_REGISTRY[cfg.name]
 
     def layer_spec(self, site: str) -> ReBranchSpec:
         return spec_for(self.cfg, site)
 
     def init(self, seed: int = 0, *, device=None):
-        """Parameters from ``seed`` (drawn on the CPU, so equal on every
-        device), placed on ``device`` (default: the CUDA card)."""
+        """Parameters from ``seed`` on ``device`` (default: the CUDA card).
+
+        CNNs draw on the CPU and move the tree, so a seed gives the same
+        parameters on every device.  LMs draw on the target device's own
+        generator (Gemma-2B at full width is ~6e9 normal draws, minutes on
+        the CPU): a seed gives the same parameters on every device of one
+        type, and other values on the CPU than on the card.
+        """
         dev = device_lib.resolve(device)
-        gen = torch.Generator().manual_seed(seed)
-        return bridge.tree_map(self._init(gen, self.cfg), lambda t: t.to(dev))
+        if self._is_cnn:
+            gen = torch.Generator().manual_seed(seed)
+            return bridge.tree_map(self._init(gen, self.cfg),
+                                   lambda t: t.to(dev))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            return api.init(gen, self.cfg)
 
     def forward(self, params, batch):
-        """Head output for an NHWC image batch on the params' device."""
-        return self._apply(params, batch, self.cfg)
+        """CNNs: head output for an NHWC image batch.  LMs: logits for a
+        ``{"tokens": [B, S]}`` batch.  On the params' device."""
+        if self._is_cnn:
+            return self._apply(params, batch, self.cfg)
+        return api.forward(params, batch, self.cfg)
+
+    def features(self, params, batch):
+        self._lm_only("features")
+        return api.features(params, batch, self.cfg)
+
+    def apply_head(self, params, x):
+        self._lm_only("apply_head")
+        return api.apply_head(params, x, self.cfg)
+
+    def prefill(self, params, batch, cache):
+        """Prompt into ``cache`` (updated in place); last-position logits."""
+        self._lm_only("prefill")
+        tokens = batch.get("tokens", batch.get("embeds"))
+        if tokens is not None:
+            self._check_cache("prefill", tokens, cache)
+        return api.prefill(params, batch, self.cfg, cache)
+
+    def decode_step(self, params, tokens, cache):
+        """One token per row against ``cache`` (updated in place)."""
+        self._lm_only("decode_step")
+        self._check_cache("decode_step", tokens, cache)
+        return api.decode_step(params, tokens, self.cfg, cache)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
+        self._lm_only("init_cache")
+        return api.init_cache(self.cfg, batch, max_len, dtype,
+                              device_lib.resolve(device))
+
+    def init_paged_cache(self, rows: int, n_blocks: int, block_size: int,
+                         max_len: int, dtype=None, device=None):
+        """A paged KV cache: ``n_blocks`` shared physical blocks of
+        ``block_size`` positions plus per-row block tables (logical horizon
+        ``max_len``).  Raises for families that cannot page and when
+        ``block_size`` does not divide ``max_len``."""
+        self._lm_only("init_paged_cache")
+        return api.init_paged_cache(self.cfg, rows, n_blocks, block_size,
+                                    max_len, dtype,
+                                    device_lib.resolve(device))
+
+    def _check_cache(self, what: str, tokens, cache):
+        """Catch cache/batch geometry mismatches at the model surface,
+        naming both geometries (the reference's error texts)."""
+        n_batch, seq = tokens.shape[0], tokens.shape[1]
+        cache_batch, horizon = api.cache_geometry(self.cfg, cache)
+        first = api._first_layer(cache)
+        paged = isinstance(first, dict) and "table" in first
+        kind = "block-table rows" if paged else "cache rows"
+        remedy = ("init_paged_cache(rows={n}, ...)" if paged
+                   else "init_cache(batch={n}, max_len=...)").format(
+                       n=n_batch)
+        if paged and what == "prefill":
+            raise ValueError(
+                "prefill cannot run against a paged cache (physical "
+                "blocks have no per-row horizon to fill); prefill into "
+                "a dense init_cache(1, max_len) cache and adopt the row "
+                "into the paged pool (serve.pool.PagedPool.adopt)")
+        if cache_batch != n_batch:
+            raise ValueError(
+                f"{what}: cache was built for batch={cache_batch} but "
+                f"tokens have batch={n_batch} (tokens {tuple(tokens.shape)} "
+                f"vs {kind} {cache_batch}); build the cache with "
+                f"{remedy} or slice the batch to match")
+        if what == "decode_step" and seq != 1:
+            raise ValueError(
+                f"decode_step consumes ONE token per sequence, got "
+                f"tokens {tuple(tokens.shape)} (seq={seq}); use prefill() "
+                f"for multi-token inputs (or verify_step() for a "
+                f"speculative k-token block)")
+        if (what == "prefill" and horizon is not None
+                and self.cfg.sliding_window == 0 and seq > horizon):
+            raise ValueError(
+                f"prefill: prompt length {seq} exceeds the cache horizon "
+                f"{horizon} (full-attention cache holds max_len tokens); "
+                f"build the cache with init_cache(batch, max_len>={seq})")
+
+    def _lm_only(self, what: str):
+        if self._is_cnn:
+            raise NotImplementedError(
+                f"{what}() is for autoregressive LMs; CNN configs "
+                f"({self.cfg.name!r}) expose init/forward only")
 
     def __repr__(self):
-        return (f"<CompiledModel {self.cfg.name!r} (cnn) engine="
+        kind = "cnn" if self._is_cnn else self.cfg.family
+        return (f"<CompiledModel {self.cfg.name!r} ({kind}) engine="
                 f"{self.engine.name!r} overrides="
                 f"{len(self.cfg.rebranch_overrides)}>")
 
@@ -79,11 +181,9 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
         replaces the config's mapping wholesale.  Mutually exclusive with
         ``layer_overrides``.
     """
-    if not isinstance(cfg, cnn.CNNConfig):
-        raise NotImplementedError(
-            f"compile_model serves the CNN configs in this port; the LM "
-            f"surface waits for ROADMAP Queue 1 item 13 (got "
-            f"{type(cfg).__name__})")
+    if not isinstance(cfg, (cnn.CNNConfig, ArchConfig)):
+        raise TypeError(f"compile_model takes a cnn.CNNConfig or an "
+                        f"ArchConfig, got {type(cfg).__name__}")
     if plan is not None:
         if layer_overrides:
             raise ValueError(

@@ -4,14 +4,12 @@ means the same thing in both packages.
 
 int8_native : the core macro model on int8 operands (all fidelity modes).
 dequant     : dequantised float trunk on fake-quantised activations.
-pallas      : the trunk conv on the hand-written CUDA kernel
-              (``kernels/csrc/trunk_conv.cu``; the plain PyTorch version
-              on a CPU tensor).
+pallas      : the trunk conv and matmul on the hand-written CUDA kernels
+              (``kernels/csrc/trunk_conv.cu``, ``cim_matmul.cu``; the
+              plain PyTorch versions on a CPU tensor).
 pallas_fused: 'pallas' plus the fused trunk+branch conv on the shared
-              patch matrix (inference only).
-
-The 'pallas' matmuls need the ``_cim_kernel`` / ``_rebranch_kernel``
-ports, which wait for the LM slice.
+              patch matrix and the fused ReBranch matmul
+              (``kernels/csrc/rebranch_matmul.cu``); inference only.
 """
 
 from __future__ import annotations
@@ -20,10 +18,6 @@ from repro_torch.core import rebranch as rebranch_lib
 from repro_torch.engine import base
 from repro_torch.engine.registry import register
 from repro_torch.kernels import ops as kops
-
-_MATMUL_TODO = ("the 'pallas' matmul kernels (_cim_kernel, _rebranch_kernel) "
-                "are not ported yet: ROADMAP Queue 2 items 3 and 4")
-
 
 class Int8NativeEngine(base.TrunkEngine):
     name = "int8_native"
@@ -55,15 +49,15 @@ class DequantEngine(base.TrunkEngine):
 
 
 class PallasEngine(base.TrunkEngine):
-    """Trunk conv on the CUDA kernel (ideal mode on the card; every mode
-    through the plain version on the CPU)."""
+    """Trunk conv and matmul on the CUDA kernels (ideal mode on the card;
+    every mode through the plain versions on the CPU)."""
 
     name = "pallas"
     capabilities = base.EngineCapabilities(
         fidelity_modes=("ideal", "per_subarray", "bitserial"), epilogue=True)
 
     def matmul(self, cfg, x, w_q, w_scale):
-        raise NotImplementedError(_MATMUL_TODO)
+        return kops.trunk_matmul_pallas(cfg, x, w_q, w_scale)
 
     def conv(self, cfg, x, w_q, w_scale, *, stride=1, padding="SAME",
              epilogue=None):
@@ -72,9 +66,9 @@ class PallasEngine(base.TrunkEngine):
 
 
 class PallasFusedEngine(PallasEngine):
-    """'pallas' plus the fused trunk+branch conv: live-branch sites run
-    trunk kernel AND compress sketch on one patch matrix.  Inference
-    only (``grads=False``)."""
+    """'pallas' plus the fused trunk+branch conv and matmul: live-branch
+    sites run trunk kernel AND compress sketch on one read of the input.
+    Inference only (``grads=False``)."""
 
     name = "pallas_fused"
     capabilities = base.EngineCapabilities(
@@ -82,7 +76,10 @@ class PallasFusedEngine(PallasEngine):
         epilogue=True, fused_ops=("conv", "matmul"))
 
     def fused_matmul(self, cfg, x, w_q, w_scale, c, core, u):
-        raise NotImplementedError(_MATMUL_TODO)
+        lead = x.shape[:-1]         # the kernel is 2D: flatten [..., K]
+        y = kops.rebranch_matmul(x.reshape(-1, x.shape[-1]), w_q, w_scale,
+                                 c, core, u, cfg)
+        return y.reshape(*lead, y.shape[-1])
 
     def fused_conv(self, cfg, x, w_q, w_scale, c, core, u, *, stride=1,
                    padding="SAME", epilogue=None):

@@ -1,20 +1,38 @@
-"""The macro math of one block, ``cim_block_dot`` (port of
-``repro.kernels.cim_matmul.cim_block_dot``).
+"""The ROM-CiM macro matmul (port of ``repro.kernels.cim_matmul``).
 
-The plain PyTorch version below runs all three fidelity modes; the CUDA
-device routine of its ``ideal`` mode is ``csrc/cim_block_dot.cuh``, which
-the trunk conv kernel (``csrc/trunk_conv.cu``) calls.  The
-``per_subarray``/``bitserial`` device routines and the int8-in
-``_cim_kernel`` launch (``cim_matmul_pallas``) are not ported yet
+cim_block_dot : the macro math of one block, all three fidelity modes in
+                plain PyTorch; the CUDA device routine of its ``ideal``
+                mode is ``csrc/cim_block_dot.cuh``, which every trunk
+                kernel calls.
+cim_matmul    : int8 [M, K] x int8 [K, N] -> f32 [M, N], one exact macro
+                dot per k-block of ``tiling.k_partition``, the blocks added
+                in f32 in ascending order.  The wrapper of the hand-written
+                CUDA kernel ``csrc/cim_matmul.cu`` (the port of the Pallas
+                ``_cim_kernel``): for a CUDA tensor it launches the kernel
+                (ideal mode) or raises; only a CPU tensor takes
+                :func:`cim_matmul_plain`, which mirrors ``_cim_direct``.
+
+The ``per_subarray``/``bitserial`` device routines are not ported yet
 (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import adc as adc_lib
 from repro_torch.core import cim as cim_lib
+from repro_torch.kernels import _build
+from repro_torch.kernels import tiling
+
+IDEAL = cim_lib.CiMConfig(mode="ideal")
+
+# Kernel launches of cim_matmul since the count was last set to 0.
+launches = 0
 
 
 def cim_block_dot(cfg: cim_lib.CiMConfig, x: torch.Tensor,
@@ -61,3 +79,84 @@ def cim_block_dot(cfg: cim_lib.CiMConfig, x: torch.Tensor,
         return acc
 
     raise ValueError(f"unknown CiM mode: {cfg.mode!r}")
+
+
+def cim_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
+                     cfg: cim_lib.CiMConfig = IDEAL) -> torch.Tensor:
+    """Plain PyTorch version of the CiM matmul kernel: int8 [M, K] x int8
+    [K, N] -> f32 [M, N].
+
+    Mirrors ``_cim_direct``: per k-block of ``k_partition(K, rows)`` the
+    macro dot (exact in ``ideal`` mode: a block sums below 2**24), then a
+    separate f32 ``acc +`` in ascending k-block order.  NOT one sum over
+    all of K, which rounds differently once a row sum passes 2**24.
+    Non-ideal modes pad a ragged block with zero rows to whole subarrays
+    (zeros read as 0 through every ADC path).
+    """
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if 0 in (m, k, n):
+        return torch.zeros((m, n), dtype=torch.float32, device=x_q.device)
+    rows = cfg.rows_per_subarray
+    acc = None
+    for k0, k1 in tiling.k_partition(k, rows):
+        xb, wb = x_q[:, k0:k1], w_q[k0:k1]
+        if cfg.mode == "ideal":
+            part = cim_lib.int_dot(xb, wb)
+        else:
+            pad = -(k1 - k0) % rows
+            part = cim_block_dot(cfg, F.pad(xb, (0, pad)),
+                                 F.pad(wb, (0, 0, 0, pad)))
+        acc = part if acc is None else acc + part
+    return acc
+
+
+@functools.cache
+def _kernel():
+    """The C entry of ``csrc/cim_matmul.cu``, built and bound once."""
+    fn = _build.library("cim_matmul").cim_matmul_ideal
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
+               cfg: cim_lib.CiMConfig = IDEAL) -> torch.Tensor:
+    """Blocked CiM matmul int8 [M, K] x int8 [K, N] -> f32 [M, N].
+
+    A CUDA tensor launches ``csrc/cim_matmul.cu`` (ideal mode only; a
+    build or launch failure raises); a CPU tensor takes
+    :func:`cim_matmul_plain`.
+    """
+    if x_q.device.type == "cpu":
+        return cim_matmul_plain(x_q, w_q, cfg)
+    if cfg.mode != "ideal":
+        raise NotImplementedError(
+            f"CiM mode {cfg.mode!r} has no CUDA matmul kernel yet (ROADMAP "
+            f"Queue 2: per_subarray / bitserial cim_block_dot in CUDA)")
+    if (x_q.dtype != torch.int8 or w_q.dtype != torch.int8
+            or x_q.dim() != 2 or w_q.dim() != 2
+            or w_q.shape[0] != x_q.shape[1]):
+        raise ValueError(f"CiM matmul kernel takes X int8 [M, K] and W int8 "
+                         f"[K, N]; got X {x_q.dtype} {tuple(x_q.shape)}, W "
+                         f"{w_q.dtype} {tuple(w_q.shape)}")
+    if w_q.device != x_q.device:
+        raise ValueError(f"X on {x_q.device} but W on {w_q.device}")
+    if not (x_q.is_contiguous() and w_q.is_contiguous()):
+        raise ValueError("CiM matmul kernel needs contiguous X and W")
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if 0 in (m, k, n):
+        return torch.zeros((m, n), dtype=torch.float32, device=x_q.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
+    bk = tiling.block_k(k, cfg.rows_per_subarray)
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream(x_q.device).cuda_stream
+        rc = _kernel()(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+                       m, k, n, bk, stream)
+    if rc != 0:
+        raise RuntimeError(f"cim_matmul kernel launch failed: CUDA error {rc}")
+    global launches
+    launches += 1
+    return out

@@ -1,9 +1,5 @@
-"""Public kernel primitives with their STE backward (port of the conv
-half of ``repro.kernels.ops``) — what the 'pallas' engines call.
-
-The matmul primitives (``trunk_matmul_pallas``, ``rebranch_matmul``,
-``cim_matmul``) need the ``_cim_kernel`` / ``_rebranch_kernel`` ports and
-wait for the LM slice (ROADMAP Queue 2).
+"""Public kernel primitives with their STE backward (port of
+``repro.kernels.ops``) — what the 'pallas' engines call.
 """
 
 from __future__ import annotations
@@ -11,8 +7,48 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import cim as cim_lib
+from repro_torch.core import quant
 from repro_torch.core.rebranch import trunk_conv_ste_bwd
+from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import rebranch_conv as rc
+from repro_torch.kernels import rebranch_matmul as rm
+
+
+def cim_matmul(x_q, w_q, cfg: cim_lib.CiMConfig = cim_lib.DEFAULT_CIM):
+    """int8 x int8 CiM matmul on the CiM matmul kernel."""
+    return cm.cim_matmul(x_q, w_q, cfg)
+
+
+class _TrunkMatmulPallas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_q, w_scale, cfg):
+        x_q, sx = quant.quantize_activations(x)
+        lead = x_q.shape[:-1]       # the kernel is 2D: [..., K] -> [M, K]
+        out = cm.cim_matmul(x_q.reshape(-1, x_q.shape[-1]).contiguous(),
+                            w_q, cfg)
+        out = out.reshape(*lead, out.shape[-1])
+        ctx.save_for_backward(w_q, w_scale)
+        return (out * sx).to(x.dtype) * w_scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, w_scale = ctx.saved_tensors
+        w_deq = w_q.to(g.dtype) * w_scale.to(g.dtype)
+        return g @ w_deq.T, None, None, None
+
+
+def trunk_matmul_pallas(cfg: cim_lib.CiMConfig, x, w_q, w_scale):
+    """Frozen-trunk matmul on the CiM matmul kernel, STE backward (drop-in
+    for ``core.rebranch.trunk_matmul``, the 'pallas' engine's matmul).
+    Activations are quantised per row over the whole K (division form)
+    before the kernel."""
+    return _TrunkMatmulPallas.apply(x, w_q, w_scale, cfg)
+
+
+def rebranch_matmul(x, w_q, w_scale, c, core, u,
+                    cfg: cim_lib.CiMConfig = rm.IDEAL):
+    """Fused trunk+branch ReBranch layer forward (inference only)."""
+    return rm.rebranch_matmul(x, w_q, w_scale, c, core, u, cfg)
 
 
 class _TrunkConv(torch.autograd.Function):

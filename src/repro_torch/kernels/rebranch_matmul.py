@@ -1,0 +1,136 @@
+"""Fused ReBranch matmul (port of ``repro.kernels.rebranch_matmul``).
+
+One pass over the activations x [M, K] computes both halves of a ReBranch
+linear layer's input side:
+
+  trunk[m, n] += macro(quant_blk(x), w_q) * scale_blk   (CiM macro dot)
+  t1[m, c]    += x @ C                                  (compress sketch)
+
+with per-(row, k-block) reciprocal-form quantisation, and the epilogue
+``out = trunk * w_scale + (t1 @ core) @ U`` left to plain PyTorch (it is
+left to XLA in the JAX package).
+
+:func:`rebranch_trunk_sketch` is the wrapper of the hand-written CUDA
+kernel ``csrc/rebranch_matmul.cu`` (the port of the Pallas
+``_rebranch_kernel``).  For a CUDA tensor it launches the kernel or
+raises; only a tensor on the CPU takes :func:`rebranch_matmul_plain`, the
+plain PyTorch version of the same function.  The trunk half is exactly the
+trunk-conv kernel's computation with x in the patch matrix's place, so its
+plain version is ``rebranch_conv.trunk_patch_dot_plain``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core import cim as cim_lib
+from repro_torch.core import rows
+from repro_torch.kernels import _build
+from repro_torch.kernels import tiling
+from repro_torch.kernels.rebranch_conv import trunk_patch_dot_plain
+
+IDEAL = cim_lib.CiMConfig(mode="ideal")
+
+# Kernel launches of rebranch_trunk_sketch since the count was last set
+# to 0.
+launches = 0
+
+
+def rebranch_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
+                          c: torch.Tensor, cfg: cim_lib.CiMConfig = IDEAL):
+    """Plain PyTorch version of the fused kernel: x float [M, K], W int8
+    [K, N], C [K, Cd] -> (UNscaled trunk f32 [M, N], t1 f32 [M, Cd]).
+
+    The trunk is the trunk kernel's plain version on x (the bit contract
+    of ``trunk_patch_dot_plain``); t1 is an f32 block dot per k-block,
+    added in ascending k-block order, as ``_direct_rebranch`` does.
+    """
+    xf, cf = x.float(), c.float()
+    trunk = trunk_patch_dot_plain(xf, w_q, cfg)
+    t1 = None
+    for k0, k1 in tiling.k_partition(x.shape[1], cfg.rows_per_subarray):
+        part = xf[:, k0:k1] @ cf[k0:k1]
+        t1 = part if t1 is None else t1 + part
+    return trunk, t1
+
+
+@functools.cache
+def _kernel():
+    """The C entry of ``csrc/rebranch_matmul.cu``, built and bound once."""
+    fn = _build.library("rebranch_matmul").rebranch_matmul_ideal
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
+                          c: torch.Tensor, cfg: cim_lib.CiMConfig = IDEAL):
+    """(UNscaled trunk [M, N], t1 [M, Cd]) of x [M, K], W [K, N], C [K, Cd].
+
+    A CUDA tensor launches ``csrc/rebranch_matmul.cu`` (ideal mode only;
+    a build or launch failure raises); a CPU tensor takes
+    :func:`rebranch_matmul_plain`.  The kernel reads f32: a bf16 x or C is
+    widened first, which is exact.
+    """
+    if x.device.type == "cpu":
+        return rebranch_matmul_plain(x, w_q, c, cfg)
+    if cfg.mode != "ideal":
+        raise NotImplementedError(
+            f"CiM mode {cfg.mode!r} has no CUDA rebranch kernel yet (ROADMAP "
+            f"Queue 2: per_subarray / bitserial cim_block_dot in CUDA)")
+    if (x.dim() != 2 or w_q.dtype != torch.int8 or w_q.dim() != 2
+            or c.dim() != 2 or w_q.shape[0] != x.shape[1]
+            or c.shape[0] != x.shape[1] or not x.is_floating_point()
+            or not c.is_floating_point()):
+        raise ValueError(
+            f"rebranch kernel takes x float [M, K], W int8 [K, N] and C "
+            f"float [K, Cd]; got x {x.dtype} {tuple(x.shape)}, W "
+            f"{w_q.dtype} {tuple(w_q.shape)}, C {c.dtype} {tuple(c.shape)}")
+    if w_q.device != x.device or c.device != x.device:
+        raise ValueError(f"x on {x.device} but W on {w_q.device}, C on "
+                         f"{c.device}")
+    if not w_q.is_contiguous():
+        raise ValueError("rebranch kernel needs a contiguous W")
+    m, k = x.shape
+    n, cdim = w_q.shape[1], c.shape[1]
+    xf = x.float().contiguous()
+    cf = c.float().contiguous()
+    trunk = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    t1 = torch.empty((m, cdim), dtype=torch.float32, device=x.device)
+    if 0 in (m, k, n, cdim):
+        return trunk.zero_(), t1.zero_()
+    bk = tiling.block_k(k, cfg.rows_per_subarray)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _kernel()(xf.data_ptr(), w_q.data_ptr(), cf.data_ptr(),
+                       trunk.data_ptr(), t1.data_ptr(), m, k, n, cdim, bk,
+                       stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"rebranch_matmul kernel launch failed: CUDA error {rc}")
+    global launches
+    launches += 1
+    return trunk, t1
+
+
+def epilogue(x_dtype, trunk, t1, w_scale, core, u) -> torch.Tensor:
+    """``trunk * w_scale + (t1 @ core) @ U`` in f32, cast to ``x_dtype``
+    (``rebranch_matmul.py:201-203``); the branch GEMMs on bucketed rows,
+    so a row's bits do not depend on the batch (``core.rows``)."""
+    out = trunk * w_scale.reshape(1, -1).float()
+    branch = rows.rowwise(lambda t: (t @ core.float()) @ u.float(), t1)
+    return (out + branch).to(x_dtype)
+
+
+def rebranch_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                    w_scale: torch.Tensor, c: torch.Tensor,
+                    core: torch.Tensor, u: torch.Tensor,
+                    cfg: cim_lib.CiMConfig = IDEAL) -> torch.Tensor:
+    """Fused ReBranch linear forward, x [M, K] -> [M, N] in x's dtype:
+    the kernel's trunk and sketch, then the epilogue."""
+    trunk, t1 = rebranch_trunk_sketch(x, w_q, c, cfg)
+    return epilogue(x.dtype, trunk, t1, w_scale, core, u)

@@ -20,6 +20,19 @@ def cim_matmul_ref(x_q, w_q, cfg: cim_lib.CiMConfig):
     return cim_lib.cim_matmul_model(x_q, w_q, cfg)
 
 
+def rebranch_matmul_ref(x, w_q, w_scale, c, core, u,
+                        cfg: cim_lib.CiMConfig = cim_lib.CiMConfig(
+                            mode="ideal")):
+    """Oracle of the fused ReBranch matmul: the blocked-quant trunk through
+    the core macro model, plus the UNblocked branch ``((x @ C) @ core) @
+    U``."""
+    acc = _blocked_cim_trunk(x.float(), w_q, cfg)
+    trunk = acc * w_scale.reshape(1, -1).float()
+    t1 = x.float() @ c.float()
+    branch = (t1 @ core.float()) @ u.float()
+    return (trunk + branch).to(x.dtype)
+
+
 def cim_conv_ref(x_q, w_q, cfg: cim_lib.CiMConfig, stride: int = 1,
                  padding: str = "SAME"):
     """Oracle of the int8 conv: im2col through the core macro model."""

@@ -1,0 +1,114 @@
+"""Family-dispatched LM API (port of ``repro.models.api``).
+
+  init(gen, cfg)                          -> params
+  forward(params, batch, cfg)             -> logits
+  prefill(params, batch, cfg, cache)      -> (logits, cache)
+  decode_step(params, tokens, cfg, cache) -> (logits, cache)
+  init_cache(cfg, batch, max_len)         -> cache
+
+The transformer family (dense; vlm and audio raise inside it) is ported;
+moe, ssm and hybrid wait for ROADMAP Queue 1 item 15.  ``verify_step``,
+``draft_config`` and ``supports_speculation`` wait with speculative decode
+(item 14).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import bridge
+from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig
+
+_FAMILY = {"dense": transformer, "vlm": transformer, "audio": transformer}
+
+
+def _mod(cfg: ArchConfig):
+    try:
+        return _FAMILY[cfg.family]
+    except KeyError:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
+            f"item 15)") from None
+
+
+def init(gen: torch.Generator, cfg: ArchConfig):
+    return _mod(cfg).init(gen, cfg)
+
+
+def forward(params, batch, cfg: ArchConfig):
+    return _mod(cfg).forward(params, batch, cfg)
+
+
+def features(params, batch, cfg: ArchConfig):
+    return _mod(cfg).features(params, batch, cfg)
+
+
+def apply_head(params, x, cfg: ArchConfig):
+    return _mod(cfg).apply_head(params, x, cfg)
+
+
+def prefill(params, batch, cfg: ArchConfig, cache):
+    return _mod(cfg).prefill(params, batch, cfg, cache)
+
+
+def decode_step(params, tokens, cfg: ArchConfig, cache):
+    return _mod(cfg).decode_step(params, tokens, cfg, cache)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
+               device=None):
+    return _mod(cfg).init_cache(cfg, batch, max_len,
+                                dtype or torch.bfloat16, device)
+
+
+def supports_paging(cfg: ArchConfig) -> bool:
+    """Whether the family can serve decode through a paged KV cache: every
+    sequence-mixing layer must keep one uniform full-attention horizon."""
+    return cfg.family in _FAMILY and cfg.sliding_window == 0
+
+
+def init_paged_cache(cfg: ArchConfig, rows: int, n_blocks: int,
+                     block_size: int, max_len: int, dtype=None, device=None):
+    """Paged KV cache (``transformer.init_paged_cache``); raises for
+    families that cannot page."""
+    if not supports_paging(cfg):
+        raise ValueError(
+            f"{cfg.name!r} (family {cfg.family!r}, sliding_window="
+            f"{cfg.sliding_window}) cannot serve through a paged KV "
+            f"cache; use init_cache + a dense SlotPool")
+    return _mod(cfg).init_paged_cache(cfg, rows, n_blocks, block_size,
+                                      max_len, dtype or torch.bfloat16,
+                                      device)
+
+
+def cache_geometry(cfg: ArchConfig, cache) -> tuple[int, int | None]:
+    """(batch, horizon) a serve cache was built for, from shapes only.
+
+    Leaves carry batch at axis 1 under stacked layers (axis 0 otherwise).
+    Paged caches report their LOGICAL geometry: the block-table row count
+    and ``table_width * block_size``.
+    """
+    axis = 1 if cfg.scan_layers else 0
+    first = _first_layer(cache)
+    if isinstance(first, dict) and "table" in first:
+        table, k = first["table"], first["k"]          # [(L,) B, NB]
+        return table.shape[axis], table.shape[-1] * k.shape[axis + 1]
+    leaves = list(bridge.flatten(cache).values())
+    if not leaves:
+        raise ValueError("empty cache tree")
+    batch = leaves[0].shape[axis]
+    if cfg.is_attention_free:
+        return batch, None
+    kv = [leaf.shape[1 + axis] for leaf in leaves if leaf.dim() == 4 + axis]
+    return batch, max(kv)
+
+
+def _first_layer(cache):
+    """The first per-layer cache dict (the stacked dict under scan)."""
+    if not isinstance(cache, dict):
+        return None
+    layers = cache.get("layers")
+    if isinstance(layers, (list, tuple)):
+        return layers[0] if layers else None
+    return layers

@@ -1,0 +1,387 @@
+"""Shared LM components (port of ``repro.models.layers``).
+
+Every large linear map goes through ``core.rebranch.apply_linear`` (frozen
+int8 ROM trunk + trainable branch, on the engine its spec names); norms
+and biases are small and stay trainable ("SRAM").  The embedding table is
+ROM (int8 + per-token scale); lookups and the tied readout dequantise it.
+
+Attention and the branch GEMMs were plain jnp in the reference, so they
+stay plain PyTorch here; attention keeps the reference's own softmax
+geometry (online softmax over ``attn_chunk`` chunks at prefill, one masked
+softmax over the whole cache horizon at decode), which the batched-equals-
+solo serving invariant rests on.  Masks use -1e30, as the reference.
+
+KV caches are updated IN PLACE: ``apply_attention`` writes the new entries
+into the cache tensors it is given and returns them (the JAX scheduler
+donates its cache to the same effect).  A caller that needs the old cache
+passes a copy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quant, rebranch, rows
+from repro_torch.models.config import ArchConfig, torch_dtype
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item 12: the vlm / "
+        f"audio branches of the transformer family)")
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, device=None):
+    return {"sram": {"scale": torch.ones((d,), dtype=torch.float32,
+                                         device=device)}}
+
+
+def apply_rmsnorm(params, x, eps: float = 1e-6):
+    """RMS norm over the last dim; the mean reduces bucketed rows (its
+    kernel, and so its order, would otherwise follow the batch)."""
+    def norm(a):
+        var = (a * a).mean(dim=-1, keepdim=True)
+        return a * torch.rsqrt(var + eps)
+
+    y = rows.rowwise(norm, x.float().reshape(-1, x.shape[-1]))
+    return (y.reshape(x.shape) * params["sram"]["scale"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings (ROM: int8 table + per-token scale)
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int):
+    table = torch.randn((vocab, d), generator=gen, device=gen.device,
+                        dtype=torch.float32)
+    t_q, t_scale = quant.quantize_weights(table, axis=1)   # per-token scale
+    return {"rom": {"table_q": t_q, "table_scale": t_scale}}
+
+
+def apply_embedding(params, ids, cfg: ArchConfig):
+    dt = torch_dtype(cfg.dtype)
+    t_q = params["rom"]["table_q"]
+    t_s = params["rom"]["table_scale"]
+    return t_q[ids].to(dt) * t_s[ids].to(dt)
+
+
+def embedding_as_logits(params, x, cfg: ArchConfig):
+    """Tied-embedding readout: x @ dequant(table)^T (the reference
+    dequantises the whole table each call, and so does the port)."""
+    t_q = params["rom"]["table_q"]
+    t_s = params["rom"]["table_scale"]
+    w = t_q.to(x.dtype) * t_s.to(x.dtype)                  # [V, d]
+    logits = rows.rowwise(lambda a: a @ w.T, x.reshape(-1, x.shape[-1]))
+    return logits.reshape(*x.shape[:-1], w.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float):
+    """float64 numpy, as the reference; callers cast to f32."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10_000.0, mrope: bool = False):
+    """x: [B, S, H, Dh]; positions: [B, S]."""
+    if mrope:
+        raise _not_ported("M-RoPE (qwen2-vl)")
+    dh = x.shape[-1]
+    freqs = torch.as_tensor(rope_frequencies(dh, theta).astype(np.float32),
+                            device=x.device)
+    angles = positions.float()[..., None] * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA + KV cache + chunked causal / sliding window)
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig):
+    spec = cfg.rebranch
+    h, kv, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    return {
+        "q": rebranch.init_linear(gen, d, h * dh, spec, use_bias=cfg.qkv_bias),
+        "k": rebranch.init_linear(gen, d, kv * dh, spec,
+                                  use_bias=cfg.qkv_bias),
+        "v": rebranch.init_linear(gen, d, kv * dh, spec,
+                                  use_bias=cfg.qkv_bias),
+        "o": rebranch.init_linear(gen, h * dh, d, spec),
+    }
+
+
+def _chunked_causal_attention(q, k, v, chunk: int, window: int = 0,
+                              kv_offset=0):
+    """Causal attention by online softmax over KV chunks.
+
+    q: [B, Sq, H, Dh], k/v: [B, Skv, KV, Dh].  ``kv_offset`` (an int or a
+    0-d tensor) is the absolute position of the first query.
+    """
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    scale = 1.0 / np.sqrt(dh)
+    q = q.float() * scale
+    dev = q.device
+    qpos = kv_offset + torch.arange(sq, device=dev)
+
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kc = k.reshape(b, n_chunks, chunk, kvh, dh).float()
+    vc = v.reshape(b, n_chunks, chunk, kvh, dh).float()
+    qg = q.reshape(b, sq, kvh, rep, dh)
+
+    m = torch.full((b, h, sq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        kpos = ci * chunk + torch.arange(chunk, device=dev)
+        s = torch.einsum("bsgrd,bcgd->bgrsc", qg, kc[:, ci])
+        s = s.reshape(b, kvh * rep, sq, chunk)
+        mask = kpos[None, :] <= qpos[:, None]                  # causal
+        mask = mask & (kpos[None, :] < skv)                    # padding
+        if window:
+            mask = mask & (kpos[None, :] > (qpos[:, None] - window))
+        s = torch.where(mask[None, None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bgrsc,bcgd->bgrsd",
+                          p.reshape(b, kvh, rep, sq, chunk), vc[:, ci])
+        acc = acc * corr[..., None] + pv.reshape(b, kvh * rep, sq, dh)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2)          # [B, Sq, H, Dh]
+
+
+def _gather_paged(leaf, table):
+    """The logical [B, S, KV, Dh] view of a paged cache leaf.
+
+    leaf: [P, bs, KV, Dh] physical blocks; table: [B, NB] block ids.  The
+    view equals, at every valid position, the dense row the same request
+    would hold, so the attention downstream is unchanged.
+    """
+    b, nb = table.shape
+    bs = leaf.shape[1]
+    return leaf[table].reshape(b, nb * bs, *leaf.shape[2:])
+
+
+def _decode_attention(q, k_cache, v_cache, valid_count):
+    """Single-position attention against a (possibly ring-buffer) cache.
+    q: [B, 1, H, Dh]; one masked softmax over the whole horizon, on
+    bucketed rows (batch-invariant bits, see ``core.rows``)."""
+    return rows.rowwise(_decode_attention_rows, q, k_cache, v_cache,
+                        valid_count)
+
+
+def _decode_attention_rows(q, k_cache, v_cache, valid_count):
+    b, _, h, dh = q.shape
+    s_max, kvh = k_cache.shape[1], k_cache.shape[2]
+    rep = h // kvh
+    scale = 1.0 / np.sqrt(dh)
+    qq = (q.float() * scale)[:, 0].reshape(b, kvh, rep, dh)
+    s = torch.einsum("bgrd,bcgd->bgrc", qq, k_cache.float())   # [B,KV,rep,S]
+    pos = torch.arange(s_max, device=q.device)
+    mask = pos[None, :] < valid_count[:, None]                 # [B, S]
+    s = torch.where(mask[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrc,bcgd->bgrd", p, v_cache.float())
+    return out.reshape(b, 1, h, dh)
+
+
+def _write_decode(cache, k, v, length, rows):
+    """Write each row's new K/V entries at its own ring slot, in place;
+    returns the logical (k, v) views decode attention reads."""
+    k_cache, v_cache = cache["k"], cache["v"]
+    s = k.shape[1]
+    if "table" in cache:
+        # paged: the table indirects each row's logical slot to a physical
+        # (block, offset); free rows point at the trash block
+        table = cache["table"]
+        bs = k_cache.shape[1]
+        s_max = table.shape[1] * bs
+        for j in range(s):
+            slot = (length + j) % s_max
+            pb = table[rows, slot // bs]
+            off = slot % bs
+            k_cache[pb, off] = k[:, j].to(k_cache.dtype)
+            v_cache[pb, off] = v[:, j].to(v_cache.dtype)
+        return _gather_paged(k_cache, table), _gather_paged(v_cache, table)
+    s_max = k_cache.shape[1]
+    for j in range(s):
+        slot = (length + j) % s_max          # per-row ring slot
+        k_cache[rows, slot] = k[:, j].to(k_cache.dtype)
+        v_cache[rows, slot] = v[:, j].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def apply_attention(params, x, cfg: ArchConfig, layer_idx: int,
+                    positions=None, cache=None, decode: bool = False):
+    """Returns (out, new_cache_entry); the cache is updated in place."""
+    spec = cfg.rebranch
+    b, s, _ = x.shape
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    window = 0 if cfg.uses_full_attention(layer_idx) else cfg.sliding_window
+
+    q = rebranch.apply_linear(params["q"], x, spec).reshape(b, s, h, dh)
+    k = rebranch.apply_linear(params["k"], x, spec).reshape(b, s, kv, dh)
+    v = rebranch.apply_linear(params["v"], x, spec).reshape(b, s, kv, dh)
+
+    paged = cache is not None and "table" in cache
+    steps = torch.arange(s, device=x.device)
+    if positions is None:
+        if cache is not None:
+            # decode, or a prefill continuing the cache at its length
+            positions = cache["length"][:, None] + steps[None]
+        else:
+            positions = steps[None].expand(b, s)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+
+    if decode:
+        if cache is None:
+            raise ValueError("decode needs a KV cache")
+        if s != 1:
+            raise NotImplementedError(
+                "a multi-token decode block is speculative verify, which is "
+                "not ported yet (ROADMAP Queue 1 item 14)")
+        length = cache["length"]
+        rows = torch.arange(b, device=x.device)
+        k_view, v_view = _write_decode(cache, k, v, length, rows)
+        s_max = k_view.shape[1]
+        out = _decode_attention(q, k_view, v_view,
+                                torch.clamp(length + 1, max=s_max))
+        new_cache = {**cache, "length": length + s}
+    else:
+        if paged:
+            raise ValueError(
+                "prefill cannot run against a paged cache (physical "
+                "blocks have no per-row horizon to fill); prefill into "
+                "a dense batch=1 cache and adopt the row into the "
+                "paged pool (serve.pool.PagedPool.adopt)")
+        if cache is not None and s < cache["k"].shape[1]:
+            # attend over the updated cache view (cached prefix ++ this
+            # chunk at its offset); offset is row 0's length, as the
+            # reference (admission prefills are B=1)
+            offset = cache["length"][0]
+            idx = offset + steps
+            k_att = cache["k"].to(k.dtype).index_copy(1, idx, k)
+            v_att = cache["v"].to(v.dtype).index_copy(1, idx, v)
+            out = _chunked_causal_attention(q, k_att, v_att, cfg.attn_chunk,
+                                            window, kv_offset=offset)
+            cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+            new_cache = {"k": cache["k"], "v": cache["v"],
+                         "length": cache["length"] + s}
+        else:
+            out = _chunked_causal_attention(q, k, v, cfg.attn_chunk, window)
+            if cache is not None:    # prompt >= horizon: ring fill
+                s_max = cache["k"].shape[1]
+                cache["k"].copy_(torch.roll(k[:, -s_max:], s % s_max, 1))
+                cache["v"].copy_(torch.roll(v[:, -s_max:], s % s_max, 1))
+                new_cache = {"k": cache["k"], "v": cache["v"],
+                             "length": cache["length"] + s}
+            else:
+                new_cache = None
+
+    out = out.to(x.dtype).reshape(b, s, h * dh)
+    return rebranch.apply_linear(params["o"], out, spec), new_cache
+
+
+def init_attention_cache(cfg: ArchConfig, batch: int, max_len: int,
+                         layer_idx: int, dtype=torch.bfloat16, device=None):
+    """SWA layers get a ring buffer of window size; full-attention layers
+    keep the whole horizon."""
+    window = (0 if cfg.uses_full_attention(layer_idx)
+              else cfg.sliding_window)
+    s = max_len if window == 0 else min(max_len, window)
+    shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def init_paged_attention_cache(cfg: ArchConfig, rows: int, n_blocks: int,
+                               block_size: int, max_len: int,
+                               dtype=torch.bfloat16, device=None):
+    """One layer of a PAGED KV cache: ``n_blocks`` physical blocks of
+    ``block_size`` positions shared by every row, and a [rows,
+    max_len/block_size] block table owned by the pool.  ``block_size``
+    must divide ``max_len`` so the gathered view has exactly the dense
+    cache's shape (same softmax geometry = same bits).  Table entries start
+    at the LAST block, the pool's trash block."""
+    if max_len % block_size:
+        raise ValueError(
+            f"block_size {block_size} does not divide max_len {max_len}; "
+            f"the gathered paged view must have exactly the dense cache "
+            f"shape (same attention geometry = same bits)")
+    if not cfg.uses_full_attention(layer_idx=0) or cfg.sliding_window:
+        raise ValueError(
+            f"paged KV requires a uniform full-attention horizon; "
+            f"{cfg.name!r} has sliding_window={cfg.sliding_window} "
+            f"(ring caches smaller than max_len cannot share one block "
+            f"table) — serve this config over a dense SlotPool")
+    nb = max_len // block_size
+    shape = (n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "length": torch.zeros((rows,), dtype=torch.int32, device=device),
+        "table": torch.full((rows, nb), n_blocks - 1, dtype=torch.int32,
+                            device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU / GELU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int | None = None):
+    spec = cfg.rebranch
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {
+            "gate": rebranch.init_linear(gen, d, ff, spec),
+            "up": rebranch.init_linear(gen, d, ff, spec),
+            "down": rebranch.init_linear(gen, ff, d, spec),
+        }
+    return {
+        "up": rebranch.init_linear(gen, d, ff, spec),
+        "down": rebranch.init_linear(gen, ff, d, spec),
+    }
+
+
+def _gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(params, x, cfg: ArchConfig):
+    spec = cfg.rebranch
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        g = rebranch.apply_linear(params["gate"], x, spec)
+        u = rebranch.apply_linear(params["up"], x, spec)
+        act = F.silu(g) if cfg.mlp_type == "swiglu" else _gelu(g)
+        h = act * u
+    else:
+        h = _gelu(rebranch.apply_linear(params["up"], x, spec))
+    return rebranch.apply_linear(params["down"], h, spec)
+

@@ -1,0 +1,192 @@
+"""Decoder-only LM, the dense family (port of ``repro.models.transformer``).
+
+Covers yi-34b, qwen1.5-32b (QKV bias), gemma-2b (GeGLU, head_dim 256,
+MQA) and deepseek-67b.  The vlm (M-RoPE, frontend embeddings) and audio
+(multi-codebook) branches raise ``NotImplementedError`` naming ROADMAP.
+
+API:
+  init(gen, cfg)                                   -> params
+  forward(params, batch, cfg)                      -> logits
+  prefill(params, batch, cfg, cache)               -> (logits, cache)
+  decode_step(params, tokens, cfg, cache)          -> (logits, cache)
+  init_cache(cfg, batch, max_len)                  -> cache
+
+Parameters and caches keep the JAX package's STACKED layout: every leaf
+under ``params["layers"]`` and ``cache["layers"]`` carries a leading L
+dim (the reference builds them with ``jax.vmap`` and runs ``lax.scan``),
+so trees match key for key and shape for shape; the port loops over L in
+Python on views of the stacked tensors.  As under the reference's scan,
+every layer runs with ``layer_idx`` 0.  Caches are updated in place (see
+``models.layers``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import bridge
+from repro_torch.core import rebranch
+from repro_torch.models import layers
+from repro_torch.models.config import ArchConfig, spec_for
+
+
+def _check_family(cfg: ArchConfig):
+    if cfg.num_codebooks:
+        raise layers._not_ported("multi-codebook audio (musicgen)")
+    if cfg.mrope:
+        raise layers._not_ported("M-RoPE (qwen2-vl)")
+    if cfg.family not in ("dense", "vlm", "audio"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
+            f"item 15)")
+
+
+def site_cfg(cfg: ArchConfig, site: str) -> ArchConfig:
+    """cfg with the resolved spec for ``site`` as its config-wide
+    rebranch (honours ancestor-prefix overrides)."""
+    spec = spec_for(cfg, site)
+    if spec is cfg.rebranch:
+        return cfg
+    return dataclasses.replace(cfg, rebranch=spec)
+
+
+def _block_init(gen, cfg: ArchConfig):
+    return {
+        "ln1": layers.init_rmsnorm(cfg.d_model, gen.device),
+        "attn": layers.init_attention(gen, site_cfg(cfg, "blocks.attn")),
+        "ln2": layers.init_rmsnorm(cfg.d_model, gen.device),
+        "mlp": layers.init_mlp(gen, site_cfg(cfg, "blocks.mlp")),
+    }
+
+
+def _block_apply(params, x, cfg: ArchConfig, layer_idx: int,
+                 positions=None, cache=None, decode=False):
+    h, new_cache = layers.apply_attention(
+        params["attn"], layers.apply_rmsnorm(params["ln1"], x, cfg.norm_eps),
+        site_cfg(cfg, "blocks.attn"), layer_idx,
+        positions=positions, cache=cache, decode=decode)
+    x = x + h
+    h2 = layers.apply_rmsnorm(params["ln2"], x, cfg.norm_eps)
+    h2 = layers.apply_mlp(params["mlp"], h2, site_cfg(cfg, "blocks.mlp"))
+    return x + h2, new_cache
+
+
+def layer(tree, i: int):
+    """Layer ``i``'s slice (views) of a stacked params or cache tree."""
+    return bridge.tree_map(tree, lambda t: t[i])
+
+
+def init(gen: torch.Generator, cfg: ArchConfig):
+    """Parameters drawn from ``gen`` on its device: the embedding, then the
+    layers in order, then the readout.  Layers are drawn one at a time
+    into preallocated stacked tensors, so the peak is one layer above the
+    stacked tree."""
+    _check_family(cfg)
+    params = {"embed": layers.init_embedding(gen, cfg.vocab_size,
+                                             cfg.d_model)}
+    first = _block_init(gen, cfg)
+    stacked = bridge.tree_map(
+        first, lambda t: t.new_empty((cfg.num_layers, *t.shape)))
+    for i in range(cfg.num_layers):
+        block = first if i == 0 else _block_init(gen, cfg)
+        bridge.tree_map2(layer(stacked, i), block, lambda d, s: d.copy_(s))
+        del block
+    params["layers"] = stacked
+    params["ln_f"] = layers.init_rmsnorm(cfg.d_model, gen.device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = rebranch.init_linear(
+            gen, cfg.d_model, cfg.vocab_size, spec_for(cfg, "lm_head"))
+    return params
+
+
+def _token_embed(params, tokens, cfg: ArchConfig):
+    if tokens.dim() == 3:
+        raise layers._not_ported("multi-codebook audio (musicgen)")
+    return layers.apply_embedding(params["embed"], tokens, cfg)
+
+
+def _embed_inputs(params, batch, cfg: ArchConfig):
+    if "embeds" in batch:
+        raise layers._not_ported("frontend embeddings (vlm / audio stubs)")
+    return _token_embed(params, batch["tokens"], cfg)
+
+
+def apply_head(params, x, cfg: ArchConfig):
+    """ln_f + readout projection on [..., d] -> [..., V]."""
+    x = layers.apply_rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    if cfg.num_codebooks:
+        raise layers._not_ported("multi-codebook audio (musicgen)")
+    if cfg.tie_embeddings:
+        return layers.embedding_as_logits(params["embed"], x, cfg)
+    return rebranch.apply_linear(params["lm_head"], x,
+                                 spec_for(cfg, "lm_head"))
+
+
+def features(params, batch, cfg: ArchConfig):
+    """Forward through the blocks only (pre-ln_f hidden states)."""
+    _check_family(cfg)
+    x = _embed_inputs(params, batch, cfg)
+    positions = batch.get("positions")
+    for i in range(cfg.num_layers):
+        x = _block_apply(layer(params["layers"], i), x, cfg, 0,
+                         positions=positions)[0]
+    return x
+
+
+def forward(params, batch, cfg: ArchConfig):
+    """Full-sequence forward: logits [B, S, V]."""
+    return apply_head(params, features(params, batch, cfg), cfg)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    one = layers.init_attention_cache(cfg, batch, max_len, 0, dtype, device)
+    return {"layers": bridge.tree_map(
+        one, lambda a: a.new_zeros((cfg.num_layers, *a.shape)))}
+
+
+def init_paged_cache(cfg: ArchConfig, rows: int, n_blocks: int,
+                     block_size: int, max_len: int, dtype=torch.bfloat16,
+                     device=None):
+    """Paged KV cache: per layer, ``n_blocks`` physical [block_size, KV,
+    Dh] blocks plus a [rows, max_len/block_size] block table (owned by
+    ``serve.pool.PagedPool``), stacked over L like :func:`init_cache`."""
+    one = layers.init_paged_attention_cache(cfg, rows, n_blocks, block_size,
+                                            max_len, dtype, device)
+    return {"layers": bridge.tree_map(
+        one, lambda a: a[None].repeat(cfg.num_layers,
+                                      *([1] * a.dim())))}
+
+
+def _run_layers(params, x, cfg: ArchConfig, cache, positions=None,
+                decode=False):
+    """Every layer against its cache slice; the caches' K/V are written in
+    place and the stacked lengths advanced."""
+    cl = cache["layers"]
+    lengths = []
+    for i in range(cfg.num_layers):
+        x, nc = _block_apply(layer(params["layers"], i), x, cfg, 0,
+                             positions=positions, cache=layer(cl, i),
+                             decode=decode)
+        lengths.append(nc["length"])
+    cl["length"].copy_(torch.stack(lengths))
+    return x, cache
+
+
+def prefill(params, batch, cfg: ArchConfig, cache):
+    """Prompt [B, S] into ``cache``; logits of the last position."""
+    _check_family(cfg)
+    x = _embed_inputs(params, batch, cfg)
+    x, cache = _run_layers(params, x, cfg, cache,
+                           positions=batch.get("positions"))
+    return apply_head(params, x[:, -1:, :], cfg), cache
+
+
+def decode_step(params, tokens, cfg: ArchConfig, cache):
+    """One token per sequence against the KV cache; tokens [B, 1]."""
+    _check_family(cfg)
+    x = _token_embed(params, tokens, cfg)
+    x, cache = _run_layers(params, x, cfg, cache, decode=True)
+    return apply_head(params, x, cfg), cache

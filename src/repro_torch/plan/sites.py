@@ -1,12 +1,15 @@
 """The site protocol: a model's enumerable tree of trunk weight groups
-(port of ``repro.plan.sites``, CNN part).
+(port of ``repro.plan.sites``).
 
 A *site* is a named group of trunk weights that one ``ReBranchSpec``
 governs — the unit the paper maps onto ROM-CiM vs SRAM-CiM (Fig. 12).
 Site names are dotted paths resolved by ``models.config.spec_for``
 (longest prefix).  For the CNNs the sites are the convs enumerated by
 ``models.cnn.conv_site_shapes`` ('stem', 'convs.N', 'stages.S.B.convK',
-'head.N').  The LM families' site trees wait for the LM slice.
+'head.N'); for the transformer family (dense/vlm/audio) they are
+``blocks.attn``, ``blocks.mlp`` and the untied readout (``lm_head`` or
+``codebook_head``).  The moe, ssm and hybrid trees wait for their models
+(ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -16,15 +19,18 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class Site:
-    """One named trunk parameter group: trunk weights and MACs per
-    inference per occurrence, ``count`` identical occurrences, and the
-    representative weight shape (k, k, c_in, c_out)."""
+    """One named trunk parameter group: trunk weights and MACs per unit of
+    work (token for LMs, inference for CNNs) per occurrence, ``count``
+    identical occurrences (stacked layers), the representative weight
+    shape ((d_in, d_out) or (k, k, c_in, c_out)), and for composite
+    matmul sites their ``members`` ((label, (d_in, d_out)), ...)."""
     name: str
-    kind: str                       # 'conv' (matmul sites: LM slice)
+    kind: str                       # 'matmul' | 'conv'
     weights: int
     macs: int
     count: int = 1
     shape: tuple = ()
+    members: tuple = ()
 
     @property
     def total_weights(self) -> int:
@@ -36,23 +42,77 @@ class Site:
 
     def branch_costs(self, spec) -> tuple:
         """(rom_proj_weights, core_weights, branch_macs) per occurrence:
-        C/U projections are fixed (ROM), the core is the SRAM tensor."""
-        k, _, c_in, c_out = self.shape
-        c_c = max(1, c_in // spec.d_ratio)
-        c_u = max(1, c_out // spec.u_ratio)
-        reuse = self.macs / max(1, self.weights)   # spatial positions
-        proj = c_in * c_c + c_u * c_out
-        core = k * k * c_c * c_u
-        return proj, core, int((proj + k * k * c_c * c_u) * reuse)
+        C/U projections are fixed (ROM), the core is the SRAM tensor
+        (``core.rebranch.init_linear`` / ``models.cnn.init_conv``)."""
+        if self.kind == "conv":
+            k, _, c_in, c_out = self.shape
+            c_c = max(1, c_in // spec.d_ratio)
+            c_u = max(1, c_out // spec.u_ratio)
+            reuse = self.macs / max(1, self.weights)   # spatial positions
+            proj = c_in * c_c + c_u * c_out
+            core = k * k * c_c * c_u
+            return proj, core, int((proj + k * k * c_c * c_u) * reuse)
+        proj = core = bmacs = 0
+        for _, (d_in, d_out) in (self.members or (("w", self.shape),)):
+            d_c = max(1, d_in // spec.d_ratio)
+            d_u = max(1, d_out // spec.u_ratio)
+            proj += d_in * d_c + d_u * d_out
+            core += d_c * d_u
+            bmacs += d_in * d_c + d_c * d_u + d_u * d_out
+        return proj, core, bmacs
+
+
+def _matmul_site(name: str, members, count: int = 1) -> Site:
+    """Composite matmul site: members are (label, (d_in, d_out)) pairs;
+    MACs per token = weight count."""
+    members = tuple((lbl, tuple(shape)) for lbl, shape in members)
+    w = sum(a * b for _, (a, b) in members)
+    single = members[0][1] if len(members) == 1 else ()
+    return Site(name=name, kind="matmul", weights=w, macs=w, count=count,
+                shape=single, members=members)
+
+
+def _attn_members(cfg):
+    d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return [("q", (d, h * dh)), ("k", (d, kv * dh)),
+            ("v", (d, kv * dh)), ("o", (h * dh, d))]
+
+
+def _mlp_members(cfg, d_ff=None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return [("gate", (d, ff)), ("up", (d, ff)), ("down", (ff, d))]
+    return [("up", (d, ff)), ("down", (ff, d))]
+
+
+def _head_sites(cfg):
+    if cfg.num_codebooks:
+        return [_matmul_site("codebook_head",
+                             [("w", (cfg.d_model,
+                                     cfg.num_codebooks * cfg.vocab_size))])]
+    if cfg.tie_embeddings:
+        return []                   # readout reuses the ROM embedding table
+    return [_matmul_site("lm_head", [("w", (cfg.d_model, cfg.vocab_size))])]
+
+
+def _arch_sites(cfg) -> list:
+    if cfg.family in ("dense", "vlm", "audio"):
+        return [_matmul_site("blocks.attn", _attn_members(cfg),
+                             count=cfg.num_layers),
+                _matmul_site("blocks.mlp", _mlp_members(cfg),
+                             count=cfg.num_layers)] + _head_sites(cfg)
+    if cfg.family in ("moe", "ssm", "hybrid"):
+        raise NotImplementedError(
+            f"the {cfg.family} site tree waits for its model (ROADMAP "
+            f"Queue 1 item 15)")
+    raise ValueError(f"no site tree for model family {cfg.family!r}")
 
 
 def site_tree(cfg) -> tuple:
-    """The enumerated, ordered site tree of a CNN config."""
+    """The enumerated, ordered site tree of ``cfg``."""
     from repro_torch.models import cnn
     if not isinstance(cfg, cnn.CNNConfig):
-        raise NotImplementedError(
-            f"site trees of the LM families are not ported yet (ROADMAP "
-            f"Queue 1 item 12); got {type(cfg).__name__}")
+        return tuple(_arch_sites(cfg))
     shapes = cnn.conv_site_shapes(cfg)
     if shapes is None:
         raise ValueError(

@@ -1,5 +1,6 @@
 """Model registry: model id -> (config, plan, engine) -> one resident cell
-(port of ``repro.serve.registry``, CNN entries).
+(port of ``repro.serve.registry``: the CNN entries and the dense LM smoke
+entries).
 
 Resolution is strict: an unknown id raises with the registered set.
 ``compile_entry`` compiles an id at most once per process and shares the
@@ -13,7 +14,7 @@ import dataclasses
 import threading
 from typing import Any, Callable
 
-from repro_torch import deploy
+from repro_torch import configs, deploy
 from repro_torch import plan as plan_lib
 from repro_torch.models import cnn
 
@@ -22,7 +23,8 @@ from repro_torch.models import cnn
 class ModelEntry:
     """Everything needed to deploy one model id.
 
-    config: zero-arg factory returning the ``cnn.CNNConfig``.
+    config: zero-arg factory returning the ``cnn.CNNConfig`` or
+        ``ArchConfig``.
     plan: optional ``cfg -> PlacementPlan`` factory; ``None`` solves the
         minimum-area (all-ROM + branch) design point.
     engine: trunk engine of the solved plan's default spec.
@@ -78,8 +80,12 @@ def compile_entry(model_id: str):
         return cell
 
 
+for _arch in configs.DENSE_ARCHS:
+    register(ModelEntry(
+        model_id=_arch.replace("_", "-") + "-smoke",
+        config=(lambda a=_arch: configs.get_smoke(a))))
 for _name in ("vgg8", "resnet18", "darknet19", "tiny_yolo"):
     register(ModelEntry(
         model_id=_name.replace("_", "-") + "-32",
         config=(lambda n=_name: cnn.CNNConfig(name=n, input_size=32))))
-del _name
+del _arch, _name

@@ -1,10 +1,18 @@
-"""The front door for CNN serving (port of ``repro.serve.server``'s
-``CNNServer`` and ``load``; ``LMServer`` waits for the LM slice).
+"""The front door: ``serve.load(model_id)`` -> a server with submit()
+(port of ``repro.serve.server``).
 
-Submitted images run through the resident cell in ``n_slots``-row
-chunks; a short chunk is padded with zero images and the pad rows are
-sliced off the output.  Inference BN uses frozen statistics and every
-trunk row is quantised on its own, so padding never changes a real row.
+* LM configs get :class:`LMServer`: the continuous batcher behind a
+  synchronous ``submit``/``step``/``drain`` surface, over a paged KV pool
+  by default for families that support it.
+* CNN configs get :class:`CNNServer`: submitted images run through the
+  resident cell in ``n_slots``-row chunks; a short chunk is padded with
+  zero images and the pad rows are sliced off the output (inference BN
+  uses frozen statistics and every trunk row is quantised on its own, so
+  padding never changes a real row).
+
+The async ``generate`` front door, scenario stores, speculative decode
+and chunked prefill wait for later slices (ROADMAP Queue 1 items 10 and
+14).
 """
 
 from __future__ import annotations
@@ -13,8 +21,68 @@ import numpy as np
 import torch
 
 from repro_torch import bridge
-from repro_torch.models import cnn
+from repro_torch.models import api, cnn
 from repro_torch.serve import registry
+from repro_torch.serve.pool import (PagedPool, SlotPool,
+                                    default_block_size, suggest_paged,
+                                    suggest_slots)
+from repro_torch.serve.scheduler import ContinuousBatcher
+
+
+class LMServer:
+    """Continuous-batching decode serving for one resident LM cell.
+
+    The KV pool is PAGED by default for families that support it
+    (``paged=None`` -> ``api.supports_paging``); ``paged=False`` gives the
+    dense :class:`~repro_torch.serve.pool.SlotPool`, ``paged=True``
+    demands paging.  ``n_blocks``/``block_size`` size the paged pool
+    (defaults: dense-equivalent capacity in ``max_len // 8``-position
+    blocks).  The KV cache lives on the params' device in ``dtype``.
+    """
+
+    def __init__(self, model, params, *, n_slots: int, max_len: int,
+                 dtype=torch.float32, paged: bool | None = None,
+                 n_blocks: int | None = None, block_size: int | None = None):
+        self.model = model
+        device = next(iter(bridge.flatten(params).values())).device
+        if paged is None:
+            paged = api.supports_paging(model.cfg)
+        elif paged and not api.supports_paging(model.cfg):
+            raise ValueError(
+                f"paged=True but {model.cfg.name!r} (family "
+                f"{model.cfg.family!r}, sliding_window="
+                f"{model.cfg.sliding_window}) cannot page its KV cache; "
+                f"pass paged=False for a dense SlotPool")
+        if paged:
+            if block_size is None:
+                block_size = default_block_size(max_len)
+            if n_blocks is None:
+                # dense-equivalent byte budget: n_slots full horizons
+                n_blocks = n_slots * (max_len // block_size)
+            self.pool = PagedPool(model, n_slots, n_blocks, block_size,
+                                  max_len, dtype=dtype, device=device)
+        else:
+            self.pool = SlotPool(model, n_slots, max_len, dtype=dtype,
+                                 device=device)
+        self.batcher = ContinuousBatcher(model, params, self.pool)
+
+    @property
+    def params(self):
+        return self.batcher.params
+
+    def swap_scenario(self, name: str):
+        """Scenario hot-swap needs a ScenarioStore, which is not ported
+        yet (ROADMAP Queue 1 item 10); no server has one attached."""
+        self.batcher.swap(name, None)
+
+    def submit(self, prompt, max_new_tokens: int, eos_id=None):
+        return self.batcher.submit(prompt, max_new_tokens, eos_id=eos_id)
+
+    def step(self) -> bool:
+        return self.batcher.step()
+
+    def drain(self, max_steps: int | None = None) -> int:
+        return self.batcher.drain(max_steps)
 
 
 class CNNServer:
@@ -55,14 +123,37 @@ class CNNServer:
 
 
 def load(model_id: str, *, params=None, seed: int = 0, n_slots=None,
-         device=None) -> CNNServer:
-    """Resolve ``model_id`` through the registry (compiled at most once
-    per process), initialise params from ``seed`` unless given, and
-    return its server.  ``device`` defaults to the CUDA card."""
-    model, _plan = registry.compile_entry(model_id)
-    if not isinstance(model.cfg, cnn.CNNConfig):
-        raise NotImplementedError("LM serving waits for ROADMAP Queue 1 "
-                                  "item 14")
+         device=None, max_len: int = 128, dtype=torch.float32,
+         sram_capacity_bytes: int = 64 << 20, paged: bool | None = None,
+         n_blocks: int | None = None, block_size: int | None = None):
+    """One front door for LM decode and CNN forward serving.
+
+    Resolves ``model_id`` through the registry (compiled at most once per
+    process), initialises params from ``seed`` on ``device`` (default:
+    the CUDA card) unless given, and — for LMs without a forced
+    ``n_slots`` — sizes the KV pool from the entry's placement plan:
+    paged pools via :func:`~repro_torch.serve.pool.suggest_paged`, dense
+    ones via :func:`~repro_torch.serve.pool.suggest_slots`.  The LM
+    keywords are ignored for CNN configs.
+    """
+    model, plan = registry.compile_entry(model_id)
     if params is None:
         params = model.init(seed, device=device)
-    return CNNServer(model, params, n_slots=n_slots or 8)
+    if isinstance(model.cfg, cnn.CNNConfig):
+        return CNNServer(model, params, n_slots=n_slots or 8)
+    if paged is None:
+        paged = api.supports_paging(model.cfg)
+    if n_slots is None:
+        if paged:
+            n_slots, nb, block_size = suggest_paged(
+                model, plan, max_len, dtype=dtype,
+                sram_capacity_bytes=sram_capacity_bytes,
+                block_size=block_size)
+            n_blocks = n_blocks if n_blocks is not None else nb
+        else:
+            n_slots = suggest_slots(
+                model, plan, max_len, dtype=dtype,
+                sram_capacity_bytes=sram_capacity_bytes)
+    return LMServer(model, params, n_slots=n_slots, max_len=max_len,
+                    dtype=dtype, paged=paged, n_blocks=n_blocks,
+                    block_size=block_size)

@@ -1,4 +1,4 @@
-"""The CUDA trunk-conv kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -7,14 +7,19 @@ Imports no JAX, so it runs on a machine that has only PyTorch:
 Each test decides inside itself whether there is a card and skips without
 one.  The unscaled trunk is held with ``torch.equal``: the k-block integer
 dots are exact and ``part * scale`` and ``acc + part`` round once each, in
-ascending k-block order, on both sides.
+ascending k-block order, on both sides.  The CiM matmul kernel is held
+with ``torch.equal`` as well (exact block dots, one f32 add per block), and
+the fused ReBranch matmul's trunk too; its f32 sketch t1 sums within a
+k-block in another order than cuBLAS, so it is held to 1e-5 of its absmax.
 """
 
 import pytest
 import torch
 
 from repro_torch.core import cim
+from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import rebranch_conv as rc
+from repro_torch.kernels import rebranch_matmul as rm
 
 # (M, R, N): R < 128, one ragged block, whole blocks, a ragged tail after
 # two full blocks, and M / N off the kernel's 64-wide tiles
@@ -63,3 +68,73 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         rc.trunk_patch_dot(p[:, ::2], w[::2])
     with pytest.raises(ValueError):
         rc.trunk_patch_dot(p, w.cpu())
+
+
+# (M, K, N): one ragged block, whole blocks, ragged tails, and the four
+# Gemma-2B geometries at decode width
+LM_SHAPES = [(2, 64, 48), (8, 300, 256), (37, 1280, 48), (8, 2048, 2048),
+             (8, 2048, 256), (8, 2048, 16384), (8, 16384, 2048),
+             (130, 1024, 100)]
+
+
+def _int8_inputs(m, k, n, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    return x.to(dev), w.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", LM_SHAPES)
+def test_cim_matmul_kernel_equals_plain_version(m, k, n):
+    dev = _card()
+    x, w = _int8_inputs(m, k, n, dev, seed=m + k + n)
+    x[0] = 127                                   # row sums far above 2**24
+    w[:, 0] = 127
+    before = cm.launches
+    got = cm.cim_matmul(x, w)
+    torch.cuda.synchronize()
+    assert cm.launches == before + 1
+    assert torch.equal(got, cm.cim_matmul_plain(x, w))
+    assert torch.equal(got.cpu(), cm.cim_matmul_plain(x.cpu(), w.cpu()))
+    # rows are independent of the batch around them
+    assert torch.equal(cm.cim_matmul(x[:1].contiguous(), w), got[:1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", LM_SHAPES)
+def test_rebranch_matmul_kernel_equals_plain_version(m, k, n):
+    dev = _card()
+    p, w = _inputs(m, k, n, dev, seed=m + k + n)
+    gen = torch.Generator().manual_seed(k)
+    c = (torch.randn((k, max(1, k // 4)), generator=gen) / k ** .5).to(dev)
+    before = rm.launches
+    trunk, t1 = rm.rebranch_trunk_sketch(p.bfloat16(), w, c)
+    torch.cuda.synchronize()
+    assert rm.launches == before + 1
+    want_trunk, want_t1 = rm.rebranch_matmul_plain(p.bfloat16(), w, c)
+    assert torch.equal(trunk, want_trunk)
+    tol = 1e-5 * want_t1.abs().max().item()
+    assert (t1 - want_t1).abs().max().item() <= tol
+    # the trunk equals the trunk-conv kernel's on the same (widened) input
+    assert torch.equal(trunk, rc.trunk_patch_dot(p.bfloat16().float(), w))
+    one_trunk, one_t1 = rm.rebranch_trunk_sketch(p[:1].bfloat16(), w, c)
+    assert torch.equal(one_trunk, trunk[:1]) and torch.equal(one_t1, t1[:1])
+
+
+@pytest.mark.gpu
+def test_lm_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    x, w = _int8_inputs(8, 256, 64, dev, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cm.cim_matmul(x, w, cim.CiMConfig(mode="bitserial"))
+    with pytest.raises(ValueError):
+        cm.cim_matmul(x.float(), w)
+    with pytest.raises(ValueError):
+        cm.cim_matmul(x, w.cpu())
+    c = torch.zeros((256, 64), device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rm.rebranch_trunk_sketch(x.float(), w, c,
+                                 cim.CiMConfig(mode="per_subarray"))
+    with pytest.raises(ValueError):
+        rm.rebranch_trunk_sketch(x.float(), w, c[:100])
