@@ -66,11 +66,43 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    absmax): the float epilogue sums in another order on the two devices
    and may move one rounding of the cast to bf16.
 
+9. ADC kernels: at every DarkNet-19 geometry (416x416, batch 8) the trunk
+   kernel in ``per_subarray`` mode is ``torch.equal`` to its plain
+   version; in ``bitserial`` mode it runs on the full P and its first 4096
+   rows are held bitwise against the plain version on those rows (rows
+   are independent, so this is exact, and shows it).  At Gemma-2B's four
+   geometries at M = 8, kernel 3's trunk and kernel 4's output (int8
+   inputs with -128) are ``torch.equal`` to their plain versions in both
+   modes, and the rows of an M = 1 launch equal those of the M = 8 launch.
+   ``ops.cim_conv`` (im2col + kernel 4, default config ``per_subarray``)
+   at one DarkNet-19 geometry equals ``cim_matmul_plain`` on the patch
+   matrix.  Times from CUDA events, warmed, beside the bound and the plain
+   version's time (bitserial: one timed call each, after the checks).
+10. DarkNet-19 served at ADC fidelity: ``darknet19-416-adc`` (phase 3's
+   plan with ``per_subarray`` at every site, ``pallas_fused``, phase 3's
+   parameters) through ``CNNServer``: requests of 8, 8 and 5 images, 20
+   trunk launches per chunk, pad rows bitwise invisible, a sustained
+   window of 3 runs x 16 chunks; then ``darknet19-416-bitserial``, one
+   request of 8 images.  For both, the device forward of one chunk
+   beside the ideal model's, and ``examples/yolo_cim_conv.py``'s measure
+   (mean |head - ideal head| over the ideal head's std) on the same
+   images and parameters; then phase 4's CPU replay for
+   ``per_subarray``, with every ADC trunk bitwise equal.
+11. Gemma-2B at ADC fidelity: ``gemma-2b-adc`` is Gemma-2B at full width
+   with its depth cut to 2 layers (every linear geometry of the model,
+   14 launches per pass; the cut keeps the phase short), ``per_subarray``
+   at every ROM site, ``pallas_fused``: 4 requests x 16 tokens, 14
+   kernel-3 launches per prefill and per decode step, one request bitwise
+   equal to its solo run; the same under ``pallas`` (kernel 4); then
+   ``bitserial`` under both engines, one request x 6 tokens.
+
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
 exits non-zero without one, and prints as its last line
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table
-as JSON.
+as JSON, one row per (kernel, mode) (``trunk_conv[bitserial]`` ...):
+kernel 1 per DarkNet-19 forward, kernels 3 and 4 per full-depth Gemma-2B
+decode step at 8 rows, ``launches`` from the serving phases.
 """
 
 from __future__ import annotations
@@ -385,13 +417,15 @@ def phase_serve(cfg):
     copy_ms = time_ms(lambda: chunk.to(srv.device), 5)
     print(f"per {SLOTS}-image chunk: device forward {fwd_ms:.3f} ms, "
           f"host-to-device copy {copy_ms:.3f} ms")
-    return model, params, images[:1], launches
+    return model, params, images[:SLOTS], launches
 
 
 def phase_cpu(model, params, image):
     """Every conv call of one image's forward on the card, replayed on the
-    CPU on the same input."""
+    CPU on the same input; in an ADC mode each ROM site's unscaled trunk
+    too, which must be bitwise equal."""
     from repro_torch import bridge
+    from repro_torch.kernels import rebranch_conv as rc
     from repro_torch.models import cnn
 
     calls = []
@@ -410,7 +444,7 @@ def phase_cpu(model, params, image):
     finally:
         cnn.apply_conv = apply_conv
     check(len(calls) == 21, f"expected 21 conv calls, recorded {len(calls)}")
-    worst = 0.0
+    worst, trunks = 0.0, 0
     t0 = time.perf_counter()
     for p, xin, spec, stride, ep, y in calls:
         if ep is not None:
@@ -421,10 +455,22 @@ def phase_cpu(model, params, image):
                              xin.cpu(), spec, stride, ep)
         rel = ((ref - y.cpu()).abs().max() / ref.abs().max()).item()
         worst = max(worst, rel)
+        if spec.enabled and spec.cim.mode != "ideal":
+            w_q = p["rom"]["w_q"]
+            kh, kw, _, c_out = w_q.shape
+            pm, _ = rc.patch_matrix(xin.float(), kh, kw, stride, "SAME")
+            w2d = w_q.reshape(-1, c_out)
+            trunk = rc.trunk_patch_dot(pm, w2d, spec.cim)
+            ref_trunk = rc.trunk_patch_dot_plain(pm.cpu(), w2d.cpu(),
+                                                 spec.cim)
+            check(torch.equal(trunk.cpu(), ref_trunk),
+                  f"{spec.cim.mode} trunk on the card != CPU trunk")
+            trunks += 1
     secs = time.perf_counter() - t0
     print(f"cpu reference, layer by layer (21 convs, plain versions, "
           f"{secs:.1f} s): worst max abs diff {worst:.3e} of the layer "
-          f"output's absmax (tolerance {LAYER_RTOL})")
+          f"output's absmax (tolerance {LAYER_RTOL}); {trunks} ADC-mode "
+          f"trunks bitwise equal")
     check(worst <= LAYER_RTOL, "a layer on the card disagrees with the CPU")
 
     cpu_params = bridge.to_torch(bridge.to_numpy(params), "cpu")
@@ -950,6 +996,464 @@ def phase_lm_cpu(model, params, srv):
     check(all(len(r.tokens) == 4 for r in rs), "replay requests")
 
 
+ADC_MODES = ("per_subarray", "bitserial")
+ADC_ROWS = 4096          # bitserial: rows of each P held against the plain
+# f32 operations of one ADC evaluation: the division, + bias, rint, the
+# two clamps, * lsb and the add (bitserial: and * +-2^k)
+ADC_F32_OPS = {"per_subarray": 7, "bitserial": 8}
+ADC_SUSTAINED_CHUNKS = 16
+LM_ADC_LAYERS = 2        # phase 11's Gemma-2B depth cut
+LM_ADC_PROMPTS, LM_ADC_NEW = (10, 30, 60, 90), 16
+LM_BITSERIAL_NEW = 6
+
+
+def adc_bound_ms(m: int, k: int, n: int, mode: str, x_bytes: float = 4.0,
+                 cdim: int = 0) -> tuple[float, str]:
+    """(bound, what bounds it) of one trunk launch in an ADC
+    mode: x [m, k] (``x_bytes`` per element), W int8 [k, n] -> f32 [m, n]
+    (and, with ``cdim``, the f32 sketch x @ C [k, cdim]).  Bytes: each
+    input read once, each output written once.  Operations: the int8
+    multiply-adds (112 binary ones per int8 one in bitserial: 4 sign pairs
+    x 4 groups x 7 planes) at the int8 tensor-core rate, and the ADC
+    evaluations (one per row, column and subarray; x 112 in bitserial) and
+    the sketch at the f32 rate."""
+    subarrays = -(-k // 128)
+    per = 112 if mode == "bitserial" else 1
+    evals = per * m * n * subarrays
+    ops_ms = (2.0 * per * m * k * n / PEAK_INT8_OPS
+              + (ADC_F32_OPS[mode] * evals + 2.0 * m * k * cdim)
+              / PEAK_F32_OPS) * 1e3
+    nbytes = (x_bytes * m * k + k * n + 4.0 * m * n
+              + 4.0 * (k * cdim + m * cdim))
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def new_tot():
+    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+            "max_abs_err": 0.0, "library_ms": None}
+
+
+def add_tot(tot, ms, plain_ms, bound, by, count=1):
+    """Add ``count`` launches to a kernel's totals (``bytes_ms`` sums the
+    bounds of the bytes-bound ones, as phases 2 and 5 do)."""
+    tot["ms"] += ms * count
+    tot["plain_ms"] += plain_ms * count
+    tot["bound_ms"] += bound * count
+    tot["bytes_ms"] += bound * count if by == "bytes" else 0.0
+
+
+def time_once_ms(fn) -> float:
+    """Device time of one call of ``fn`` (already warmed by the caller),
+    from CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_adc_kernels(dev, cfg) -> dict:
+    """Kernels 1, 3 and 4 in the ADC modes vs their plain versions."""
+    from repro_torch.core import cim
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rebranch_conv as rc
+    from repro_torch.kernels import rebranch_matmul as rm
+    from repro_torch.models import cnn
+    out = {(name, mode): new_tot() for name in ("trunk_conv",
+                                                "rebranch_matmul",
+                                                "cim_matmul")
+           for mode in ADC_MODES}
+    ps = cim.CiMConfig(mode="per_subarray")
+    bs = cim.CiMConfig(mode="bitserial")
+
+    # kernel 1 at every DarkNet-19 geometry, on phase 2's inputs
+    gen = torch.Generator(device=dev).manual_seed(1)
+    print("site M R N mode equal ms plain_ms bound_ms bound_by "
+          "(bitserial: rows_checked rows_ms rows_plain_ms)")
+    for site, k, c_in, c_out, hw, _ in cnn.conv_site_shapes(cfg):
+        x = torch.randn((BATCH, hw, hw, c_in), generator=gen, device=dev)
+        w_q = torch.randint(-127, 128, (k, k, c_in, c_out), generator=gen,
+                            device=dev, dtype=torch.int8)
+        p, _ = rc.patch_matrix(x, k, k, 1, "SAME")
+        w2d = w_q.reshape(-1, c_out)
+        m, r = p.shape
+        del x
+
+        got = rc.trunk_patch_dot(p, w2d, ps)
+        want = rc.trunk_patch_dot_plain(p, w2d, ps)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"{site}: per_subarray kernel trunk != plain trunk (max "
+              f"{(got - want).abs().max().item()})")
+        del got, want
+        ms = time_ms(lambda: rc.trunk_patch_dot(p, w2d, ps), 3)
+        plain_ms = time_ms(lambda: rc.trunk_patch_dot_plain(p, w2d, ps), 2)
+        bound, by = adc_bound_ms(m, r, c_out, "per_subarray")
+        add_tot(out["trunk_conv", "per_subarray"], ms, plain_ms, bound, by)
+        print(f"{site} {m} {r} {c_out} per_subarray True {ms:.4f} "
+              f"{plain_ms:.4f} {bound:.4f} {by}", flush=True)
+
+        # bitserial: the kernel on the full P, its first rows vs the plain
+        got = rc.trunk_patch_dot(p, w2d, bs)
+        rows = min(m, ADC_ROWS)
+        p_rows = p[:rows].contiguous()
+        want = rc.trunk_patch_dot_plain(p_rows, w2d, bs)
+        torch.cuda.synchronize()
+        check(torch.equal(got[:rows], want),
+              f"{site}: bitserial kernel trunk != plain trunk on its first "
+              f"{rows} rows (max {(got[:rows] - want).abs().max().item()})")
+        check(bool(torch.isfinite(got).all()), f"{site}: bitserial non-finite")
+        del got, want
+        ms = time_once_ms(lambda: rc.trunk_patch_dot(p, w2d, bs))
+        plain_ms = time_once_ms(lambda: rc.trunk_patch_dot_plain(p, w2d, bs))
+        rows_ms = time_ms(lambda: rc.trunk_patch_dot(p_rows, w2d, bs), 1)
+        rows_plain = time_once_ms(
+            lambda: rc.trunk_patch_dot_plain(p_rows, w2d, bs))
+        bound, by = adc_bound_ms(m, r, c_out, "bitserial")
+        add_tot(out["trunk_conv", "bitserial"], ms, plain_ms, bound, by)
+        print(f"{site} {m} {r} {c_out} bitserial True {ms:.4f} "
+              f"{plain_ms:.4f} {bound:.4f} {by} {rows} {rows_ms:.4f} "
+              f"{rows_plain:.4f}", flush=True)
+        del p, p_rows
+        torch.cuda.empty_cache()
+    for mode in ADC_MODES:
+        t = out["trunk_conv", mode]
+        print(f"trunk_conv[{mode}] per forward (20 launches): kernel "
+              f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms")
+
+    # ops.cim_conv (im2col + kernel 4) at one DarkNet-19 geometry, in its
+    # default config (per_subarray), int8 activations with -128
+    site, k, c_in, c_out, hw, _ = cnn.conv_site_shapes(cfg)[8]
+    xq = torch.randint(-128, 128, (BATCH, hw, hw, c_in), generator=gen,
+                       device=dev, dtype=torch.int8)
+    xq[0, 0, 0] = -128
+    w_q = torch.randint(-127, 128, (k, k, c_in, c_out), generator=gen,
+                        device=dev, dtype=torch.int8)
+    before = cm.launches
+    got = ops.cim_conv(xq, w_q)
+    check(cm.launches == before + 1, "cim_conv did not launch kernel 4")
+    p, _ = rc.patch_matrix(xq, k, k, 1, "SAME")
+    want = cm.cim_matmul_plain(p, w_q.reshape(-1, c_out), ps)
+    check(torch.equal(got.reshape(want.shape), want),
+          f"{site}: cim_conv != cim_matmul_plain on the patch matrix")
+    print(f"cim_conv at {site} ({BATCH}x{hw}x{hw}x{c_in} -> {c_out}, "
+          f"default per_subarray): equal to cim_matmul_plain on the patch "
+          f"matrix")
+    del xq, p, got, want
+
+    # kernels 3 and 4 at Gemma-2B's geometries, M = 8 (and M = 1 rows)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    print("kernel mode K N M equal ms plain_ms bound_ms bound_by")
+    for (k, n), per_layer in LM_GEOMS.items():
+        cdim = k // 4
+        x = torch.randn((LM_SLOTS, k), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        xq = torch.randint(-128, 128, (LM_SLOTS, k), generator=gen,
+                           device=dev, dtype=torch.int8)
+        xq[0, ::7] = -128                       # -128 activations
+        copies = max(1, math.ceil(2.5 * L2_BYTES / (k * n + 4 * k * cdim)))
+        ws = [torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(copies)]
+        cs = [torch.randn((k, cdim), generator=gen, device=dev) / k ** .5
+              for _ in range(copies)]
+        w, c = ws[0], cs[0]
+        count = per_layer * LM_LAYERS             # per full-depth step
+        for mode, cfg_m in (("per_subarray", ps), ("bitserial", bs)):
+            trunk, t1 = rm.rebranch_trunk_sketch(x, w, c, cfg_m)
+            want_trunk, want_t1 = rm.rebranch_matmul_plain(x, w, c, cfg_m)
+            got4 = cm.cim_matmul(xq, w, cfg_m)
+            want4 = cm.cim_matmul_plain(xq, w, cfg_m)
+            torch.cuda.synchronize()
+            check(torch.equal(trunk, want_trunk),
+                  f"{mode} rebranch kernel trunk != plain ({k}x{n})")
+            rel = ((t1 - want_t1).abs().max() / want_t1.abs().max()).item()
+            check(rel <= SKETCH_RTOL, f"{mode} sketch off by {rel}")
+            check(torch.equal(got4, want4),
+                  f"{mode} cim_matmul kernel != plain ({k}x{n})")
+            one3 = rm.rebranch_trunk_sketch(x[:1].contiguous(), w, c, cfg_m)
+            one4 = cm.cim_matmul(xq[:1].contiguous(), w, cfg_m)
+            check(torch.equal(one3[0], trunk[:1])
+                  and torch.equal(one3[1], t1[:1])
+                  and torch.equal(one4, got4[:1]),
+                  f"{mode}: row 0 differs between M = 1 and M = 8 ({k}x{n})")
+            args3 = [(x, wi, ci, cfg_m) for wi, ci in zip(ws, cs)]
+            args4 = [(xq, wi, cfg_m) for wi in ws]
+            ms3 = time_cycled_ms(rm.rebranch_trunk_sketch, args3, copies)
+            ms4 = time_cycled_ms(cm.cim_matmul, args4, copies)
+            plain3 = time_once_ms(
+                lambda: rm.rebranch_matmul_plain(x, w, c, cfg_m))
+            plain4 = time_once_ms(lambda: cm.cim_matmul_plain(xq, w, cfg_m))
+            b3, by3 = adc_bound_ms(LM_SLOTS, k, n, mode, 4.0, cdim)
+            b4, by4 = adc_bound_ms(LM_SLOTS, k, n, mode, 1.0)
+            add_tot(out["rebranch_matmul", mode], ms3, plain3, b3, by3, count)
+            add_tot(out["cim_matmul", mode], ms4, plain4, b4, by4, count)
+            out["rebranch_matmul", mode]["max_abs_err"] = max(
+                out["rebranch_matmul", mode]["max_abs_err"],
+                (t1 - want_t1).abs().max().item())
+            print(f"rebranch_matmul {mode} {k} {n} {LM_SLOTS} True "
+                  f"{ms3:.4f} {plain3:.4f} {b3:.4f} {by3}")
+            print(f"cim_matmul {mode} {k} {n} {LM_SLOTS} True {ms4:.4f} "
+                  f"{plain4:.4f} {b4:.4f} {by4}", flush=True)
+            del trunk, t1, want_trunk, want_t1, got4, want4
+        del ws, cs
+        torch.cuda.empty_cache()
+    for (name, mode), t in out.items():
+        if name != "trunk_conv":
+            print(f"{name}[{mode}] per Gemma-2B decode step at M = "
+                  f"{LM_SLOTS} ({7 * LM_LAYERS} launches): kernel "
+                  f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+                  f"{t['bound_ms']:.3f} ms")
+    return out
+
+
+def adc_plan(cfg, mode: str, engine: str = "pallas_fused"):
+    """The solved all-ROM plan with every ROM site in CiM ``mode``: one
+    override on each top-level address of the site tree, which the
+    longest-prefix resolution hands down to every site below it."""
+    from repro_torch import plan as plan_lib
+    base = plan_lib.solve(cfg, engine=engine)
+    tops = sorted({a.split(".")[0]
+                   for a in plan_lib.valid_addresses(plan_lib.site_tree(cfg))})
+    overrides = dict(base.entries)
+    overrides.update({a: {"cim": mode} for a in tops})
+    return plan_lib.PlacementPlan.build(cfg, overrides, default=base.default)
+
+
+def head_drift(head, ideal) -> float:
+    """examples/yolo_cim_conv.py's measure: mean |head - ideal head| as a
+    share of the ideal head's std."""
+    return float(np.abs(head - ideal).mean() / (ideal.std() + 1e-9))
+
+
+def phase_adc_serve(cfg, ideal_model, params, images) -> dict:
+    """DarkNet-19 served at the paper's ADC fidelity: per_subarray at every
+    site (the requests, pad rows, a sustained window, the CPU replay),
+    then bitserial (one request)."""
+    from repro_torch.kernels import rebranch_conv as rc
+    from repro_torch.models import cnn
+    from repro_torch.serve import registry, server
+
+    with torch.no_grad():
+        ideal = ideal_model.forward(params, torch.from_numpy(images).cuda()
+                                    ).cpu().numpy()
+    rng = np.random.default_rng(11)
+    launches = {}
+    for mode, model_id in (("per_subarray", "darknet19-416-adc"),
+                           ("bitserial", "darknet19-416-bitserial")):
+        registry.register(registry.ModelEntry(
+            model_id=model_id, config=lambda: cfg,
+            plan=lambda c, mode=mode: adc_plan(c, mode)))
+        model, _ = registry.compile_entry(model_id)
+        sites = [s[0] for s in cnn.conv_site_shapes(model.cfg)]
+        for site in sites:
+            spec = model.layer_spec(site)
+            check(spec.enabled and spec.branch_enabled
+                  and spec.trunk_impl == "pallas_fused"
+                  and spec.cim.mode == mode,
+                  f"{model_id} {site}: not a ROM pallas_fused {mode} site")
+        srv = server.load(model_id, params=params, n_slots=SLOTS)
+        n_sites = len(sites)
+        if mode == "per_subarray":
+            srv.submit(images)                           # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            lo, outs = 0, []
+            extra = rng.standard_normal((sum(REQUESTS), SIZE, SIZE, 3),
+                                        dtype=np.float32)
+            for b in REQUESTS:
+                t0 = time.perf_counter()
+                outs.append(srv.submit(extra[lo:lo + b]))
+                dt = time.perf_counter() - t0
+                print(f"{model_id}: request of {b} images, latency "
+                      f"{dt * 1e3:.2f} ms")
+                lo += b
+            counts = read_launches()
+            chunks = sum(-(-b // SLOTS) for b in REQUESTS)
+            check(counts["trunk_conv"] == n_sites * chunks
+                  and counts["cim_matmul"] == counts["rebranch_matmul"] == 0,
+                  f"{model_id}: expected {n_sites} trunk launches per chunk, "
+                  f"got {counts} for {chunks} chunks")
+            launches["trunk_conv", mode] = counts["trunk_conv"]
+            for b, out in zip(REQUESTS, outs):
+                check(out.shape == (b, SIZE // 32, SIZE // 32, 5, 25)
+                      and bool(np.isfinite(out).all()),
+                      f"{model_id}: output {out.shape} or non-finite")
+            short = extra[sum(REQUESTS[:-1]):]
+            full = srv.submit(np.concatenate([short,
+                                              extra[:SLOTS - len(short)]]))
+            check(np.array_equal(full[:len(short)], outs[-1]),
+                  f"{model_id}: pad rows changed a real row")
+            print(f"{model_id}: {n_sites} launches per chunk; pad rows "
+                  f"invisible ({len(short)}-image request bitwise equal to "
+                  f"the same rows of a full chunk)")
+            n_img = ADC_SUSTAINED_CHUNKS * SLOTS
+            batch = rng.standard_normal((n_img, SIZE, SIZE, 3),
+                                        dtype=np.float32)
+            rates = []
+            for run in range(SUSTAINED_RUNS):
+                before = rc.launches
+                t0 = time.perf_counter()
+                out = srv.submit(batch)
+                dt = time.perf_counter() - t0
+                check(rc.launches - before == n_sites * ADC_SUSTAINED_CHUNKS
+                      and bool(np.isfinite(out).all()),
+                      f"{model_id}: sustained window")
+                rates.append(n_img / dt)
+                print(f"{model_id} sustained run {run}: {n_img} images in "
+                      f"{dt * 1e3:.2f} ms, {n_img / dt:.2f} images/s")
+            spread = (max(rates) - min(rates)) / min(rates)
+            print(f"{model_id} sustained images/s: mean "
+                  f"{sum(rates) / len(rates):.2f}, min {min(rates):.2f}, "
+                  f"max {max(rates):.2f}, spread {spread:.2%}")
+        else:
+            srv.submit(images[:1])                      # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = srv.submit(images)
+            dt = time.perf_counter() - t0
+            counts = read_launches()
+            check(counts["trunk_conv"] == n_sites
+                  and counts["cim_matmul"] == counts["rebranch_matmul"] == 0,
+                  f"{model_id}: expected {n_sites} trunk launches, got "
+                  f"{counts}")
+            check(bool(np.isfinite(out).all()), f"{model_id}: non-finite")
+            launches["trunk_conv", mode] = counts["trunk_conv"]
+            print(f"{model_id}: one request of {len(images)} images in "
+                  f"{dt * 1e3:.2f} ms ({len(images) / dt:.2f} images/s), "
+                  f"{n_sites} launches")
+        x = torch.from_numpy(images).cuda()
+        reps = 5 if mode == "per_subarray" else 1
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: model.forward(params, x), reps)
+            ideal_ms = time_ms(lambda: ideal_model.forward(params, x), reps)
+        print(f"{model_id}: device forward of a {len(images)}-image chunk "
+              f"{fwd_ms:.3f} ms, ideal {ideal_ms:.3f} ms (CUDA events)")
+        del x
+        head = srv.submit(images)
+        print(f"{model_id}: mean |head - ideal head| = "
+              f"{head_drift(head, ideal):.4f} of the ideal head's std "
+              f"(the same {len(images)} images and parameters)")
+        if mode == "per_subarray":
+            phase_cpu(model, params, images[:1])
+        del srv
+        torch.cuda.empty_cache()
+    return launches
+
+
+def lm_adc_config():
+    """Gemma-2B at full width, its depth cut to LM_ADC_LAYERS layers."""
+    return dataclasses.replace(lm_config(), num_layers=LM_ADC_LAYERS)
+
+
+def lm_serve_check(model_id, params, kernel, prompts, n_new, solo) -> int:
+    """Serve ``prompts`` through ``model_id``; check the launches of
+    ``kernel`` per prefill and per decode step, the tokens, and ``solo``
+    requests against a solo run on the card (tokens and first decode
+    step's logits, bit for bit).  Returns the launch count."""
+    from repro_torch.serve import registry, server
+
+    model, _ = registry.compile_entry(model_id)
+    srv = server.load(model_id, params=params, n_slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN)
+    rng = np.random.default_rng(12)
+    vocab = model.cfg.vocab_size
+    srv.submit(rng.integers(0, vocab, size=9), 2)          # warm-up
+    srv.drain()
+    first_logits = {}
+    decode = model.decode_step
+
+    def recording(p, tok, cache):
+        logits, cache = decode(p, tok, cache)
+        for slot, req in srv.batcher._active.items():
+            if len(req.tokens) == 1:
+                first_logits[req.rid] = logits[slot, -1].float().cpu()
+        return logits, cache
+
+    toks_in = [rng.integers(0, vocab, size=n) for n in prompts]
+    torch.cuda.synchronize()
+    reset_launches()
+    model.decode_step = recording
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, n_new) for p in toks_in]
+    steps = srv.drain()
+    wall = time.perf_counter() - t0
+    del model.decode_step
+    counts = read_launches()
+    per_pass = 7 * model.cfg.num_layers
+    check(counts[kernel] == per_pass * (len(reqs) + steps)
+          and sum(counts.values()) == counts[kernel],
+          f"{model_id}: expected {per_pass} {kernel} launches per prefill "
+          f"and decode step, got {counts} for {len(reqs)} prefills + "
+          f"{steps} steps")
+    for r in reqs:
+        check(len(r.tokens) == n_new and all(0 <= t < vocab
+                                             for t in r.tokens),
+              f"{model_id} request {r.rid}: tokens {r.tokens}")
+    print(f"{model_id}: {len(reqs)} requests x {n_new} tokens in "
+          f"{wall * 1e3:.1f} ms, {steps} decode steps "
+          f"({wall / max(steps, 1) * 1e3:.2f} ms per step, prefills "
+          f"included); {per_pass} {kernel} launches per pass ({counts})")
+    for r, p in list(zip(reqs, toks_in))[:solo]:
+        toks, first = _solo_run(model, params, p, n_new, LM_MAX_LEN)
+        diff = (first - first_logits[r.rid]).abs().max().item()
+        check(toks == r.tokens and diff == 0.0,
+              f"{model_id} request {r.rid}: batched != solo on the card "
+              f"(logits diff {diff})")
+        print(f"{model_id} request {r.rid}: batched == solo on the card "
+              f"({n_new}/{n_new} tokens, first decode step logits equal)")
+    check(srv.pool.blocks_in_use == 0, f"{model_id}: blocks leaked")
+    return counts[kernel]
+
+
+def phase_lm_adc() -> dict:
+    """Gemma-2B through LMServer at ADC fidelity.  The depth is cut to
+    LM_ADC_LAYERS (2) layers at full width, so that the phase stays short:
+    kernels 3 and 4 see every linear geometry of the full model, and 14
+    launches per prefill and per decode step.  per_subarray at every ROM
+    site under pallas_fused (kernel 3) and pallas (kernel 4), four
+    requests x 16 tokens, one request against its solo run; then
+    bitserial under both engines, one request x 6 tokens."""
+    from repro_torch.serve import registry
+
+    for mode, fused_id, pallas_id in (
+            ("per_subarray", "gemma-2b-adc", "gemma-2b-adc-pallas"),
+            ("bitserial", "gemma-2b-bitserial", "gemma-2b-bitserial-pallas")):
+        registry.register(registry.ModelEntry(
+            model_id=fused_id, config=lm_adc_config,
+            plan=lambda c, mode=mode: adc_plan(c, mode)))
+        registry.register(registry.ModelEntry(
+            model_id=pallas_id, config=lm_adc_config,
+            plan=lambda c, mode=mode: adc_plan(c, mode, "pallas")))
+    model, _ = registry.compile_entry("gemma-2b-adc")
+    for site in ("blocks.attn", "blocks.mlp"):
+        spec = model.layer_spec(site)
+        check(spec.enabled and spec.trunk_impl == "pallas_fused"
+              and spec.cim.mode == "per_subarray",
+              f"gemma-2b-adc {site}: {spec}")
+    params = with_cores(model.init(seed=0), torch.Generator().manual_seed(2))
+    launches = {}
+    launches["rebranch_matmul", "per_subarray"] = lm_serve_check(
+        "gemma-2b-adc", params, "rebranch_matmul", LM_ADC_PROMPTS,
+        LM_ADC_NEW, solo=1)
+    launches["cim_matmul", "per_subarray"] = lm_serve_check(
+        "gemma-2b-adc-pallas", params, "cim_matmul", LM_ADC_PROMPTS,
+        LM_ADC_NEW, solo=1)
+    launches["rebranch_matmul", "bitserial"] = lm_serve_check(
+        "gemma-2b-bitserial", params, "rebranch_matmul", LM_ADC_PROMPTS[:1],
+        LM_BITSERIAL_NEW, solo=0)
+    launches["cim_matmul", "bitserial"] = lm_serve_check(
+        "gemma-2b-bitserial-pallas", params, "cim_matmul",
+        LM_ADC_PROMPTS[:1], LM_BITSERIAL_NEW, solo=0)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -970,15 +1474,20 @@ def main() -> int:
 
     phase_build()
     tot = phase_kernels(dev, cfg)
-    model, params, image, launches = phase_serve(cfg)
-    phase_cpu(model, params, image)
-    del model, params
+    model, params, images, launches = phase_serve(cfg)
+    phase_cpu(model, params, images[:1])
     torch.cuda.empty_cache()
 
     lm = phase_lm_kernels(dev)
     lm_model, lm_params, lm_srv, lm_launches = phase_lm_serve()
     pallas_launches = phase_lm_pallas(lm_params)
     phase_lm_cpu(lm_model, lm_params, lm_srv)
+    del lm_model, lm_params, lm_srv
+    torch.cuda.empty_cache()
+
+    adc = phase_adc_kernels(dev, cfg)
+    adc_launches = phase_adc_serve(cfg, model, params, images)
+    adc_launches.update(phase_lm_adc())
 
     def row(name, source, replaces, launches, t):
         by = "bytes" if t["bytes_ms"] >= t["bound_ms"] / 2 else "operations"
@@ -989,7 +1498,7 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": by, "library_ms": t.get("library_ms")}
 
-    print(json.dumps({"kernels": [
+    kernels = [
         row("trunk_conv", "trunk_conv.cu",
             "src/repro/kernels/rebranch_conv.py:105", launches, tot),
         row("rebranch_matmul", "rebranch_matmul.cu",
@@ -998,7 +1507,18 @@ def main() -> int:
         row("cim_matmul", "cim_matmul.cu",
             "src/repro/kernels/cim_matmul.py:101", pallas_launches,
             lm["cim_matmul"]),
-    ]}))
+    ]
+    for name, source, replaces in (
+            ("trunk_conv", "trunk_conv.cu",
+             "src/repro/kernels/rebranch_conv.py:105"),
+            ("rebranch_matmul", "rebranch_matmul.cu",
+             "src/repro/kernels/rebranch_matmul.py:40"),
+            ("cim_matmul", "cim_matmul.cu",
+             "src/repro/kernels/cim_matmul.py:101")):
+        for mode in ADC_MODES:
+            kernels.append(row(f"{name}[{mode}]", source, replaces,
+                               adc_launches[name, mode], adc[name, mode]))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,11 +35,18 @@ def adc_transfer(psum: torch.Tensor, full_range, cfg) -> torch.Tensor:
     return code * lsb
 
 
+def signed_lsb(full_range, cfg) -> float:
+    """The step of :func:`signed_adc` as a Python double; it is rounded
+    once to f32 where it is used (here, and by the CUDA kernels'
+    wrappers)."""
+    return full_range * cfg.psum_range_frac / (cfg.adc_levels / 2.0)
+
+
 def signed_adc(psum: torch.Tensor, full_range, cfg) -> torch.Tensor:
     """ADC transfer for signed per-subarray partial sums (per_subarray
     mode): a differential +-full_range swing on the same 2^B levels."""
     half_levels = cfg.adc_levels / 2.0
-    lsb = _f32(full_range * cfg.psum_range_frac / half_levels, psum)
+    lsb = _f32(signed_lsb(full_range, cfg), psum)
     code = torch.clamp(torch.round(psum / lsb + THRESHOLD_BIAS),
                        -half_levels, half_levels)
     return code * lsb

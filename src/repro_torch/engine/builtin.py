@@ -5,8 +5,9 @@ means the same thing in both packages.
 int8_native : the core macro model on int8 operands (all fidelity modes).
 dequant     : dequantised float trunk on fake-quantised activations.
 pallas      : the trunk conv and matmul on the hand-written CUDA kernels
-              (``kernels/csrc/trunk_conv.cu``, ``cim_matmul.cu``; the
-              plain PyTorch versions on a CPU tensor).
+              (``kernels/csrc/trunk_conv.cu``, ``cim_matmul.cu``) in all
+              three fidelity modes (the plain PyTorch versions on a CPU
+              tensor).
 pallas_fused: 'pallas' plus the fused trunk+branch conv on the shared
               patch matrix and the fused ReBranch matmul
               (``kernels/csrc/rebranch_matmul.cu``); inference only.
@@ -49,8 +50,8 @@ class DequantEngine(base.TrunkEngine):
 
 
 class PallasEngine(base.TrunkEngine):
-    """Trunk conv and matmul on the CUDA kernels (ideal mode on the card;
-    every mode through the plain versions on the CPU)."""
+    """Trunk conv and matmul on the CUDA kernels, in every fidelity mode
+    (through the plain versions on a CPU tensor)."""
 
     name = "pallas"
     capabilities = base.EngineCapabilities(

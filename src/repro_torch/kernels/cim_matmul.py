@@ -1,19 +1,17 @@
 """The ROM-CiM macro matmul (port of ``repro.kernels.cim_matmul``).
 
 cim_block_dot : the macro math of one block, all three fidelity modes in
-                plain PyTorch; the CUDA device routine of its ``ideal``
-                mode is ``csrc/cim_block_dot.cuh``, which every trunk
-                kernel calls.
-cim_matmul    : int8 [M, K] x int8 [K, N] -> f32 [M, N], one exact macro
-                dot per k-block of ``tiling.k_partition``, the blocks added
-                in f32 in ascending order.  The wrapper of the hand-written
-                CUDA kernel ``csrc/cim_matmul.cu`` (the port of the Pallas
+                plain PyTorch; their CUDA device routines are
+                ``csrc/cim_block_dot.cuh``, which every kernel calls.
+cim_matmul    : int8 [M, K] x int8 [K, N] -> f32 [M, N], one macro dot per
+                k-block of ``tiling.k_partition``, the blocks added in f32
+                in ascending order.  The wrapper of the hand-written CUDA
+                kernel ``csrc/cim_matmul.cu`` (the port of the Pallas
                 ``_cim_kernel``): for a CUDA tensor it launches the kernel
-                (ideal mode) or raises; only a CPU tensor takes
+                in the config's mode or raises; only a CPU tensor takes
                 :func:`cim_matmul_plain`, which mirrors ``_cim_direct``.
-
-The ``per_subarray``/``bitserial`` device routines are not ported yet
-(ROADMAP Queue 2).
+kernel_args   : the CiM mode and ADC constants that all three kernels'
+                C entries take, and the check of what they do not take.
 """
 
 from __future__ import annotations
@@ -111,12 +109,43 @@ def cim_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
     return acc
 
 
+# the CimMode values of csrc/cim_block_dot.cuh
+MODES = {"ideal": 0, "per_subarray": 1, "bitserial": 2}
+# CiMConfig fields the kernels are built for: one 128-row subarray per
+# chunk, 7 weight planes, 4 two-bit activation groups
+KERNEL_FIELDS = {"rows_per_subarray": 128, "weight_bits": 8, "act_bits": 8,
+                 "act_group_bits": 2}
+
+
+def kernel_args(cfg: cim_lib.CiMConfig) -> tuple:
+    """(mode, lsb, frac, levels) of ``cfg`` for the kernels' C entries:
+    the CimMode, the per_subarray step (a Python double that ctypes rounds
+    once to f32, as ``adc.signed_adc`` does), ``adc_range_frac`` and
+    ``adc_levels``.  Raises ValueError, naming the field, for a config the
+    kernels do not take (the CPU plain versions take any)."""
+    for field, want in KERNEL_FIELDS.items():
+        got = getattr(cfg, field)
+        if got != want:
+            raise ValueError(
+                f"the CUDA kernels take CiMConfig.{field} == {want} only, "
+                f"got {got} (the plain versions on the CPU take any)")
+    if cfg.mode not in MODES:
+        raise ValueError(f"unknown CiM mode: {cfg.mode!r}")
+    return (MODES[cfg.mode],
+            adc_lib.signed_lsb(cfg.rows_per_subarray * 127.0, cfg),
+            cfg.adc_range_frac, float(cfg.adc_levels))
+
+
+# argtypes of (mode, lsb, frac, levels) in every C entry
+ADC_ARGTYPES = [ctypes.c_int] + [ctypes.c_float] * 3
+
+
 @functools.cache
 def _kernel():
     """The C entry of ``csrc/cim_matmul.cu``, built and bound once."""
-    fn = _build.library("cim_matmul").cim_matmul_ideal
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    fn = _build.library("cim_matmul").cim_matmul
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+        ADC_ARGTYPES + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -125,16 +154,13 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                cfg: cim_lib.CiMConfig = IDEAL) -> torch.Tensor:
     """Blocked CiM matmul int8 [M, K] x int8 [K, N] -> f32 [M, N].
 
-    A CUDA tensor launches ``csrc/cim_matmul.cu`` (ideal mode only; a
-    build or launch failure raises); a CPU tensor takes
-    :func:`cim_matmul_plain`.
+    A CUDA tensor launches ``csrc/cim_matmul.cu`` in ``cfg``'s mode (a
+    config the kernel does not take, or a build or launch failure,
+    raises); a CPU tensor takes :func:`cim_matmul_plain`.
     """
     if x_q.device.type == "cpu":
         return cim_matmul_plain(x_q, w_q, cfg)
-    if cfg.mode != "ideal":
-        raise NotImplementedError(
-            f"CiM mode {cfg.mode!r} has no CUDA matmul kernel yet (ROADMAP "
-            f"Queue 2: per_subarray / bitserial cim_block_dot in CUDA)")
+    adc = kernel_args(cfg)
     if (x_q.dtype != torch.int8 or w_q.dtype != torch.int8
             or x_q.dim() != 2 or w_q.dim() != 2
             or w_q.shape[0] != x_q.shape[1]):
@@ -154,7 +180,7 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     with torch.cuda.device(x_q.device):
         stream = torch.cuda.current_stream(x_q.device).cuda_stream
         rc = _kernel()(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-                       m, k, n, bk, stream)
+                       m, k, n, bk, *adc, stream)
     if rc != 0:
         raise RuntimeError(f"cim_matmul kernel launch failed: CUDA error {rc}")
     global launches

@@ -1,29 +1,33 @@
-// CiM matmul kernel for Hopper (sm_90a), ideal CiM mode.
+// CiM matmul kernel for Hopper (sm_90a), in all three CiM modes.
 //
 // Replaces the Pallas TPU kernel repro/kernels/cim_matmul.py::_cim_kernel
-// (launched by cim_matmul_pallas), with the ideal mode of
+// (launched by cim_matmul_pallas, and through it by cim_conv_pallas), with
 // repro/kernels/cim_matmul.py::cim_block_dot inside it:
 //
 //   X int8 [M, K], W int8 [K, N]  ->  f32 [M, N]
 //   for each k-block [k0, k1) of k_partition(K, 128), ascending:
-//     out += f32(sum_k X[m, k] * W[k, n])
+//     out += cim_block_dot<mode>(X[:, k0:k1], W[k0:k1])
 //
-// The block dot is exact in int32 and converts to f32 exactly (a 512-row
-// block sums below 512 * 127 * 127 < 2**24); the blocks are added in f32,
-// one rounding each, in ascending order (__fadd_rn; the library is built
-// with -fmad=false).  It is NOT one int32 sum over all K: at K = 16384 a
-// row sum reaches 2.6e8 > 2**24, and a blocked f32 accumulation rounds
-// differently, so this matches cim_matmul_pallas / _cim_direct, not
-// core/cim.py::cim_matmul_model.  Columns past K read as zeros.
+// There is no quantisation and no scale; X may hold -128, which the
+// bitserial planes read as a magnitude of 128 (cim_block_dot.cuh).  In
+// ideal mode the block dot is exact in int32 and converts to f32 exactly
+// (a 512-row block sums below 512 * 127 * 127 < 2**24); in per_subarray
+// mode it is the block's chain of subarray ADC outputs.  The blocks are
+// added in f32, one rounding each, in ascending order (__fadd_rn; the
+// library is built with -fmad=false).  It is NOT one int32 sum over all K:
+// at K = 16384 a row sum reaches 2.6e8 > 2**24, and a blocked f32
+// accumulation rounds differently, so this matches cim_matmul_pallas /
+// _cim_direct, not core/cim.py::cim_matmul_model.  Columns past K read as
+// zeros.  The tile is trunk_tile.cuh's, with int8 activations.
 //
 // Bound on an H100: at the LM decode shapes (M = 8 rows, K x N of
-// 2048 x 2048 up to 2048 x 16384) memory, reading W once (4 MB to 33 MB
-// per launch).  This first version is simple, not fast: the tile, W
-// staging and dp4a dot are those of the trunk kernels (trunk_tile.cuh,
-// cim_block_dot.cuh), one 64x64 output tile per block with the k-block
-// loop inside the block; at M = 8 it computes 56 padding rows of every
-// 64-row tile.  Rows are independent: each output row depends on its own
-// input row only, in an order that does not depend on M.
+// 2048 x 2048 up to 2048 x 16384) memory in ideal and per_subarray
+// modes, reading W once (4 MB to 33 MB per launch); in bitserial mode the
+// 112 ADC evaluations per (row, column, subarray), i.e. operations.  This
+// first version is simple, not fast: one 64x64 output tile per block with
+// the k-block loop inside the block; at M = 8 it computes 56 padding rows
+// of every 64-row tile.  Rows are independent: each output row depends on
+// its own input row only, in an order that does not depend on M.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -34,86 +38,49 @@ using namespace repro_torch;
 
 namespace {
 
+template <int kMode>
 __global__ void __launch_bounds__(kTileThreads)
-    cim_matmul_ideal_kernel(const int8_t* __restrict__ x,
-                            const int8_t* __restrict__ w,
-                            float* __restrict__ out, int m, int k, int n,
-                            int bk) {
-  __shared__ int xs[kTileM * kLdsW];   // activations, by row
-  __shared__ int ws[kTileN * kLdsW];   // ROM weights, by column
+    cim_matmul_kernel(const int8_t* __restrict__ x,
+                      const int8_t* __restrict__ w, float* __restrict__ out,
+                      int m, int k, int n, int bk, AdcParams adc) {
+  cim_tile<kMode>(Int8Rows{x, m, k}, w, out, n, bk,
+                  static_cast<long long>(blockIdx.x) * kTileM,
+                  blockIdx.y * kTileN, adc);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
-  const int n0 = blockIdx.y * kTileN;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < k; k0 += bk) {
-    const int k1 = min(k0 + bk, k);
-    int dot[kTM][kTN] = {};
-    for (int kc = k0; kc < k1; kc += kChunkK) {
-      for (int idx = tid; idx < kTileM * kChunkW; idx += kTileThreads) {
-        const int i = idx / kChunkW;
-        const int kw = idx % kChunkW;
-        const long long row = m0 + i;
-        unsigned packed = 0u;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kk = kc + kw * 4 + e;
-          const int v = (row < m && kk < k1)
-                            ? static_cast<int>(__ldg(x + row * k + kk))
-                            : 0;
-          packed |= (static_cast<unsigned>(v) & 0xffu) << (8 * e);
-        }
-        xs[i * kLdsW + kw] = static_cast<int>(packed);
-      }
-      stage_w_chunk(ws, w, n, n0, kc, k1);
-      __syncthreads();
-      cim_block_dot_ideal<kTM, kTN, kChunkW, kLdsW>(xs, ws, ty, 16, tx, 16,
-                                                    dot);
-      __syncthreads();
-    }
-    // the exact block dot, to f32 exactly, added with one rounding
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        acc[i][j] = __fadd_rn(acc[i][j], __int2float_rn(dot[i][j]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const long long row = m0 + ty + 16 * i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < n) out[row * n + col] = acc[i][j];
-    }
-  }
+template <int kMode>
+void launch(const int8_t* x, const int8_t* w, float* out, int m, int k,
+            int n, int bk, AdcParams adc, cudaStream_t stream) {
+  const dim3 grid((m + kTileM - 1) / kTileM, (n + kTileN - 1) / kTileN);
+  cim_matmul_kernel<kMode><<<grid, kTileThreads, 0, stream>>>(x, w, out, m,
+                                                              k, n, bk, adc);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `bk` is
-// the k-block width of the partition, kernels/tiling.py::block_k(k, 128).
-extern "C" int cim_matmul_ideal(const int8_t* x, const int8_t* w, float* out,
-                                int m, int k, int n, int bk,
-                                cudaStream_t stream) {
+// the k-block width of the partition, kernels/tiling.py::block_k(k, 128);
+// `mode` a CimMode, `adc_*` the AdcParams of the CiMConfig.
+extern "C" int cim_matmul(const int8_t* x, const int8_t* w, float* out,
+                          int m, int k, int n, int bk, int mode,
+                          float adc_lsb, float adc_frac, float adc_levels,
+                          cudaStream_t stream) {
   if (m <= 0 || k <= 0 || n <= 0 || bk <= 0 || bk % kChunkK != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((m + kTileM - 1) / kTileM, (n + kTileN - 1) / kTileN);
-  cim_matmul_ideal_kernel<<<grid, kTileThreads, 0, stream>>>(x, w, out, m, k,
-                                                             n, bk);
+  const AdcParams adc{adc_lsb, adc_frac, adc_levels};
+  switch (mode) {
+    case kIdeal:
+      launch<kIdeal>(x, w, out, m, k, n, bk, adc, stream);
+      break;
+    case kPerSubarray:
+      launch<kPerSubarray>(x, w, out, m, k, n, bk, adc, stream);
+      break;
+    case kBitserial:
+      launch<kBitserial>(x, w, out, m, k, n, bk, adc, stream);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

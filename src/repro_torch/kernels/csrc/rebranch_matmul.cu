@@ -1,8 +1,8 @@
-// Fused ReBranch matmul kernel for Hopper (sm_90a), ideal CiM mode.
+// Fused ReBranch matmul kernel for Hopper (sm_90a), in all three CiM modes.
 //
 // Replaces the Pallas TPU kernel repro/kernels/rebranch_matmul.py::
-// _rebranch_kernel (launched by rebranch_matmul_pallas), with the ideal
-// mode of repro/kernels/cim_matmul.py::cim_block_dot inside it.  One launch
+// _rebranch_kernel (launched by rebranch_matmul_pallas), with
+// repro/kernels/cim_matmul.py::cim_block_dot inside it.  One launch
 // computes, from the same x:
 //
 //   trunk f32 [M, N]  : the UNSCALED trunk of x f32 [M, K] and W int8
@@ -27,9 +27,11 @@
 // Cd / 64 sketch tiles, and every t1 element is still computed once, from
 // the same x, by one block.
 //
-// Bound on an H100: memory.  A Gemma-2B decode step (M = 8 rows) reads
-// 7.3 GB of W and C over its 126 launches (about 2.2 ms at 3.35 TB/s)
-// against 0.5 GOP of int8 and 0.6 GFLOP of f32 work.  This first version is
+// Bound on an H100: memory in ideal and per_subarray modes.  A Gemma-2B
+// decode step (M = 8 rows) reads 7.3 GB of W and C over its 126 launches
+// (about 2.2 ms at 3.35 TB/s) against 0.5 GOP of int8 and 0.6 GFLOP of f32
+// work.  In bitserial mode the trunk's 112 ADC evaluations per (row,
+// column, subarray) make it bound by operations.  This first version is
 // simple, not fast: at M = 8 every 64-row tile computes 56 padding rows,
 // and W is read through byte loads.  Rows are independent: each output row
 // depends on its own input row only, in an order that does not depend on
@@ -123,38 +125,63 @@ __device__ __forceinline__ void sketch_tile(const float* __restrict__ x,
   }
 }
 
+template <int kMode>
 __global__ void __launch_bounds__(kTileThreads)
-    rebranch_matmul_ideal_kernel(const float* __restrict__ x,
-                                 const int8_t* __restrict__ w,
-                                 const float* __restrict__ c,
-                                 float* __restrict__ trunk,
-                                 float* __restrict__ t1, int m, int k, int n,
-                                 int cdim, int bk, int gn) {
+    rebranch_matmul_kernel(const float* __restrict__ x,
+                           const int8_t* __restrict__ w,
+                           const float* __restrict__ c,
+                           float* __restrict__ trunk, float* __restrict__ t1,
+                           int m, int k, int n, int cdim, int bk, int gn,
+                           AdcParams adc) {
   const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
   if (static_cast<int>(blockIdx.y) < gn) {
-    trunk_tile_ideal(x, w, trunk, m, k, n, bk, m0, blockIdx.y * kTileN);
+    cim_tile<kMode>(F32Rows{x, m, k}, w, trunk, n, bk, m0,
+                    blockIdx.y * kTileN, adc);
   } else {
     sketch_tile(x, c, t1, m, k, cdim, bk, m0,
                 (static_cast<int>(blockIdx.y) - gn) * kTileN);
   }
 }
 
+template <int kMode>
+void launch(const float* x, const int8_t* w, const float* c, float* trunk,
+            float* t1, int m, int k, int n, int cdim, int bk, AdcParams adc,
+            cudaStream_t stream) {
+  const int gn = (n + kTileN - 1) / kTileN;
+  const int gc = (cdim + kTileN - 1) / kTileN;
+  const dim3 grid((m + kTileM - 1) / kTileM, gn + gc);
+  rebranch_matmul_kernel<kMode><<<grid, kTileThreads, 0, stream>>>(
+      x, w, c, trunk, t1, m, k, n, cdim, bk, gn, adc);
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `bk` is
-// the k-block width of the partition, kernels/tiling.py::block_k(k, 128).
-extern "C" int rebranch_matmul_ideal(const float* x, const int8_t* w,
-                                     const float* c, float* trunk, float* t1,
-                                     int m, int k, int n, int cdim, int bk,
-                                     cudaStream_t stream) {
+// the k-block width of the partition, kernels/tiling.py::block_k(k, 128);
+// `mode` a CimMode, `adc_*` the AdcParams of the CiMConfig.
+extern "C" int rebranch_matmul(const float* x, const int8_t* w,
+                               const float* c, float* trunk, float* t1,
+                               int m, int k, int n, int cdim, int bk,
+                               int mode, float adc_lsb, float adc_frac,
+                               float adc_levels, cudaStream_t stream) {
   if (m <= 0 || k <= 0 || n <= 0 || cdim <= 0 || bk <= 0 ||
       bk % kChunkK != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int gn = (n + kTileN - 1) / kTileN;
-  const int gc = (cdim + kTileN - 1) / kTileN;
-  const dim3 grid((m + kTileM - 1) / kTileM, gn + gc);
-  rebranch_matmul_ideal_kernel<<<grid, kTileThreads, 0, stream>>>(
-      x, w, c, trunk, t1, m, k, n, cdim, bk, gn);
+  const AdcParams adc{adc_lsb, adc_frac, adc_levels};
+  switch (mode) {
+    case kIdeal:
+      launch<kIdeal>(x, w, c, trunk, t1, m, k, n, cdim, bk, adc, stream);
+      break;
+    case kPerSubarray:
+      launch<kPerSubarray>(x, w, c, trunk, t1, m, k, n, cdim, bk, adc,
+                           stream);
+      break;
+    case kBitserial:
+      launch<kBitserial>(x, w, c, trunk, t1, m, k, n, cdim, bk, adc, stream);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

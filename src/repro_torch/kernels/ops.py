@@ -19,6 +19,17 @@ def cim_matmul(x_q, w_q, cfg: cim_lib.CiMConfig = cim_lib.DEFAULT_CIM):
     return cm.cim_matmul(x_q, w_q, cfg)
 
 
+def cim_conv(x_q, w_q, cfg: cim_lib.CiMConfig = cim_lib.DEFAULT_CIM,
+             stride: int = 1, padding: str = "SAME"):
+    """int8 x int8 CiM convolution, NHWC x HWIO -> f32 [N, OH, OW, C_out]:
+    the im2col patch matrix through the CiM matmul kernel (port of
+    ``cim_conv_pallas``)."""
+    kh, kw, c_in, c_out = w_q.shape
+    p, (n, oh, ow) = rc.patch_matrix(x_q, kh, kw, stride, padding)
+    out = cm.cim_matmul(p, w_q.reshape(kh * kw * c_in, c_out), cfg)
+    return out.reshape(n, oh, ow, c_out)
+
+
 class _TrunkMatmulPallas(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_q, w_scale, cfg):

@@ -10,9 +10,10 @@ rebranch_conv : the trunk plus the per-tap compress sketch on the SAME
 
 Both go through :func:`trunk_patch_dot`, the wrapper of the hand-written
 CUDA kernel ``csrc/trunk_conv.cu`` (the port of the Pallas
-``_trunk_conv_kernel``).  For a CUDA tensor it launches the kernel or
-raises; only a tensor on the CPU takes :func:`trunk_patch_dot_plain`, the
-plain PyTorch version of the same function.  Everything around the kernel
+``_trunk_conv_kernel``), in all three CiM modes.  For a CUDA tensor it
+launches the kernel or raises; only a tensor on the CPU takes
+:func:`trunk_patch_dot_plain`, the plain PyTorch version of the same
+function.  Everything around the kernel
 (``w_scale``, the branch GEMMs, the epilogue) stays in PyTorch, as it
 stays outside the Pallas kernel in JAX.
 """
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import quant
 from repro_torch.kernels import _build
-from repro_torch.kernels.cim_matmul import cim_block_dot
+from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import tiling
 
 IDEAL = cim_lib.CiMConfig(mode="ideal")
@@ -66,7 +67,7 @@ def trunk_patch_dot_plain(p: torch.Tensor, w2d: torch.Tensor,
         else:
             q, scale = quant.quant_rows(pb)
             pad = -(k1 - k0) % rows
-            part = cim_block_dot(
+            part = cm.cim_block_dot(
                 cfg, F.pad(q, (0, pad)), F.pad(w2d[k0:k1], (0, 0, 0, pad))
             ) * scale
         acc = part if acc is None else acc + part
@@ -76,9 +77,9 @@ def trunk_patch_dot_plain(p: torch.Tensor, w2d: torch.Tensor,
 @functools.cache
 def _kernel():
     """The C entry of ``csrc/trunk_conv.cu``, built and bound once."""
-    fn = _build.library("trunk_conv").trunk_conv_ideal
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    fn = _build.library("trunk_conv").trunk_conv
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+        cm.ADC_ARGTYPES + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -87,16 +88,13 @@ def trunk_patch_dot(p: torch.Tensor, w2d: torch.Tensor,
                     cfg: cim_lib.CiMConfig = IDEAL) -> torch.Tensor:
     """UNscaled trunk accumulation [M, C_out] of P [M, R] and W [R, C_out].
 
-    A CUDA tensor launches ``csrc/trunk_conv.cu`` (ideal mode only; a
-    build or launch failure raises); a CPU tensor takes
-    :func:`trunk_patch_dot_plain`.
+    A CUDA tensor launches ``csrc/trunk_conv.cu`` in ``cfg``'s mode (a
+    config the kernel does not take, or a build or launch failure,
+    raises); a CPU tensor takes :func:`trunk_patch_dot_plain`.
     """
     if p.device.type == "cpu":
         return trunk_patch_dot_plain(p, w2d, cfg)
-    if cfg.mode != "ideal":
-        raise NotImplementedError(
-            f"CiM mode {cfg.mode!r} has no CUDA trunk kernel yet (ROADMAP "
-            f"Queue 2: per_subarray / bitserial cim_block_dot in CUDA)")
+    adc = cm.kernel_args(cfg)
     m, r = p.shape
     if (p.dtype != torch.float32 or w2d.dtype != torch.int8
             or w2d.dim() != 2 or w2d.shape[0] != r):
@@ -115,7 +113,7 @@ def trunk_patch_dot(p: torch.Tensor, w2d: torch.Tensor,
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         rc = _kernel()(p.data_ptr(), w2d.data_ptr(), out.data_ptr(),
-                       m, r, n, bk, stream)
+                       m, r, n, bk, *adc, stream)
     if rc != 0:
         raise RuntimeError(f"trunk_conv kernel launch failed: CUDA error {rc}")
     global launches

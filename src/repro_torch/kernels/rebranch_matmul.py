@@ -12,9 +12,10 @@ left to XLA in the JAX package).
 
 :func:`rebranch_trunk_sketch` is the wrapper of the hand-written CUDA
 kernel ``csrc/rebranch_matmul.cu`` (the port of the Pallas
-``_rebranch_kernel``).  For a CUDA tensor it launches the kernel or
-raises; only a tensor on the CPU takes :func:`rebranch_matmul_plain`, the
-plain PyTorch version of the same function.  The trunk half is exactly the
+``_rebranch_kernel``), in all three CiM modes.  For a CUDA tensor it
+launches the kernel or raises; only a tensor on the CPU takes
+:func:`rebranch_matmul_plain`, the plain PyTorch version of the same
+function.  The trunk half is exactly the
 trunk-conv kernel's computation with x in the patch matrix's place, so its
 plain version is ``rebranch_conv.trunk_patch_dot_plain``.
 """
@@ -29,6 +30,7 @@ import torch
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import rows
 from repro_torch.kernels import _build
+from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import tiling
 from repro_torch.kernels.rebranch_conv import trunk_patch_dot_plain
 
@@ -60,9 +62,9 @@ def rebranch_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
 @functools.cache
 def _kernel():
     """The C entry of ``csrc/rebranch_matmul.cu``, built and bound once."""
-    fn = _build.library("rebranch_matmul").rebranch_matmul_ideal
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    fn = _build.library("rebranch_matmul").rebranch_matmul
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+        cm.ADC_ARGTYPES + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -71,17 +73,14 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
                           c: torch.Tensor, cfg: cim_lib.CiMConfig = IDEAL):
     """(UNscaled trunk [M, N], t1 [M, Cd]) of x [M, K], W [K, N], C [K, Cd].
 
-    A CUDA tensor launches ``csrc/rebranch_matmul.cu`` (ideal mode only;
-    a build or launch failure raises); a CPU tensor takes
-    :func:`rebranch_matmul_plain`.  The kernel reads f32: a bf16 x or C is
-    widened first, which is exact.
+    A CUDA tensor launches ``csrc/rebranch_matmul.cu`` in ``cfg``'s mode
+    (a config the kernel does not take, or a build or launch failure,
+    raises); a CPU tensor takes :func:`rebranch_matmul_plain`.  The kernel
+    reads f32: a bf16 x or C is widened first, which is exact.
     """
     if x.device.type == "cpu":
         return rebranch_matmul_plain(x, w_q, c, cfg)
-    if cfg.mode != "ideal":
-        raise NotImplementedError(
-            f"CiM mode {cfg.mode!r} has no CUDA rebranch kernel yet (ROADMAP "
-            f"Queue 2: per_subarray / bitserial cim_block_dot in CUDA)")
+    adc = cm.kernel_args(cfg)
     if (x.dim() != 2 or w_q.dtype != torch.int8 or w_q.dim() != 2
             or c.dim() != 2 or w_q.shape[0] != x.shape[1]
             or c.shape[0] != x.shape[1] or not x.is_floating_point()
@@ -108,7 +107,7 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _kernel()(xf.data_ptr(), w_q.data_ptr(), cf.data_ptr(),
                        trunk.data_ptr(), t1.data_ptr(), m, k, n, cdim, bk,
-                       stream)
+                       *adc, stream)
     if rc != 0:
         raise RuntimeError(
             f"rebranch_matmul kernel launch failed: CUDA error {rc}")

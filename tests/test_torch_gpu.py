@@ -5,12 +5,15 @@ Imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each test decides inside itself whether there is a card and skips without
-one.  The unscaled trunk is held with ``torch.equal``: the k-block integer
-dots are exact and ``part * scale`` and ``acc + part`` round once each, in
-ascending k-block order, on both sides.  The CiM matmul kernel is held
-with ``torch.equal`` as well (exact block dots, one f32 add per block), and
-the fused ReBranch matmul's trunk too; its f32 sketch t1 sums within a
-k-block in another order than cuBLAS, so it is held to 1e-5 of its absmax.
+one.  The unscaled trunk is held with ``torch.equal`` in every CiM mode:
+the k-block's macro math is computed as the plain version computes it
+(exact integer dots; in the ADC modes the same IEEE division, bias, round
+and clamp per subarray or per binary count, added in the same order), and
+``part * scale`` and ``acc + part`` round once each, in ascending k-block
+order, on both sides.  The CiM matmul kernel is held with ``torch.equal``
+as well (one f32 add per block), and the fused ReBranch matmul's trunk
+too; its f32 sketch t1 sums within a k-block in another order than
+cuBLAS, so it is held to 1e-5 of its absmax.
 """
 
 import pytest
@@ -25,6 +28,7 @@ from repro_torch.kernels import rebranch_matmul as rm
 # two full blocks, and M / N off the kernel's 64-wide tiles
 SHAPES = [(1000, 27, 32), (777, 180, 9), (300, 512, 64), (130, 576, 100),
           (65, 1170, 17), (5000, 288, 64), (64, 4608, 1024)]
+MODES = ("ideal", "per_subarray", "bitserial")
 
 
 def _card():
@@ -43,25 +47,29 @@ def _inputs(m, r, n, dev, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("m,r,n", SHAPES)
-def test_kernel_equals_plain_version(m, r, n):
+def test_kernel_equals_plain_version(m, r, n, mode):
     dev = _card()
+    cfg = cim.CiMConfig(mode=mode)
     p, w = _inputs(m, r, n, dev, seed=m + r + n)
     before = rc.launches
-    got = rc.trunk_patch_dot(p, w)
+    got = rc.trunk_patch_dot(p, w, cfg)
     torch.cuda.synchronize()
     assert rc.launches == before + 1
-    assert torch.equal(got, rc.trunk_patch_dot_plain(p, w))
+    assert torch.equal(got, rc.trunk_patch_dot_plain(p, w, cfg))
     # and the CPU's plain version gives the same bits
-    assert torch.equal(got.cpu(), rc.trunk_patch_dot_plain(p.cpu(), w.cpu()))
+    assert torch.equal(got.cpu(),
+                       rc.trunk_patch_dot_plain(p.cpu(), w.cpu(), cfg))
 
 
 @pytest.mark.gpu
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     dev = _card()
     p, w = _inputs(70, 200, 10, dev, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rc.trunk_patch_dot(p, w, cim.CiMConfig(mode="per_subarray"))
+    with pytest.raises(ValueError, match="rows_per_subarray"):
+        rc.trunk_patch_dot(p, w, cim.CiMConfig(mode="per_subarray",
+                                               rows_per_subarray=64))
     with pytest.raises(ValueError):
         rc.trunk_patch_dot(p.double(), w)
     with pytest.raises(ValueError):
@@ -85,56 +93,91 @@ def _int8_inputs(m, k, n, dev, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("m,k,n", LM_SHAPES)
-def test_cim_matmul_kernel_equals_plain_version(m, k, n):
+def test_cim_matmul_kernel_equals_plain_version(m, k, n, mode):
     dev = _card()
+    cfg = cim.CiMConfig(mode=mode)
     x, w = _int8_inputs(m, k, n, dev, seed=m + k + n)
     x[0] = 127                                   # row sums far above 2**24
     w[:, 0] = 127
+    x[-1, ::3] = -128                            # -128: a magnitude of 128
+    w[::5, -1] = -128                            # -128: no magnitude plane
     before = cm.launches
-    got = cm.cim_matmul(x, w)
+    got = cm.cim_matmul(x, w, cfg)
     torch.cuda.synchronize()
     assert cm.launches == before + 1
-    assert torch.equal(got, cm.cim_matmul_plain(x, w))
-    assert torch.equal(got.cpu(), cm.cim_matmul_plain(x.cpu(), w.cpu()))
+    assert torch.equal(got, cm.cim_matmul_plain(x, w, cfg))
+    assert torch.equal(got.cpu(), cm.cim_matmul_plain(x.cpu(), w.cpu(), cfg))
     # rows are independent of the batch around them
-    assert torch.equal(cm.cim_matmul(x[:1].contiguous(), w), got[:1])
+    assert torch.equal(cm.cim_matmul(x[:1].contiguous(), w, cfg), got[:1])
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("m,k,n", LM_SHAPES)
-def test_rebranch_matmul_kernel_equals_plain_version(m, k, n):
+def test_rebranch_matmul_kernel_equals_plain_version(m, k, n, mode):
     dev = _card()
+    cfg = cim.CiMConfig(mode=mode)
     p, w = _inputs(m, k, n, dev, seed=m + k + n)
     gen = torch.Generator().manual_seed(k)
     c = (torch.randn((k, max(1, k // 4)), generator=gen) / k ** .5).to(dev)
     before = rm.launches
-    trunk, t1 = rm.rebranch_trunk_sketch(p.bfloat16(), w, c)
+    trunk, t1 = rm.rebranch_trunk_sketch(p.bfloat16(), w, c, cfg)
     torch.cuda.synchronize()
     assert rm.launches == before + 1
-    want_trunk, want_t1 = rm.rebranch_matmul_plain(p.bfloat16(), w, c)
+    want_trunk, want_t1 = rm.rebranch_matmul_plain(p.bfloat16(), w, c, cfg)
     assert torch.equal(trunk, want_trunk)
     tol = 1e-5 * want_t1.abs().max().item()
     assert (t1 - want_t1).abs().max().item() <= tol
     # the trunk equals the trunk-conv kernel's on the same (widened) input
-    assert torch.equal(trunk, rc.trunk_patch_dot(p.bfloat16().float(), w))
-    one_trunk, one_t1 = rm.rebranch_trunk_sketch(p[:1].bfloat16(), w, c)
+    assert torch.equal(trunk,
+                       rc.trunk_patch_dot(p.bfloat16().float(), w, cfg))
+    one_trunk, one_t1 = rm.rebranch_trunk_sketch(p[:1].bfloat16(), w, c, cfg)
     assert torch.equal(one_trunk, trunk[:1]) and torch.equal(one_t1, t1[:1])
+
+
+@pytest.mark.gpu
+def test_cim_conv_runs_the_cim_matmul_kernel():
+    """ops.cim_conv (the port of cim_conv_pallas) is im2col + kernel 4."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(-128, 128, (2, 9, 8, 20), generator=gen,
+                      dtype=torch.int8).to(dev)
+    w = torch.randint(-127, 128, (3, 3, 20, 40), generator=gen,
+                      dtype=torch.int8).to(dev)
+    for mode in MODES:
+        cfg = cim.CiMConfig(mode=mode)
+        before = cm.launches
+        got = ops.cim_conv(x, w, cfg)
+        assert cm.launches == before + 1
+        p, _ = rc.patch_matrix(x.cpu(), 3, 3, 1, "SAME")
+        want = cm.cim_matmul_plain(p, w.cpu().reshape(-1, 40), cfg)
+        assert torch.equal(got.cpu().reshape(-1, 40), want)
+    # the default config is per_subarray, and runs on the card
+    assert ops.cim_matmul(x.reshape(-1, 20), w[1, 1]).is_cuda
 
 
 @pytest.mark.gpu
 def test_lm_wrappers_refuse_what_the_kernels_do_not_take():
     dev = _card()
     x, w = _int8_inputs(8, 256, 64, dev, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cm.cim_matmul(x, w, cim.CiMConfig(mode="bitserial"))
+    for field, value in (("weight_bits", 6), ("act_bits", 4),
+                         ("act_group_bits", 1), ("rows_per_subarray", 256)):
+        bad = cim.CiMConfig(mode="bitserial", **{field: value})
+        with pytest.raises(ValueError, match=field):
+            cm.cim_matmul(x, w, bad)
+        # the CPU plain version takes it
+        assert cm.cim_matmul(x.cpu(), w.cpu(), bad).shape == (8, 64)
     with pytest.raises(ValueError):
         cm.cim_matmul(x.float(), w)
     with pytest.raises(ValueError):
         cm.cim_matmul(x, w.cpu())
     c = torch.zeros((256, 64), device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="act_group_bits"):
         rm.rebranch_trunk_sketch(x.float(), w, c,
-                                 cim.CiMConfig(mode="per_subarray"))
+                                 cim.CiMConfig(mode="per_subarray",
+                                               act_group_bits=4))
     with pytest.raises(ValueError):
         rm.rebranch_trunk_sketch(x.float(), w, c[:100])
