@@ -32,15 +32,25 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    layer's per-row quantiser moves an int8 code), so the script also
    prints how far the card's own output moves under a 1e-7 relative
    input perturbation.
-5. LM kernels: at Gemma-2B's four (K, N) linear geometries, at M = 1, 8
-   and 128 rows, the fused ReBranch matmul kernel's unscaled trunk is
+5. LM kernels: at Gemma-2B's four (K, N) linear geometries, at M = 1, 8,
+   16 and 128 rows, the fused ReBranch matmul kernel's unscaled trunk is
    ``torch.equal`` to its plain version and its sketch t1 within 1e-5 of
    its absmax; the CiM matmul kernel is ``torch.equal`` to its plain
-   version; the rows of an M = 1 launch equal the same rows of an M = 8
-   launch, bit for bit.  Times from CUDA events with the weights cycled
-   through copies larger than the L2 cache (a decode step reads each
-   layer's weights once), beside the bound, the plain version's time and,
-   for the CiM matmul, ``torch._int_mm`` where it accepts the shape.
+   version; row 0 of the M = 1 launch equals row 0 of the M = 8, 16 and
+   128 launches, bit for bit (other tile heights and splits).  Each line
+   prints the plans the wrappers hand the kernels: the trunk's tile
+   height and split (``tiling.split_k``) and, for kernel 3, the sketch's
+   (``tiling.split_sketch``).  ``ms`` is the time per launch of launches
+   from Python that cycle through weight copies larger than the L2 cache
+   (a decode step reads each layer's weights once), host cost included,
+   from CUDA events: what a serving step pays, and the measure of earlier
+   versions of this script.  ``device_ms`` is the same launches captured
+   in one CUDA graph and replayed: the device's share.  Beside them the
+   bound, the plain version's time and, for the CiM matmul at M = 128,
+   ``torch._int_mm`` timed both ways (a time yardstick: it sums all of K
+   in int32, so it is no bit oracle), per geometry and per 126-launch
+   pass; and what one call of each wrapper costs the host at 2048 x 2048
+   and 8 rows, with the pieces of that cost.
 6. LM serving, the slice's main path: a registry entry ``gemma-2b`` (the
    full Gemma-2B config, all-ROM plan, engine ``pallas_fused``), seeded
    parameters drawn on the card with non-zero ReBranch cores,
@@ -57,7 +67,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
 7. The ``pallas`` engine: the same parameters through ``gemma-2b-pallas``
    (the CiM matmul kernel behind every ROM linear), four requests x 16
    tokens; 126 launches per prefill and per decode step; the decode step
-   time.
+   time; then kernel 4's 126 calls of one decode step with 8 requests,
+   recorded and run again in the served order (the served measure of
+   kernel 4, as phase 6's ``fused kernel`` is of kernel 3).
 8. CPU replay: the seven linears and the attention of layer 0 in one
    decode step of phase 6 are recorded on the card and run again on the
    CPU plain versions with the same inputs.  The unscaled trunk is
@@ -76,8 +88,10 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    modes, and the rows of an M = 1 launch equal those of the M = 8 launch.
    ``ops.cim_conv`` (im2col + kernel 4, default config ``per_subarray``)
    at one DarkNet-19 geometry equals ``cim_matmul_plain`` on the patch
-   matrix.  Times from CUDA events, warmed, beside the bound and the plain
-   version's time (bitserial: one timed call each, after the checks).
+   matrix.  Times from CUDA events, warmed (kernels 3 and 4 as phase 5's
+   ``ms``, and in ``per_subarray`` also its ``device_ms``), beside the
+   bound and the plain version's time (bitserial: one timed call each,
+   after the checks).
 10. DarkNet-19 served at ADC fidelity: ``darknet19-416-adc`` (phase 3's
    plan with ``per_subarray`` at every site, ``pallas_fused``, phase 3's
    parameters) through ``CNNServer``: requests of 8, 8 and 5 images, 20
@@ -102,7 +116,11 @@ exits non-zero without one, and prints as its last line
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table
 as JSON, one row per (kernel, mode) (``trunk_conv[bitserial]`` ...):
 kernel 1 per DarkNet-19 forward, kernels 3 and 4 per full-depth Gemma-2B
-decode step at 8 rows, ``launches`` from the serving phases.
+decode step at 8 rows (``ms`` from Python, host included; ``device_ms``,
+where measured, from a replayed CUDA graph), ``launches`` from the
+serving phases; ``cim_matmul`` also carries ``ms_m128`` and
+``library_ms`` (``torch._int_mm``), both per 126-launch pass at M = 128
+and timed as ``ms`` is.
 """
 
 from __future__ import annotations
@@ -135,7 +153,7 @@ LAYER_RTOL = 1e-5        # phase 4, of each layer output's absmax
 # Gemma-2B linears per layer as (K, N): q and o, k and v, gate and up, down
 LM_GEOMS = {(2048, 2048): 2, (2048, 256): 2, (2048, 16384): 2,
             (16384, 2048): 1}
-LM_ROWS = (1, 8, 128)
+LM_ROWS = (1, 8, 16, 128)
 LM_LAYERS = 18
 SKETCH_RTOL = 1e-5       # phase 5, of t1's absmax
 L2_BYTES = 50 << 20      # H100 L2; timed weights cycle through 2.5x this
@@ -229,7 +247,32 @@ def with_cores(tree, gen: torch.Generator):
     return tree
 
 
+def kernel_name(mangled: str) -> str:
+    """``_ZN12_GLOBAL__N_114cim_matmul_mmaILi0ELi16EEEv...`` ->
+    ``cim_matmul_mma<0,16>``: a kernel's name (its last name component)
+    and template arguments (integers, and float or bf16 element types)."""
+    import re
+    at = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while (m := re.match(r"\d+", mangled[at:])):
+        start = at + m.end()
+        at = start + int(m.group())
+        name = mangled[start:at]
+    types = {"f": "float", "t": "bf16"}    # float, unsigned short
+    args = re.match(r"I((?:Li-?\d+E|[ft])+)E", mangled[at:])
+    if args:
+        name += "<" + ",".join(
+            types.get(a, a.strip("LiE"))
+            for a in re.findall(r"Li-?\d+E|[ft]", args.group(1))) + ">"
+    return name
+
+
 def phase_build():
+    """Build every library; print, per kernel instantiation, what ptxas
+    reports (registers, static shared memory, spills), and the dynamic
+    shared memory of the tensor-core tiles."""
+    import ctypes
+    import re
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     reports = _build.build()
@@ -238,8 +281,16 @@ def phase_build():
         print(f"built {_build.target(name).relative_to(ROOT)} from "
               f"{(_build.CSRC / (name + '.cu')).relative_to(ROOT)}")
         for line in reports.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                print(f"  kernel {kernel_name(entry.group(1))}")
+            elif "registers" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
+    for name in ("cim_matmul", "rebranch_matmul"):
+        fn = getattr(_build.library(name), f"{name}_smem")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        print(f"{name}: dynamic shared memory per block, tile height 16: "
+              f"{fn(16)} bytes, 64: {fn(64)} bytes")
     print(f"build_s {secs:.2f}")
 
 
@@ -502,15 +553,104 @@ def lm_bound_ms(m: int, k: int, n: int, cdim: int = 0) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def phase_lm_kernels(dev) -> dict:
-    """Both LM kernels vs their plain versions at Gemma-2B's geometries."""
+def time_graph_ms(fn, args: list, reps: int) -> float:
+    """Mean device time of ``fn(*a)`` over ``reps`` calls that cycle
+    through ``args``, captured in one CUDA graph and replayed: the host's
+    per-call cost (Python, ctypes, allocations) is left out, the device's
+    launch gaps are not.  Warmed by one eager pass over ``args``."""
+    for a in args:
+        fn(*a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*args[i % len(args)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int = 500) -> float:
+    """Host time per call of ``fn`` over ``reps`` calls issued back to
+    back, on the host clock, with no synchronisation between them (the
+    device runs behind; the shapes timed here take less device time than
+    host time, so the queue never fills)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def lm_host_costs(dev):
+    """What one call of each LM kernel wrapper costs the host at a decode
+    step's shape (2048 x 2048, 8 rows), and the pieces of that cost."""
     from repro_torch.kernels import cim_matmul as cm
     from repro_torch.kernels import rebranch_matmul as rm
+    m, k, n = LM_SLOTS, 2048, 2048
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    c = torch.randn((k, k // 4), generator=gen, device=dev)
+    launch, ft, fs = rm._launch(m, k, n, k // 4, rm.IDEAL, True)
+    out = torch.empty(m * n + m * k // 4 + ft + fs, device=dev)
+    at = out.data_ptr()
+    entry = rm._kernel()
+    costs = {
+        "rebranch_trunk_sketch": lambda: rm.rebranch_trunk_sketch(x, w, c),
+        "cim_matmul": lambda: cm.cim_matmul(xq, w),
+        "kernel 3's C entry alone (2 launches)": lambda: entry(
+            x.data_ptr(), w.data_ptr(), c.data_ptr(), at, at + 4 * m * n,
+            at + 4 * (m * n + m * k // 4),
+            at + 4 * (m * n + m * k // 4 + ft), launch,
+            torch._C._cuda_getCurrentRawStream(dev.index or 0)),
+        "torch.empty": lambda: torch.empty(m * n, device=dev),
+        "x.float() of a bf16 x (kernel 3 reads bf16 at M <= 16)":
+            lambda: x.float(),
+        "torch.cuda.current_stream (the wrappers read the raw handle)":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+    }
+    print(f"host us per call at M = {m}, {k}x{n} (host clock, calls back "
+          f"to back): " + "; ".join(f"{name} {host_us(fn):.2f}"
+                                     for name, fn in costs.items()))
+
+
+def phase_lm_kernels(dev) -> dict:
+    """Both LM kernels vs their plain versions at Gemma-2B's geometries.
+
+    ``ms`` is the time per launch of cycled launches from Python, host
+    cost included (time_cycled_ms), which is what a serving step pays and
+    what earlier versions of this script reported; ``device_ms`` the same
+    launches captured in a CUDA graph and replayed (time_graph_ms), the
+    device's share.  ``torch._int_mm`` is timed both ways too."""
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_matmul as rm
+    from repro_torch.kernels import tiling
     gen = torch.Generator(device=dev).manual_seed(5)
-    out = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                  "bytes_ms": 0.0, "max_abs_err": 0.0, "library_ms": None}
+    out = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0,
+                  "library_ms": None}
            for name in ("rebranch_matmul", "cim_matmul")}
-    print("kernel K N M equal err ms plain_ms bound_ms bound_by library_ms")
+    out["cim_matmul"].update(library_ms=0.0, ms_m128=0.0,
+                             library_device_ms=0.0, device_ms_m128=0.0)
+    print("kernel K N M equal err ms device_ms plain_ms bound_ms bound_by "
+          "library_ms library_device_ms trunk_tile_m trunk_splits "
+          "(kernel 3: sketch_tile_m sketch_splits)")
+    m128 = {}
     for (k, n), per_layer in LM_GEOMS.items():
         cdim = k // 4
         m_max = max(LM_ROWS)
@@ -527,6 +667,7 @@ def phase_lm_kernels(dev) -> dict:
               for _ in range(copies3)]
         w, c = ws[0], cs[0]
         rows = {}
+        count = per_layer * LM_LAYERS
         for m in LM_ROWS:
             xm, xqm = x[:m].contiguous(), xq[:m].contiguous()
             trunk, t1 = rm.rebranch_trunk_sketch(xm, w, c)
@@ -542,57 +683,78 @@ def phase_lm_kernels(dev) -> dict:
                   f"rebranch sketch off by {rel3} of its absmax")
             eq4 = torch.equal(got4, want4)
             check(eq4, f"cim_matmul kernel != plain ({k}x{n}, M={m})")
-            rows[m] = (trunk, t1, got4)
+            rows[m] = (trunk[:1], t1[:1], got4[:1])
             out["rebranch_matmul"]["max_abs_err"] = max(
                 out["rebranch_matmul"]["max_abs_err"], err3)
 
             args3 = [(xm, wi, ci) for wi, ci in zip(ws, cs)]
             args4 = [(xqm, wi) for wi in ws[:copies4]]
             ms3 = time_cycled_ms(rm.rebranch_trunk_sketch, args3, 3 * copies3)
-            plain3 = time_cycled_ms(rm.rebranch_matmul_plain, args3, copies3)
             ms4 = time_cycled_ms(cm.cim_matmul, args4, 3 * copies4)
+            dev3 = time_graph_ms(rm.rebranch_trunk_sketch, args3, 3 * copies3)
+            dev4 = time_graph_ms(cm.cim_matmul, args4, 3 * copies4)
+            plain3 = time_cycled_ms(rm.rebranch_matmul_plain, args3, copies3)
             plain4 = time_cycled_ms(cm.cim_matmul_plain, args4, copies4)
-            lib4 = None
+            lib4 = lib4_dev = None
             if m > 16:               # torch._int_mm refuses M <= 16
                 lib_args = [(a, b.t().contiguous().t()) for a, b in args4]
                 lib4 = time_cycled_ms(torch._int_mm, lib_args, 3 * copies4)
+                lib4_dev = time_graph_ms(torch._int_mm, lib_args,
+                                         3 * copies4)
                 del lib_args
             b3, by3 = lm_bound_ms(m, k, n, cdim)
             b4, by4 = lm_bound_ms(m, k, n)
-            lib_txt = "none" if lib4 is None else f"{lib4:.4f}"
+            # the plans the wrappers hand the kernels
+            st, ss = tiling.split_k(m, n, k), tiling.split_sketch(m, cdim, k)
+            lib_txt = "none none" if lib4 is None else \
+                f"{lib4:.4f} {lib4_dev:.4f}"
             print(f"rebranch_matmul {k} {n} {m} {eq3} {rel3:.2e} {ms3:.4f} "
-                  f"{plain3:.4f} {b3:.4f} {by3} none")
-            print(f"cim_matmul {k} {n} {m} {eq4} 0 {ms4:.4f} {plain4:.4f} "
-                  f"{b4:.4f} {by4} {lib_txt}", flush=True)
+                  f"{dev3:.4f} {plain3:.4f} {b3:.4f} {by3} none none "
+                  f"{st.tile_m} {st.n_splits} {ss.tile_m} {ss.n_splits}")
+            print(f"cim_matmul {k} {n} {m} {eq4} 0 {ms4:.4f} {dev4:.4f} "
+                  f"{plain4:.4f} {b4:.4f} {by4} {lib_txt} {st.tile_m} "
+                  f"{st.n_splits}", flush=True)
             if m == LM_SLOTS:        # the decode step's shapes: per step
-                count = per_layer * LM_LAYERS
-                for name, t, p, b, by in (("rebranch_matmul", ms3, plain3,
-                                           b3, by3),
-                                          ("cim_matmul", ms4, plain4, b4,
-                                           by4)):
+                for name, t, d, p, b, by in (
+                        ("rebranch_matmul", ms3, dev3, plain3, b3, by3),
+                        ("cim_matmul", ms4, dev4, plain4, b4, by4)):
                     out[name]["ms"] += t * count
+                    out[name]["device_ms"] += d * count
                     out[name]["plain_ms"] += p * count
                     out[name]["bound_ms"] += b * count
                     out[name]["bytes_ms"] += b * count if by == "bytes" \
                         else 0.0
             if m == max(LM_ROWS) and lib4 is not None:
-                out["cim_matmul"].setdefault("int_mm_m128", {})[(k, n)] = (
-                    ms4, lib4)
-        # rows of an M = 1 launch equal the same rows of an M = 8 launch
-        for a, b in zip(rows[1], rows[8]):
-            check(torch.equal(a, b[:1]), f"row 0 differs between M = 1 and "
-                  f"M = 8 launches ({k}x{n})")
+                m128[(k, n)] = (ms4, lib4, dev4, lib4_dev)
+                row = out["cim_matmul"]
+                row["ms_m128"] += ms4 * count
+                row["library_ms"] += lib4 * count
+                row["device_ms_m128"] += dev4 * count
+                row["library_device_ms"] += lib4_dev * count
+        # row 0 has the same bits at every M, tile height and split
+        for m in LM_ROWS[1:]:
+            for a, b in zip(rows[1], rows[m]):
+                check(torch.equal(a, b), f"row 0 differs between M = 1 and "
+                      f"M = {m} launches ({k}x{n})")
         del ws, cs, rows
         torch.cuda.empty_cache()
     for name, row in out.items():
         print(f"{name} per decode step at M = {LM_SLOTS} "
               f"({7 * LM_LAYERS} launches): "
-              f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+              f"kernel {row['ms']:.3f} ms (device, graph replay: "
+              f"{row['device_ms']:.3f} ms), plain {row['plain_ms']:.3f} ms, "
               f"bound {row['bound_ms']:.3f} ms")
-    m128 = out["cim_matmul"].pop("int_mm_m128", {})
-    for (k, n), (ms4, lib4) in m128.items():
+    for (k, n), (ms4, lib4, dev4, lib4_dev) in m128.items():
         print(f"cim_matmul vs torch._int_mm at M = 128, {k}x{n}: kernel "
-              f"{ms4:.4f} ms, _int_mm {lib4:.4f} ms")
+              f"{ms4:.4f} ms, _int_mm {lib4:.4f} ms (device, graph replay: "
+              f"{dev4:.4f} ms and {lib4_dev:.4f} ms)")
+    lm_host_costs(dev)
+    row = out["cim_matmul"]
+    print(f"cim_matmul per pass at M = 128 ({7 * LM_LAYERS} launches): "
+          f"kernel {row['ms_m128']:.3f} ms, torch._int_mm "
+          f"{row['library_ms']:.3f} ms (device, graph replay: "
+          f"{row['device_ms_m128']:.3f} ms and "
+          f"{row['library_device_ms']:.3f} ms)")
     return out
 
 
@@ -909,7 +1071,41 @@ def phase_lm_pallas(params):
     print(f"pallas engine: {len(reqs)} requests x {PALLAS_NEW} tokens, "
           f"launches {counts}; decode step (host clock, {steps} steps) "
           f"{dt / steps * 1e3:.2f} ms")
+    k_ms, rows = served_kernel_ms(srv, model, per_pass)
+    print(f"pallas engine: kernel 4 in one decode step, its {per_pass} "
+          f"calls (M = {rows}) in the served order (CUDA events, host "
+          f"included): {k_ms:.3f} ms")
     return launches
+
+
+def served_kernel_ms(srv, model, per_pass: int):
+    """Kernel 4's calls of one decode step with 8 requests, recorded as
+    the server makes them and run again in that order: (ms, the calls'
+    row counts), the served measure of the kernel, host cost included
+    (phase 6's ``fused kernel`` for kernel 3).  Runs after the phase's
+    launch count was read."""
+    from repro_torch.kernels import cim_matmul as cm
+    rng = np.random.default_rng(10)
+    reqs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=20), 4)
+            for _ in range(LM_SLOTS)]
+    srv.step()                       # admit all 8, one decode step
+    calls, real = [], cm.cim_matmul
+
+    def recording(x_q, w_q, cfg=cm.IDEAL):
+        calls.append((x_q, w_q, cfg))
+        return real(x_q, w_q, cfg)
+
+    cm.cim_matmul = recording
+    try:
+        srv.step()
+    finally:
+        cm.cim_matmul = real
+    srv.drain()
+    check(len(calls) == per_pass and all(r.done for r in reqs),
+          f"recorded {len(calls)} kernel-4 calls, not {per_pass}")
+    with torch.no_grad():
+        return time_ms(lambda: [real(*a) for a in calls], 5), sorted(
+            {x.shape[0] for x, _, _ in calls})
 
 
 def phase_lm_cpu(model, params, srv):
@@ -1184,8 +1380,19 @@ def phase_adc_kernels(dev, cfg) -> dict:
                   f"{mode}: row 0 differs between M = 1 and M = 8 ({k}x{n})")
             args3 = [(x, wi, ci, cfg_m) for wi, ci in zip(ws, cs)]
             args4 = [(xq, wi, cfg_m) for wi in ws]
+            # eager, host included, as phase 5's ms; per_subarray also
+            # as device time (graph replay), as phase 5's device_ms
             ms3 = time_cycled_ms(rm.rebranch_trunk_sketch, args3, copies)
             ms4 = time_cycled_ms(cm.cim_matmul, args4, copies)
+            dev_txt = ""
+            if mode == "per_subarray":
+                dev3 = time_graph_ms(rm.rebranch_trunk_sketch, args3, copies)
+                dev4 = time_graph_ms(cm.cim_matmul, args4, copies)
+                for name, d in (("rebranch_matmul", dev3),
+                                ("cim_matmul", dev4)):
+                    t = out[name, mode]
+                    t["device_ms"] = t.get("device_ms", 0.0) + d * count
+                dev_txt = f" device_ms {dev3:.4f} / {dev4:.4f}"
             plain3 = time_once_ms(
                 lambda: rm.rebranch_matmul_plain(x, w, c, cfg_m))
             plain4 = time_once_ms(lambda: cm.cim_matmul_plain(xq, w, cfg_m))
@@ -1199,16 +1406,18 @@ def phase_adc_kernels(dev, cfg) -> dict:
             print(f"rebranch_matmul {mode} {k} {n} {LM_SLOTS} True "
                   f"{ms3:.4f} {plain3:.4f} {b3:.4f} {by3}")
             print(f"cim_matmul {mode} {k} {n} {LM_SLOTS} True {ms4:.4f} "
-                  f"{plain4:.4f} {b4:.4f} {by4}", flush=True)
+                  f"{plain4:.4f} {b4:.4f} {by4}{dev_txt}", flush=True)
             del trunk, t1, want_trunk, want_t1, got4, want4
         del ws, cs
         torch.cuda.empty_cache()
     for (name, mode), t in out.items():
         if name != "trunk_conv":
+            dev_txt = (f" (device, graph replay: {t['device_ms']:.3f} ms)"
+                       if "device_ms" in t else "")
             print(f"{name}[{mode}] per Gemma-2B decode step at M = "
                   f"{LM_SLOTS} ({7 * LM_LAYERS} launches): kernel "
-                  f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
-                  f"{t['bound_ms']:.3f} ms")
+                  f"{t['ms']:.3f} ms{dev_txt}, plain {t['plain_ms']:.3f} "
+                  f"ms, bound {t['bound_ms']:.3f} ms")
     return out
 
 
@@ -1491,12 +1700,23 @@ def main() -> int:
 
     def row(name, source, replaces, launches, t):
         by = "bytes" if t["bytes_ms"] >= t["bound_ms"] / 2 else "operations"
-        return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{source}",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": by, "library_ms": t.get("library_ms")}
+        out = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{source}",
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": by, "library_ms": t.get("library_ms")}
+        if "device_ms" in t:
+            # the same launches' device time, from a replayed CUDA graph
+            out["device_ms"] = t["device_ms"]
+        if "ms_m128" in t:
+            # library_ms is torch._int_mm per 126-launch pass at M = 128;
+            # ms_m128 the kernel over the same pass, both timed as ms is
+            out["ms_m128"] = t["ms_m128"]
+        if name.startswith("rebranch_matmul"):
+            out["library_ms_note"] = (
+                "null: no PyTorch call quantises per (row, k-block)")
+        return out
 
     kernels = [
         row("trunk_conv", "trunk_conv.cu",

@@ -117,6 +117,7 @@ KERNEL_FIELDS = {"rows_per_subarray": 128, "weight_bits": 8, "act_bits": 8,
                  "act_group_bits": 2}
 
 
+@functools.lru_cache(maxsize=None)
 def kernel_args(cfg: cim_lib.CiMConfig) -> tuple:
     """(mode, lsb, frac, levels) of ``cfg`` for the kernels' C entries:
     the CimMode, the per_subarray step (a Python double that ctypes rounds
@@ -136,18 +137,98 @@ def kernel_args(cfg: cim_lib.CiMConfig) -> tuple:
             cfg.adc_range_frac, float(cfg.adc_levels))
 
 
-# argtypes of (mode, lsb, frac, levels) in every C entry
+# argtypes of (mode, lsb, frac, levels) in the trunk-conv C entry
 ADC_ARGTYPES = [ctypes.c_int] + [ctypes.c_float] * 3
+
+
+def mirror(name: str, fields) -> type:
+    """A ctypes Structure of a C struct in ``csrc/``, field for field."""
+    return type(name, (ctypes.Structure,), {"_fields_": list(fields)})
+
+
+# csrc/cim_block_dot.cuh's AdcParams and mma_tile.cuh's SplitPlan and
+# SketchPlan (tests/test_torch_split.py holds the names to the headers)
+AdcParams = mirror("AdcParams", [(f, ctypes.c_float)
+                                  for f in ("lsb", "frac", "levels")])
+SplitPlan = mirror("SplitPlan", [
+    (f, ctypes.c_int)
+    for f in ("tile_m", "tiles_n", "tiles", "nkb", "kb_per", "n_splits")])
+SketchPlan = mirror("SketchPlan", [
+    (f, ctypes.c_int) for f in ("tile_m", "tiles_n", "tiles", "nsub", "spk",
+                                "sub_per", "n_splits", "nkb", "sub_slots")])
+# csrc/cim_matmul.cu's CimLaunch
+CimLaunch = mirror("CimLaunch", [
+    *((f, ctypes.c_int) for f in ("m", "k", "n", "bk", "mode")),
+    ("adc", AdcParams), ("plan", SplitPlan)])
+
+
+def c_split(s: tiling.Split):
+    """``s`` as the kernels' SplitPlan."""
+    return SplitPlan(s.tile_m, s.tiles_n, s.tiles, s.n_kblocks,
+                     s.kb_per_split, s.n_splits)
+
+
+def c_sketch(s: tiling.SketchSplit):
+    """``s`` as the fused kernel's SketchPlan."""
+    return SketchPlan(s.tile_m, s.tiles_n, s.tiles, s.n_sub,
+                      s.sub_per_kblock, s.sub_per_split, s.n_splits,
+                      s.n_kblocks, int(s.sub_slots))
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch(m: int, k: int, n: int, cfg: cim_lib.CiMConfig):
+    """(CimLaunch, scratch floats) of one launch: the shapes, the mode,
+    the ADC constants and ``tiling.split_k``'s plan, made once per shape
+    and config (bitserial keeps the unsplit dp4a tile: no scratch)."""
+    mode, lsb, frac, levels = kernel_args(cfg)
+    sp = tiling.split_k(m, n, k, cfg.rows_per_subarray)
+    launch = CimLaunch(m, k, n, tiling.block_k(k, cfg.rows_per_subarray),
+                       mode, AdcParams(lsb, frac, levels), c_split(sp))
+    return launch, (0 if cfg.mode == "bitserial"
+                    else sp.scratch_floats(m, n))
+
+
+def bind(lib_name: str, entry: str, n_pointers: int, launch_type) -> object:
+    """The C entry ``entry`` of ``csrc/<lib_name>.cu``, bound as (pointers,
+    launch struct, stream), after checking that the library's struct has
+    the mirror's size."""
+    lib = _build.library(lib_name)
+    size = getattr(lib, f"{lib_name}_launch_bytes")
+    size.argtypes, size.restype = [], ctypes.c_int
+    if size() != ctypes.sizeof(launch_type):
+        raise RuntimeError(
+            f"{lib_name}: the C launch struct has {size()} bytes, its "
+            f"mirror {ctypes.sizeof(launch_type)}")
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [
+        ctypes.POINTER(launch_type), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
 def _kernel():
     """The C entry of ``csrc/cim_matmul.cu``, built and bound once."""
-    fn = _build.library("cim_matmul").cim_matmul
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
-        ADC_ARGTYPES + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return bind("cim_matmul", "cim_matmul", 4, CimLaunch)
+
+
+def call(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream.  A decode step
+    makes 126 calls, so this takes the shortest way: the raw stream handle
+    (``torch.cuda.current_stream`` builds a Stream object, about 8 us on
+    an H100 host), and the device context only when another card is
+    current."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def scratch(floats: int, device):
+    """The f32 parts of a split launch, left uninitialised (None for 0)."""
+    return torch.empty(floats, dtype=torch.float32, device=device) \
+        if floats else None
 
 
 def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -156,11 +237,14 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
 
     A CUDA tensor launches ``csrc/cim_matmul.cu`` in ``cfg``'s mode (a
     config the kernel does not take, or a build or launch failure,
-    raises); a CPU tensor takes :func:`cim_matmul_plain`.
+    raises), with the tile height and split of ``tiling.split_k``; a CPU
+    tensor takes :func:`cim_matmul_plain`.  The split's f32 parts are
+    left uninitialised: every part is written before the reduction reads
+    it.
     """
     if x_q.device.type == "cpu":
         return cim_matmul_plain(x_q, w_q, cfg)
-    adc = kernel_args(cfg)
+    kernel_args(cfg)
     if (x_q.dtype != torch.int8 or w_q.dtype != torch.int8
             or x_q.dim() != 2 or w_q.dim() != 2
             or w_q.shape[0] != x_q.shape[1]):
@@ -175,12 +259,11 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     n = w_q.shape[1]
     if 0 in (m, k, n):
         return torch.zeros((m, n), dtype=torch.float32, device=x_q.device)
+    launch, floats = _launch(m, k, n, cfg)
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
-    bk = tiling.block_k(k, cfg.rows_per_subarray)
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream(x_q.device).cuda_stream
-        rc = _kernel()(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-                       m, k, n, bk, *adc, stream)
+    parts = scratch(floats, x_q.device)
+    rc = call(_kernel(), x_q.device, x_q.data_ptr(), w_q.data_ptr(),
+              out.data_ptr(), parts.data_ptr() if floats else 0, launch)
     if rc != 0:
         raise RuntimeError(f"cim_matmul kernel launch failed: CUDA error {rc}")
     global launches

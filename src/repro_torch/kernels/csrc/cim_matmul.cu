@@ -11,76 +11,185 @@
 // There is no quantisation and no scale; X may hold -128, which the
 // bitserial planes read as a magnitude of 128 (cim_block_dot.cuh).  In
 // ideal mode the block dot is exact in int32 and converts to f32 exactly
-// (a 512-row block sums below 512 * 127 * 127 < 2**24); in per_subarray
+// (a 512-row block sums below 512 * 128 * 128 < 2**24); in per_subarray
 // mode it is the block's chain of subarray ADC outputs.  The blocks are
 // added in f32, one rounding each, in ascending order (__fadd_rn; the
 // library is built with -fmad=false).  It is NOT one int32 sum over all K:
 // at K = 16384 a row sum reaches 2.6e8 > 2**24, and a blocked f32
 // accumulation rounds differently, so this matches cim_matmul_pallas /
 // _cim_direct, not core/cim.py::cim_matmul_model.  Columns past K read as
-// zeros.  The tile is trunk_tile.cuh's, with int8 activations.
+// zeros.  Each output row depends on its own input row only, in an order
+// that does not depend on M, the tile height or the split.
 //
-// Bound on an H100: at the LM decode shapes (M = 8 rows, K x N of
-// 2048 x 2048 up to 2048 x 16384) memory in ideal and per_subarray
-// modes, reading W once (4 MB to 33 MB per launch); in bitserial mode the
-// 112 ADC evaluations per (row, column, subarray), i.e. operations.  This
-// first version is simple, not fast: one 64x64 output tile per block with
-// the k-block loop inside the block; at M = 8 it computes 56 padding rows
-// of every 64-row tile.  Rows are independent: each output row depends on
-// its own input row only, in an order that does not depend on M.
+// What bounds it on an H100, and the design (ideal and per_subarray:
+// mma_tile.cuh; times in PERF.md, from chip_smoke.py):
+//   decode (M = 8, Gemma-2B's K x N from 2048 x 256 to 16384 x 2048):
+//     bytes.  W is read once, 0.5 to 33.5 MB per launch, 0.60 ms per
+//     126-launch step at 3.35 TB/s, against 0.03 ms of int8 tensor-core
+//     work, and a 64-row tile would be 56 rows of padding.  So: a 16-row
+//     tile; where the (row tile, column tile) grid is under two
+//     blocks per SM the k-blocks are split over the grid (tiling.split_k:
+//     a `down` launch has 512 blocks, not 32) and a second kernel adds
+//     the parts in k order; W arrives by 16-byte cp.async in a 3-stage
+//     ring (3 stages, not 4, leave room for 4 blocks per SM, which
+//     measured faster).
+//   prefill (M = 128): operations, 2 M K N int8 at 1979 TOP/s, against
+//     the bytes of W.  mma.sync m16n8k32 on 64 x 64 tiles, 2 x 2 warps;
+//     it still loses to torch._int_mm (by 2-3x at the Gemma-2B widths,
+//     PERF.md): the in-kernel
+//     transposition of each W chunk and two barriers per 128 k feed the
+//     MMA too slowly.  wgmma on larger tiles is the next step.
+//   bitserial: operations, 112 binary counts through the ADC per (row,
+//     column, subarray).  It keeps trunk_tile.cuh's tile (bit planes, AND
+//     + __popc): the MMA's int32 dot has no place in it, and a binary
+//     MMA version is later work (ROADMAP Queue 2).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "mma_tile.cuh"
 #include "trunk_tile.cuh"
 
 using namespace repro_torch;
 
+namespace repro_torch {
+
+// One launch as kernels/cim_matmul.py::CimLaunch describes it (field for
+// field): the shapes, the k-block width bk (tiling.block_k(k, 128)), the
+// CimMode, the ADC constants and tiling.split_k's plan.
+struct CimLaunch {
+  int m;
+  int k;
+  int n;
+  int bk;
+  int mode;
+  AdcParams adc;
+  mma::SplitPlan plan;
+};
+
+}  // namespace repro_torch
+
 namespace {
 
-template <int kMode>
+template <int kMode, int TM>
+__global__ void __launch_bounds__(mma::kThreads)
+    cim_matmul_mma(const int8_t* __restrict__ x,
+                   const int8_t* __restrict__ w, float* __restrict__ out,
+                   float* __restrict__ parts, int m, int k, int n, int bk,
+                   mma::SplitPlan plan,
+                   AdcParams adc, bool xvec, bool wvec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const int tile = b % plan.tiles;
+  const int split = b / plan.tiles;
+  mma::mma_tile<kMode, TM>(
+      mma::Int8Act{x, m, k, xvec}, mma::WSrc{w, k, n, wvec}, out, parts,
+      bk, plan, split * plan.kb_per,
+      static_cast<long long>(tile / plan.tiles_n) * TM,
+      (tile % plan.tiles_n) * mma::kTileN, adc, smem);
+}
+
 __global__ void __launch_bounds__(kTileThreads)
-    cim_matmul_kernel(const int8_t* __restrict__ x,
-                      const int8_t* __restrict__ w, float* __restrict__ out,
-                      int m, int k, int n, int bk, AdcParams adc) {
-  cim_tile<kMode>(Int8Rows{x, m, k}, w, out, n, bk,
-                  static_cast<long long>(blockIdx.x) * kTileM,
-                  blockIdx.y * kTileN, adc);
+    cim_matmul_bitserial(const int8_t* __restrict__ x,
+                         const int8_t* __restrict__ w,
+                         float* __restrict__ out, int m, int k, int n,
+                         int bk, AdcParams adc) {
+  cim_tile<kBitserial>(Int8Rows{x, m, k}, w, out, n, bk,
+                       static_cast<long long>(blockIdx.x) * kTileM,
+                       blockIdx.y * kTileN, adc);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int kMode, int TM>
+int launch_mma(const int8_t* x, const int8_t* w, float* out, float* parts,
+               const CimLaunch& l, cudaStream_t stream) {
+  constexpr int smem = mma::Shape<TM>::kTrunkSmem;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cim_matmul_mma<kMode, TM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    // all of the SM's shared memory to shared use: the most blocks per SM
+    const cudaError_t f = cudaFuncSetAttribute(
+        cim_matmul_mma<kMode, TM>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (f != cudaSuccess) return static_cast<int>(f);
+    attr = true;
+  }
+  const mma::SplitPlan& plan = l.plan;
+  const long long blocks = static_cast<long long>(plan.tiles) * plan.n_splits;
+  cim_matmul_mma<kMode, TM><<<static_cast<unsigned>(blocks), mma::kThreads,
+                              smem, stream>>>(
+      x, w, out, parts, l.m, l.k, l.n, l.bk, plan, l.adc,
+      l.k % 16 == 0 && aligned16(x), l.n % 16 == 0 && aligned16(w));
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && plan.n_splits > 1) {
+    e = mma::launch_split_reduce(parts, out, static_cast<long long>(l.m) * l.n,
+                                 plan.nkb, nullptr, nullptr, 0,
+                                 mma::SketchPlan{}, stream);
+  }
+  return static_cast<int>(e);
 }
 
 template <int kMode>
-void launch(const int8_t* x, const int8_t* w, float* out, int m, int k,
-            int n, int bk, AdcParams adc, cudaStream_t stream) {
-  const dim3 grid((m + kTileM - 1) / kTileM, (n + kTileN - 1) / kTileN);
-  cim_matmul_kernel<kMode><<<grid, kTileThreads, 0, stream>>>(x, w, out, m,
-                                                              k, n, bk, adc);
+int launch_mode(const int8_t* x, const int8_t* w, float* out, float* parts,
+                const CimLaunch& l, cudaStream_t stream) {
+  if (l.plan.tile_m == 16) {
+    return launch_mma<kMode, 16>(x, w, out, parts, l, stream);
+  }
+  if (l.plan.tile_m == 64) {
+    return launch_mma<kMode, 64>(x, w, out, parts, l, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  `bk` is
-// the k-block width of the partition, kernels/tiling.py::block_k(k, 128);
-// `mode` a CimMode, `adc_*` the AdcParams of the CiMConfig.
+// Launch `*l` on `stream`; returns cudaGetLastError() (0 on success).  With
+// more than one split, `parts` holds n_kblocks * m * n floats, and a
+// second kernel (split_reduce) follows on the stream.  Bitserial ignores
+// the plan and the scratch.
 extern "C" int cim_matmul(const int8_t* x, const int8_t* w, float* out,
-                          int m, int k, int n, int bk, int mode,
-                          float adc_lsb, float adc_frac, float adc_levels,
+                          float* parts, const CimLaunch* l,
                           cudaStream_t stream) {
-  if (m <= 0 || k <= 0 || n <= 0 || bk <= 0 || bk % kChunkK != 0) {
+  if (l->m <= 0 || l->k <= 0 || l->n <= 0 || l->bk <= 0 ||
+      l->bk % kChunkK != 0 || l->bk > mma::kBlockK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const AdcParams adc{adc_lsb, adc_frac, adc_levels};
-  switch (mode) {
+  if (l->mode != kBitserial &&
+      (!mma::covers(l->plan, l->m, l->n, l->k, l->bk) ||
+       (l->plan.n_splits > 1 && parts == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (l->mode) {
     case kIdeal:
-      launch<kIdeal>(x, w, out, m, k, n, bk, adc, stream);
-      break;
+      return launch_mode<kIdeal>(x, w, out, parts, *l, stream);
     case kPerSubarray:
-      launch<kPerSubarray>(x, w, out, m, k, n, bk, adc, stream);
-      break;
-    case kBitserial:
-      launch<kBitserial>(x, w, out, m, k, n, bk, adc, stream);
-      break;
+      return launch_mode<kPerSubarray>(x, w, out, parts, *l, stream);
+    case kBitserial: {
+      const dim3 grid((l->m + kTileM - 1) / kTileM,
+                      (l->n + kTileN - 1) / kTileN);
+      cim_matmul_bitserial<<<grid, kTileThreads, 0, stream>>>(
+          x, w, out, l->m, l->k, l->n, l->bk, l->adc);
+      return static_cast<int>(cudaGetLastError());
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+// Dynamic shared memory of the tensor-core tile of height tile_m, in
+// bytes (for the build report); -1 for a height the kernel does not take.
+extern "C" int cim_matmul_smem(int tile_m) {
+  return tile_m == 16   ? mma::Shape<16>::kTrunkSmem
+         : tile_m == 64 ? mma::Shape<64>::kTrunkSmem
+                        : -1;
+}
+
+// sizeof(CimLaunch), for the wrapper's check of its mirror
+extern "C" int cim_matmul_launch_bytes() { return sizeof(CimLaunch); }

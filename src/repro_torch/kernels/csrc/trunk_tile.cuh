@@ -1,5 +1,7 @@
-// Device code shared by the float-in trunk kernels (trunk_conv.cu,
-// rebranch_matmul.cu) and the int8-in CiM matmul (cim_matmul.cu).
+// Device code of the trunk-conv kernel (trunk_conv.cu) in all three CiM
+// modes, and of the bitserial trunks of the fused ReBranch matmul
+// (rebranch_matmul.cu) and the CiM matmul (cim_matmul.cu); their ideal and
+// per_subarray trunks are mma_tile.cuh's.
 //
 // cim_tile<Mode> computes one 64x64 output tile of
 //

@@ -29,7 +29,6 @@ import torch
 
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import rows
-from repro_torch.kernels import _build
 from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import tiling
 from repro_torch.kernels.rebranch_conv import trunk_patch_dot_plain
@@ -59,14 +58,36 @@ def rebranch_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     return trunk, t1
 
 
+# csrc/rebranch_matmul.cu's FusedLaunch
+FusedLaunch = cm.mirror("FusedLaunch", [
+    *((f, ctypes.c_int)
+      for f in ("m", "k", "n", "cdim", "bk", "mode", "x_bf16")),
+    ("adc", cm.AdcParams), ("trunk", cm.SplitPlan),
+    ("sketch", cm.SketchPlan)])
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch(m: int, k: int, n: int, cdim: int, cfg: cim_lib.CiMConfig,
+            x_bf16: bool):
+    """(FusedLaunch, trunk scratch floats, sketch scratch floats) of one
+    launch, made once per shape, config and x dtype: the plans of
+    ``tiling.split_k`` (the trunk; bitserial keeps the unsplit dp4a trunk
+    tile and needs no trunk scratch) and ``tiling.split_sketch``."""
+    mode, lsb, frac, levels = cm.kernel_args(cfg)
+    rows = cfg.rows_per_subarray
+    st = tiling.split_k(m, n, k, rows)
+    ss = tiling.split_sketch(m, cdim, k, rows)
+    launch = FusedLaunch(m, k, n, cdim, tiling.block_k(k, rows), mode,
+                         int(x_bf16), cm.AdcParams(lsb, frac, levels),
+                         cm.c_split(st), cm.c_sketch(ss))
+    return (launch, 0 if cfg.mode == "bitserial" else st.scratch_floats(m, n),
+            ss.scratch_floats(m, cdim))
+
+
 @functools.cache
 def _kernel():
     """The C entry of ``csrc/rebranch_matmul.cu``, built and bound once."""
-    fn = _build.library("rebranch_matmul").rebranch_matmul
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-        cm.ADC_ARGTYPES + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return cm.bind("rebranch_matmul", "rebranch_matmul", 7, FusedLaunch)
 
 
 def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
@@ -75,12 +96,16 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
 
     A CUDA tensor launches ``csrc/rebranch_matmul.cu`` in ``cfg``'s mode
     (a config the kernel does not take, or a build or launch failure,
-    raises); a CPU tensor takes :func:`rebranch_matmul_plain`.  The kernel
-    reads f32: a bf16 x or C is widened first, which is exact.
+    raises), with the tile heights and splits of ``tiling.split_k`` (the
+    trunk) and ``tiling.split_sketch`` (the sketch); a CPU tensor takes
+    :func:`rebranch_matmul_plain`.  The kernel reads x in f32 or, in
+    ``ideal`` and ``per_subarray`` mode at M <= 16, bf16 with K even;
+    any other x, and a bf16 C, is widened first.  Widening is exact, so
+    the bits do not depend on the route.
     """
     if x.device.type == "cpu":
         return rebranch_matmul_plain(x, w_q, c, cfg)
-    adc = cm.kernel_args(cfg)
+    cm.kernel_args(cfg)
     if (x.dim() != 2 or w_q.dtype != torch.int8 or w_q.dim() != 2
             or c.dim() != 2 or w_q.shape[0] != x.shape[1]
             or c.shape[0] != x.shape[1] or not x.is_floating_point()
@@ -96,18 +121,25 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError("rebranch kernel needs a contiguous W")
     m, k = x.shape
     n, cdim = w_q.shape[1], c.shape[1]
-    xf = x.float().contiguous()
+    if 0 in (m, k, n, cdim):
+        return (torch.zeros((m, n), dtype=torch.float32, device=x.device),
+                torch.zeros((m, cdim), dtype=torch.float32, device=x.device))
+    # a decode step's bf16 x is read as it is (a cast would cost a
+    # launch); at prefill widths (M > 16) the kernel takes f32 only
+    x_bf16 = (x.dtype == torch.bfloat16 and m <= 16
+              and cfg.mode != "bitserial" and k % 2 == 0
+              and x.is_contiguous() and x.data_ptr() % 4 == 0)
+    xk = x if x_bf16 else x.float().contiguous()
     cf = c.float().contiguous()
+    launch, floats_t, floats_s = _launch(m, k, n, cdim, cfg, x_bf16)
     trunk = torch.empty((m, n), dtype=torch.float32, device=x.device)
     t1 = torch.empty((m, cdim), dtype=torch.float32, device=x.device)
-    if 0 in (m, k, n, cdim):
-        return trunk.zero_(), t1.zero_()
-    bk = tiling.block_k(k, cfg.rows_per_subarray)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _kernel()(xf.data_ptr(), w_q.data_ptr(), cf.data_ptr(),
-                       trunk.data_ptr(), t1.data_ptr(), m, k, n, cdim, bk,
-                       *adc, stream)
+    parts = cm.scratch(floats_t + floats_s, x.device)
+    at = parts.data_ptr() if parts is not None else 0
+    rc = cm.call(_kernel(), x.device, xk.data_ptr(), w_q.data_ptr(),
+                 cf.data_ptr(), trunk.data_ptr(), t1.data_ptr(),
+                 at if floats_t else 0, at + 4 * floats_t if floats_s else 0,
+                 launch)
     if rc != 0:
         raise RuntimeError(
             f"rebranch_matmul kernel launch failed: CUDA error {rc}")

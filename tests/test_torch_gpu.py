@@ -78,11 +78,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         rc.trunk_patch_dot(p, w.cpu())
 
 
-# (M, K, N): one ragged block, whole blocks, ragged tails, and the four
-# Gemma-2B geometries at decode width
+# (M, K, N): one ragged block, whole blocks, ragged tails, the four
+# Gemma-2B geometries at decode width, `down` at both tile heights (M = 16
+# and 17) and at prefill width (split and unsplit grids), and cim_conv's
+# unaligned patch widths K = 27 and 45
 LM_SHAPES = [(2, 64, 48), (8, 300, 256), (37, 1280, 48), (8, 2048, 2048),
              (8, 2048, 256), (8, 2048, 16384), (8, 16384, 2048),
-             (130, 1024, 100)]
+             (130, 1024, 100), (16, 16384, 2048), (17, 16384, 2048),
+             (128, 16384, 2048), (1000, 27, 32), (77, 45, 20)]
 
 
 def _int8_inputs(m, k, n, dev, seed):
@@ -181,3 +184,55 @@ def test_lm_wrappers_refuse_what_the_kernels_do_not_take():
                                                act_group_bits=4))
     with pytest.raises(ValueError):
         rm.rebranch_trunk_sketch(x.float(), w, c[:100])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ("ideal", "per_subarray"))
+@pytest.mark.parametrize("k,n", [(2048, 2048), (16384, 2048), (300, 256)])
+def test_rows_do_not_depend_on_the_tile_or_the_split(k, n, mode):
+    """An M = 1 launch (16-row tile, split K) gives row 0 the bits of the
+    M = 16 (16-row tile) and M = 128 (64-row tile, another split)
+    launches, for kernel 4's output, kernel 3's trunk and its sketch."""
+    from repro_torch.kernels import tiling
+    dev = _card()
+    cfg = cim.CiMConfig(mode=mode)
+    x, w = _int8_inputs(128, k, n, dev, seed=k + n)
+    p = _inputs(129, k, n, dev, seed=k - n)[0][1:]   # row 0: not all zero
+    gen = torch.Generator().manual_seed(n)
+    c = (torch.randn((k, k // 4), generator=gen) / k ** .5).to(dev)
+    one4 = cm.cim_matmul(x[:1].contiguous(), w, cfg)
+    one3 = rm.rebranch_trunk_sketch(p[:1].contiguous(), w, c, cfg)
+    assert bool(one3[0].abs().max() > 0) and bool(one4.abs().max() > 0)
+    assert {tiling.split_k(m, n, k).tile_m for m in (1, 16, 128)} == {16, 64}
+    for m in (16, 128):
+        assert torch.equal(cm.cim_matmul(x[:m].contiguous(), w, cfg)[:1],
+                           one4)
+        trunk, t1 = rm.rebranch_trunk_sketch(p[:m].contiguous(), w, c, cfg)
+        assert torch.equal(trunk[:1], one3[0])
+        assert torch.equal(t1[:1], one3[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ("ideal", "per_subarray"))
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 256), (16, 1280, 48),
+                                   (128, 300, 100)])
+def test_bf16_x_gives_the_bits_of_its_widened_copy(m, k, n, mode):
+    """Kernel 3 reads a bf16 x as it is (M <= 16, K even, 4-byte aligned)
+    and any other x widened first; widening is exact, so both routes give
+    the same trunk and t1 bits, also for a bf16 x that is not 4-byte
+    aligned."""
+    dev = _card()
+    cfg = cim.CiMConfig(mode=mode)
+    p, w = _inputs(m, k, n, dev, seed=m * k + n)
+    gen = torch.Generator().manual_seed(n)
+    c = (torch.randn((k, k // 4), generator=gen) / k ** .5).to(dev)
+    xb = p.bfloat16()
+    want = rm.rebranch_trunk_sketch(xb.float(), w, c, cfg)
+    got = rm.rebranch_trunk_sketch(xb, w, c, cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    flat = torch.empty(m * k + 1, dtype=torch.bfloat16, device=dev)
+    odd = flat[1:].view(m, k)                  # 2 bytes off: widened first
+    odd.copy_(xb)
+    assert odd.data_ptr() % 4 == 2
+    got = rm.rebranch_trunk_sketch(odd, w, c, cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
