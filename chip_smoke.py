@@ -8,11 +8,18 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
 1. Build: the CUDA kernels compile from ``src/repro_torch/kernels/csrc``
    into ``build/`` (one nvcc per source, all started together).
 2. Kernels: at every DarkNet-19 conv geometry at 416x416, batch 8, the
-   trunk-conv kernel is held against its plain PyTorch version on the same
-   card inputs: the unscaled trunk with ``torch.equal``, the fused
-   ReBranch conv output within 1e-5 of its absmax (the trunk is
-   bit-exact and both sides run the same branch GEMMs).  Times come from
-   CUDA events over warmed launches.
+   trunk-conv kernel, which reads the NHWC input itself, is held against
+   its plain PyTorch version (``trunk_patch_dot_plain`` on the patch
+   matrix P) on the same card inputs: the unscaled trunk with
+   ``torch.equal``; the fused ReBranch conv within 1e-5 of its absmax
+   against the plain trunk plus the JAX package's branch formula on P
+   (the kernel route compresses x once per pixel and sums in another
+   order).  The fused conv and the trunk conv run with ``patch_matrix``
+   made to raise and ``im2col`` refusing the C_in-channel input: no patch
+   matrix on the card.  Times come from CUDA events over warmed launches;
+   each site prints its bound both ways, from the NHWC input's bytes and
+   from P's (what the kernel read before it gathered from NHWC), and the
+   branch's time.
 3. Serving, the main path: a registry entry ``darknet19-416`` (all-ROM
    plan from ``plan.solve``, engine ``pallas_fused``), seeded parameters
    with non-zero ReBranch cores, ``CNNServer`` with 8 slots, three
@@ -26,7 +33,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    conv layer's call recorded; each layer is run again on the CPU (the
    plain versions) on the same input and held within 1e-5 of its output's
    absmax (the trunk is bit-exact given the same input; the float branch
-   GEMMs and convs sum in another order on the two devices).  The whole
+   GEMMs and convs sum in another order on the two devices); in an ADC
+   mode each site's unscaled trunk from the NHWC kernel is bitwise equal
+   to the CPU's plain version.  The whole
    forward is compared with the CPU too, but only printed: the quantised
    network is chaotic at the ulp level (an ulp moved before a later
    layer's per-row quantiser moves an int8 code), so the script also
@@ -78,11 +87,12 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    absmax): the float epilogue sums in another order on the two devices
    and may move one rounding of the cast to bf16.
 
-9. ADC kernels: at every DarkNet-19 geometry (416x416, batch 8) the trunk
-   kernel in ``per_subarray`` mode is ``torch.equal`` to its plain
-   version; in ``bitserial`` mode it runs on the full P and its first 4096
-   rows are held bitwise against the plain version on those rows (rows
-   are independent, so this is exact, and shows it).  At Gemma-2B's four
+9. ADC kernels: at every DarkNet-19 geometry (416x416, batch 8) the NHWC
+   trunk kernel in ``per_subarray`` mode is ``torch.equal`` to its plain
+   version; in ``bitserial`` mode it runs on all of x and its first 4096
+   rows are held bitwise against the plain version on those rows of P
+   (rows are independent, so this is exact, and shows it); both bounds
+   as in phase 2.  At Gemma-2B's four
    geometries at M = 8, kernel 3's trunk and kernel 4's output (int8
    inputs with -128) are ``torch.equal`` to their plain versions in both
    modes, and the rows of an M = 1 launch equal those of the M = 8 launch.
@@ -115,7 +125,8 @@ Each phase that drives a serving path sets every kernel's launch count to
 exits non-zero without one, and prints as its last line
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table
 as JSON, one row per (kernel, mode) (``trunk_conv[bitserial]`` ...):
-kernel 1 per DarkNet-19 forward, kernels 3 and 4 per full-depth Gemma-2B
+kernel 1 per DarkNet-19 forward (``bound_ms`` from the NHWC input's bytes,
+``bound_p_ms`` from P's), kernels 3 and 4 per full-depth Gemma-2B
 decode step at 8 rows (``ms`` from Python, host included; ``device_ms``,
 where measured, from a replayed CUDA graph), ``launches`` from the
 serving phases; ``cim_matmul`` also carries ``ms_m128`` and
@@ -184,12 +195,16 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def trunk_bound_ms(m: int, r: int, n: int) -> tuple[float, str]:
-    """Least time for P f32 [m, r] x W int8 [r, n] -> f32 [m, n]: int8
-    operations over the tensor-core peak, or each input read once and the
-    output written once over the HBM rate, whichever is larger."""
+def trunk_bound_ms(m: int, r: int, n: int,
+                   x_elems: int | None = None) -> tuple[float, str]:
+    """Least time for the unscaled trunk [m, n] of an input of ``x_elems``
+    f32 values (the NHWC x the kernel reads; None: the patch matrix P [m,
+    r], which the patch-matrix kernel read) and W int8 [r, n]: int8 operations
+    over the tensor-core peak, or each input read once and the output
+    written once over the HBM rate, whichever is larger."""
+    x_elems = m * r if x_elems is None else x_elems
     ops_ms = 2.0 * m * r * n / PEAK_INT8_OPS * 1e3
-    bytes_ms = (4.0 * m * r + r * n + 4.0 * m * n) / PEAK_BYTES * 1e3
+    bytes_ms = (4.0 * x_elems + r * n + 4.0 * m * n) / PEAK_BYTES * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -250,7 +265,8 @@ def with_cores(tree, gen: torch.Generator):
 def kernel_name(mangled: str) -> str:
     """``_ZN12_GLOBAL__N_114cim_matmul_mmaILi0ELi16EEEv...`` ->
     ``cim_matmul_mma<0,16>``: a kernel's name (its last name component)
-    and template arguments (integers, and float or bf16 element types)."""
+    and template arguments (integers, booleans, and float or bf16 element
+    types)."""
     import re
     at = 3 if mangled.startswith("_ZN") else 2
     name = mangled
@@ -258,12 +274,13 @@ def kernel_name(mangled: str) -> str:
         start = at + m.end()
         at = start + int(m.group())
         name = mangled[start:at]
-    types = {"f": "float", "t": "bf16"}    # float, unsigned short
-    args = re.match(r"I((?:Li-?\d+E|[ft])+)E", mangled[at:])
+    types = {"f": "float", "t": "bf16", "Lb0E": "false", "Lb1E": "true"}
+    args = re.match(r"I((?:Li-?\d+E|Lb[01]E|[ft])+)E", mangled[at:])
     if args:
         name += "<" + ",".join(
             types.get(a, a.strip("LiE"))
-            for a in re.findall(r"Li-?\d+E|[ft]", args.group(1))) + ">"
+            for a in re.findall(r"Li-?\d+E|Lb[01]E|[ft]",
+                                args.group(1))) + ">"
     return name
 
 
@@ -294,29 +311,72 @@ def phase_build():
     print(f"build_s {secs:.2f}")
 
 
+def plain_trunk(x, w_q, cfg=None, stride=1, padding="SAME"):
+    """The plain version of the trunk kernel: the patch matrix P of x, then
+    ``trunk_patch_dot_plain`` (built here as the reference; the kernel
+    route never builds P)."""
+    from repro_torch.kernels import rebranch_conv as rc
+    kh, kw, _, c_out = w_q.shape
+    p, _ = rc.patch_matrix(x, kh, kw, stride, padding)
+    return rc.trunk_patch_dot_plain(p, w_q.reshape(-1, c_out),
+                                    cfg or rc.IDEAL)
+
+
 def fused_plain(x, w_q, w_scale, c, core, u):
-    """``rebranch_conv`` with the trunk from the plain version (stride 1,
-    SAME): the reference the kernel route is held against."""
+    """``rebranch_conv`` from the plain trunk and the JAX package's branch
+    formula on P (stride 1, SAME): ``structured_compress``, the per-tap
+    compress of the patch matrix, then ``@ core @ U``.  The reference the
+    kernel route (NHWC trunk, compress once per pixel) is held against."""
     from repro_torch.kernels import rebranch_conv as rc
     kh, kw, c_in, c_out = w_q.shape
     c_c, c_u = core.shape[2], core.shape[3]
     p, (n, oh, ow) = rc.patch_matrix(x, kh, kw, 1, "SAME")
     trunk = rc.trunk_patch_dot_plain(p, w_q.reshape(-1, c_out))
-    t1 = rc.structured_compress(p, c.reshape(c_in, c_c), kh * kw)
+    t1 = (p.reshape(-1, c_in) @ c.reshape(c_in, c_c)).reshape(p.shape[0], -1)
     branch = (t1 @ core.reshape(kh * kw * c_c, c_u)) @ u.reshape(c_u, c_out)
     return (trunk * w_scale.reshape(1, -1) + branch).reshape(n, oh, ow, c_out)
 
 
+def no_patch_matrix(fn, c_in: int):
+    """Run ``fn`` on the card with ``rebranch_conv.patch_matrix`` made to
+    raise and ``im2col`` refusing an input of C_in channels (the branch may
+    gather only the compressed C_c ones); returns (fn's result, the peak of
+    the bytes allocated during the call)."""
+    from repro_torch.core import cim
+    from repro_torch.kernels import rebranch_conv as rc
+    im2col, patch_matrix = cim.im2col, rc.patch_matrix
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card path built the patch matrix")
+
+    def compressed_only(x, *args, **kwargs):
+        check(x.shape[-1] < c_in, f"im2col of the {c_in}-channel input")
+        return im2col(x, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rc.patch_matrix, cim.im2col = refuse, compressed_only
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        rc.patch_matrix, cim.im2col = patch_matrix, im2col
+    return out, torch.cuda.max_memory_allocated() - base
+
+
 def phase_kernels(dev, cfg) -> dict:
-    """Kernel vs plain version at every conv geometry of ``cfg``."""
+    """The NHWC trunk kernel vs its plain version at every conv geometry of
+    ``cfg``."""
     from repro_torch.kernels import rebranch_conv as rc
     from repro_torch.models import cnn
     gen = torch.Generator(device=dev).manual_seed(1)
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
-           "bytes_ms": 0.0, "conv_ms": 0.0, "im2col_ms": 0.0,
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_p_ms": 0.0,
+           "ops_ms": 0.0, "bytes_ms": 0.0, "conv_ms": 0.0, "branch_ms": 0.0,
            "max_abs_err": 0.0}
     print("site k c_in c_out M R N trunk_equal fused_rel_err ms plain_ms "
-          "bound_ms bound_by library_ms fused_conv_ms im2col_ms")
+          "bound_ms bound_by bound_p_ms library_ms fused_conv_ms branch_ms "
+          "peak_alloc_mb p_mb")
     for site, k, c_in, c_out, hw, stride in cnn.conv_site_shapes(cfg):
         check(stride == 1, f"{site}: DarkNet-19 convs are stride 1")
         x = torch.randn((BATCH, hw, hw, c_in), generator=gen, device=dev)
@@ -328,50 +388,57 @@ def phase_kernels(dev, cfg) -> dict:
         c = torch.randn((1, 1, c_in, c_c), generator=gen, device=dev) / c_in ** .5
         core = torch.randn((k, k, c_c, c_u), generator=gen, device=dev) * 0.05
         u = torch.randn((1, 1, c_u, c_out), generator=gen, device=dev) / c_u ** .5
+        m, r = BATCH * hw * hw, k * k * c_in
 
-        p, _ = rc.patch_matrix(x, k, k, 1, "SAME")
-        w2d = w_q.reshape(-1, c_out)
-        m, r = p.shape
-        got = rc.trunk_patch_dot(p, w2d)
-        want = rc.trunk_patch_dot_plain(p, w2d)
+        got = rc.trunk_conv_dot(x, w_q)
+        want = plain_trunk(x, w_q)
         torch.cuda.synchronize()
         equal = torch.equal(got, want)
         err = (got - want).abs().max().item()
         check(equal, f"{site}: kernel trunk != plain trunk (max {err})")
-        y = rc.rebranch_conv(x, w_q, w_scale, c, core, u)
+        del got, want
+        # the fused conv on the card builds no patch matrix
+        y, peak = no_patch_matrix(
+            lambda: rc.rebranch_conv(x, w_q, w_scale, c, core, u), c_in)
         y_plain = fused_plain(x, w_q, w_scale, c, core, u)
         scale = y_plain.abs().max().item()
         ferr = (y - y_plain).abs().max().item() / scale
         check(ferr <= FUSED_RTOL and torch.isfinite(y).all().item(),
               f"{site}: fused conv off by {ferr} of its absmax")
-        del got, want, y, y_plain
+        no_patch_matrix(lambda: rc.trunk_conv(x, w_q, w_scale), c_in)
+        del y, y_plain
+        torch.cuda.empty_cache()
 
-        ms = time_ms(lambda: rc.trunk_patch_dot(p, w2d), 5)
-        plain_ms = time_ms(lambda: rc.trunk_patch_dot_plain(p, w2d), 3)
-        # the whole fused conv around the kernel, and its im2col alone
+        ms = time_ms(lambda: rc.trunk_conv_dot(x, w_q), 5)
+        plain_ms = time_ms(lambda: plain_trunk(x, w_q), 3)
+        # the whole fused conv around the kernel, and its branch alone
         conv_ms = time_ms(lambda: rc.rebranch_conv(x, w_q, w_scale, c, core,
                                                    u), 3)
-        im2col_ms = time_ms(lambda: rc.patch_matrix(x, k, k, 1, "SAME"), 3)
-        bound, by = trunk_bound_ms(m, r, c_out)
+        branch_ms = time_ms(lambda: rc.branch_conv(x, c, core, u), 3)
+        bound, by = trunk_bound_ms(m, r, c_out, x.numel())
+        bound_p, _ = trunk_bound_ms(m, r, c_out)
         ops_ms = 2.0 * m * r * c_out / PEAK_INT8_OPS * 1e3
         print(f"{site} {k} {c_in} {c_out} {m} {r} {c_out} {equal} {ferr:.3e} "
-              f"{ms:.4f} {plain_ms:.4f} {bound:.4f} {by} none "
-              f"{conv_ms:.4f} {im2col_ms:.4f}", flush=True)
+              f"{ms:.4f} {plain_ms:.4f} {bound:.4f} {by} {bound_p:.4f} none "
+              f"{conv_ms:.4f} {branch_ms:.4f} {peak / 2**20:.1f} "
+              f"{4 * m * r / 2**20:.1f}", flush=True)
         tot["conv_ms"] += conv_ms
-        tot["im2col_ms"] += im2col_ms
+        tot["branch_ms"] += branch_ms
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += bound
+        tot["bound_p_ms"] += bound_p
         tot["ops_ms"] += ops_ms
         tot["bytes_ms"] += bound if by == "bytes" else 0.0
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        del p, x
+        del x
         torch.cuda.empty_cache()
     print(f"per forward (20 launches): kernel {tot['ms']:.3f} ms, plain "
-          f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
-          f"(int8 operations alone {tot['ops_ms']:.3f} ms); the 20 fused "
-          f"convs {tot['conv_ms']:.3f} ms, of which im2col "
-          f"{tot['im2col_ms']:.3f} ms")
+          f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms (NHWC "
+          f"bytes; with P's bytes {tot['bound_p_ms']:.3f} ms; int8 operations "
+          f"alone {tot['ops_ms']:.3f} ms); the 20 fused convs "
+          f"{tot['conv_ms']:.3f} ms, of which the branch "
+          f"{tot['branch_ms']:.3f} ms; no patch matrix built")
     return tot
 
 
@@ -508,12 +575,9 @@ def phase_cpu(model, params, image):
         worst = max(worst, rel)
         if spec.enabled and spec.cim.mode != "ideal":
             w_q = p["rom"]["w_q"]
-            kh, kw, _, c_out = w_q.shape
-            pm, _ = rc.patch_matrix(xin.float(), kh, kw, stride, "SAME")
-            w2d = w_q.reshape(-1, c_out)
-            trunk = rc.trunk_patch_dot(pm, w2d, spec.cim)
-            ref_trunk = rc.trunk_patch_dot_plain(pm.cpu(), w2d.cpu(),
-                                                 spec.cim)
+            xf = xin.float().contiguous()
+            trunk = rc.trunk_conv_dot(xf, w_q, stride, "SAME", spec.cim)
+            ref_trunk = plain_trunk(xf.cpu(), w_q.cpu(), spec.cim, stride)
             check(torch.equal(trunk.cpu(), ref_trunk),
                   f"{spec.cim.mode} trunk on the card != CPU trunk")
             trunks += 1
@@ -1204,23 +1268,24 @@ LM_BITSERIAL_NEW = 6
 
 
 def adc_bound_ms(m: int, k: int, n: int, mode: str, x_bytes: float = 4.0,
-                 cdim: int = 0) -> tuple[float, str]:
+                 cdim: int = 0, x_elems: int | None = None
+                 ) -> tuple[float, str]:
     """(bound, what bounds it) of one trunk launch in an ADC
-    mode: x [m, k] (``x_bytes`` per element), W int8 [k, n] -> f32 [m, n]
-    (and, with ``cdim``, the f32 sketch x @ C [k, cdim]).  Bytes: each
-    input read once, each output written once.  Operations: the int8
-    multiply-adds (112 binary ones per int8 one in bitserial: 4 sign pairs
-    x 4 groups x 7 planes) at the int8 tensor-core rate, and the ADC
-    evaluations (one per row, column and subarray; x 112 in bitserial) and
-    the sketch at the f32 rate."""
+    mode: x [m, k] (``x_bytes`` per element; or ``x_elems`` elements, a
+    conv's NHWC input), W int8 [k, n] -> f32 [m, n] (and, with ``cdim``,
+    the f32 sketch x @ C [k, cdim]).  Bytes: each input read once, each
+    output written once.  Operations: the int8 multiply-adds (112 binary
+    ones per int8 one in bitserial: 4 sign pairs x 4 groups x 7 planes) at
+    the int8 tensor-core rate, and the ADC evaluations (one per row, column
+    and subarray; x 112 in bitserial) and the sketch at the f32 rate."""
     subarrays = -(-k // 128)
     per = 112 if mode == "bitserial" else 1
     evals = per * m * n * subarrays
     ops_ms = (2.0 * per * m * k * n / PEAK_INT8_OPS
               + (ADC_F32_OPS[mode] * evals + 2.0 * m * k * cdim)
               / PEAK_F32_OPS) * 1e3
-    nbytes = (x_bytes * m * k + k * n + 4.0 * m * n
-              + 4.0 * (k * cdim + m * cdim))
+    x_total = x_bytes * (m * k if x_elems is None else x_elems)
+    nbytes = x_total + k * n + 4.0 * m * n + 4.0 * (k * cdim + m * cdim)
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
@@ -1230,13 +1295,16 @@ def new_tot():
             "max_abs_err": 0.0, "library_ms": None}
 
 
-def add_tot(tot, ms, plain_ms, bound, by, count=1):
+def add_tot(tot, ms, plain_ms, bound, by, count=1, bound_p=None):
     """Add ``count`` launches to a kernel's totals (``bytes_ms`` sums the
-    bounds of the bytes-bound ones, as phases 2 and 5 do)."""
+    bounds of the bytes-bound ones, as phases 2 and 5 do; ``bound_p`` the
+    trunk conv's bound with P's bytes)."""
     tot["ms"] += ms * count
     tot["plain_ms"] += plain_ms * count
     tot["bound_ms"] += bound * count
     tot["bytes_ms"] += bound * count if by == "bytes" else 0.0
+    if bound_p is not None:
+        tot["bound_p_ms"] = tot.get("bound_p_ms", 0.0) + bound_p * count
 
 
 def time_once_ms(fn) -> float:
@@ -1269,59 +1337,62 @@ def phase_adc_kernels(dev, cfg) -> dict:
 
     # kernel 1 at every DarkNet-19 geometry, on phase 2's inputs
     gen = torch.Generator(device=dev).manual_seed(1)
-    print("site M R N mode equal ms plain_ms bound_ms bound_by "
-          "(bitserial: rows_checked rows_ms rows_plain_ms)")
+    print("site M R N mode equal ms plain_ms bound_ms bound_by bound_p_ms "
+          "(bitserial: rows_checked)")
     for site, k, c_in, c_out, hw, _ in cnn.conv_site_shapes(cfg):
         x = torch.randn((BATCH, hw, hw, c_in), generator=gen, device=dev)
         w_q = torch.randint(-127, 128, (k, k, c_in, c_out), generator=gen,
                             device=dev, dtype=torch.int8)
-        p, _ = rc.patch_matrix(x, k, k, 1, "SAME")
-        w2d = w_q.reshape(-1, c_out)
-        m, r = p.shape
-        del x
+        m, r = BATCH * hw * hw, k * k * c_in
 
-        got = rc.trunk_patch_dot(p, w2d, ps)
-        want = rc.trunk_patch_dot_plain(p, w2d, ps)
+        got = rc.trunk_conv_dot(x, w_q, cfg=ps)
+        want = plain_trunk(x, w_q, ps)
         torch.cuda.synchronize()
         check(torch.equal(got, want),
               f"{site}: per_subarray kernel trunk != plain trunk (max "
               f"{(got - want).abs().max().item()})")
         del got, want
-        ms = time_ms(lambda: rc.trunk_patch_dot(p, w2d, ps), 3)
-        plain_ms = time_ms(lambda: rc.trunk_patch_dot_plain(p, w2d, ps), 2)
-        bound, by = adc_bound_ms(m, r, c_out, "per_subarray")
-        add_tot(out["trunk_conv", "per_subarray"], ms, plain_ms, bound, by)
+        ms = time_ms(lambda: rc.trunk_conv_dot(x, w_q, cfg=ps), 3)
+        plain_ms = time_ms(lambda: plain_trunk(x, w_q, ps), 2)
+        bound, by = adc_bound_ms(m, r, c_out, "per_subarray",
+                                 x_elems=x.numel())
+        bound_p, _ = adc_bound_ms(m, r, c_out, "per_subarray")
+        add_tot(out["trunk_conv", "per_subarray"], ms, plain_ms, bound, by,
+                bound_p=bound_p)
         print(f"{site} {m} {r} {c_out} per_subarray True {ms:.4f} "
-              f"{plain_ms:.4f} {bound:.4f} {by}", flush=True)
+              f"{plain_ms:.4f} {bound:.4f} {by} {bound_p:.4f}", flush=True)
 
-        # bitserial: the kernel on the full P, its first rows vs the plain
-        got = rc.trunk_patch_dot(p, w2d, bs)
+        # bitserial: the kernel on all of x, its first rows vs the plain
+        # version on those rows of P (rows are independent)
+        got = rc.trunk_conv_dot(x, w_q, cfg=bs)
         rows = min(m, ADC_ROWS)
+        p, _ = rc.patch_matrix(x, k, k, 1, "SAME")
         p_rows = p[:rows].contiguous()
+        w2d = w_q.reshape(-1, c_out)
         want = rc.trunk_patch_dot_plain(p_rows, w2d, bs)
         torch.cuda.synchronize()
         check(torch.equal(got[:rows], want),
               f"{site}: bitserial kernel trunk != plain trunk on its first "
               f"{rows} rows (max {(got[:rows] - want).abs().max().item()})")
         check(bool(torch.isfinite(got).all()), f"{site}: bitserial non-finite")
-        del got, want
-        ms = time_once_ms(lambda: rc.trunk_patch_dot(p, w2d, bs))
+        del got, want, p_rows
+        ms = time_once_ms(lambda: rc.trunk_conv_dot(x, w_q, cfg=bs))
         plain_ms = time_once_ms(lambda: rc.trunk_patch_dot_plain(p, w2d, bs))
-        rows_ms = time_ms(lambda: rc.trunk_patch_dot(p_rows, w2d, bs), 1)
-        rows_plain = time_once_ms(
-            lambda: rc.trunk_patch_dot_plain(p_rows, w2d, bs))
-        bound, by = adc_bound_ms(m, r, c_out, "bitserial")
-        add_tot(out["trunk_conv", "bitserial"], ms, plain_ms, bound, by)
+        bound, by = adc_bound_ms(m, r, c_out, "bitserial", x_elems=x.numel())
+        bound_p, _ = adc_bound_ms(m, r, c_out, "bitserial")
+        add_tot(out["trunk_conv", "bitserial"], ms, plain_ms, bound, by,
+                bound_p=bound_p)
         print(f"{site} {m} {r} {c_out} bitserial True {ms:.4f} "
-              f"{plain_ms:.4f} {bound:.4f} {by} {rows} {rows_ms:.4f} "
-              f"{rows_plain:.4f}", flush=True)
-        del p, p_rows
+              f"{plain_ms:.4f} {bound:.4f} {by} {bound_p:.4f} {rows}",
+              flush=True)
+        del p, x
         torch.cuda.empty_cache()
     for mode in ADC_MODES:
         t = out["trunk_conv", mode]
         print(f"trunk_conv[{mode}] per forward (20 launches): kernel "
               f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
-              f"{t['bound_ms']:.3f} ms")
+              f"{t['bound_ms']:.3f} ms (NHWC; with P's bytes "
+              f"{t['bound_p_ms']:.3f} ms)")
 
     # ops.cim_conv (im2col + kernel 4) at one DarkNet-19 geometry, in its
     # default config (per_subarray), int8 activations with -128
@@ -1706,6 +1777,10 @@ def main() -> int:
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": by, "library_ms": t.get("library_ms")}
+        if "bound_p_ms" in t:
+            # the trunk conv's bound had it read the patch matrix P (as the
+            # patch-matrix kernel did); bound_ms is the NHWC input's
+            out["bound_p_ms"] = t["bound_p_ms"]
         if "device_ms" in t:
             # the same launches' device time, from a replayed CUDA graph
             out["device_ms"] = t["device_ms"]

@@ -8,9 +8,11 @@ pallas      : the trunk conv and matmul on the hand-written CUDA kernels
               (``kernels/csrc/trunk_conv.cu``, ``cim_matmul.cu``) in all
               three fidelity modes (the plain PyTorch versions on a CPU
               tensor).
-pallas_fused: 'pallas' plus the fused trunk+branch conv on the shared
-              patch matrix and the fused ReBranch matmul
-              (``kernels/csrc/rebranch_matmul.cu``); inference only.
+pallas_fused: 'pallas' plus the fused trunk+branch conv (the trunk
+              kernel reads the NHWC input itself, the branch compresses
+              it once per pixel: no patch matrix on the card) and the
+              fused ReBranch matmul (``kernels/csrc/rebranch_matmul.cu``);
+              inference only.
 """
 
 from __future__ import annotations
@@ -68,8 +70,10 @@ class PallasEngine(base.TrunkEngine):
 
 class PallasFusedEngine(PallasEngine):
     """'pallas' plus the fused trunk+branch conv and matmul: live-branch
-    sites run trunk kernel AND compress sketch on one read of the input.
-    Inference only (``grads=False``)."""
+    sites run the trunk kernel and the branch in one call (the conv's
+    trunk kernel gathers its patches from the NHWC input, its branch
+    compresses that input once per pixel; the matmul's kernel sketches x @
+    C in the trunk's launch).  Inference only (``grads=False``)."""
 
     name = "pallas_fused"
     capabilities = base.EngineCapabilities(

@@ -5,13 +5,11 @@
 // routines one 128-row subarray (a "chunk") at a time.
 //
 // ideal        : the exact int8 x int8 dot that the Pallas kernels run on
-//                the MXU.  Operands sit in shared memory as packed words:
-//                each int holds four consecutive int8 values along K
-//                (activations by row, ROM weights by column), so one
-//                __dp4a does four signed multiply-adds into an int32.  The
-//                dot over a chunk is exact (|sum| <= 128 * 127 * 127 <
-//                2**31), and so is its conversion to f32 (< 2**24), also
-//                after a whole 512-wide k-block.
+//                the MXU; mma_tile.cuh computes it on the int8 tensor cores
+//                (mma.m16n8k32, int32 accumulators).  The dot over a chunk
+//                is exact (|sum| <= 128 * 127 * 127 < 2**31), and so is its
+//                conversion to f32 (< 2**24), also after a whole 512-wide
+//                k-block.
 // per_subarray : the same exact chunk dot, then core/adc.py::signed_adc:
 //                code = clamp(rint(psum / lsb + 1e-3), -levels/2,
 //                levels/2), sensed = code * lsb, added to the k-block's
@@ -57,27 +55,6 @@ constexpr int kActBits = 8;               // activation magnitude bits (<= 128)
 constexpr int kGroups = 4;                // two-bit activation groups
 constexpr int kGroupMax = 3;
 
-// acc[i][j] += sum_kw dp4a(xs[row0 + i*row_step][kw], ws[col0 + j*col_step][kw])
-// xs, ws: word arrays with row stride LDS (padded against bank conflicts).
-template <int TM, int TN, int KW, int LDS>
-__device__ __forceinline__ void cim_block_dot_ideal(
-    const int* __restrict__ xs, const int* __restrict__ ws, int row0,
-    int row_step, int col0, int col_step, int (&acc)[TM][TN]) {
-#pragma unroll 4
-  for (int kw = 0; kw < KW; ++kw) {
-    int a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = xs[(row0 + i * row_step) * LDS + kw];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = ws[(col0 + j * col_step) * LDS + kw];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-  }
-}
-
 // signed_adc of one subarray's partial sum (exact in f32).
 __device__ __forceinline__ float adc_signed(float psum, const AdcParams& adc) {
   const float half = __fmul_rn(adc.levels, 0.5f);
@@ -103,25 +80,6 @@ __device__ __forceinline__ float bitserial_lsb(int popcount,
                                                const AdcParams& adc) {
   const float range = fmaxf(__int2float_rn(popcount * kGroupMax), 1.0f);
   return __fdiv_rn(__fmul_rn(range, adc.frac), adc.levels);
-}
-
-// per_subarray: part[i][j] += signed_adc(exact dot of one 128-row chunk).
-template <int TM, int TN, int KW, int LDS>
-__device__ __forceinline__ void cim_block_dot_per_subarray(
-    const int* __restrict__ xs, const int* __restrict__ ws, int row0,
-    int row_step, int col0, int col_step, const AdcParams& adc,
-    float (&part)[TM][TN]) {
-  int dot[TM][TN] = {};
-  cim_block_dot_ideal<TM, TN, KW, LDS>(xs, ws, row0, row_step, col0,
-                                       col_step, dot);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      part[i][j] = __fadd_rn(part[i][j],
-                             adc_signed(__int2float_rn(dot[i][j]), adc));
-    }
-  }
 }
 
 // bitserial, one 128-row chunk of one sign pair (sign = +1 for (a+, w+)

@@ -94,9 +94,9 @@ __global__ void __launch_bounds__(kTileThreads)
                          const int8_t* __restrict__ w,
                          float* __restrict__ out, int m, int k, int n,
                          int bk, AdcParams adc) {
-  cim_tile<kBitserial>(Int8Rows{x, m, k}, w, out, n, bk,
-                       static_cast<long long>(blockIdx.x) * kTileM,
-                       blockIdx.y * kTileN, adc);
+  cim_tile_bitserial(Int8Rows{x, m, k}, w, out, n, bk,
+                     static_cast<long long>(blockIdx.x) * kTileM,
+                     blockIdx.y * kTileN, adc);
 }
 
 bool aligned16(const void* p) {

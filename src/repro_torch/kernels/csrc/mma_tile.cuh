@@ -1,16 +1,17 @@
-// Int8 tensor-core tiles of the LM kernels (cim_matmul.cu,
-// rebranch_matmul.cu) in the ideal and per_subarray CiM modes, and the
-// f32 sketch tile of the fused ReBranch matmul.  The bitserial mode and
-// the trunk-conv kernel keep trunk_tile.cuh's dp4a tile.
+// Int8 tensor-core tiles of all three kernels (trunk_conv.cu,
+// cim_matmul.cu, rebranch_matmul.cu) in the ideal and per_subarray CiM
+// modes, and the f32 sketch tile of the fused ReBranch matmul.  The
+// bitserial mode keeps trunk_tile.cuh's bit-plane tile.
 //
 // mma_tile<Mode, TM> computes one (TM, 64) output tile of
 //
 //   A [M, K] (activations), W int8 [K, N]  ->  out f32 [M, N]
 //   for each k-block [k0, k1) of k_partition(K, 128) (bk wide), ascending:
-//     q    = A[m, k0:k1] as int8 codes         (FloatAct: per (row, k-block)
-//                                               scale from the absmax of
-//                                               the whole k-block; Int8Act:
-//                                               as they are)
+//     q    = A[m, k0:k1] as int8 codes         (FloatAct, NhwcAct: per
+//                                               (row, k-block) scale from
+//                                               the absmax of the whole
+//                                               k-block; Int8Act: as they
+//                                               are)
 //     part = ideal        : the exact int32 dot of the k-block
 //            per_subarray : sum over its 128-row subarrays, ascending, of
 //                           adc_signed(exact int32 dot of the subarray)
@@ -18,7 +19,8 @@
 //     out  = p0, then out + p1, out + p2, ...   (one rounding each)
 //
 // which is trunk_tile.cuh's contract (ROADMAP Queue 2) bit for bit.  The
-// int32 dots come from mma.m16n8k32 (ptx.cuh); every f32 step is written
+// int32 dots come from mma.m16n8k32, its operands from ldmatrix (ptx.cuh),
+// and a chunk's 32-deep steps past K are skipped; every f32 step is written
 // with __fmul_rn / __fadd_rn, and each thread owns its output elements
 // from the first k-block to the last, so the order is fixed by k alone.
 //
@@ -50,17 +52,22 @@
 //        for the absmax anyway).  FloatAct: one warp per row, four rows'
 //        loads in flight together, float4 loads where the rows are
 //        aligned, scalar loads where not (K = 300), codes packed four k to
-//        a word.  Int8Act: 16-byte cp.async where the rows are aligned,
-//        bytes where not (K = 27, 45, 300).
+//        a word.  NhwcAct: the same, each row gathered from a conv's NHWC
+//        input through the implicit im2col map (conv_geom.cuh), float4
+//        along C where C % 4 == 0; with kPair, half the rows, the codes
+//        written into the cluster peer's xa too.  Int8Act: 16-byte cp.async where the
+//        rows are aligned, bytes where not (K = 27, 45, 300).
 // Shared arrays indexed by (row or column, word) are XOR-swizzled at
 // 4-word granularity so the MMA fragment loads hit 32 distinct banks.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "cim_block_dot.cuh"
+#include "conv_geom.cuh"
 #include "ptx.cuh"
 
 namespace repro_torch {
@@ -95,8 +102,9 @@ struct Shape {
   static constexpr int kWarpN = kTileN / kWarpsN;
   static constexpr int kMT = kWarpM / 16;   // m16 MMA tiles per warp
   static constexpr int kNT = kWarpN / 8;    // n8 MMA tiles per warp
-  // shared memory of mma_tile: the W ring, the transposed chunk, the
-  // k-block of A codes and its row scales
+  // shared memory of mma_tile with FloatAct or Int8Act and WSrc: the W
+  // ring, the transposed chunk, the k-block of A codes and its row scales
+  // (trunk_smem below in general)
   static constexpr int kTrunkSmem =
       kStages * kRawBytes + 4 * kWtWords + 4 * TM * kBlockW + 4 * TM;
 };
@@ -126,17 +134,25 @@ inline bool covers(const SplitPlan& p, long long m, int n, int k, int bk) {
          p.n_splits == (p.nkb + p.kb_per - 1) / p.kb_per;
 }
 
+// The int8 codes of four values, packed four to a word.  For finite values
+// of a row whose absmax is at least |v|, |v * inv| <= 127 (1 + 4 2**-24):
+// three roundings from 127 (core/quant.py::quant_rows_f32 relies on the
+// same), so the clamp to [-127, 127] never binds and is not written.
+// rint (half to even, as torch.round) is one f32 add of 1.5 * 2**23, where
+// the floats are the integers: v + 1.5 * 2**23 rounds to the integer
+// nearest v, ties to even (2**23 * 1.5 is even), and the low byte of its
+// bits is rint(v) as an int8 (the constant's low byte is 0).  Two full-rate
+// f32 operations per code, where a float-to-int conversion runs at a
+// quarter of the rate.
+__device__ __forceinline__ unsigned code_bits(float v, float inv) {
+  return __float_as_uint(__fadd_rn(__fmul_rn(v, inv), 12582912.0f));
+}
+
 __device__ __forceinline__ unsigned pack_codes(float a, float b, float c,
                                                float d, float inv) {
-  unsigned out = 0u;
-  const float v[4] = {a, b, c, d};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int q = static_cast<int>(
-        fminf(fmaxf(rintf(__fmul_rn(v[e], inv)), -127.0f), 127.0f));
-    out |= (static_cast<unsigned>(q) & 0xffu) << (8 * e);
-  }
-  return out;
+  return __byte_perm(__byte_perm(code_bits(a, inv), code_bits(b, inv), 0x0040),
+                     __byte_perm(code_bits(c, inv), code_bits(d, inv), 0x0040),
+                     0x5410);
 }
 
 // bfloat16 activations arrive as their bits; widening one to f32 is exact
@@ -157,8 +173,112 @@ __device__ __forceinline__ float4 widen4(uint2 u) {
                      __uint_as_float(u.y & 0xffff0000u));
 }
 
-// Float activations (T float or bf16_t), quantised per (row, k-block) in
-// the reciprocal form (the same expressions as trunk_tile.cuh's F32Rows).
+// The rows a block stages and where their codes go besides its own xa and
+// scale_s: alone, all TM rows; in a block pair (two column tiles of one
+// row tile, a cluster of two), half the rows each, written into both
+// blocks' shared memory (the peer's through distributed shared memory).
+// (Clusters of four, a quarter of the rows each, measured slower on the
+// H100: three remote copies of every code.)
+struct Pair {
+  unsigned* xa;    // the peer's xa and scale_s, nullptr alone
+  float* scale;
+  int row_lo;      // the rows [row_lo, row_lo + rows) this block stages
+  int rows;
+};
+
+// Codes of the tile's rows pair.row_lo .. + pair.rows over one k-block
+// `width` wide into xa, row scales into scale_s (and the peer's), in the
+// reciprocal form (the same
+// expressions as trunk_tile.cuh's F32Rows).  `load(v, i)` puts the lane's
+// 16 values of tile row i in v: k-block column 4 (lane + 32 j) + e in
+// v[4 j + e], zeros past the k-block and past M.  One warp per row, the
+// row's values in registers between the absmax and the quantisation; each
+// warp's rows are loaded four at a time, so their loads are in flight
+// together.  Only the 128-column groups j that hold columns of the block
+// are packed: the MMA reads no further.
+template <int TM, class Load>
+__device__ __forceinline__ void stage_rows(unsigned* xa, float* scale_s,
+                                           int width, const Load& load,
+                                           const Pair& pair) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kBatch = 4;
+  static_assert(TM % (kWarps * kBatch) == 0, "whole batches of rows");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int i0 = 0; i0 < pair.rows / kWarps; i0 += kBatch) {
+    float v[kBatch][16];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      load(v[b], pair.row_lo + warp + kWarps * (i0 + b));
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = pair.row_lo + warp + kWarps * (i0 + b);
+      float amax = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) amax = fmaxf(amax, fabsf(v[b][j]));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      }
+      const float s = __fmul_rn(fmaxf(amax, 1e-8f), kInv127);
+      const float inv = __frcp_rn(s);   // RN(1 / s), as __fdiv_rn(1, s)
+      if (lane == 0) {
+        scale_s[i] = s;
+        if (pair.scale) pair.scale[i] = s;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (128 * j >= width) break;
+        const int at = i * kBlockW + ((lane + 32 * j) ^ swz(i));
+        const unsigned w =
+            pack_codes(v[b][4 * j], v[b][4 * j + 1], v[b][4 * j + 2],
+                       v[b][4 * j + 3], inv);
+        xa[at] = w;
+        if (pair.xa) pair.xa[at] = w;
+      }
+    }
+  }
+}
+
+// stage_rows for a k-block at most 32 wide (a 3x3 conv of 3 channels, R =
+// 27): four rows per warp pass, eight lanes to a row.  `load(v, i, cl)`
+// puts columns 4 cl .. 4 cl + 3 of tile row i in v (zeros past the block
+// and past M).  The same absmax, scale and codes as stage_rows, with a
+// quarter of the passes.
+template <int TM, class Load>
+__device__ __forceinline__ void stage_rows_narrow(unsigned* xa,
+                                                  float* scale_s,
+                                                  const Load& load) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kPasses = TM / kWarps / 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cl = lane & 7;
+  float v[kPasses][4];
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) {
+    load(v[p], warp + kWarps * (4 * p + (lane >> 3)), cl);
+  }
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) {
+    const int i = warp + kWarps * (4 * p + (lane >> 3));
+    float amax = fmaxf(fmaxf(fabsf(v[p][0]), fabsf(v[p][1])),
+                       fmaxf(fabsf(v[p][2]), fabsf(v[p][3])));
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) {
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    }
+    const float s = __fmul_rn(fmaxf(amax, 1e-8f), kInv127);
+    const float inv = __frcp_rn(s);
+    if (cl == 0) scale_s[i] = s;
+    xa[i * kBlockW + (cl ^ swz(i))] =
+        pack_codes(v[p][0], v[p][1], v[p][2], v[p][3], inv);
+  }
+}
+
+// Float activations (T float or bf16_t), quantised per (row, k-block).
 template <class T>
 struct FloatAct {
   static constexpr bool kScaled = true;
@@ -166,6 +286,13 @@ struct FloatAct {
   long long m;
   int k;
   bool vec;   // k % 4 == 0 and `a` aligned to 4 values: vector loads
+
+  template <int TM>
+  static constexpr int table_bytes() { return 0; }
+
+  template <int TM>
+  __device__ __forceinline__ void prepare(unsigned char*, long long, int,
+                                          int) const {}
 
   // The lane's 16 values of row `row` over [k0, k0 + width): k = 4 * (lane
   // + 32 j) + e holds v[4 j + e]; zeros past the row's end and past M.
@@ -202,49 +329,114 @@ struct FloatAct {
   }
 
   // Codes of rows [m0, m0 + TM) over [k0, k1) into xa, row scales into
-  // scale_s.  One warp per row, the row's 512 values in registers between
-  // the absmax and the quantisation; each warp's rows are loaded four at a
-  // time, so their loads are in flight together.
+  // scale_s.
   template <int TM>
   __device__ __forceinline__ void stage(unsigned* xa, float* scale_s,
-                                        long long m0, int k0,
-                                        int k1) const {
-    constexpr int kWarps = kThreads / 32;
-    constexpr int kBatch = 4;
-    static_assert(TM % (kWarps * kBatch) == 0, "whole batches of rows");
+                                        const unsigned char*, long long m0,
+                                        int k0, int k1,
+                                        const Pair& pair) const {
     const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll 1
-    for (int i0 = 0; i0 < TM / kWarps; i0 += kBatch) {
-      float v[kBatch][16];
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        load_row(v[b], m0 + warp + kWarps * (i0 + b), k0, k1 - k0, lane);
-      }
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = warp + kWarps * (i0 + b);
-        float amax = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) amax = fmaxf(amax, fabsf(v[b][j]));
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-        }
-        const float s = __fmul_rn(fmaxf(amax, 1e-8f), kInv127);
-        const float inv = __fdiv_rn(1.0f, s);
-        if (lane == 0) scale_s[i] = s;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kw = lane + 32 * j;
-          xa[i * kBlockW + (kw ^ swz(i))] =
-              pack_codes(v[b][4 * j], v[b][4 * j + 1], v[b][4 * j + 2],
-                         v[b][4 * j + 3], inv);
-        }
-      }
+    stage_rows<TM>(xa, scale_s, k1 - k0, [&](float (&v)[16], int i) {
+      load_row(v, m0 + i, k0, k1 - k0, lane);
+    }, pair);
+  }
+};
+
+// Float activations of a conv, f32 NHWC x [N, H, W, C], read through the
+// implicit im2col map of conv_geom.cuh: row m of the patch matrix is
+// gathered from x where it is staged, and the patch matrix is never
+// written.  Quantised as FloatAct.  prepare() tabulates the tile's row
+// windows and the k-block's (tap, channel) columns in `tables`, before the
+// barrier that precedes stage().  kVec (C % 4 == 0, x 16-byte aligned:
+// every DarkNet-19 site but the first): four neighbouring columns are four
+// channels of one tap, one float4 load, the lane's taps read once per
+// k-block.  Otherwise (C = 3) each value is loaded on its own.  The gather
+// is straight-line: a padded pixel, or a column past the block, loads from
+// kZeros, so the loads of a batch of rows are all in flight before the
+// first is used.  A 64-row tile is 64 neighbouring output pixels, so the
+// taps of its rows overlap in L1.
+template <bool kVec>
+struct NhwcAct {
+  static constexpr bool kScaled = true;
+  const float* x;
+  ConvGeom g;
+  long long m;
+  int k;      // kh * kw * c
+
+  // TM row windows (int4), then kBlockK packed column taps
+  template <int TM>
+  static constexpr int table_bytes() { return 16 * TM + 4 * kBlockK; }
+
+  template <int TM>
+  __device__ __forceinline__ void prepare(unsigned char* tables, long long m0,
+                                          int k0, int k1) const {
+    int4* rows = reinterpret_cast<int4*>(tables);
+    int* cols = reinterpret_cast<int*>(tables + 16 * TM);
+    for (int i = threadIdx.x; i < TM; i += kThreads) {
+      rows[i] = row_pixel(g, m, m0 + i);
+    }
+    for (int kk = k0 + threadIdx.x; kk < k1; kk += kThreads) {
+      cols[kk - k0] = col_tap(g, kk);
     }
   }
 
+  template <int TM>
+  __device__ __forceinline__ void stage(unsigned* xa, float* scale_s,
+                                        const unsigned char* tables,
+                                        long long, int k0, int k1,
+                                        const Pair& pair) const {
+    const int4* rows = reinterpret_cast<const int4*>(tables);
+    const int* cols = reinterpret_cast<const int*>(tables + 16 * TM);
+    const int lane = threadIdx.x & 31;
+    const int width = k1 - k0;
+    // kVec: the lane's column taps, one per 4-column group j (kNoTap past
+    // the block); otherwise each value's tap is read from the table
+    if (width <= 32 && !pair.xa) {   // narrow rows (C = 3: R = 27)
+      stage_rows_narrow<TM>(xa, scale_s, [&](float (&v)[4], int i, int cl) {
+        const int4 p = rows[i];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int e = 4 * cl + q;
+          const int t = e < width ? cols[e] : kNoTap;
+          v[q] = __ldg(tap_ptr<float>(x, tap_offset(g, p, t)));
+        }
+      });
+      return;
+    }
+    int tap[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = 4 * (lane + 32 * j);
+      tap[j] = kVec && e < width ? cols[e] : kNoTap;
+    }
+    stage_rows<TM>(xa, scale_s, width, [&](float (&v)[16], int i) {
+      const int4 p = rows[i];
+      // groups j past the block (a warp-uniform test) are not loaded
+      if constexpr (kVec) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (128 * j < width) {
+            f = __ldg(tap_ptr<float4>(x, tap_offset(g, p, tap[j])));
+          }
+          v[4 * j] = f.x;
+          v[4 * j + 1] = f.y;
+          v[4 * j + 2] = f.z;
+          v[4 * j + 3] = f.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int e = 4 * (lane + 32 * (j >> 2)) + (j & 3);
+          v[j] = 0.0f;
+          if (128 * (j >> 2) < width) {
+            const int t = e < width ? cols[e] : kNoTap;
+            v[j] = __ldg(tap_ptr<float>(x, tap_offset(g, p, t)));
+          }
+        }
+      }
+    }, pair);
+  }
 };
 
 // Int8 activations, taken as they are (-128 included); no scale.
@@ -255,13 +447,21 @@ struct Int8Act {
   int k;
   bool vec;   // k % 16 == 0 and `a` 16-byte aligned: cp.async
 
+  template <int TM>
+  static constexpr int table_bytes() { return 0; }
+
+  template <int TM>
+  __device__ __forceinline__ void prepare(unsigned char*, long long, int,
+                                          int) const {}
+
   // Rows [m0, m0 + TM) over [k0, k1) into xa: a lane's 16 bytes of a row
   // are its words 4 lane .. 4 lane + 3, which stay contiguous under the
   // swizzle.  Aligned rows arrive by cp.async, all rows at once (waited
   // for here; the caller's next barrier publishes them); others by bytes.
   template <int TM>
-  __device__ __forceinline__ void stage(unsigned* xa, float*, long long m0,
-                                        int k0, int k1) const {
+  __device__ __forceinline__ void stage(unsigned* xa, float*,
+                                        const unsigned char*, long long m0,
+                                        int k0, int k1, const Pair&) const {
     const int lane = threadIdx.x & 31;
     const int width = k1 - k0;
     const int e = 16 * lane;
@@ -294,6 +494,10 @@ struct Int8Act {
   }
 };
 
+// W int8 [K, N].  (W handed over transposed, [N, K], would need no
+// transposition in shared memory and one barrier less per chunk, but with
+// the wrapper's copy it measured slower per DarkNet-19 forward on the
+// H100.)
 struct WSrc {
   const int8_t* w;
   int k;
@@ -337,13 +541,14 @@ __device__ __forceinline__ void load_w_chunk(uint8_t* raw, const WSrc& W,
   }
 }
 
-// A staged chunk, rows of W, to wt[column][k word] (four k per word).
+// The first `quads` k quads of a staged chunk, rows of W, to
+// wt[column][k word] (four k per word).
 __device__ __forceinline__ void transpose_chunk(unsigned* wt,
-                                                const uint8_t* raw) {
+                                                const uint8_t* raw,
+                                                int quads) {
   const unsigned* rw = reinterpret_cast<const unsigned*>(raw);
   constexpr int kRowW = kRawStride / 4;
-  for (int s = threadIdx.x; s < (kChunkK / 4) * (kTileN / 4);
-       s += kThreads) {
+  for (int s = threadIdx.x; s < quads * (kTileN / 4); s += kThreads) {
     const int c = s & 15;     // columns 4c .. 4c+3
     const int kq = s >> 4;    // k rows 4kq .. 4kq+3
     const unsigned r0 = rw[(4 * kq) * kRowW + c];
@@ -385,10 +590,20 @@ __device__ __forceinline__ float ordered_sum(const float* parts, int n,
   return acc;
 }
 
+// Shared memory of mma_tile<Mode, TM, Act>: Shape<TM>::kTrunkSmem, then
+// the Act's tables.
+template <int TM, class Act>
+constexpr int trunk_smem() {
+  return Shape<TM>::kTrunkSmem + Act::template table_bytes<TM>();
+}
+
 // One (TM, kTileN) output tile, rows from m0 and columns from n0, over the
 // k-blocks [kb0, kb1) of the split; all kThreads threads of the block.
-// `smem` holds Shape<TM>::kTrunkSmem bytes.
-template <int kMode, int TM, class Act>
+// `smem` holds trunk_smem<TM, Act>() bytes.  kPair: the block is one of a
+// cluster of two that share the row tile (neighbouring column tiles); each
+// stages half of the rows' codes into both blocks' xa, and the k-block's
+// barriers are the cluster's.
+template <int kMode, int TM, class Act, bool kPair = false>
 __device__ __forceinline__ void mma_tile(const Act& act, const WSrc& W,
                                          float* __restrict__ out,
                                          float* __restrict__ parts, int bk,
@@ -403,6 +618,15 @@ __device__ __forceinline__ void mma_tile(const Act& act, const WSrc& W,
   unsigned* wt = reinterpret_cast<unsigned*>(smem + kStages * kRawBytes);
   unsigned* xa = wt + kWtWords;
   float* scale_s = reinterpret_cast<float*>(xa + TM * kBlockW);
+  unsigned char* tables = reinterpret_cast<unsigned char*>(scale_s + TM);
+  Pair pair{nullptr, nullptr, 0, TM};
+  if constexpr (kPair) {
+    auto cluster = cooperative_groups::this_cluster();
+    const unsigned peer = cluster.block_rank() ^ 1u;
+    pair = Pair{cluster.map_shared_rank(xa, peer),
+                cluster.map_shared_rank(scale_s, peer),
+                static_cast<int>(cluster.block_rank()) * (TM / 2), TM / 2};
+  }
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -410,8 +634,11 @@ __device__ __forceinline__ void mma_tile(const Act& act, const WSrc& W,
   const int t = lane & 3;
   // the warp's first row (its m16 tile mt holds rows r0 + 16 mt + g and
   // + 8) and first column
-  const int r0 = (warp % S::kWarpsM) * S::kWarpM + g;
+  const int wr0 = (warp % S::kWarpsM) * S::kWarpM;
+  const int r0 = wr0 + g;
   const int cw = (warp / S::kWarpsM) * S::kWarpN;
+  const int lrow = lane & 7;   // ldmatrix: the row this lane addresses
+  const int lmat = lane >> 3;  // ... in matrix lmat
   const int kb1 = min(kb0 + plan.kb_per, plan.nkb);
   const bool split = plan.n_splits > 1;
   const int kbeg = kb0 * bk;
@@ -443,13 +670,29 @@ __device__ __forceinline__ void mma_tile(const Act& act, const WSrc& W,
   for (int kb = kb0; kb < kb1; ++kb) {
     const int k0 = kb * bk;
     const int k1 = min(k0 + bk, W.k);
-    __syncthreads();   // the previous k-block's MMAs are done with xa
-    act.template stage<TM>(xa, scale_s, m0, k0, k1);
+    // the previous k-block's stage() is done with the tables (every
+    // thread has passed a chunk barrier since)
+    act.template prepare<TM>(tables, m0, k0, k1);
+    // the previous k-block's MMAs are done with xa (in a pair, the peer's
+    // too: this block writes into it; the first sync also makes sure the
+    // peer is running before its shared memory is written)
+    if constexpr (kPair) {
+      cooperative_groups::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+    act.template stage<TM>(xa, scale_s, tables, m0, k0, k1, pair);
+    if constexpr (kPair) {
+      cooperative_groups::this_cluster().sync();   // the peer's rows landed
+    }
     const int nch = (k1 - k0 + kChunkK - 1) / kChunkK;
     for (int c = 0; c < nch; ++c, ++q) {
       cp_async_wait<kStages - 2>();   // chunk q has landed (this thread's)
       __syncthreads();                // ... everyone's; wt is free
-      transpose_chunk(wt, raw + (q % kStages) * kRawBytes);
+      // the chunk's 32-deep MMA steps that hold columns of the block (R =
+      // 27 has one): past them the codes are zero, so skipping is exact
+      const int nks = (min(kChunkK, k1 - k0 - c * kChunkK) + 31) / 32;
+      transpose_chunk(wt, raw + (q % kStages) * kRawBytes, 8 * nks);
       __syncthreads();
       // refill the stage that chunk q - 1 used
       if (q + kStages - 1 < nq) {
@@ -457,28 +700,28 @@ __device__ __forceinline__ void mma_tile(const Act& act, const WSrc& W,
                      kbeg + (q + kStages - 1) * kChunkK, n0);
       }
       cp_async_commit();
+      // fragments by ldmatrix: lane L addresses row L % 8 of matrix L / 8,
+      // a 16-byte segment, which the swizzle keeps whole
 #pragma unroll
       for (int ks = 0; ks < kChunkK / 32; ++ks) {
-        const int kw = c * 32 + ks * 8 + t;
+        if (ks >= nks) break;
+        const int kw = c * 32 + ks * 8 + 4 * (lmat >> 1);
         unsigned a[S::kMT][4];
 #pragma unroll
         for (int mt = 0; mt < S::kMT; ++mt) {
-          const int r = r0 + 16 * mt;
-          a[mt][0] = xa[r * kBlockW + (kw ^ swz(r))];
-          a[mt][1] = xa[(r + 8) * kBlockW + (kw ^ swz(r + 8))];
-          a[mt][2] = xa[r * kBlockW + ((kw + 4) ^ swz(r))];
-          a[mt][3] = xa[(r + 8) * kBlockW + ((kw + 4) ^ swz(r + 8))];
+          const int r = wr0 + 16 * mt + 8 * (lmat & 1) + lrow;
+          ldmatrix_x4(a[mt], xa + r * kBlockW + (kw ^ swz(r)));
         }
-        const int kwb = ks * 8 + t;
+        const int kwb = ks * 8 + 4 * (lmat & 1);
 #pragma unroll
-        for (int nt = 0; nt < S::kNT; ++nt) {
-          const int col = cw + nt * 8 + g;
-          const unsigned b0 = wt[col * (kChunkK / 4) + (kwb ^ swz(col))];
-          const unsigned b1 =
-              wt[col * (kChunkK / 4) + ((kwb + 4) ^ swz(col))];
+        for (int np = 0; np < S::kNT / 2; ++np) {
+          const int col = cw + (2 * np + (lmat >> 1)) * 8 + lrow;
+          unsigned b[4];   // b0, b1 of n8 tiles 2 np and 2 np + 1
+          ldmatrix_x4(b, wt + col * (kChunkK / 4) + (kwb ^ swz(col)));
 #pragma unroll
           for (int mt = 0; mt < S::kMT; ++mt) {
-            mma_s8(dot[mt][nt], a[mt], b0, b1);
+            mma_s8(dot[mt][2 * np], a[mt], b[0], b[1]);
+            mma_s8(dot[mt][2 * np + 1], a[mt], b[2], b[3]);
           }
         }
       }

@@ -1,6 +1,6 @@
 // The inline PTX that the tensor-core tiles use, each behind a small
-// device function: the int8 MMA, cp.async with zero fill, and its group
-// commit / wait.  Everything else in the kernels is plain CUDA C++.
+// device function: the int8 MMA, ldmatrix, cp.async with zero fill, and
+// its group commit / wait.  Everything else in the kernels is plain CUDA C++.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +29,18 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 16-byte matrices from shared memory: lane L gives the (16-byte
+// aligned) address of row L % 8 of matrix L / 8, and lane 4 g + t receives
+// in d[i] word t of row g of matrix i: mma_s8's fragment layout, for a[0..3]
+// (rows g and g + 8, k words t and t + 4) or for two n8 tiles' b0, b1.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&d)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(smem_addr(p))
+      : "memory");
 }
 
 // 16 bytes global -> shared, bypassing L1; zeros where !valid (the

@@ -121,9 +121,9 @@ __global__ void __launch_bounds__(kTileThreads)
     trunk_bitserial(const float* __restrict__ x,
                     const int8_t* __restrict__ w, float* __restrict__ trunk,
                     int m, int k, int n, int bk, AdcParams adc) {
-  cim_tile<kBitserial>(F32Rows{x, m, k}, w, trunk, n, bk,
-                       static_cast<long long>(blockIdx.x) * kTileM,
-                       blockIdx.y * kTileN, adc);
+  cim_tile_bitserial(F32Rows{x, m, k}, w, trunk, n, bk,
+                     static_cast<long long>(blockIdx.x) * kTileM,
+                     blockIdx.y * kTileN, adc);
 }
 
 bool aligned(const void* p, unsigned bytes) {

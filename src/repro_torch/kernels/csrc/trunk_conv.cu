@@ -1,96 +1,248 @@
-// Trunk conv kernel for Hopper (sm_90a), in all three CiM modes.
+// Trunk conv kernel for Hopper (sm_90a), in all three CiM modes: an
+// implicit GEMM straight from the NHWC input.
 //
 // Replaces the Pallas TPU kernel repro/kernels/rebranch_conv.py::
 // _trunk_conv_kernel (launched by _trunk_patch_dot), with
 // repro/kernels/cim_matmul.py::cim_block_dot inside it.  It computes the
-// UNSCALED trunk of a ReBranch conv from the im2col patch matrix:
+// UNSCALED trunk of a ReBranch conv,
 //
-//   P f32 [M, R] (R = kh*kw*C_in, tap-major), W int8 [R, N]  ->  f32 [M, N]
+//   x f32 [N, H, W, C] (NHWC), W int8 [R, Cout] (R = kh*kw*C, tap-major)
+//     ->  f32 [M, Cout], M = N*OH*OW
 //   for each k-block [k0, k1) of k_partition(R, 128), ascending:
 //     scale = f32(max(absmax(P[m, k0:k1]), 1e-8) * f32(1/127))
 //     q     = clip(rint(P[m, k] * (1/scale)), -127, 127)        (int8)
 //     out  += cim_block_dot<mode>(q, W[k0:k1]) * scale
 //
-// The tile code and its bit contract (ROADMAP Queue 2) live in
-// trunk_tile.cuh, which the fused LM kernel and the CiM matmul share; the
-// macro math of each mode lives in cim_block_dot.cuh.
+// where P is the im2col patch matrix of x, which is never built: each
+// tile gathers its rows' k-block from x through the implicit im2col map of
+// conv_geom.cuh (padded pixels read 0, as P's padding does).  The codes,
+// the dot order and every rounding are the plain version's
+// (kernels/rebranch_conv.py::trunk_patch_dot_plain on patch_matrix(x)),
+// bit for bit: the contract of ROADMAP Queue 2.
 //
-// Bounds on an H100 (per DarkNet-19 forward at 416x416, batch 8:
-// 1.01e11 MACs, 1.57e9 bytes of P):
-//   ideal        memory: reading P once takes ~0.5 ms at 3.35 TB/s (0.63 ms
-//                with W and the output), against ~0.10 ms of int8
-//                tensor-core work.  This first version is simple, not
-//                fast: one thread block per 64x64 output tile loops over
-//                the k-blocks itself (Hopper blocks carry nothing across
-//                the grid); for each k-block it reduces the per-row absmax
-//                of the WHOLE k-block in a first pass over P, then
-//                quantises 128-wide chunks into shared memory and runs
-//                __dp4a over them.  In practice the dp4a issue and the
-//                shared-memory operand loads limit it, not memory (about
-//                7.5 ms per forward, chip_smoke.py, PERF.md).  An implicit
-//                GEMM straight from NHWC on int8 wgmma is the later PR that
-//                makes it fast (ROADMAP Queue 2).
-//   per_subarray memory as well: the same dot plus one ADC evaluation per
+// Bounds on an H100 (per DarkNet-19 forward at 416x416, batch 8: 1.01e11
+// MACs; x of the 20 sites 263 MB, W 38.7 MB, output 509 MB):
+//   ideal        bytes: reading x and W once and writing the output takes
+//                0.242 ms at 3.35 TB/s, against 0.102 ms of int8
+//                tensor-core work.  (With P in HBM, as until this kernel
+//                read NHWC, the bytes were 1.57e9 more: 0.632 ms.)  The
+//                tile is mma_tile.cuh's int8 mma.sync tile, 64 rows (64
+//                neighbouring output pixels, whose taps overlap in L1) x
+//                64 columns, with mma_tile.cuh's NhwcAct as its activation
+//                source: per k-block the tile's rows are gathered (float4
+//                along C where C % 4 == 0), their absmax taken over the
+//                whole k-block, and the codes packed into shared memory;
+//                W arrives by cp.async.  Staging A, not the MMA, is the
+//                tile's largest cost, and every 64-wide column tile of a
+//                row tile needs the same codes: so where the column tiles
+//                come in pairs, two blocks form a cluster, each stages
+//                half of the rows and writes the codes into both blocks'
+//                shared memory (distributed shared memory), and at Cout =
+//                1024 a value of x is quantised 8 times per tap, not 16.
+//                A grid of under two blocks per SM (the 13x13 sites at
+//                Cout = 512) is split over k-blocks (tiling.split_k), and
+//                split_reduce adds the parts in k order.
+//   per_subarray bytes as well: the same dot plus one ADC evaluation per
 //                (row, column, subarray), 8.5e8 per forward, a few f32
 //                operations each.
 //   bitserial    operations: 112 binary counts per (row, column, subarray),
-//                each through the ADC, 9.6e10 per forward.  The counts are
-//                AND + __popc over bit planes (8 popcounts per count) and
-//                each ADC evaluation is an IEEE division and ~6 other f32
-//                operations, so it is bound by the popcount and f32 issue.
+//                each through the ADC, 9.6e10 per forward.  It keeps
+//                trunk_tile.cuh's bit-plane tile (AND + __popc, an IEEE
+//                division per ADC evaluation) with trunk_tile.cuh's
+//                NhwcRows as its source, so it is bound by the popcount and
+//                f32 issue; a binary-mma version is later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "conv_geom.cuh"
+#include "mma_tile.cuh"
 #include "trunk_tile.cuh"
 
 using namespace repro_torch;
 
+namespace repro_torch {
+
+// One launch as kernels/rebranch_conv.py::ConvLaunch describes it (field
+// for field): the geometry, the k-block width bk (tiling.block_k(r, 128)),
+// the CimMode, the ADC constants and tiling.split_k's plan of the implied
+// [M, R] x [R, Cout] product.
+struct ConvLaunch {
+  ConvGeom geom;
+  int r;
+  int n;
+  int bk;
+  int mode;
+  AdcParams adc;
+  mma::SplitPlan plan;
+};
+
+}  // namespace repro_torch
+
 namespace {
 
-template <int kMode>
+__host__ __device__ inline long long rows_of(const ConvGeom& g) {
+  return static_cast<long long>(g.n) * g.oh * g.ow;
+}
+
+template <int kMode, int TM, bool kVec, bool kPair>
+__device__ __forceinline__ void conv_tile(const float* __restrict__ x,
+                                          const mma::WSrc& w,
+                                          float* __restrict__ out,
+                                          float* __restrict__ parts,
+                                          const ConvLaunch& l) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mma::SplitPlan& plan = l.plan;
+  const int b = blockIdx.x;
+  const int tile = b % plan.tiles;
+  const int split = b / plan.tiles;
+  mma::mma_tile<kMode, TM, mma::NhwcAct<kVec>, kPair>(
+      mma::NhwcAct<kVec>{x, l.geom, rows_of(l.geom), l.r}, w, out, parts,
+      l.bk, plan, split * plan.kb_per,
+      static_cast<long long>(tile / plan.tiles_n) * TM,
+      (tile % plan.tiles_n) * mma::kTileN, l.adc, smem);
+}
+
+template <int kMode, int TM, bool kVec>
+__global__ void __launch_bounds__(mma::kThreads)
+    trunk_conv_mma(const float* __restrict__ x, mma::WSrc w,
+                   float* __restrict__ out, float* __restrict__ parts,
+                   ConvLaunch l) {
+  conv_tile<kMode, TM, kVec, false>(x, w, out, parts, l);
+}
+
+// Blocks 2j and 2j + 1 are column tiles 2c and 2c + 1 of one row tile
+// (tiles_n even): a cluster of two that stage the row tile's codes once,
+// half the rows each.
+template <int kMode, bool kVec>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(mma::kThreads)
+    trunk_conv_pair(const float* __restrict__ x, mma::WSrc w,
+                    float* __restrict__ out, float* __restrict__ parts,
+                    ConvLaunch l) {
+  conv_tile<kMode, 64, kVec, true>(x, w, out, parts, l);
+}
+
 __global__ void __launch_bounds__(kTileThreads)
-    trunk_conv_kernel(const float* __restrict__ p,
-                      const int8_t* __restrict__ w, float* __restrict__ out,
-                      int m, int r, int n, int bk, AdcParams adc) {
-  cim_tile<kMode>(F32Rows{p, m, r}, w, out, n, bk,
-                  static_cast<long long>(blockIdx.x) * kTileM,
-                  blockIdx.y * kTileN, adc);
+    trunk_conv_bitserial(const float* __restrict__ x,
+                         const int8_t* __restrict__ w,
+                         float* __restrict__ out, ConvLaunch l) {
+  cim_tile_bitserial(NhwcRows{x, l.geom, rows_of(l.geom), l.r}, w, out, l.n,
+                     l.bk, static_cast<long long>(blockIdx.x) * kTileM,
+                     blockIdx.y * kTileN, l.adc);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int kMode, int TM, bool kVec, bool kPair>
+int launch_mma(const float* x, const mma::WSrc& w, float* out, float* parts,
+               const ConvLaunch& l, cudaStream_t stream) {
+  constexpr int smem = mma::trunk_smem<TM, mma::NhwcAct<kVec>>();
+  const auto kernel = [] {
+    if constexpr (kPair) {
+      return trunk_conv_pair<kMode, kVec>;
+    } else {
+      return trunk_conv_mma<kMode, TM, kVec>;
+    }
+  }();
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const cudaError_t f = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (f != cudaSuccess) return static_cast<int>(f);
+    attr = true;
+  }
+  const mma::SplitPlan& plan = l.plan;
+  const long long blocks = static_cast<long long>(plan.tiles) * plan.n_splits;
+  kernel<<<static_cast<unsigned>(blocks), mma::kThreads, smem, stream>>>(
+      x, w, out, parts, l);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && plan.n_splits > 1) {
+    e = mma::launch_split_reduce(parts, out, rows_of(l.geom) * l.n, plan.nkb,
+                                 nullptr, nullptr, 0, mma::SketchPlan{},
+                                 stream);
+  }
+  return static_cast<int>(e);
+}
+
+// 64-row tiles in pairs where the column tiles come in pairs and the rows
+// are wider than one narrow pass (R > 32).
+template <int kMode, bool kVec>
+int launch_tile(const float* x, const mma::WSrc& w, float* out, float* parts,
+                const ConvLaunch& l, cudaStream_t stream) {
+  if (l.plan.tile_m == 16) {
+    return launch_mma<kMode, 16, kVec, false>(x, w, out, parts, l, stream);
+  }
+  if (l.plan.tile_m == 64 && l.plan.tiles_n % 2 == 0 && l.r > 32) {
+    return launch_mma<kMode, 64, kVec, true>(x, w, out, parts, l, stream);
+  }
+  if (l.plan.tile_m == 64) {
+    return launch_mma<kMode, 64, kVec, false>(x, w, out, parts, l, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int kMode>
-void launch(const float* p, const int8_t* w, float* out, int m, int r,
-            int n, int bk, AdcParams adc, cudaStream_t stream) {
-  const dim3 grid((m + kTileM - 1) / kTileM, (n + kTileN - 1) / kTileN);
-  trunk_conv_kernel<kMode><<<grid, kTileThreads, 0, stream>>>(p, w, out, m,
-                                                              r, n, bk, adc);
+int launch_mode(const float* x, const int8_t* w, float* out, float* parts,
+                const ConvLaunch& l, cudaStream_t stream) {
+  const mma::WSrc ws{w, l.r, l.n, l.n % 16 == 0 && aligned16(w)};
+  if (l.geom.c % 4 == 0 && aligned16(x)) {
+    return launch_tile<kMode, true>(x, ws, out, parts, l, stream);
+  }
+  return launch_tile<kMode, false>(x, ws, out, parts, l, stream);
+}
+
+// What the implicit im2col map and the tile can take (conv_geom.cuh).
+bool geometry_ok(const ConvGeom& g, int r) {
+  const long long elements = static_cast<long long>(g.n) * g.h * g.w * g.c;
+  const long long m = rows_of(g);
+  return g.n > 0 && g.h > 0 && g.w > 0 && g.c > 0 && g.c < (1 << 15) &&
+         g.oh > 0 && g.ow > 0 && g.kh > 0 && g.kh < (1 << 7) && g.kw > 0 &&
+         g.kw < (1 << 8) && g.stride > 0 && g.ph0 >= 0 && g.pw0 >= 0 &&
+         elements < (1LL << 31) && m < (1LL << 31) &&
+         static_cast<long long>(g.kh) * g.kw * g.c == r;
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  `bk` is
-// the k-block width of the partition, kernels/tiling.py::block_k(r, 128);
-// `mode` a CimMode, `adc_*` the AdcParams of the CiMConfig.
-extern "C" int trunk_conv(const float* p, const int8_t* w, float* out, int m,
-                          int r, int n, int bk, int mode, float adc_lsb,
-                          float adc_frac, float adc_levels,
+// Launch `*l` on `stream`: x f32 NHWC, w int8 [r, n], out f32 [M, n];
+// returns cudaGetLastError() (0 on success).  With more than one split,
+// `parts` holds n_kblocks * M * n floats and a second kernel
+// (split_reduce) follows on the stream.  Bitserial ignores the plan and
+// the scratch.
+extern "C" int trunk_conv(const float* x, const int8_t* w, float* out,
+                          float* parts, const ConvLaunch* l,
                           cudaStream_t stream) {
-  if (m <= 0 || r <= 0 || n <= 0 || bk <= 0 || bk % kChunkK != 0) {
+  if (!geometry_ok(l->geom, l->r) || l->n <= 0 || l->bk <= 0 ||
+      l->bk % kChunkK != 0 || l->bk > mma::kBlockK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const AdcParams adc{adc_lsb, adc_frac, adc_levels};
-  switch (mode) {
+  const long long m = rows_of(l->geom);
+  if (l->mode != kBitserial &&
+      (!mma::covers(l->plan, m, l->n, l->r, l->bk) ||
+       (l->plan.n_splits > 1 && parts == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (l->mode) {
     case kIdeal:
-      launch<kIdeal>(p, w, out, m, r, n, bk, adc, stream);
-      break;
+      return launch_mode<kIdeal>(x, w, out, parts, *l, stream);
     case kPerSubarray:
-      launch<kPerSubarray>(p, w, out, m, r, n, bk, adc, stream);
-      break;
-    case kBitserial:
-      launch<kBitserial>(p, w, out, m, r, n, bk, adc, stream);
-      break;
+      return launch_mode<kPerSubarray>(x, w, out, parts, *l, stream);
+    case kBitserial: {
+      const dim3 grid(static_cast<unsigned>((m + kTileM - 1) / kTileM),
+                      (l->n + kTileN - 1) / kTileN);
+      trunk_conv_bitserial<<<grid, kTileThreads, 0, stream>>>(x, w, out, *l);
+      return static_cast<int>(cudaGetLastError());
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+// sizeof(ConvLaunch), for the wrapper's check of its mirror
+extern "C" int trunk_conv_launch_bytes() { return sizeof(ConvLaunch); }

@@ -81,14 +81,16 @@ class _TrunkConv(torch.autograd.Function):
 def trunk_conv(cfg: cim_lib.CiMConfig, stride: int, padding: str,
                x, w_q, w_scale):
     """Frozen-trunk conv on the trunk kernel, STE backward (drop-in for
-    ``core.rebranch.trunk_conv``); quantisation per (patch row, k-block)
-    inside the kernel."""
+    ``core.rebranch.trunk_conv``); the kernel reads the NHWC input through
+    the im2col map and quantises per (patch row, k-block) inside."""
     return _TrunkConv.apply(x, w_q, w_scale, cfg, stride, padding)
 
 
 def rebranch_conv(x, w_q, w_scale, c, core, u, stride: int = 1,
                   padding: str = "SAME",
                   cfg: cim_lib.CiMConfig = rc.IDEAL):
-    """Fused trunk+branch ReBranch conv forward (inference only)."""
+    """Fused trunk+branch ReBranch conv forward (inference only): the NHWC
+    trunk kernel plus the branch compressed once per pixel, with no patch
+    matrix on the card."""
     return rc.rebranch_conv(x, w_q, w_scale, c, core, u, cfg,
                             stride=stride, padding=padding)

@@ -233,7 +233,8 @@ def test_cpu_takes_any_cim_config(mode, fields):
     w_q = rng.integers(-127, 128, size=(100, 12)).astype(np.int8)
     x_q = rng.integers(-128, 128, size=(6, 100)).astype(np.int8)
     ones = np.ones((12,), np.float32)
-    _close(trc.trunk_patch_dot(*_t(x, w_q), tcfg),
+    _close(trc.trunk_conv_dot(*_t(x[:, None, None, :], w_q[None, None]),
+                              cfg=tcfg),
            trunk_conv_pallas(x[:, None, None, :], w_q[None, None], ones,
                              jcfg)[:, 0, 0], 1e-6)
     _close(tcm.cim_matmul(*_t(x_q, w_q), tcfg),

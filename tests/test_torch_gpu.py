@@ -10,7 +10,9 @@ the k-block's macro math is computed as the plain version computes it
 (exact integer dots; in the ADC modes the same IEEE division, bias, round
 and clamp per subarray or per binary count, added in the same order), and
 ``part * scale`` and ``acc + part`` round once each, in ascending k-block
-order, on both sides.  The CiM matmul kernel is held with ``torch.equal``
+order, on both sides.  The trunk-conv kernel reads the conv's NHWC input
+itself and is held against the plain version on the patch matrix, which
+the card path never builds.  The CiM matmul kernel is held with ``torch.equal``
 as well (one f32 add per block), and the fused ReBranch matmul's trunk
 too; its f32 sketch t1 sums within a k-block in another order than
 cuBLAS, so it is held to 1e-5 of its absmax.
@@ -24,10 +26,26 @@ from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import rebranch_conv as rc
 from repro_torch.kernels import rebranch_matmul as rm
 
-# (M, R, N): R < 128, one ragged block, whole blocks, a ragged tail after
-# two full blocks, and M / N off the kernel's 64-wide tiles
-SHAPES = [(1000, 27, 32), (777, 180, 9), (300, 512, 64), (130, 576, 100),
-          (65, 1170, 17), (5000, 288, 64), (64, 4608, 1024)]
+# (N, H, W, C_in, k, stride, padding, C_out): C_in = 3 (scalar loads, R =
+# 27), ResNet's 7x7x3 stem at stride 2, a stride-2 conv whose R = 576 is a
+# full block and a ragged one, a VALID conv, C_in = 130 (not a multiple of
+# 4, R = 1170 in three blocks), half-tap blocks at C_in = 1024 (R = 9216),
+# a 1x1 conv whose grid is split over k-blocks, M <= 16 (16-row tiles),
+# a 1x1 stride-2 VALID conv of 24 channels (R <= 32: four rows per warp
+# pass), and C_out of 4 column tiles with and without a split (64-row
+# tiles in pairs, each block staging half the rows for both; 2 column tiles
+# above pair too); M and C_out off the kernel's 64-wide tiles
+CONV_SHAPES = [(2, 23, 25, 3, 3, 1, "SAME", 32),
+               (1, 32, 30, 3, 7, 2, "SAME", 64),
+               (1, 17, 19, 64, 3, 2, "SAME", 100),
+               (2, 11, 13, 20, 3, 1, "VALID", 17),
+               (3, 9, 9, 130, 3, 2, "VALID", 9),
+               (1, 7, 9, 1024, 3, 1, "SAME", 70),
+               (8, 13, 13, 512, 1, 1, "SAME", 512),
+               (1, 4, 3, 16, 3, 1, "SAME", 8),
+               (2, 9, 10, 24, 1, 2, "VALID", 40),
+               (1, 9, 11, 64, 3, 1, "SAME", 256),
+               (4, 40, 40, 16, 3, 1, "SAME", 200)]
 MODES = ("ideal", "per_subarray", "bitserial")
 
 
@@ -46,36 +64,91 @@ def _inputs(m, r, n, dev, seed):
     return p.to(dev), w.to(dev)
 
 
+def _conv_inputs(n, h, w, c_in, k, c_out, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, h, w, c_in), generator=gen)
+    x[0, : h // 2, : w // 2] = 0.0               # all-zero patch rows
+    x[-1, -1, -1] *= 1e3                         # one pixel dominates its rows
+    w_q = torch.randint(-127, 128, (k, k, c_in, c_out), generator=gen,
+                        dtype=torch.int8)
+    return x.to(dev), w_q.to(dev)
+
+
+def _plain_trunk(x, w_q, stride, padding, cfg):
+    kh, kw, _, c_out = w_q.shape
+    p, _ = rc.patch_matrix(x, kh, kw, stride, padding)
+    return rc.trunk_patch_dot_plain(p, w_q.reshape(-1, c_out), cfg)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("m,r,n", SHAPES)
-def test_kernel_equals_plain_version(m, r, n, mode):
+@pytest.mark.parametrize("n,h,w,c_in,k,stride,padding,c_out", CONV_SHAPES)
+def test_kernel_equals_plain_version(n, h, w, c_in, k, stride, padding,
+                                     c_out, mode):
+    """The NHWC kernel is torch.equal to the plain version on the patch
+    matrix, on the card and on the CPU."""
     dev = _card()
     cfg = cim.CiMConfig(mode=mode)
-    p, w = _inputs(m, r, n, dev, seed=m + r + n)
+    x, w_q = _conv_inputs(n, h, w, c_in, k, c_out, dev, seed=h * w + c_in)
     before = rc.launches
-    got = rc.trunk_patch_dot(p, w, cfg)
+    got = rc.trunk_conv_dot(x, w_q, stride, padding, cfg)
     torch.cuda.synchronize()
     assert rc.launches == before + 1
-    assert torch.equal(got, rc.trunk_patch_dot_plain(p, w, cfg))
-    # and the CPU's plain version gives the same bits
-    assert torch.equal(got.cpu(),
-                       rc.trunk_patch_dot_plain(p.cpu(), w.cpu(), cfg))
+    assert torch.equal(got, _plain_trunk(x, w_q, stride, padding, cfg))
+    assert torch.equal(got.cpu(), _plain_trunk(x.cpu(), w_q.cpu(), stride,
+                                               padding, cfg))
+
+
+@pytest.mark.gpu
+def test_conv_builds_no_patch_matrix(monkeypatch):
+    """On a CUDA tensor trunk_conv and rebranch_conv run with patch_matrix
+    made to raise, and allocate less than the patch matrix's bytes."""
+    dev = _card()
+    x, w_q = _conv_inputs(2, 40, 40, 256, 3, 64, dev, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    w_scale = (torch.rand((1, 1, 1, 64), generator=gen) * 1e-2).to(dev)
+    c = (torch.randn((1, 1, 256, 64), generator=gen) / 16).to(dev)
+    core = (torch.randn((3, 3, 64, 16), generator=gen) * 0.05).to(dev)
+    u = (torch.randn((1, 1, 16, 64), generator=gen) / 4).to(dev)
+    want_t = rc.trunk_conv(x, w_q, w_scale)
+    want_f = rc.rebranch_conv(x, w_q, w_scale, c, core, u)
+    p_bytes = 4 * 2 * 40 * 40 * 9 * 256
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card path built the patch matrix")
+
+    monkeypatch.setattr(rc, "patch_matrix", refuse)
+    for fn, want in ((lambda: rc.trunk_conv(x, w_q, w_scale), want_t),
+                     (lambda: rc.rebranch_conv(x, w_q, w_scale, c, core, u),
+                      want_f)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base < p_bytes
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     dev = _card()
-    p, w = _inputs(70, 200, 10, dev, seed=0)
+    x, w_q = _conv_inputs(1, 9, 9, 20, 3, 10, dev, seed=0)
     with pytest.raises(ValueError, match="rows_per_subarray"):
-        rc.trunk_patch_dot(p, w, cim.CiMConfig(mode="per_subarray",
-                                               rows_per_subarray=64))
+        rc.trunk_conv_dot(x, w_q, cfg=cim.CiMConfig(mode="per_subarray",
+                                                    rows_per_subarray=64))
     with pytest.raises(ValueError):
-        rc.trunk_patch_dot(p.double(), w)
+        rc.trunk_conv_dot(x.double(), w_q)
     with pytest.raises(ValueError):
-        rc.trunk_patch_dot(p[:, ::2], w[::2])
+        rc.trunk_conv_dot(x.bfloat16(), w_q)
     with pytest.raises(ValueError):
-        rc.trunk_patch_dot(p, w.cpu())
+        rc.trunk_conv_dot(x[:, :, ::2], w_q)               # not contiguous
+    with pytest.raises(ValueError):
+        rc.trunk_conv_dot(x, w_q[:, :, :10])               # C_in 10 != 20
+    with pytest.raises(ValueError):
+        rc.trunk_conv_dot(x, w_q.float())
+    with pytest.raises(ValueError):
+        rc.trunk_conv_dot(x, w_q.cpu())
 
 
 # (M, K, N): one ragged block, whole blocks, ragged tails, the four
@@ -133,9 +206,11 @@ def test_rebranch_matmul_kernel_equals_plain_version(m, k, n, mode):
     assert torch.equal(trunk, want_trunk)
     tol = 1e-5 * want_t1.abs().max().item()
     assert (t1 - want_t1).abs().max().item() <= tol
-    # the trunk equals the trunk-conv kernel's on the same (widened) input
-    assert torch.equal(trunk,
-                       rc.trunk_patch_dot(p.bfloat16().float(), w, cfg))
+    # the trunk equals the trunk-conv kernel's on the same (widened) input,
+    # as a 1x1 conv
+    assert torch.equal(trunk, rc.trunk_conv_dot(
+        p.bfloat16().float().reshape(m, 1, 1, k), w.reshape(1, 1, k, n),
+        cfg=cfg))
     one_trunk, one_t1 = rm.rebranch_trunk_sketch(p[:1].bfloat16(), w, c, cfg)
     assert torch.equal(one_trunk, trunk[:1]) and torch.equal(one_t1, t1[:1])
 

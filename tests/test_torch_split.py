@@ -143,7 +143,8 @@ def _c_fields(header: str, struct: str) -> list[str]:
 @pytest.mark.parametrize("header,mirror", [
     ("cim_block_dot.cuh", cm.AdcParams), ("mma_tile.cuh", cm.SplitPlan),
     ("mma_tile.cuh", cm.SketchPlan), ("cim_matmul.cu", cm.CimLaunch),
-    ("rebranch_matmul.cu", rm.FusedLaunch)])
+    ("rebranch_matmul.cu", rm.FusedLaunch), ("conv_geom.cuh", rc.ConvGeom),
+    ("trunk_conv.cu", rc.ConvLaunch)])
 def test_ctypes_mirrors_the_kernel_structs(header, mirror):
     names = [f for f, _ in mirror._fields_]
     assert _c_fields(header, mirror.__name__) == names
