@@ -68,11 +68,12 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    kernel launches 126 times per solo prefill and per decode step, tokens
    lie in the vocabulary; two requests are run solo on the card too and
    must give the same tokens and the same first-decode-step logits, bit
-   for bit (the batch-variant GEMMs and reductions run on bucketed rows,
-   ``repro_torch/core/rows.py``).  Then a sustained window: three runs of 16 requests x 64
-   new tokens, tokens/s with the spread, and one decode step split into
-   the kernel, its epilogue, the readout and the rest (attention, norms,
-   embedding).
+   for bit (the batch-variant GEMMs and reductions run on 16-row slices,
+   ``repro_torch/core/rows.py``); so must three requests of a 24-row
+   pool, whose slots lie in both slices.  Then a sustained window: three runs of 16
+   requests x 64 new tokens, tokens/s with the spread, and one decode step
+   split into the kernel, its epilogue, the readout and the rest
+   (attention, norms, embedding).
 7. The ``pallas`` engine: the same parameters through ``gemma-2b-pallas``
    (the CiM matmul kernel behind every ROM linear), four requests x 16
    tokens; 126 launches per prefill and per decode step; the decode step
@@ -95,13 +96,15 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    as in phase 2.  At Gemma-2B's four
    geometries at M = 8, kernel 3's trunk and kernel 4's output (int8
    inputs with -128) are ``torch.equal`` to their plain versions in both
-   modes, and the rows of an M = 1 launch equal those of the M = 8 launch.
+   modes, and the rows of an M = 1 launch equal those of the M = 8 launch;
+   in ``bitserial`` also at M = 1, 16 and 128, each under the split plan
+   it prints (``tiling.split_plan``), with row 0 equal to M = 1's.
    ``ops.cim_conv`` (im2col + kernel 4, default config ``per_subarray``)
    at one DarkNet-19 geometry equals ``cim_matmul_plain`` on the patch
-   matrix.  Times from CUDA events, warmed (kernels 3 and 4 as phase 5's
-   ``ms``, and in ``per_subarray`` also its ``device_ms``), beside the
-   bound and the plain version's time (bitserial: one timed call each,
-   after the checks).
+   matrix.  Times from CUDA events, warmed (kernel 1 the mean of 3
+   launches, kernels 3 and 4 as phase 5's ``ms`` and ``device_ms``),
+   beside the bound and the plain version's time (the plain bitserial
+   kernel 1: one timed call).
 10. DarkNet-19 served at ADC fidelity: ``darknet19-416-adc`` (phase 3's
    plan with ``per_subarray`` at every site, ``pallas_fused``, phase 3's
    parameters) through ``CNNServer``: requests of 8, 8 and 5 images, 20
@@ -118,7 +121,8 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    at every ROM site, ``pallas_fused``: 4 requests x 16 tokens, 14
    kernel-3 launches per prefill and per decode step, one request bitwise
    equal to its solo run; the same under ``pallas`` (kernel 4); then
-   ``bitserial`` under both engines, one request x 6 tokens.
+   ``bitserial`` under both engines, 4 requests x 6 tokens, one request
+   bitwise equal to its solo run.
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -169,6 +173,7 @@ LM_LAYERS = 18
 SKETCH_RTOL = 1e-5       # phase 5, of t1's absmax
 L2_BYTES = 50 << 20      # H100 L2; timed weights cycle through 2.5x this
 LM_SLOTS, LM_MAX_LEN = 8, 256
+LM_WIDE_SLOTS, LM_WIDE_NEW = 24, 4   # phase 6's pool past the row bucket
 LM_PROMPTS, LM_NEW = (12, 40, 7, 100, 25), 32
 SUSTAINED_REQS, SUSTAINED_NEW = 16, 64
 SUSTAINED_PROMPTS = (16, 128)     # prompt lengths drawn uniformly in range
@@ -305,9 +310,11 @@ def phase_build():
                 print(f"    ptxas: {line.strip()}")
     for name in ("cim_matmul", "rebranch_matmul"):
         fn = getattr(_build.library(name), f"{name}_smem")
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-        print(f"{name}: dynamic shared memory per block, tile height 16: "
-              f"{fn(16)} bytes, 64: {fn(64)} bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        for mode, code, tall in (("ideal", 0, 64), ("bitserial", 2, 32)):
+            print(f"{name}: dynamic shared memory per block in {mode}, "
+                  f"tile height 16: {fn(16, code)} bytes, {tall}: "
+                  f"{fn(tall, code)} bytes")
     print(f"build_s {secs:.2f}")
 
 
@@ -680,7 +687,7 @@ def lm_host_costs(dev):
         "kernel 3's C entry alone (2 launches)": lambda: entry(
             x.data_ptr(), w.data_ptr(), c.data_ptr(), at, at + 4 * m * n,
             at + 4 * (m * n + m * k // 4),
-            at + 4 * (m * n + m * k // 4 + ft), launch,
+            at + 4 * (m * n + m * k // 4 + ft), 0, launch,
             torch._C._cuda_getCurrentRawStream(dev.index or 0)),
         "torch.empty": lambda: torch.empty(m * n, device=dev),
         "x.float() of a bf16 x (kernel 3 reads bf16 at M <= 16)":
@@ -932,6 +939,8 @@ def phase_lm_serve():
         check(agree == LM_NEW and diff == 0.0,
               f"request {r.rid}: batched decode != solo decode on the card")
 
+    wide_pool_check(model, params, LM_WIDE_SLOTS)
+
     # sustained window
     rates, steps_ms, lat = [], [], []
     for run in range(SUSTAINED_RUNS):
@@ -959,6 +968,55 @@ def phase_lm_serve():
           f"{lat[len(lat) // 2]:.3f} s, max {lat[-1]:.3f} s")
     step_split(model, params, srv)
     return model, params, srv, launches
+
+
+def wide_pool_check(model, params, n_slots: int):
+    """A pool of more rows than ``rows.ROW_BUCKET`` (16): ``n_slots``
+    requests decoded together, so every batch-variant op of a step runs
+    on 16-row slices (``core/rows.py``); requests 0, 16 and the last (the
+    pool hands out its slots from the top, so they sit in both slices)
+    give the tokens and first decode step's logits of their solo runs on
+    the card, bit for bit."""
+    from repro_torch.serve import server
+    srv = server.load("gemma-2b", params=params, n_slots=n_slots,
+                      max_len=LM_MAX_LEN)
+    rng = np.random.default_rng(9)
+    vocab = model.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, size=int(n))
+               for n in rng.integers(8, 40, size=n_slots)]
+    first_logits, step_rows = {}, set()
+    decode = model.decode_step
+
+    def recording(p, tok, cache):
+        logits, cache = decode(p, tok, cache)
+        step_rows.add(tok.shape[0])
+        for slot, req in srv.batcher._active.items():
+            if len(req.tokens) == 1:
+                first_logits[req.rid] = logits[slot, -1].float().cpu()
+        return logits, cache
+
+    model.decode_step = recording
+    try:
+        reqs = [srv.submit(p, LM_WIDE_NEW) for p in prompts]
+        srv.drain()
+    finally:
+        del model.decode_step
+    check(step_rows == {n_slots}, f"decode steps of {step_rows} rows")
+    for i in (0, 16, n_slots - 1):
+        toks, first = _solo_run(model, params, prompts[i], LM_WIDE_NEW,
+                                LM_MAX_LEN)
+        r = reqs[i]
+        diff = (first - first_logits[r.rid]).abs().max().item()
+        check(toks == r.tokens and diff == 0.0,
+              f"{n_slots}-row pool, request {i}: batched != solo on the "
+              f"card (tokens {r.tokens} vs {toks}, logits diff {diff})")
+    print(f"{n_slots}-row pool ({n_slots} requests x {LM_WIDE_NEW} tokens, "
+          f"decode steps of {n_slots} rows): requests 0, 16 and "
+          f"{n_slots - 1} equal their solo runs on the card (tokens and "
+          f"first decode step logits, bit for bit)")
+    check(srv.pool.blocks_in_use == 0, "wide pool: blocks leaked")
+    del srv
+    torch.cuda.empty_cache()
 
 
 def step_split(model, params, srv):
@@ -1042,15 +1100,17 @@ def step_split(model, params, srv):
         copy_ms = time_ms(lambda: [cache["layers"][k].copy_(v)
                                    for k, v in snapshot.items()], 5)
         step_ms = time_ms(step, 5) - copy_ms
-        # what the batch-invariant row buckets cost: the same step with
-        # them off (a bucket of 1 row pads nothing), in turns
-        bucket, by_bucket = rows_lib.ROW_BUCKET, {}
+        # what the batch-invariant row slices cost: the same step with
+        # each op on all rows at once, in turns
+        sliced, by_bucket = rows_lib.rowwise, {}
         try:
-            for b in (bucket, 1, 1, bucket):
-                rows_lib.ROW_BUCKET = b
-                by_bucket.setdefault(b, []).append(time_ms(step, 5) - copy_ms)
+            for on in (True, False, False, True):
+                rows_lib.rowwise = sliced if on else (
+                    lambda fn, *args: fn(*args))
+                by_bucket.setdefault(on, []).append(time_ms(step, 5)
+                                                    - copy_ms)
         finally:
-            rows_lib.ROW_BUCKET = bucket
+            rows_lib.rowwise = sliced
         k_ms, e_ms, r_ms, a_ms = (time_ms(kernels, 5),
                                   time_ms(epilogues, 5), time_ms(readout, 5),
                                   time_ms(attention, 5))
@@ -1085,9 +1145,10 @@ def step_split(model, params, srv):
         f"{k} {v}" for k, v in same.items()) + f"; epilogue max diff "
         f"{(e1.float() - e8[:1].float()).abs().max().item():.3e}, readout "
         f"max diff {(r1.float() - r8[:1].float()).abs().max().item():.3e}")
-    print(f"decode step with rows bucketed to {bucket}: "
-          f"{sum(by_bucket[bucket]) / 2:.3f} ms, unbucketed (batch-variant "
-          f"bits): {sum(by_bucket[1]) / 2:.3f} ms (in turns, CUDA events)")
+    print(f"decode step with the batch-variant ops on "
+          f"{rows_lib.ROW_BUCKET}-row slices: {sum(by_bucket[True]) / 2:.3f} "
+          f"ms, on all rows at once (batch-variant bits): "
+          f"{sum(by_bucket[False]) / 2:.3f} ms (in turns, CUDA events)")
     rest = step_ms - k_ms - e_ms - r_ms - a_ms
     print(f"one decode step at {LM_SLOTS} rows (CUDA events): whole "
           f"{step_ms:.3f} ms = fused kernel {k_ms:.3f} ms ({per_pass} "
@@ -1258,9 +1319,15 @@ def phase_lm_cpu(model, params, srv):
 
 ADC_MODES = ("per_subarray", "bitserial")
 ADC_ROWS = 4096          # bitserial: rows of each P held against the plain
-# f32 operations of one ADC evaluation: the division, + bias, rint, the
-# two clamps, * lsb and the add (bitserial: and * +-2^k)
-ADC_F32_OPS = {"per_subarray": 7, "bitserial": 8}
+# f32 operations of one ADC evaluation that no design avoids: per_subarray
+# the division, + bias, rint, the two clamps, * lsb and the add; bitserial
+# the accumulate's multiply (code * (lsb * coef)) and add, its code and lsb
+# coming from a table
+ADC_F32_OPS = {"per_subarray": 7, "bitserial": 2}
+# binary (.b1 .and.popc) multiply-accumulates per second of mma.sync on an
+# NVIDIA H100 80GB HBM3 at 700 W, measured by scripts/bitcount_ab.py; above
+# the int8 tensor cores' 989.5e12 (1979e12 operations)
+B1_MACS = 1.5905e15
 ADC_SUSTAINED_CHUNKS = 16
 LM_ADC_LAYERS = 2        # phase 11's Gemma-2B depth cut
 LM_ADC_PROMPTS, LM_ADC_NEW = (10, 30, 60, 90), 16
@@ -1270,19 +1337,28 @@ LM_BITSERIAL_NEW = 6
 def adc_bound_ms(m: int, k: int, n: int, mode: str, x_bytes: float = 4.0,
                  cdim: int = 0, x_elems: int | None = None
                  ) -> tuple[float, str]:
-    """(bound, what bounds it) of one trunk launch in an ADC
-    mode: x [m, k] (``x_bytes`` per element; or ``x_elems`` elements, a
-    conv's NHWC input), W int8 [k, n] -> f32 [m, n] (and, with ``cdim``,
-    the f32 sketch x @ C [k, cdim]).  Bytes: each input read once, each
-    output written once.  Operations: the int8 multiply-adds (112 binary
-    ones per int8 one in bitserial: 4 sign pairs x 4 groups x 7 planes) at
-    the int8 tensor-core rate, and the ADC evaluations (one per row, column
-    and subarray; x 112 in bitserial) and the sketch at the f32 rate."""
+    """(bound, what bounds it) of one trunk launch in an ADC mode: x [m, k]
+    (``x_bytes`` per element; or ``x_elems`` elements, a conv's NHWC
+    input), W int8 [k, n] -> f32 [m, n] (and, with ``cdim``, the f32 sketch
+    x @ C [k, cdim]).  Bytes: each input read once, each output written
+    once.  Operations, the least work of the mode: per_subarray, the int8
+    multiply-adds at the int8 tensor-core rate and ADC_F32_OPS f32
+    operations per ADC evaluation (one per row, column and subarray);
+    bitserial, 112 binary multiply-adds per int8 one (4 sign pairs x 4
+    activation groups x 7 weight planes, each counted once, though a 2-bit
+    group takes two one-bit passes) at the higher of the int8 rate and the
+    measured binary rate (B1_MACS), and the accumulate's f32 multiply and
+    add per ADC evaluation (112 per row, column and subarray); the sketch's
+    f32 multiply-adds.  A lower bound for the binary-MMA, table-ADC kernel
+    as for the earlier popcount and division one."""
     subarrays = -(-k // 128)
-    per = 112 if mode == "bitserial" else 1
-    evals = per * m * n * subarrays
-    ops_ms = (2.0 * per * m * k * n / PEAK_INT8_OPS
-              + (ADC_F32_OPS[mode] * evals + 2.0 * m * k * cdim)
+    if mode == "bitserial":
+        macs_ms = 112.0 * m * k * n / max(PEAK_INT8_OPS / 2, B1_MACS)
+        evals = 112 * m * n * subarrays
+    else:
+        macs_ms = 2.0 * m * k * n / PEAK_INT8_OPS
+        evals = m * n * subarrays
+    ops_ms = (macs_ms + (ADC_F32_OPS[mode] * evals + 2.0 * m * k * cdim)
               / PEAK_F32_OPS) * 1e3
     x_total = x_bytes * (m * k if x_elems is None else x_elems)
     nbytes = x_total + k * n + 4.0 * m * n + 4.0 * (k * cdim + m * cdim)
@@ -1376,7 +1452,7 @@ def phase_adc_kernels(dev, cfg) -> dict:
               f"{rows} rows (max {(got[:rows] - want).abs().max().item()})")
         check(bool(torch.isfinite(got).all()), f"{site}: bitserial non-finite")
         del got, want, p_rows
-        ms = time_once_ms(lambda: rc.trunk_conv_dot(x, w_q, cfg=bs))
+        ms = time_ms(lambda: rc.trunk_conv_dot(x, w_q, cfg=bs), 3)
         plain_ms = time_once_ms(lambda: rc.trunk_patch_dot_plain(p, w2d, bs))
         bound, by = adc_bound_ms(m, r, c_out, "bitserial", x_elems=x.numel())
         bound_p, _ = adc_bound_ms(m, r, c_out, "bitserial")
@@ -1414,16 +1490,19 @@ def phase_adc_kernels(dev, cfg) -> dict:
           f"matrix")
     del xq, p, got, want
 
-    # kernels 3 and 4 at Gemma-2B's geometries, M = 8 (and M = 1 rows)
+    # kernels 3 and 4 at Gemma-2B's geometries: both modes at M = 8 (and
+    # M = 1 rows); bitserial also at M = 1, 16 and 128, under its plan
     gen = torch.Generator(device=dev).manual_seed(5)
-    print("kernel mode K N M equal ms plain_ms bound_ms bound_by")
+    print("kernel mode K N M equal ms plain_ms bound_ms bound_by "
+          "[device_ms]")
     for (k, n), per_layer in LM_GEOMS.items():
         cdim = k // 4
-        x = torch.randn((LM_SLOTS, k), generator=gen, device=dev
-                        ).to(torch.bfloat16)
-        xq = torch.randint(-128, 128, (LM_SLOTS, k), generator=gen,
-                           device=dev, dtype=torch.int8)
-        xq[0, ::7] = -128                       # -128 activations
+        x_all = torch.randn((max(LM_ROWS), k), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+        xq_all = torch.randint(-128, 128, (max(LM_ROWS), k), generator=gen,
+                               device=dev, dtype=torch.int8)
+        xq_all[0, ::7] = -128                   # -128 activations
+        x, xq = x_all[:LM_SLOTS], xq_all[:LM_SLOTS]
         copies = max(1, math.ceil(2.5 * L2_BYTES / (k * n + 4 * k * cdim)))
         ws = [torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(copies)]
@@ -1449,21 +1528,19 @@ def phase_adc_kernels(dev, cfg) -> dict:
                   and torch.equal(one3[1], t1[:1])
                   and torch.equal(one4, got4[:1]),
                   f"{mode}: row 0 differs between M = 1 and M = 8 ({k}x{n})")
+            if mode == "bitserial":
+                lm_bitserial_rows(x_all, xq_all, w, c, bs, one3, one4)
             args3 = [(x, wi, ci, cfg_m) for wi, ci in zip(ws, cs)]
             args4 = [(xq, wi, cfg_m) for wi in ws]
-            # eager, host included, as phase 5's ms; per_subarray also
-            # as device time (graph replay), as phase 5's device_ms
+            # eager, host included, as phase 5's ms; and device time
+            # (graph replay), as phase 5's device_ms
             ms3 = time_cycled_ms(rm.rebranch_trunk_sketch, args3, copies)
             ms4 = time_cycled_ms(cm.cim_matmul, args4, copies)
-            dev_txt = ""
-            if mode == "per_subarray":
-                dev3 = time_graph_ms(rm.rebranch_trunk_sketch, args3, copies)
-                dev4 = time_graph_ms(cm.cim_matmul, args4, copies)
-                for name, d in (("rebranch_matmul", dev3),
-                                ("cim_matmul", dev4)):
-                    t = out[name, mode]
-                    t["device_ms"] = t.get("device_ms", 0.0) + d * count
-                dev_txt = f" device_ms {dev3:.4f} / {dev4:.4f}"
+            dev3 = time_graph_ms(rm.rebranch_trunk_sketch, args3, copies)
+            dev4 = time_graph_ms(cm.cim_matmul, args4, copies)
+            for name, d in (("rebranch_matmul", dev3), ("cim_matmul", dev4)):
+                t = out[name, mode]
+                t["device_ms"] = t.get("device_ms", 0.0) + d * count
             plain3 = time_once_ms(
                 lambda: rm.rebranch_matmul_plain(x, w, c, cfg_m))
             plain4 = time_once_ms(lambda: cm.cim_matmul_plain(xq, w, cfg_m))
@@ -1475,9 +1552,9 @@ def phase_adc_kernels(dev, cfg) -> dict:
                 out["rebranch_matmul", mode]["max_abs_err"],
                 (t1 - want_t1).abs().max().item())
             print(f"rebranch_matmul {mode} {k} {n} {LM_SLOTS} True "
-                  f"{ms3:.4f} {plain3:.4f} {b3:.4f} {by3}")
+                  f"{ms3:.4f} {plain3:.4f} {b3:.4f} {by3} {dev3:.4f}")
             print(f"cim_matmul {mode} {k} {n} {LM_SLOTS} True {ms4:.4f} "
-                  f"{plain4:.4f} {b4:.4f} {by4}{dev_txt}", flush=True)
+                  f"{plain4:.4f} {b4:.4f} {by4} {dev4:.4f}", flush=True)
             del trunk, t1, want_trunk, want_t1, got4, want4
         del ws, cs
         torch.cuda.empty_cache()
@@ -1490,6 +1567,37 @@ def phase_adc_kernels(dev, cfg) -> dict:
                   f"{t['ms']:.3f} ms{dev_txt}, plain {t['plain_ms']:.3f} "
                   f"ms, bound {t['bound_ms']:.3f} ms")
     return out
+
+
+def lm_bitserial_rows(x_all, xq_all, w, c, bs, one3, one4):
+    """Kernels 3 and 4 in bitserial at one Gemma-2B geometry and M = 1,
+    16 and 128 (M = 8 is phase 9's main check): torch.equal to the plain
+    versions under the plan ``tiling.split_plan`` hands them (printed),
+    and row 0 equal to the M = 1 launch's (``one3``, ``one4``)."""
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_matmul as rm
+    from repro_torch.kernels import tiling
+    k, n = w.shape
+    for m in (r for r in LM_ROWS if r != LM_SLOTS):
+        x, xq = x_all[:m].contiguous(), xq_all[:m].contiguous()
+        trunk, t1 = rm.rebranch_trunk_sketch(x, w, c, bs)
+        got4 = cm.cim_matmul(xq, w, bs)
+        want_trunk, want_t1 = rm.rebranch_matmul_plain(x, w, c, bs)
+        want4 = cm.cim_matmul_plain(xq, w, bs)
+        torch.cuda.synchronize()
+        check(torch.equal(trunk, want_trunk) and torch.equal(got4, want4),
+              f"bitserial kernels != plain at M = {m} ({k}x{n})")
+        rel = ((t1 - want_t1).abs().max() / want_t1.abs().max()).item()
+        check(rel <= SKETCH_RTOL, f"bitserial sketch off by {rel} at M = {m}")
+        check(torch.equal(trunk[:1], one3[0]) and torch.equal(t1[:1], one3[1])
+              and torch.equal(got4[:1], one4),
+              f"bitserial: row 0 differs between M = 1 and M = {m} "
+              f"({k}x{n})")
+        sp = tiling.split_plan(m, n, k, "bitserial")
+        print(f"bitserial {k} {n} M = {m}: kernels 3 and 4 equal to plain, "
+              f"row 0 equal to M = 1's; plan: tile height {sp.tile_m}, "
+              f"{sp.tiles} tiles x {sp.n_splits} splits of "
+              f"{sp.kb_per_split} k-block(s)", flush=True)
 
 
 def adc_plan(cfg, mode: str, engine: str = "pallas_fused"):
@@ -1699,7 +1807,8 @@ def phase_lm_adc() -> dict:
     launches per prefill and per decode step.  per_subarray at every ROM
     site under pallas_fused (kernel 3) and pallas (kernel 4), four
     requests x 16 tokens, one request against its solo run; then
-    bitserial under both engines, one request x 6 tokens."""
+    bitserial under both engines, four requests x 6 tokens, one request
+    against its solo run."""
     from repro_torch.serve import registry
 
     for mode, fused_id, pallas_id in (
@@ -1726,11 +1835,11 @@ def phase_lm_adc() -> dict:
         "gemma-2b-adc-pallas", params, "cim_matmul", LM_ADC_PROMPTS,
         LM_ADC_NEW, solo=1)
     launches["rebranch_matmul", "bitserial"] = lm_serve_check(
-        "gemma-2b-bitserial", params, "rebranch_matmul", LM_ADC_PROMPTS[:1],
-        LM_BITSERIAL_NEW, solo=0)
+        "gemma-2b-bitserial", params, "rebranch_matmul", LM_ADC_PROMPTS,
+        LM_BITSERIAL_NEW, solo=1)
     launches["cim_matmul", "bitserial"] = lm_serve_check(
         "gemma-2b-bitserial-pallas", params, "cim_matmul",
-        LM_ADC_PROMPTS[:1], LM_BITSERIAL_NEW, solo=0)
+        LM_ADC_PROMPTS, LM_BITSERIAL_NEW, solo=1)
     return launches
 
 

@@ -22,17 +22,27 @@ def _f32(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=like.device)
 
 
+def adc_lsb(full_range, cfg, like: torch.Tensor) -> torch.Tensor:
+    """The step of :func:`adc_transfer` for ``full_range`` (a scalar, in
+    Python, or a per-column tensor, in f32), on ``like``'s device."""
+    if isinstance(full_range, torch.Tensor):      # per-column, in f32
+        return (full_range * cfg.adc_range_frac) / _f32(cfg.adc_levels, like)
+    return _f32(full_range * cfg.adc_range_frac / cfg.adc_levels, like)
+
+
+def adc_code(psum: torch.Tensor, lsb: torch.Tensor, cfg) -> torch.Tensor:
+    """The output code of :func:`adc_transfer`, in f32: the count in steps
+    of ``lsb``, biased, rounded half to even, clipped to the levels."""
+    return torch.clamp(torch.round(psum / lsb + THRESHOLD_BIAS),
+                       0, cfg.adc_levels)
+
+
 def adc_transfer(psum: torch.Tensor, full_range, cfg) -> torch.Tensor:
     """5-bit ADC: quantise a non-negative analogue count in
     [0, full_range] (scalar or per-column tensor) to ``cfg.adc_levels``
     uniform steps, clipping above the engineered range."""
-    if isinstance(full_range, torch.Tensor):      # per-column, in f32
-        lsb = (full_range * cfg.adc_range_frac) / _f32(cfg.adc_levels, psum)
-    else:                                         # scalar, in Python
-        lsb = _f32(full_range * cfg.adc_range_frac / cfg.adc_levels, psum)
-    code = torch.clamp(torch.round(psum / lsb + THRESHOLD_BIAS),
-                       0, cfg.adc_levels)
-    return code * lsb
+    lsb = adc_lsb(full_range, cfg, psum)
+    return adc_code(psum, lsb, cfg) * lsb
 
 
 def signed_lsb(full_range, cfg) -> float:

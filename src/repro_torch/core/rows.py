@@ -5,31 +5,35 @@ which needs every op of a decode step to give a row the same bits whether
 it runs alone or in a batch.  Elementwise ops, gathers and the port's own
 kernels do.  A cuBLAS GEMM or a PyTorch reduction on the card does not:
 it picks its kernel, and with it the summation order, from the shape, so
-the same row can round differently at M = 1 and M = 8.  Padding the rows
-of such an op to a fixed bucket gives it one shape for every batch up to
-the bucket, and so the same bits per row.
+the same row can round differently at M = 1 and M = 8.  Running such an
+op on slices of a fixed number of rows, the last one padded, gives it one
+shape for every batch, and so the same bits per row.
 """
 
 from __future__ import annotations
 
 import torch
 
-# Rows of a decode step (the pool's slots) up to this many share one shape.
+# Every batch-variant op sees row slices of exactly this many rows.
 ROW_BUCKET = 16
 
 
 def padded(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with zero rows appended along dim 0 up to a multiple of
-    :data:`ROW_BUCKET` (at least one bucket)."""
-    m = x.shape[0]
-    pad = max(ROW_BUCKET, -(-m // ROW_BUCKET) * ROW_BUCKET) - m
+    """``x`` (at most :data:`ROW_BUCKET` rows) with zero rows appended
+    along dim 0 up to :data:`ROW_BUCKET`."""
+    pad = ROW_BUCKET - x.shape[0]
     if pad == 0:
         return x
     return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
 
 
 def rowwise(fn, *rows: torch.Tensor):
-    """``fn(*rows)`` on row-padded copies of ``rows`` (all with the same
-    leading dim M), sliced back to M rows."""
+    """``fn(*rows)`` (all ``rows`` with the same leading dim M, ``fn``
+    row-wise), computed on consecutive :data:`ROW_BUCKET`-row slices, the
+    last one zero-padded, and concatenated back to M rows: so ``fn`` sees
+    ``ROW_BUCKET`` rows whatever M is, and a row gets the same bits in a
+    pool of any size as alone."""
     m = rows[0].shape[0]
-    return fn(*(padded(r) for r in rows))[:m]
+    outs = [fn(*(padded(r[i:i + ROW_BUCKET]) for r in rows))[:m - i]
+            for i in range(0, max(m, 1), ROW_BUCKET)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)

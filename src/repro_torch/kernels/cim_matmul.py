@@ -12,6 +12,9 @@ cim_matmul    : int8 [M, K] x int8 [K, N] -> f32 [M, N], one macro dot per
                 :func:`cim_matmul_plain`, which mirrors ``_cim_direct``.
 kernel_args   : the CiM mode and ADC constants that all three kernels'
                 C entries take, and the check of what they do not take.
+adc_table     : the bitserial ADC as a table of (popcount, count), built
+                once per config with the plain version's formula, which the
+                kernels read instead of dividing.
 """
 
 from __future__ import annotations
@@ -119,11 +122,11 @@ KERNEL_FIELDS = {"rows_per_subarray": 128, "weight_bits": 8, "act_bits": 8,
 
 @functools.lru_cache(maxsize=None)
 def kernel_args(cfg: cim_lib.CiMConfig) -> tuple:
-    """(mode, lsb, frac, levels) of ``cfg`` for the kernels' C entries:
-    the CimMode, the per_subarray step (a Python double that ctypes rounds
-    once to f32, as ``adc.signed_adc`` does), ``adc_range_frac`` and
-    ``adc_levels``.  Raises ValueError, naming the field, for a config the
-    kernels do not take (the CPU plain versions take any)."""
+    """(mode, lsb, levels) of ``cfg`` for the kernels' C entries: the
+    CimMode, the per_subarray step (a Python double that ctypes rounds
+    once to f32, as ``adc.signed_adc`` does) and ``adc_levels``.  Raises
+    ValueError, naming the field, for a config the kernels do not take
+    (the CPU plain versions take any)."""
     for field, want in KERNEL_FIELDS.items():
         got = getattr(cfg, field)
         if got != want:
@@ -132,13 +135,54 @@ def kernel_args(cfg: cim_lib.CiMConfig) -> tuple:
                 f"got {got} (the plain versions on the CPU take any)")
     if cfg.mode not in MODES:
         raise ValueError(f"unknown CiM mode: {cfg.mode!r}")
+    if cfg.mode == "bitserial" and cfg.adc_levels > 255:
+        raise ValueError(f"the bitserial kernels take CiMConfig.adc_bits <= "
+                         f"8 only (uint8 codes), got {cfg.adc_bits}")
     return (MODES[cfg.mode],
             adc_lib.signed_lsb(cfg.rows_per_subarray * 127.0, cfg),
-            cfg.adc_range_frac, float(cfg.adc_levels))
+            float(cfg.adc_levels))
 
 
-# argtypes of (mode, lsb, frac, levels) in the trunk-conv C entry
-ADC_ARGTYPES = [ctypes.c_int] + [ctypes.c_float] * 3
+@functools.lru_cache(maxsize=None)
+def adc_table(cfg: cim_lib.CiMConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bitserial ADC of ``cfg`` as a table, on the CPU: (code uint8
+    [rows + 1, 3 rows + 1], lsb f32 [rows + 1]).  A count of one subarray
+    is an integer in [0, 3 p], p the ones of its weight plane in the
+    column, and the column's range is max(3 p, 1), so ``adc_transfer``'s
+    code is a function of (p, count): ``code[p, count] * lsb[p]`` is the
+    plain version's sensed value, computed here by the plain version's
+    own f32 formula (``adc.adc_lsb``, ``adc.adc_code``) for every pair."""
+    rows, gmax = cfg.rows_per_subarray, cfg.group_max
+    pop = torch.arange(rows + 1, dtype=torch.float32)[:, None]
+    counts = torch.arange(gmax * rows + 1, dtype=torch.float32)[None, :]
+    lsb = adc_lib.adc_lsb((pop * gmax).clamp_min(1.0), cfg, counts)
+    code = adc_lib.adc_code(counts, lsb, cfg)
+    return code.to(torch.uint8), lsb[:, 0]
+
+
+# bytes of csrc/cim_block_dot.cuh's table: lsb f32 [129], then row p of
+# the codes for the counts 0 .. 3 p that a count can reach, padded to 16
+ADC_TABLE_BYTES = -(-(4 * 129 + sum(3 * p + 1 for p in range(129)))
+                    // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def _device_table(cfg: cim_lib.CiMConfig, device: torch.device):
+    code, lsb = adc_table(cfg)
+    gmax = cfg.group_max
+    raw = torch.cat([lsb.view(torch.uint8),
+                     *(code[p, :gmax * p + 1] for p in range(code.shape[0]))])
+    raw = torch.cat([raw, raw.new_zeros(ADC_TABLE_BYTES - raw.numel())])
+    return raw.to(device)
+
+
+def adc_pointer(cfg: cim_lib.CiMConfig, device: torch.device) -> int:
+    """The kernels' ADC table argument: the device address of ``cfg``'s
+    table in the layout of ``csrc/cim_block_dot.cuh`` (made once per
+    config and card) in bitserial mode, else 0."""
+    if cfg.mode != "bitserial":
+        return 0
+    return _device_table(cfg, device).data_ptr()
 
 
 def mirror(name: str, fields) -> type:
@@ -149,7 +193,7 @@ def mirror(name: str, fields) -> type:
 # csrc/cim_block_dot.cuh's AdcParams and mma_tile.cuh's SplitPlan and
 # SketchPlan (tests/test_torch_split.py holds the names to the headers)
 AdcParams = mirror("AdcParams", [(f, ctypes.c_float)
-                                  for f in ("lsb", "frac", "levels")])
+                                  for f in ("lsb", "levels")])
 SplitPlan = mirror("SplitPlan", [
     (f, ctypes.c_int)
     for f in ("tile_m", "tiles_n", "tiles", "nkb", "kb_per", "n_splits")])
@@ -178,14 +222,14 @@ def c_sketch(s: tiling.SketchSplit):
 @functools.lru_cache(maxsize=4096)
 def _launch(m: int, k: int, n: int, cfg: cim_lib.CiMConfig):
     """(CimLaunch, scratch floats) of one launch: the shapes, the mode,
-    the ADC constants and ``tiling.split_k``'s plan, made once per shape
-    and config (bitserial keeps the unsplit dp4a tile: no scratch)."""
-    mode, lsb, frac, levels = kernel_args(cfg)
-    sp = tiling.split_k(m, n, k, cfg.rows_per_subarray)
-    launch = CimLaunch(m, k, n, tiling.block_k(k, cfg.rows_per_subarray),
-                       mode, AdcParams(lsb, frac, levels), c_split(sp))
-    return launch, (0 if cfg.mode == "bitserial"
-                    else sp.scratch_floats(m, n))
+    the ADC constants and ``tiling.split_plan``'s plan, made once per
+    shape and config."""
+    mode, lsb, levels = kernel_args(cfg)
+    rows = cfg.rows_per_subarray
+    sp = tiling.split_plan(m, n, k, cfg.mode, rows)
+    launch = CimLaunch(m, k, n, tiling.block_k(k, rows), mode,
+                       AdcParams(lsb, levels), c_split(sp))
+    return launch, sp.scratch_floats(m, n)
 
 
 def bind(lib_name: str, entry: str, n_pointers: int, launch_type) -> object:
@@ -209,7 +253,7 @@ def bind(lib_name: str, entry: str, n_pointers: int, launch_type) -> object:
 @functools.cache
 def _kernel():
     """The C entry of ``csrc/cim_matmul.cu``, built and bound once."""
-    return bind("cim_matmul", "cim_matmul", 4, CimLaunch)
+    return bind("cim_matmul", "cim_matmul", 5, CimLaunch)
 
 
 def call(fn, device: torch.device, *args) -> int:
@@ -237,8 +281,8 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
 
     A CUDA tensor launches ``csrc/cim_matmul.cu`` in ``cfg``'s mode (a
     config the kernel does not take, or a build or launch failure,
-    raises), with the tile height and split of ``tiling.split_k``; a CPU
-    tensor takes :func:`cim_matmul_plain`.  The split's f32 parts are
+    raises), with the tile height and split of ``tiling.split_plan``; a
+    CPU tensor takes :func:`cim_matmul_plain`.  The split's f32 parts are
     left uninitialised: every part is written before the reduction reads
     it.
     """
@@ -263,7 +307,8 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     parts = scratch(floats, x_q.device)
     rc = call(_kernel(), x_q.device, x_q.data_ptr(), w_q.data_ptr(),
-              out.data_ptr(), parts.data_ptr() if floats else 0, launch)
+              out.data_ptr(), parts.data_ptr() if floats else 0,
+              adc_pointer(cfg, x_q.device), launch)
     if rc != 0:
         raise RuntimeError(f"cim_matmul kernel launch failed: CUDA error {rc}")
     global launches

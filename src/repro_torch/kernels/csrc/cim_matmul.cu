@@ -40,15 +40,16 @@
 //     transposition of each W chunk and two barriers per 128 k feed the
 //     MMA too slowly.  wgmma on larger tiles is the next step.
 //   bitserial: operations, 112 binary counts through the ADC per (row,
-//     column, subarray).  It keeps trunk_tile.cuh's tile (bit planes, AND
-//     + __popc): the MMA's int32 dot has no place in it, and a binary
-//     MMA version is later work (ROADMAP Queue 2).
+//     column, subarray): bitserial_tile.cuh on Int8Act, the counts from
+//     the binary tensor cores, the ADC a table (no division); 16-row tiles
+//     at decode, 32-row above, split over k-blocks where the grid is small
+//     (tiling.split_bitserial).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bitserial_tile.cuh"
 #include "mma_tile.cuh"
-#include "trunk_tile.cuh"
 
 using namespace repro_torch;
 
@@ -56,7 +57,7 @@ namespace repro_torch {
 
 // One launch as kernels/cim_matmul.py::CimLaunch describes it (field for
 // field): the shapes, the k-block width bk (tiling.block_k(k, 128)), the
-// CimMode, the ADC constants and tiling.split_k's plan.
+// CimMode, the ADC constants and tiling.split_plan's plan.
 struct CimLaunch {
   int m;
   int k;
@@ -75,28 +76,25 @@ template <int kMode, int TM>
 __global__ void __launch_bounds__(mma::kThreads)
     cim_matmul_mma(const int8_t* __restrict__ x,
                    const int8_t* __restrict__ w, float* __restrict__ out,
-                   float* __restrict__ parts, int m, int k, int n, int bk,
-                   mma::SplitPlan plan,
-                   AdcParams adc, bool xvec, bool wvec) {
+                   float* __restrict__ parts,
+                   const unsigned char* __restrict__ adc_table, int m, int k,
+                   int n, int bk, mma::SplitPlan plan, AdcParams adc,
+                   bool xvec, bool wvec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int tile = b % plan.tiles;
   const int split = b / plan.tiles;
-  mma::mma_tile<kMode, TM>(
-      mma::Int8Act{x, m, k, xvec}, mma::WSrc{w, k, n, wvec}, out, parts,
-      bk, plan, split * plan.kb_per,
-      static_cast<long long>(tile / plan.tiles_n) * TM,
-      (tile % plan.tiles_n) * mma::kTileN, adc, smem);
-}
-
-__global__ void __launch_bounds__(kTileThreads)
-    cim_matmul_bitserial(const int8_t* __restrict__ x,
-                         const int8_t* __restrict__ w,
-                         float* __restrict__ out, int m, int k, int n,
-                         int bk, AdcParams adc) {
-  cim_tile_bitserial(Int8Rows{x, m, k}, w, out, n, bk,
-                     static_cast<long long>(blockIdx.x) * kTileM,
-                     blockIdx.y * kTileN, adc);
+  const mma::Int8Act act{x, m, k, xvec};
+  const mma::WSrc ws{w, k, n, wvec};
+  const long long m0 = static_cast<long long>(tile / plan.tiles_n) * TM;
+  const int n0 = (tile % plan.tiles_n) * mma::kTileN;
+  if constexpr (kMode == kBitserial) {
+    mma::bitserial_tile<TM>(act, ws, out, parts, bk, plan,
+                            split * plan.kb_per, m0, n0, adc_table, smem);
+  } else {
+    mma::mma_tile<kMode, TM>(act, ws, out, parts, bk, plan,
+                             split * plan.kb_per, m0, n0, adc, smem);
+  }
 }
 
 bool aligned16(const void* p) {
@@ -105,8 +103,9 @@ bool aligned16(const void* p) {
 
 template <int kMode, int TM>
 int launch_mma(const int8_t* x, const int8_t* w, float* out, float* parts,
-               const CimLaunch& l, cudaStream_t stream) {
-  constexpr int smem = mma::Shape<TM>::kTrunkSmem;
+               const unsigned char* adc_table, const CimLaunch& l,
+               cudaStream_t stream) {
+  constexpr int smem = mma::tile_smem<kMode, TM, mma::Int8Act>();
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -125,7 +124,7 @@ int launch_mma(const int8_t* x, const int8_t* w, float* out, float* parts,
   const long long blocks = static_cast<long long>(plan.tiles) * plan.n_splits;
   cim_matmul_mma<kMode, TM><<<static_cast<unsigned>(blocks), mma::kThreads,
                               smem, stream>>>(
-      x, w, out, parts, l.m, l.k, l.n, l.bk, plan, l.adc,
+      x, w, out, parts, adc_table, l.m, l.k, l.n, l.bk, plan, l.adc,
       l.k % 16 == 0 && aligned16(x), l.n % 16 == 0 && aligned16(w));
   cudaError_t e = cudaGetLastError();
   if (e == cudaSuccess && plan.n_splits > 1) {
@@ -138,12 +137,15 @@ int launch_mma(const int8_t* x, const int8_t* w, float* out, float* parts,
 
 template <int kMode>
 int launch_mode(const int8_t* x, const int8_t* w, float* out, float* parts,
-                const CimLaunch& l, cudaStream_t stream) {
+                const unsigned char* adc_table, const CimLaunch& l,
+                cudaStream_t stream) {
+  // tile heights 16 and 64, or 16 and 32 in bitserial
+  constexpr int kTall = kMode == kBitserial ? 32 : 64;
   if (l.plan.tile_m == 16) {
-    return launch_mma<kMode, 16>(x, w, out, parts, l, stream);
+    return launch_mma<kMode, 16>(x, w, out, parts, adc_table, l, stream);
   }
-  if (l.plan.tile_m == 64) {
-    return launch_mma<kMode, 64>(x, w, out, parts, l, stream);
+  if (l.plan.tile_m == kTall) {
+    return launch_mma<kMode, kTall>(x, w, out, parts, adc_table, l, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -152,42 +154,46 @@ int launch_mode(const int8_t* x, const int8_t* w, float* out, float* parts,
 
 // Launch `*l` on `stream`; returns cudaGetLastError() (0 on success).  With
 // more than one split, `parts` holds n_kblocks * m * n floats, and a
-// second kernel (split_reduce) follows on the stream.  Bitserial ignores
-// the plan and the scratch.
+// second kernel (split_reduce) follows on the stream.  Bitserial reads the
+// ADC table `adc_table` (cim_block_dot.cuh; 16-byte aligned), the other
+// modes none.
 extern "C" int cim_matmul(const int8_t* x, const int8_t* w, float* out,
-                          float* parts, const CimLaunch* l,
-                          cudaStream_t stream) {
+                          float* parts, const unsigned char* adc_table,
+                          const CimLaunch* l, cudaStream_t stream) {
   if (l->m <= 0 || l->k <= 0 || l->n <= 0 || l->bk <= 0 ||
-      l->bk % kChunkK != 0 || l->bk > mma::kBlockK) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (l->mode != kBitserial &&
-      (!mma::covers(l->plan, l->m, l->n, l->k, l->bk) ||
-       (l->plan.n_splits > 1 && parts == nullptr))) {
+      l->bk % mma::kChunkK != 0 || l->bk > mma::kBlockK ||
+      !mma::covers(l->plan, l->m, l->n, l->k, l->bk) ||
+      (l->plan.n_splits > 1 && parts == nullptr) ||
+      (l->mode == kBitserial &&
+       (adc_table == nullptr || !aligned16(adc_table)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (l->mode) {
     case kIdeal:
-      return launch_mode<kIdeal>(x, w, out, parts, *l, stream);
+      return launch_mode<kIdeal>(x, w, out, parts, adc_table, *l, stream);
     case kPerSubarray:
-      return launch_mode<kPerSubarray>(x, w, out, parts, *l, stream);
-    case kBitserial: {
-      const dim3 grid((l->m + kTileM - 1) / kTileM,
-                      (l->n + kTileN - 1) / kTileN);
-      cim_matmul_bitserial<<<grid, kTileThreads, 0, stream>>>(
-          x, w, out, l->m, l->k, l->n, l->bk, l->adc);
-      return static_cast<int>(cudaGetLastError());
-    }
+      return launch_mode<kPerSubarray>(x, w, out, parts, adc_table, *l,
+                                       stream);
+    case kBitserial:
+      return launch_mode<kBitserial>(x, w, out, parts, adc_table, *l,
+                                     stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory of the tensor-core tile of height tile_m, in
-// bytes (for the build report); -1 for a height the kernel does not take.
-extern "C" int cim_matmul_smem(int tile_m) {
-  return tile_m == 16   ? mma::Shape<16>::kTrunkSmem
-         : tile_m == 64 ? mma::Shape<64>::kTrunkSmem
+// Dynamic shared memory of the tile of height tile_m in CimMode mode, in
+// bytes (for the build report); -1 for a height the mode does not take.
+extern "C" int cim_matmul_smem(int tile_m, int mode) {
+  using mma::Int8Act;
+  using mma::tile_smem;
+  if (mode == kBitserial) {
+    return tile_m == 16   ? tile_smem<kBitserial, 16, Int8Act>()
+           : tile_m == 32 ? tile_smem<kBitserial, 32, Int8Act>()
+                          : -1;
+  }
+  return tile_m == 16   ? tile_smem<kIdeal, 16, Int8Act>()
+         : tile_m == 64 ? tile_smem<kIdeal, 64, Int8Act>()
                         : -1;
 }
 

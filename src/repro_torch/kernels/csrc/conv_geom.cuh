@@ -1,6 +1,6 @@
-// The implicit im2col map of the trunk-conv kernel (trunk_conv.cu), shared
-// by the NHWC activation sources of mma_tile.cuh (NhwcAct) and
-// trunk_tile.cuh (NhwcRows).
+// The implicit im2col map of the trunk-conv kernel (trunk_conv.cu), read by
+// the NHWC activation source of mma_tile.cuh (NhwcAct), which the int8 and
+// the bitserial tiles share.
 //
 // Row m of the patch matrix P [M, R] (M = N OH OW, R = kh kw C, tap-major)
 // is the output pixel (img, oh, ow); its column kk is the tap t = kk / C,

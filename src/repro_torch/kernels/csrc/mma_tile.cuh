@@ -1,7 +1,8 @@
 // Int8 tensor-core tiles of all three kernels (trunk_conv.cu,
 // cim_matmul.cu, rebranch_matmul.cu) in the ideal and per_subarray CiM
 // modes, and the f32 sketch tile of the fused ReBranch matmul.  The
-// bitserial mode keeps trunk_tile.cuh's bit-plane tile.
+// bitserial mode is bitserial_tile.cuh's, on the same activation sources,
+// W source and split plan.
 //
 // mma_tile<Mode, TM> computes one (TM, 64) output tile of
 //
@@ -18,7 +19,7 @@
 //     p    = part * scale (FloatAct, one rounding)  or  part (Int8Act)
 //     out  = p0, then out + p1, out + p2, ...   (one rounding each)
 //
-// which is trunk_tile.cuh's contract (ROADMAP Queue 2) bit for bit.  The
+// which is the plain version's contract (ROADMAP Queue 2) bit for bit.  The
 // int32 dots come from mma.m16n8k32, its operands from ldmatrix (ptx.cuh),
 // and a chunk's 32-deep steps past K are skipped; every f32 step is written
 // with __fmul_rn / __fadd_rn, and each thread owns its output elements
@@ -188,10 +189,10 @@ struct Pair {
 
 // Codes of the tile's rows pair.row_lo .. + pair.rows over one k-block
 // `width` wide into xa, row scales into scale_s (and the peer's), in the
-// reciprocal form (the same
-// expressions as trunk_tile.cuh's F32Rows).  `load(v, i)` puts the lane's
-// 16 values of tile row i in v: k-block column 4 (lane + 32 j) + e in
-// v[4 j + e], zeros past the k-block and past M.  One warp per row, the
+// reciprocal form (the plain version's core/quant.py::quant_rows).
+// `load(v, i)` puts the lane's 16 values of tile row i in v: k-block
+// column 4 (lane + 32 j) + e in v[4 j + e], zeros past the k-block and
+// past M.  One warp per row, the
 // row's values in registers between the absmax and the quantisation; each
 // warp's rows are loaded four at a time, so their loads are in flight
 // together.  Only the 128-column groups j that hold columns of the block
@@ -612,7 +613,7 @@ __device__ __forceinline__ void mma_tile(const Act& act, const WSrc& W,
                                          const AdcParams& adc,
                                          unsigned char* smem) {
   static_assert(kMode == kIdeal || kMode == kPerSubarray,
-                "bitserial keeps trunk_tile.cuh's tile");
+                "bitserial is bitserial_tile.cuh's tile");
   using S = Shape<TM>;
   uint8_t* raw = smem;
   unsigned* wt = reinterpret_cast<unsigned*>(smem + kStages * kRawBytes);

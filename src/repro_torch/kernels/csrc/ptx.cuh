@@ -1,6 +1,7 @@
 // The inline PTX that the tensor-core tiles use, each behind a small
-// device function: the int8 MMA, ldmatrix, cp.async with zero fill, and
-// its group commit / wait.  Everything else in the kernels is plain CUDA C++.
+// device function: the int8 and binary MMAs, ldmatrix, cp.async with zero
+// fill, and its group commit / wait.  Everything else in the kernels is
+// plain CUDA C++.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,6 +26,24 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = c + popc(a & b): a 16 x 128 bits (row), b 128 x 8 bits (col), int32
+// accumulators; the binary MMA (mma.m16n8k128 .b1 .and.popc, sm_80 and
+// later).  Lane 4 g + t holds
+//   a0 row g, k 32t..32t+31     a1 row g+8, the same k
+//   b0 col g, the same k
+//   c, d[0..1] row g, cols 2t, 2t+1    c, d[2..3] row g+8, cols 2t, 2t+1
+// (scripts/bitcount_ab.py checks the layout on the card).  A count is
+// exact whatever the order of k inside a word, as long as a and b share it.
+__device__ __forceinline__ void mma_b1(int (&d)[4], unsigned a0, unsigned a1,
+                                       unsigned b0, const int (&c)[4]) {
+  asm(
+      "mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "r"(c[0]), "r"(c[1]), "r"(c[2]),
+        "r"(c[3]));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

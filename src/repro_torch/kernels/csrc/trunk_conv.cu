@@ -46,18 +46,19 @@
 //                (row, column, subarray), 8.5e8 per forward, a few f32
 //                operations each.
 //   bitserial    operations: 112 binary counts per (row, column, subarray),
-//                each through the ADC, 9.6e10 per forward.  It keeps
-//                trunk_tile.cuh's bit-plane tile (AND + __popc, an IEEE
-//                division per ADC evaluation) with trunk_tile.cuh's
-//                NhwcRows as its source, so it is bound by the popcount and
-//                f32 issue; a binary-mma version is later work.
+//                each through the ADC, 9.6e10 per forward.  bitserial_tile.cuh
+//                on NhwcAct: the counts from the binary tensor cores, the
+//                ADC a table in shared memory (no division), each k-block
+//                staged once as bit planes; 32-row tiles, two blocks per
+//                SM, split (tiling.split_bitserial) where the grid is
+//                small.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "conv_geom.cuh"
+#include "bitserial_tile.cuh"
 #include "mma_tile.cuh"
-#include "trunk_tile.cuh"
 
 using namespace repro_torch;
 
@@ -65,8 +66,8 @@ namespace repro_torch {
 
 // One launch as kernels/rebranch_conv.py::ConvLaunch describes it (field
 // for field): the geometry, the k-block width bk (tiling.block_k(r, 128)),
-// the CimMode, the ADC constants and tiling.split_k's plan of the implied
-// [M, R] x [R, Cout] product.
+// the CimMode, the ADC constants and tiling.split_plan's plan of the
+// implied [M, R] x [R, Cout] product.
 struct ConvLaunch {
   ConvGeom geom;
   int r;
@@ -90,25 +91,33 @@ __device__ __forceinline__ void conv_tile(const float* __restrict__ x,
                                           const mma::WSrc& w,
                                           float* __restrict__ out,
                                           float* __restrict__ parts,
+                                          const unsigned char* adc_table,
                                           const ConvLaunch& l) {
   extern __shared__ __align__(16) unsigned char smem[];
   const mma::SplitPlan& plan = l.plan;
   const int b = blockIdx.x;
   const int tile = b % plan.tiles;
   const int split = b / plan.tiles;
-  mma::mma_tile<kMode, TM, mma::NhwcAct<kVec>, kPair>(
-      mma::NhwcAct<kVec>{x, l.geom, rows_of(l.geom), l.r}, w, out, parts,
-      l.bk, plan, split * plan.kb_per,
-      static_cast<long long>(tile / plan.tiles_n) * TM,
-      (tile % plan.tiles_n) * mma::kTileN, l.adc, smem);
+  const mma::NhwcAct<kVec> act{x, l.geom, rows_of(l.geom), l.r};
+  const long long m0 = static_cast<long long>(tile / plan.tiles_n) * TM;
+  const int n0 = (tile % plan.tiles_n) * mma::kTileN;
+  if constexpr (kMode == kBitserial) {
+    mma::bitserial_tile<TM>(act, w, out, parts, l.bk, plan,
+                            split * plan.kb_per, m0, n0, adc_table, smem);
+  } else {
+    mma::mma_tile<kMode, TM, mma::NhwcAct<kVec>, kPair>(
+        act, w, out, parts, l.bk, plan, split * plan.kb_per, m0, n0, l.adc,
+        smem);
+  }
 }
 
 template <int kMode, int TM, bool kVec>
 __global__ void __launch_bounds__(mma::kThreads)
     trunk_conv_mma(const float* __restrict__ x, mma::WSrc w,
                    float* __restrict__ out, float* __restrict__ parts,
+                   const unsigned char* __restrict__ adc_table,
                    ConvLaunch l) {
-  conv_tile<kMode, TM, kVec, false>(x, w, out, parts, l);
+  conv_tile<kMode, TM, kVec, false>(x, w, out, parts, adc_table, l);
 }
 
 // Blocks 2j and 2j + 1 are column tiles 2c and 2c + 1 of one row tile
@@ -118,17 +127,9 @@ template <int kMode, bool kVec>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(mma::kThreads)
     trunk_conv_pair(const float* __restrict__ x, mma::WSrc w,
                     float* __restrict__ out, float* __restrict__ parts,
+                    const unsigned char* __restrict__ adc_table,
                     ConvLaunch l) {
-  conv_tile<kMode, 64, kVec, true>(x, w, out, parts, l);
-}
-
-__global__ void __launch_bounds__(kTileThreads)
-    trunk_conv_bitserial(const float* __restrict__ x,
-                         const int8_t* __restrict__ w,
-                         float* __restrict__ out, ConvLaunch l) {
-  cim_tile_bitserial(NhwcRows{x, l.geom, rows_of(l.geom), l.r}, w, out, l.n,
-                     l.bk, static_cast<long long>(blockIdx.x) * kTileM,
-                     blockIdx.y * kTileN, l.adc);
+  conv_tile<kMode, 64, kVec, true>(x, w, out, parts, adc_table, l);
 }
 
 bool aligned16(const void* p) {
@@ -137,8 +138,9 @@ bool aligned16(const void* p) {
 
 template <int kMode, int TM, bool kVec, bool kPair>
 int launch_mma(const float* x, const mma::WSrc& w, float* out, float* parts,
-               const ConvLaunch& l, cudaStream_t stream) {
-  constexpr int smem = mma::trunk_smem<TM, mma::NhwcAct<kVec>>();
+               const unsigned char* adc_table, const ConvLaunch& l,
+               cudaStream_t stream) {
+  constexpr int smem = mma::tile_smem<kMode, TM, mma::NhwcAct<kVec>>();
   const auto kernel = [] {
     if constexpr (kPair) {
       return trunk_conv_pair<kMode, kVec>;
@@ -160,7 +162,7 @@ int launch_mma(const float* x, const mma::WSrc& w, float* out, float* parts,
   const mma::SplitPlan& plan = l.plan;
   const long long blocks = static_cast<long long>(plan.tiles) * plan.n_splits;
   kernel<<<static_cast<unsigned>(blocks), mma::kThreads, smem, stream>>>(
-      x, w, out, parts, l);
+      x, w, out, parts, adc_table, l);
   cudaError_t e = cudaGetLastError();
   if (e == cudaSuccess && plan.n_splits > 1) {
     e = mma::launch_split_reduce(parts, out, rows_of(l.geom) * l.n, plan.nkb,
@@ -170,31 +172,44 @@ int launch_mma(const float* x, const mma::WSrc& w, float* out, float* parts,
   return static_cast<int>(e);
 }
 
-// 64-row tiles in pairs where the column tiles come in pairs and the rows
-// are wider than one narrow pass (R > 32).
+// Tile heights 16 and 64 (ideal, per_subarray; 64-row tiles in pairs
+// where the column tiles come in pairs and the rows are wider than one
+// narrow pass, R > 32) or 16 and 32 (bitserial).
 template <int kMode, bool kVec>
 int launch_tile(const float* x, const mma::WSrc& w, float* out, float* parts,
-                const ConvLaunch& l, cudaStream_t stream) {
+                const unsigned char* adc_table, const ConvLaunch& l,
+                cudaStream_t stream) {
   if (l.plan.tile_m == 16) {
-    return launch_mma<kMode, 16, kVec, false>(x, w, out, parts, l, stream);
+    return launch_mma<kMode, 16, kVec, false>(x, w, out, parts, adc_table, l,
+                                              stream);
   }
-  if (l.plan.tile_m == 64 && l.plan.tiles_n % 2 == 0 && l.r > 32) {
-    return launch_mma<kMode, 64, kVec, true>(x, w, out, parts, l, stream);
-  }
-  if (l.plan.tile_m == 64) {
-    return launch_mma<kMode, 64, kVec, false>(x, w, out, parts, l, stream);
+  if constexpr (kMode == kBitserial) {
+    if (l.plan.tile_m == 32) {
+      return launch_mma<kMode, 32, kVec, false>(x, w, out, parts, adc_table,
+                                                l, stream);
+    }
+  } else {
+    if (l.plan.tile_m == 64 && l.plan.tiles_n % 2 == 0 && l.r > 32) {
+      return launch_mma<kMode, 64, kVec, true>(x, w, out, parts, adc_table,
+                                               l, stream);
+    }
+    if (l.plan.tile_m == 64) {
+      return launch_mma<kMode, 64, kVec, false>(x, w, out, parts, adc_table,
+                                                l, stream);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int kMode>
 int launch_mode(const float* x, const int8_t* w, float* out, float* parts,
-                const ConvLaunch& l, cudaStream_t stream) {
+                const unsigned char* adc_table, const ConvLaunch& l,
+                cudaStream_t stream) {
   const mma::WSrc ws{w, l.r, l.n, l.n % 16 == 0 && aligned16(w)};
   if (l.geom.c % 4 == 0 && aligned16(x)) {
-    return launch_tile<kMode, true>(x, ws, out, parts, l, stream);
+    return launch_tile<kMode, true>(x, ws, out, parts, adc_table, l, stream);
   }
-  return launch_tile<kMode, false>(x, ws, out, parts, l, stream);
+  return launch_tile<kMode, false>(x, ws, out, parts, adc_table, l, stream);
 }
 
 // What the implicit im2col map and the tile can take (conv_geom.cuh).
@@ -213,32 +228,28 @@ bool geometry_ok(const ConvGeom& g, int r) {
 // Launch `*l` on `stream`: x f32 NHWC, w int8 [r, n], out f32 [M, n];
 // returns cudaGetLastError() (0 on success).  With more than one split,
 // `parts` holds n_kblocks * M * n floats and a second kernel
-// (split_reduce) follows on the stream.  Bitserial ignores the plan and
-// the scratch.
+// (split_reduce) follows on the stream.  Bitserial reads the ADC table
+// `adc_table` (cim_block_dot.cuh; 16-byte aligned), the other modes none.
 extern "C" int trunk_conv(const float* x, const int8_t* w, float* out,
-                          float* parts, const ConvLaunch* l,
-                          cudaStream_t stream) {
+                          float* parts, const unsigned char* adc_table,
+                          const ConvLaunch* l, cudaStream_t stream) {
   if (!geometry_ok(l->geom, l->r) || l->n <= 0 || l->bk <= 0 ||
-      l->bk % kChunkK != 0 || l->bk > mma::kBlockK) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long m = rows_of(l->geom);
-  if (l->mode != kBitserial &&
-      (!mma::covers(l->plan, m, l->n, l->r, l->bk) ||
-       (l->plan.n_splits > 1 && parts == nullptr))) {
+      l->bk % mma::kChunkK != 0 || l->bk > mma::kBlockK ||
+      !mma::covers(l->plan, rows_of(l->geom), l->n, l->r, l->bk) ||
+      (l->plan.n_splits > 1 && parts == nullptr) ||
+      (l->mode == kBitserial &&
+       (adc_table == nullptr || !aligned16(adc_table)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (l->mode) {
     case kIdeal:
-      return launch_mode<kIdeal>(x, w, out, parts, *l, stream);
+      return launch_mode<kIdeal>(x, w, out, parts, adc_table, *l, stream);
     case kPerSubarray:
-      return launch_mode<kPerSubarray>(x, w, out, parts, *l, stream);
-    case kBitserial: {
-      const dim3 grid(static_cast<unsigned>((m + kTileM - 1) / kTileM),
-                      (l->n + kTileN - 1) / kTileN);
-      trunk_conv_bitserial<<<grid, kTileThreads, 0, stream>>>(x, w, out, *l);
-      return static_cast<int>(cudaGetLastError());
-    }
+      return launch_mode<kPerSubarray>(x, w, out, parts, adc_table, *l,
+                                       stream);
+    case kBitserial:
+      return launch_mode<kBitserial>(x, w, out, parts, adc_table, *l,
+                                     stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

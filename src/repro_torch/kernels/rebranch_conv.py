@@ -101,25 +101,23 @@ def conv_geometry(x_shape, kh: int, kw: int, stride: int,
 def conv_launch(x_shape: tuple, w_shape: tuple, stride: int, padding: str,
                 cfg: cim_lib.CiMConfig):
     """(ConvLaunch, scratch floats) of one launch: the geometry, the mode,
-    the ADC constants and ``tiling.split_k``'s plan of the implied [M, R]
-    x [R, C_out] product, made once per shape and config (bitserial keeps
-    the unsplit bit-plane tile: no scratch)."""
+    the ADC constants and ``tiling.split_plan``'s plan of the implied
+    [M, R] x [R, C_out] product, made once per shape and config."""
     kh, kw, c_in, c_out = w_shape
-    mode, lsb, frac, levels = cm.kernel_args(cfg)
+    mode, lsb, levels = cm.kernel_args(cfg)
     geom = conv_geometry(x_shape, kh, kw, stride, padding)
     m, r = geom.n * geom.oh * geom.ow, kh * kw * c_in
     rows = cfg.rows_per_subarray
-    sp = tiling.split_k(m, c_out, r, rows)
+    sp = tiling.split_plan(m, c_out, r, cfg.mode, rows)
     launch = ConvLaunch(geom, r, c_out, tiling.block_k(r, rows), mode,
-                        cm.AdcParams(lsb, frac, levels), cm.c_split(sp))
-    return launch, (0 if cfg.mode == "bitserial"
-                    else sp.scratch_floats(m, c_out))
+                        cm.AdcParams(lsb, levels), cm.c_split(sp))
+    return launch, sp.scratch_floats(m, c_out)
 
 
 @functools.cache
 def _kernel():
     """The C entry of ``csrc/trunk_conv.cu``, built and bound once."""
-    return cm.bind("trunk_conv", "trunk_conv", 4, ConvLaunch)
+    return cm.bind("trunk_conv", "trunk_conv", 5, ConvLaunch)
 
 
 def trunk_conv_dot(x: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
@@ -156,7 +154,8 @@ def trunk_conv_dot(x: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
         return out
     parts = cm.scratch(floats, x.device)
     rc = cm.call(_kernel(), x.device, x.data_ptr(), w_q.data_ptr(),
-                 out.data_ptr(), parts.data_ptr() if floats else 0, launch)
+                 out.data_ptr(), parts.data_ptr() if floats else 0,
+                 cm.adc_pointer(cfg, x.device), launch)
     if rc != 0:
         raise RuntimeError(f"trunk_conv kernel launch failed: CUDA error {rc}")
     global launches

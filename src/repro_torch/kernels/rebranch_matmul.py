@@ -71,23 +71,21 @@ def _launch(m: int, k: int, n: int, cdim: int, cfg: cim_lib.CiMConfig,
             x_bf16: bool):
     """(FusedLaunch, trunk scratch floats, sketch scratch floats) of one
     launch, made once per shape, config and x dtype: the plans of
-    ``tiling.split_k`` (the trunk; bitserial keeps the unsplit dp4a trunk
-    tile and needs no trunk scratch) and ``tiling.split_sketch``."""
-    mode, lsb, frac, levels = cm.kernel_args(cfg)
+    ``tiling.split_plan`` (the trunk) and ``tiling.split_sketch``."""
+    mode, lsb, levels = cm.kernel_args(cfg)
     rows = cfg.rows_per_subarray
-    st = tiling.split_k(m, n, k, rows)
+    st = tiling.split_plan(m, n, k, cfg.mode, rows)
     ss = tiling.split_sketch(m, cdim, k, rows)
     launch = FusedLaunch(m, k, n, cdim, tiling.block_k(k, rows), mode,
-                         int(x_bf16), cm.AdcParams(lsb, frac, levels),
+                         int(x_bf16), cm.AdcParams(lsb, levels),
                          cm.c_split(st), cm.c_sketch(ss))
-    return (launch, 0 if cfg.mode == "bitserial" else st.scratch_floats(m, n),
-            ss.scratch_floats(m, cdim))
+    return launch, st.scratch_floats(m, n), ss.scratch_floats(m, cdim)
 
 
 @functools.cache
 def _kernel():
     """The C entry of ``csrc/rebranch_matmul.cu``, built and bound once."""
-    return cm.bind("rebranch_matmul", "rebranch_matmul", 7, FusedLaunch)
+    return cm.bind("rebranch_matmul", "rebranch_matmul", 8, FusedLaunch)
 
 
 def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
@@ -96,11 +94,11 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
 
     A CUDA tensor launches ``csrc/rebranch_matmul.cu`` in ``cfg``'s mode
     (a config the kernel does not take, or a build or launch failure,
-    raises), with the tile heights and splits of ``tiling.split_k`` (the
-    trunk) and ``tiling.split_sketch`` (the sketch); a CPU tensor takes
-    :func:`rebranch_matmul_plain`.  The kernel reads x in f32 or, in
-    ``ideal`` and ``per_subarray`` mode at M <= 16, bf16 with K even;
-    any other x, and a bf16 C, is widened first.  Widening is exact, so
+    raises), with the tile heights and splits of ``tiling.split_plan``
+    (the trunk) and ``tiling.split_sketch`` (the sketch); a CPU tensor
+    takes :func:`rebranch_matmul_plain`.  The kernel reads x in f32 or,
+    at M <= 16, bf16 with K even; any other x, and a bf16 C, is widened
+    first.  Widening is exact, so
     the bits do not depend on the route.
     """
     if x.device.type == "cpu":
@@ -126,8 +124,7 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
                 torch.zeros((m, cdim), dtype=torch.float32, device=x.device))
     # a decode step's bf16 x is read as it is (a cast would cost a
     # launch); at prefill widths (M > 16) the kernel takes f32 only
-    x_bf16 = (x.dtype == torch.bfloat16 and m <= 16
-              and cfg.mode != "bitserial" and k % 2 == 0
+    x_bf16 = (x.dtype == torch.bfloat16 and m <= 16 and k % 2 == 0
               and x.is_contiguous() and x.data_ptr() % 4 == 0)
     xk = x if x_bf16 else x.float().contiguous()
     cf = c.float().contiguous()
@@ -139,7 +136,7 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
     rc = cm.call(_kernel(), x.device, xk.data_ptr(), w_q.data_ptr(),
                  cf.data_ptr(), trunk.data_ptr(), t1.data_ptr(),
                  at if floats_t else 0, at + 4 * floats_t if floats_s else 0,
-                 launch)
+                 cm.adc_pointer(cfg, x.device), launch)
     if rc != 0:
         raise RuntimeError(
             f"rebranch_matmul kernel launch failed: CUDA error {rc}")

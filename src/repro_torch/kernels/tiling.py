@@ -8,13 +8,14 @@ table does not carry over (its entries are TPU tilings); the port runs
 block_k 512 (``BLOCK_K``) always, so its partition is the JAX package's
 default one, and its row tiles never change the bits.
 
-:func:`split_k` picks the tile height and how the k-blocks of one launch
-of ``csrc/cim_matmul.cu`` or ``csrc/rebranch_matmul.cu`` are split over
-the grid.  It reads the shapes only, never the data or the card, and a
-split always falls on k-partition boundaries: every k-block's part is
-computed whole by one block and the parts are added in ascending order
-(``csrc/mma_tile.cuh``), so neither the tile height nor the split moves a
-bit.
+:func:`split_plan` picks the tile height and how the k-blocks of one
+launch of a trunk kernel are split over the grid: :func:`split_k` for the
+int8 tiles (``ideal``, ``per_subarray``), :func:`split_bitserial` for the
+bitserial tile.  Both read the shapes only, never the data or the card,
+and a split always falls on k-partition boundaries: every k-block's part
+is computed whole by one block and the parts are added in ascending order
+(``csrc/mma_tile.cuh``, ``csrc/bitserial_tile.cuh``), so neither the tile
+height nor the split moves a bit.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ SPLIT_BELOW = 2 * SMS     # split K where the tile grid has fewer blocks
 SPLIT_TARGET = 4 * SMS    # ... aiming at about this many trunk blocks
 SKETCH_TARGET = 8 * SMS   # ... and sketch blocks (measured on the H100:
                           # a `down` sketch of 1024 blocks beat 512)
+BITSERIAL_TARGET = 8 * SMS   # bitserial trunk blocks, below which K splits
 
 
 def _round_up(x: int, m: int) -> int:
@@ -99,6 +101,29 @@ def split_k(m: int, n: int, k: int, rows: int = 128) -> Split:
     else:
         per = -(-nkb // min(nkb, math.ceil(SPLIT_TARGET / tiles)))
     return make_split(m, n, k, rows, tm, per)
+
+
+@functools.lru_cache(maxsize=None)
+def split_bitserial(m: int, n: int, k: int, rows: int = 128) -> Split:
+    """The split of a bitserial launch, in tiles of 16 rows for M <= 16
+    and 32 above (``csrc/bitserial_tile.cuh``: two blocks per SM fit
+    beside each other at 32 rows, one at 64).  A bitserial k-block costs
+    112 binary counts, each through the ADC, per (row, column, subarray),
+    a hundred times an int8 one, so a grid of fewer than
+    ``BITSERIAL_TARGET`` tiles is split towards that many blocks, down to
+    one k-block per split."""
+    tm = 16 if m <= 16 else 32
+    tiles = -(-m // tm) * -(-n // TILE_N)
+    nkb = len(k_partition(k, rows))
+    splits = min(nkb, max(1, math.ceil(BITSERIAL_TARGET / tiles)))
+    return make_split(m, n, k, rows, tm, -(-nkb // splits))
+
+
+def split_plan(m: int, n: int, k: int, mode: str, rows: int = 128) -> Split:
+    """The split of an [m, k] x [k, n] trunk launch in CiM ``mode``."""
+    if mode == "bitserial":
+        return split_bitserial(m, n, k, rows)
+    return split_k(m, n, k, rows)
 
 
 class SketchSplit(NamedTuple):

@@ -8,7 +8,8 @@ Each test decides inside itself whether there is a card and skips without
 one.  The unscaled trunk is held with ``torch.equal`` in every CiM mode:
 the k-block's macro math is computed as the plain version computes it
 (exact integer dots; in the ADC modes the same IEEE division, bias, round
-and clamp per subarray or per binary count, added in the same order), and
+and clamp per subarray, or per binary count the table of the same formula,
+added in the same order), and
 ``part * scale`` and ``acc + part`` round once each, in ascending k-block
 order, on both sides.  The trunk-conv kernel reads the conv's NHWC input
 itself and is held against the plain version on the patch matrix, which
@@ -18,6 +19,7 @@ too; its f32 sketch t1 sums within a k-block in another order than
 cuBLAS, so it is held to 1e-5 of its absmax.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -262,11 +264,11 @@ def test_lm_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ("ideal", "per_subarray"))
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("k,n", [(2048, 2048), (16384, 2048), (300, 256)])
 def test_rows_do_not_depend_on_the_tile_or_the_split(k, n, mode):
     """An M = 1 launch (16-row tile, split K) gives row 0 the bits of the
-    M = 16 (16-row tile) and M = 128 (64-row tile, another split)
+    M = 8, 16 (16-row tile) and M = 128 (64-row tile, another split)
     launches, for kernel 4's output, kernel 3's trunk and its sketch."""
     from repro_torch.kernels import tiling
     dev = _card()
@@ -278,8 +280,9 @@ def test_rows_do_not_depend_on_the_tile_or_the_split(k, n, mode):
     one4 = cm.cim_matmul(x[:1].contiguous(), w, cfg)
     one3 = rm.rebranch_trunk_sketch(p[:1].contiguous(), w, c, cfg)
     assert bool(one3[0].abs().max() > 0) and bool(one4.abs().max() > 0)
-    assert {tiling.split_k(m, n, k).tile_m for m in (1, 16, 128)} == {16, 64}
-    for m in (16, 128):
+    assert len({tiling.split_plan(m, n, k, mode).tile_m
+                for m in (1, 16, 128)}) == 2
+    for m in (8, 16, 128):
         assert torch.equal(cm.cim_matmul(x[:m].contiguous(), w, cfg)[:1],
                            one4)
         trunk, t1 = rm.rebranch_trunk_sketch(p[:m].contiguous(), w, c, cfg)
@@ -288,7 +291,7 @@ def test_rows_do_not_depend_on_the_tile_or_the_split(k, n, mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ("ideal", "per_subarray"))
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 256), (16, 1280, 48),
                                    (128, 300, 100)])
 def test_bf16_x_gives_the_bits_of_its_widened_copy(m, k, n, mode):
@@ -311,3 +314,104 @@ def test_bf16_x_gives_the_bits_of_its_widened_copy(m, k, n, mode):
     assert odd.data_ptr() % 4 == 2
     got = rm.rebranch_trunk_sketch(odd, w, c, cfg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_bitserial_tile_with_a_split_a_ragged_chunk_and_minus_128():
+    """The bitserial tile of kernels 4, 3 and 1 is torch.equal to the plain
+    versions where the plan splits K over the grid, the last k-block ends
+    in a ragged subarray, and activations and weights hold -128."""
+    from repro_torch.kernels import tiling
+    dev = _card()
+    bs = cim.CiMConfig(mode="bitserial")
+    m, k, n = 8, 2000, 300                    # 2000 = 3 x 512 + 3 x 128 + 80
+    assert tiling.split_plan(m, n, k, "bitserial").n_splits > 1
+    x, w = _int8_inputs(m, k, n, dev, seed=11)
+    x[0, ::3] = -128
+    x[-1, 1::2] = -128
+    w[::7, 0] = -128
+    w[1::5, -1] = -128
+    got = cm.cim_matmul(x, w, bs)
+    assert torch.equal(got, cm.cim_matmul_plain(x, w, bs))
+    p = _inputs(m, k, n, dev, seed=12)[0]
+    gen = torch.Generator().manual_seed(13)
+    c = (torch.randn((k, 64), generator=gen) / k ** .5).to(dev)
+    trunk, _ = rm.rebranch_trunk_sketch(p, w, c, bs)
+    assert torch.equal(trunk, rm.rebranch_matmul_plain(p, w, c, bs)[0])
+    # kernel 1: R = 3 x 3 x 300 = 2700 (ragged), M = 98 in 2 row tiles
+    xc, wc = _conv_inputs(2, 7, 7, 300, 3, 70, dev, seed=14)
+    wc[0, 0, :5] = -128
+    launch, _ = rc.conv_launch(tuple(xc.shape), tuple(wc.shape), 1, "SAME",
+                               bs)
+    assert launch.plan.n_splits > 1 and launch.plan.tile_m == 32
+    got = rc.trunk_conv_dot(xc, wc, cfg=bs)
+    assert torch.equal(got, _plain_trunk(xc, wc, 1, "SAME", bs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_slots", (24, 64))
+def test_pools_past_the_row_bucket_decode_as_solo(n_slots):
+    """A pool of more rows than core/rows.py's bucket (16) decodes every
+    request as its solo run does: tokens and first decode step logits,
+    bit for bit, for requests in the first, a middle and the last 16-row
+    slice (Gemma-2B smoke config, pallas_fused, seeded weights with
+    non-zero cores)."""
+    from repro_torch import configs
+    from repro_torch.serve import registry, server
+    dev = _card()
+    model_id = "gemma-2b-smoke-fused"
+    registry.register(registry.ModelEntry(
+        model_id=model_id, config=lambda: configs.get_smoke("gemma_2b"),
+        engine="pallas_fused"), override=True)
+    model, _ = registry.compile_entry(model_id)
+    params = model.init(seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def with_cores(tree):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for key, value in items:
+            if key == "core":
+                value.copy_(torch.randn(value.shape, generator=gen,
+                                        device=dev) * 0.05)
+            elif isinstance(value, (dict, list)):
+                with_cores(value)
+
+    with_cores(params)
+    max_len, n_new = 48, 4
+    srv = server.load(model_id, params=params, n_slots=n_slots,
+                      max_len=max_len)
+    rng = np.random.default_rng(n_slots)
+    vocab = model.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, size=int(s))
+               for s in rng.integers(3, 20, size=n_slots)]
+    first, decode = {}, model.decode_step
+
+    def recording(p, tok, cache):
+        logits, cache = decode(p, tok, cache)
+        assert tok.shape[0] == n_slots
+        for slot, req in srv.batcher._active.items():
+            if len(req.tokens) == 1:
+                first[req.rid] = logits[slot, -1].float().cpu()
+        return logits, cache
+
+    model.decode_step = recording
+    try:
+        reqs = [srv.submit(p, n_new) for p in prompts]
+        srv.drain()
+    finally:
+        del model.decode_step
+    for i in (0, 17, n_slots - 1):
+        cache = model.init_cache(1, max_len, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            logits, cache = model.prefill(
+                params, {"tokens": torch.as_tensor(prompts[i][None],
+                                                   device=dev)}, cache)
+            toks, solo_first = [int(logits[0, -1].argmax())], None
+            for _ in range(n_new - 1):
+                logits, cache = model.decode_step(
+                    params, torch.tensor([[toks[-1]]], device=dev), cache)
+                if solo_first is None:
+                    solo_first = logits[0, -1].float().cpu()
+                toks.append(int(logits[0, -1].argmax()))
+        assert toks == reqs[i].tokens
+        assert torch.equal(solo_first, first[reqs[i].rid])

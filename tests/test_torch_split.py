@@ -167,10 +167,18 @@ def test_plans_travel_field_for_field():
             launch.x_bf16) == (8, 16384, 2048, 4096, 512, 1)
     assert (ft, fs) == (sp.scratch_floats(8, 2048),
                         ss.scratch_floats(8, 4096))
-    # bitserial keeps the unsplit dp4a trunk: no trunk scratch
+    # bitserial takes split_bitserial's plan, and its scratch
     bs = cim.CiMConfig(mode="bitserial")
-    assert rm._launch(8, 16384, 2048, 4096, bs, False)[1] == 0
-    assert cm._launch(8, 16384, 2048, bs)[1] == 0
+    sb = tiling.split_bitserial(8, 2048, 16384)
+    launch, ft, fs = rm._launch(8, 16384, 2048, 4096, bs, True)
+    assert [getattr(launch.trunk, f) for f, _ in launch.trunk._fields_] == [
+        sb.tile_m, sb.tiles_n, sb.tiles, sb.n_kblocks, sb.kb_per_split,
+        sb.n_splits]
+    assert (ft, fs) == (sb.scratch_floats(8, 2048),
+                        ss.scratch_floats(8, 4096))
+    launch, floats = cm._launch(8, 16384, 2048, bs)
+    assert launch.plan.n_splits == sb.n_splits > 1
+    assert floats == sb.scratch_floats(8, 2048)
 
 
 # ---------------------------------------------------------------------------
