@@ -123,6 +123,34 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    equal to its solo run; the same under ``pallas`` (kernel 4); then
    ``bitserial`` under both engines, 4 requests x 6 tokens, one request
    bitwise equal to its solo run.
+12. Tape-out: dense DarkNet-19 weights at 416, drawn from a seed, go
+   through ``models.cnn.freeze_to_rom`` once on the card and once on the
+   CPU; every ``w_q`` and ``w_scale`` is ``torch.equal`` between the two,
+   and ``core.rom.rom_fingerprint`` of the card tree equals its CPU
+   copy's and the CPU tape-out's.  Prints ``rom_bytes``/``sram_bytes``
+   and the 28 nm cost model's ratios (``core.energy``) for the four
+   paper models from the port's own counts (``repro_torch.netstats``):
+   model outputs, not measurements.
+13. CNN hot-swap at full width, on phase 3's ``darknet19-416`` cell and
+   parameters: scenarios A, B and C (cores, BN and head drawn from seeds)
+   written with ``checkpoint.manager.save_branch`` under ``build/``,
+   registered from ``ckpt_dir=`` in a ``ScenarioStore`` of capacity 2,
+   swapped A, B, C, A through ``CNNServer.swap_scenario`` (the last swap
+   reloads the evicted A from its checkpoint), one 8-image chunk served
+   after each: 20 kernel-1 launches per chunk, the chunk ``np.array_equal``
+   to a freshly built ``CNNServer`` on ``combine(branch, trunk)``, every
+   trunk tensor the same object at the same ``data_ptr``.  Prints each
+   swap's host-clock time and ``torch.cuda.memory_allocated`` around it,
+   then two swaps served from the store's cache.
+14. LM hot-swap mid-stream at full width: Gemma-2B (``gemma-2b``, phase
+   6's server: ``pallas_fused``, 8 paged slots) with scenarios A and B in
+   the id's ``registry.scenario_store``, loaded with
+   ``serve.load(..., scenario="A")``: 4 requests under A,
+   ``swap_scenario("B")``, 4 requests under B, drained together.  Kernel
+   3 launches 126 times per prefill and per decode step, ``swap_count``
+   is 1, B's requests are admitted only after A's retired, the trunk
+   tensors stay the same objects, and every request's tokens equal its
+   solo decode under its own scenario, bit for bit.
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -135,7 +163,8 @@ decode step at 8 rows (``ms`` from Python, host included; ``device_ms``,
 where measured, from a replayed CUDA graph), ``launches`` from the
 serving phases; ``cim_matmul`` also carries ``ms_m128`` and
 ``library_ms`` (``torch._int_mm``), both per 126-launch pass at M = 128
-and timed as ``ms`` is.
+and timed as ``ms`` is; ``trunk_conv`` and ``rebranch_matmul`` carry
+``swap_launches``, their launches in phases 13 and 14.
 """
 
 from __future__ import annotations
@@ -1843,6 +1872,312 @@ def phase_lm_adc() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: tape-out, the cost model, scenario hot-swap
+# ---------------------------------------------------------------------------
+
+SWAP_ORDER = ("A", "B", "C", "A")   # phase 13; store capacity 2
+SWAP_SEEDS = {"A": 21, "B": 22, "C": 23}
+LM_SWAP_PROMPTS = {"A": (12, 40, 7, 100), "B": (25, 60, 9, 33)}
+LM_SWAP_NEW = 16
+
+
+def scenario_branch(base, seed: int):
+    """A scenario's branch drawn from ``seed`` over the shape of ``base``
+    (a branch tree): ReBranch cores N(0, 0.05), BN variances raised by
+    0.1 |N(0, 1)|, every other leaf (BN scale, bias and mean, the heads,
+    norm scales) moved by 0.02 N(0, 1).  On the CPU."""
+    from repro_torch import bridge
+    gen = torch.Generator().manual_seed(seed)
+
+    def leaf(name, t):
+        noise = torch.randn(t.shape, generator=gen)
+        if name.endswith("['core']"):
+            return (noise * 0.05).to(t.dtype)
+        if name.endswith("['var']"):
+            return t.cpu() + 0.1 * noise.abs()
+        return (t.cpu().float() + 0.02 * noise).to(t.dtype)
+
+    return bridge.map_named(base, leaf)
+
+
+def trunk_objects(params) -> dict:
+    """The ROM side of a params tree: keystr name -> tensor."""
+    from repro_torch import bridge
+    from repro_torch.core import rebranch
+    return bridge.flatten(rebranch.partition(params)[1])
+
+
+def same_trunk(params, trunk: dict, ptrs: dict) -> bool:
+    """Every trunk tensor of ``params`` is the very object in ``trunk``,
+    at the same device address."""
+    now = trunk_objects(params)
+    return now.keys() == trunk.keys() and all(
+        now[k] is t and t.data_ptr() == ptrs[k] for k, t in trunk.items())
+
+
+def gib() -> float:
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def phase_tapeout(cfg, dev, smi: str):
+    """Tape-out of dense DarkNet-19 weights at 416 on the card and on the
+    CPU: every w_q / w_scale equal, the ROM fingerprint of the card tree
+    equal to its CPU copy's and to the CPU tape-out's; then the 28 nm cost
+    model's ratios for the four paper models from the port's counts."""
+    from repro_torch import bridge, netstats
+    from repro_torch.core import energy, rom
+    from repro_torch.core.rebranch import ReBranchSpec
+    from repro_torch.models import cnn
+
+    dense_cfg = dataclasses.replace(
+        cfg, rebranch=dataclasses.replace(cfg.rebranch, enabled=False))
+    init_fn, _ = cnn.MODEL_REGISTRY[cfg.name]
+    dense = init_fn(torch.Generator().manual_seed(11), dense_cfg)
+    spec = ReBranchSpec()
+    dense_dev = bridge.tree_map(dense, lambda t: t.to(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = cnn.freeze_to_rom(dense_dev, torch.Generator().manual_seed(12),
+                             spec)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = cnn.freeze_to_rom(dense, torch.Generator().manual_seed(12), spec)
+    t_host = time.perf_counter() - t0
+    got, want = bridge.flatten(card), bridge.flatten(host)
+    check(got.keys() == want.keys(), "tape-out trees differ in structure")
+    n_conv = 0
+    for name, t in got.items():
+        if name.endswith(("['w_q']", "['w_scale']")):
+            check(t.device.type == dev.type, f"{name} left the card")
+            check(torch.equal(t.cpu(), want[name]),
+                  f"tape-out {name}: card != CPU")
+            n_conv += name.endswith("['w_q']")
+    t0 = time.perf_counter()
+    fp_card = rom.rom_fingerprint(card)
+    t_fp = time.perf_counter() - t0
+    fp_copy = rom.rom_fingerprint(bridge.tree_map(card, lambda t: t.cpu()))
+    fp_host = rom.rom_fingerprint(host)
+    check(fp_card == fp_copy == fp_host,
+          f"ROM fingerprints differ: card {fp_card[:16]}, its CPU copy "
+          f"{fp_copy[:16]}, CPU tape-out {fp_host[:16]}")
+    print(f"tape-out of dense darknet19-416: {n_conv} convs frozen, every "
+          f"w_q and w_scale equal on the card and the CPU; card "
+          f"{t_card * 1e3:.1f} ms, CPU {t_host * 1e3:.1f} ms, fingerprint "
+          f"{t_fp * 1e3:.1f} ms [{smi}]")
+    print(f"ROM fingerprint {fp_card} (card == its CPU copy == CPU "
+          f"tape-out); rom_bytes {rom.rom_bytes(card)}, sram_bytes "
+          f"{rom.sram_bytes(card)}")
+    del dense_dev, card
+    stats = netstats.paper_net_stats()
+    print("28 nm cost model outputs (a model of the paper's chip, not a "
+          "measurement of any device), from the port's own counts:")
+    for name, ns in stats.items():
+        lat = energy.yoloc_latency(ns)
+        print(f"  {name}: params {ns.params}, MACs {ns.macs}, activation "
+              f"bits {ns.act_bits_moved}; energy efficiency vs iso-area "
+              f"SRAM-CiM {energy.efficiency_ratio(ns):.3f}x, area ratio vs "
+              f"all-SRAM {energy.area_ratio(ns):.3f}x, YOLoC latency "
+              f"{lat['total']:.4f} ms (branch overhead "
+              f"{lat['overhead_frac']:.1%})")
+    ratio = energy.efficiency_ratio(stats["darknet19"])
+    check(abs(ratio - 14.8) / 14.8 < 0.15,
+          f"darknet19 efficiency ratio {ratio} is not the paper's 14.8x")
+
+
+def phase_cnn_swap(model, params, images, smi: str) -> int:
+    """Scenario hot-swap at full width on the phase-3 model: three
+    scenarios written with save_branch, registered from ckpt_dir= in a
+    ScenarioStore of capacity 2, swapped A, B, C, A with one 8-image chunk
+    served after each swap.  Returns kernel 1's launches over the chunks."""
+    import tempfile
+
+    from repro_torch import bridge, deploy, scenario
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import rebranch, rom
+    from repro_torch.models import cnn
+    from repro_torch.serve import registry, server
+
+    _, plan = registry.compile_entry("darknet19-416")
+    trunk = trunk_objects(params)
+    ptrs = {k: t.data_ptr() for k, t in trunk.items()}
+    base = scenario.split_params(params)[0]
+    branches = {n: scenario_branch(base, s) for n, s in SWAP_SEEDS.items()}
+    n_sites = len(cnn.conv_site_shapes(model.cfg))
+    chunk = images[:SLOTS]
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        t0 = time.perf_counter()
+        for name, br in branches.items():
+            ckpt.save_branch(tmp, name, br, model_name=model.cfg.name,
+                             plan=plan)
+        print(f"save_branch x3: {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+              f"branch {rom.sram_bytes(params)} bytes, trunk "
+              f"{rom.rom_bytes(params)} bytes")
+        srv = server.CNNServer(model, params, n_slots=SLOTS)
+        store = scenario.ScenarioStore(model, plan, capacity=2,
+                                       device=srv.device)
+        srv.store = store
+        for name in branches:
+            store.register(name, ckpt_dir=tmp)
+        for i, name in enumerate(SWAP_ORDER):
+            misses = store.misses
+            torch.cuda.synchronize()
+            mem0 = gib()
+            t0 = time.perf_counter()
+            srv.swap_scenario(name)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            mem1 = gib()
+            check(srv.scenario == name and srv.model is model,
+                  f"swap {i} to {name}")
+            check(same_trunk(srv.params, trunk, ptrs),
+                  f"swap {i} to {name}: a trunk tensor was copied or replaced")
+            reset_launches()
+            out = srv.submit(chunk)
+            counts = read_launches()
+            check(counts["trunk_conv"] == n_sites
+                  and sum(counts.values()) == n_sites,
+                  f"swap {i}: expected {n_sites} trunk launches for one "
+                  f"chunk, got {counts}")
+            launches += counts["trunk_conv"]
+            fresh = server.CNNServer(
+                deploy.compile_model(model.cfg, plan=plan),
+                rebranch.combine(bridge.tree_map(branches[name],
+                                                 lambda t: t.to(srv.device)),
+                                 scenario.split_params(params)[1]),
+                n_slots=SLOTS)
+            want = fresh.submit(chunk)
+            check(np.array_equal(out, want),
+                  f"swap {i} to {name}: served chunk != a fresh cell on "
+                  f"combine(branch, trunk) (max diff "
+                  f"{np.abs(out - want).max()})")
+            check(np.isfinite(out).all(), f"swap {i}: non-finite output")
+            src = "checkpoint (miss)" if store.misses > misses else "cache hit"
+            print(f"swap {i} to {name} from {src}: {dt * 1e3:.3f} ms host "
+                  f"clock, memory_allocated {mem0:.3f} -> {mem1:.3f} GiB; "
+                  f"chunk bitwise equal to a fresh cell, trunk tensors the "
+                  f"same objects, {counts['trunk_conv']} kernel-1 launches "
+                  f"[{smi}]")
+            del fresh
+        check(store.evicted == ["A", "B"] and store.misses == 4,
+              f"LRU: evicted {store.evicted}, misses {store.misses}; the "
+              f"last swap should reload A from its checkpoint")
+        for name in ("C", "A"):                       # both cached now
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.swap_scenario(name)
+            torch.cuda.synchronize()
+            print(f"swap to {name} from the cache: "
+                  f"{(time.perf_counter() - t0) * 1e3:.3f} ms host clock "
+                  f"[{smi}]")
+        check(store.hits == 2 and same_trunk(srv.params, trunk, ptrs),
+              "cache-hit swaps")
+    print(f"store after the swaps: cached {store.cached()}, evicted "
+          f"{store.evicted}, hits {store.hits}, misses {store.misses}")
+    return launches
+
+
+def phase_lm_swap(smi: str) -> int:
+    """A mid-stream swap on full-width Gemma-2B under pallas_fused, the
+    phase-6 server: four requests under A, swap_scenario("B"), four under
+    B, drained together; every request's tokens equal to its solo decode
+    under its own scenario, bit for bit.  Returns kernel 3's launches."""
+    from repro_torch import bridge, scenario
+    from repro_torch.core import rebranch, rom
+    from repro_torch.serve import registry, server
+
+    model, _ = registry.compile_entry("gemma-2b")
+    params = with_cores(model.init(seed=0), torch.Generator().manual_seed(2))
+    trunk = trunk_objects(params)
+    ptrs = {k: t.data_ptr() for k, t in trunk.items()}
+    base = scenario.split_params(params)[0]
+    branches = {"A": bridge.tree_map(base, lambda t: t.cpu()),
+                "B": scenario_branch(base, 31)}
+    del base
+    dev = next(iter(trunk.values())).device
+    store = registry.scenario_store("gemma-2b", device=dev)
+    t0 = time.perf_counter()
+    for name, br in branches.items():
+        store.register(name, branch=br)
+    print(f"gemma-2b scenarios registered in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; branch "
+          f"{rom.sram_bytes(params)} bytes, trunk {rom.rom_bytes(params)} "
+          f"bytes")
+    srv = server.load("gemma-2b", params=params, n_slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN, scenario="A")
+    del params
+    check(same_trunk(srv.params, trunk, ptrs), "load(scenario=) moved a trunk tensor")
+    applied = []
+    apply_swap = srv.batcher._apply_swap
+
+    def timed_apply(sw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        apply_swap(sw)
+        torch.cuda.synchronize()
+        applied.append((time.perf_counter() - t, srv.batcher.step_count))
+
+    srv.batcher._apply_swap = timed_apply
+    rng = np.random.default_rng(17)
+    vocab = model.cfg.vocab_size
+    prompts = {n: [rng.integers(0, vocab, size=k) for k in ks]
+               for n, ks in LM_SWAP_PROMPTS.items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    t_all = time.perf_counter()
+    reqs = [srv.submit(p, LM_SWAP_NEW, scenario="A") for p in prompts["A"]]
+    mem0 = gib()
+    t0 = time.perf_counter()
+    srv.swap_scenario("B")
+    torch.cuda.synchronize()
+    t_queue = time.perf_counter() - t0
+    mem1 = gib()
+    reqs += [srv.submit(p, LM_SWAP_NEW, scenario="B") for p in prompts["B"]]
+    steps = srv.drain()
+    wall = time.perf_counter() - t_all
+    counts = read_launches()
+    del srv.batcher._apply_swap
+    per_pass = 7 * model.cfg.num_layers
+    check(counts["rebranch_matmul"] == per_pass * (len(reqs) + steps)
+          and sum(counts.values()) == counts["rebranch_matmul"],
+          f"expected {per_pass} fused-kernel launches per prefill and per "
+          f"decode step, got {counts} for {len(reqs)} prefills + {steps} "
+          f"steps")
+    check(srv.batcher.swap_count == 1 and srv.scenario == "B"
+          and len(applied) == 1, f"swap count {srv.batcher.swap_count}")
+    check(same_trunk(srv.params, trunk, ptrs),
+          "the swap copied or replaced a trunk tensor")
+    a_done = max(r.finish_step for r in reqs[:4])
+    check(min(r.admit_step for r in reqs[4:]) >= a_done
+          and applied[0][1] >= a_done,
+          "B's requests were admitted before A's retired")
+    check(srv.pool.blocks_in_use == 0, "blocks leaked after drain")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    print(f"gemma-2b mid-stream swap: {len(reqs)} requests ({n_tok} tokens) "
+          f"in {wall * 1e3:.1f} ms, {steps} decode steps; "
+          f"swap_scenario('B') {t_queue * 1e3:.3f} ms (store miss: B's "
+          f"branch to the card), memory_allocated {mem0:.3f} -> "
+          f"{mem1:.3f} GiB; the barrier applied at step {applied[0][1]} in "
+          f"{applied[0][0] * 1e3:.3f} ms; {per_pass} kernel-3 launches per "
+          f"pass ({counts}) [{smi}]")
+    for name, rs in (("A", reqs[:4]), ("B", reqs[4:])):
+        full = rebranch.combine(
+            bridge.tree_map(branches[name], lambda t: t.to(dev)),
+            scenario.split_params(srv.params)[1])
+        for r, p in zip(rs, prompts[name]):
+            check(r.scenario == name, f"request {r.rid} ran under "
+                  f"{r.scenario}")
+            toks, _ = _solo_run(model, full, p, LM_SWAP_NEW, LM_MAX_LEN)
+            check(toks == r.tokens,
+                  f"request {r.rid} (scenario {name}): batched != solo")
+        del full
+    print("every request's tokens equal its solo decode under its own "
+          "scenario, bit for bit")
+    return counts["rebranch_matmul"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1877,6 +2212,11 @@ def main() -> int:
     adc = phase_adc_kernels(dev, cfg)
     adc_launches = phase_adc_serve(cfg, model, params, images)
     adc_launches.update(phase_lm_adc())
+    torch.cuda.empty_cache()
+
+    phase_tapeout(cfg, dev, smi)
+    swap_launches = {"trunk_conv": phase_cnn_swap(model, params, images, smi),
+                     "rebranch_matmul": phase_lm_swap(smi)}
 
     def row(name, source, replaces, launches, t):
         by = "bytes" if t["bytes_ms"] >= t["bound_ms"] / 2 else "operations"
@@ -1897,6 +2237,10 @@ def main() -> int:
             # library_ms is torch._int_mm per 126-launch pass at M = 128;
             # ms_m128 the kernel over the same pass, both timed as ms is
             out["ms_m128"] = t["ms_m128"]
+        if name in swap_launches:
+            # launches over the scenario hot-swap phases (13: four served
+            # chunks; 14: the mid-stream swap's prefills and decode steps)
+            out["swap_launches"] = swap_launches[name]
         if name.startswith("rebranch_matmul"):
             out["library_ms_note"] = (
                 "null: no PyTorch call quantises per (row, k-block)")

@@ -74,3 +74,27 @@ def flatten(tree, prefix: str = "") -> dict:
     elif tree is not None:
         out[prefix] = tree
     return out
+
+
+def map_named(tree, fn, prefix: str = ""):
+    """``fn(keystr, leaf)`` over every non-None leaf, names as
+    :func:`flatten` gives them; the tree's structure is kept."""
+    if isinstance(tree, dict):
+        return {k: map_named(v, fn, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_named(v, fn, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(prefix, tree)
+
+
+def abstract(fn, *args):
+    """The tree ``fn(*args)`` returns, as meta tensors of the same shapes
+    and dtypes, with no memory allocated on any device (the port's
+    ``jax.eval_shape``): ``fn`` runs under a fake-tensor mode, so even
+    full-width initialisers cost only their host bookkeeping."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = fn(*args)
+    return tree_map(tree, lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                device="meta"))

@@ -3,7 +3,7 @@
 Each module defines FULL (the published config) and SMOKE (a reduced
 same-family config that runs on the CPU).  ``get(name)`` /
 ``get_smoke(name)`` look them up.  The other families' configs wait for
-their models (ROADMAP Queue 1 item 15; vlm and audio with item 12).
+their models (ROADMAP Queue 1 item 3, with the vlm and audio branches).
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import bridge
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import quant, rows
 
@@ -73,6 +74,16 @@ def combine(trainable, frozen):
         return type(trainable)(combine(a, b)
                                for a, b in zip(trainable, frozen))
     return trainable if trainable is not None else frozen
+
+
+def trainable_count(params) -> int:
+    """Elements on the SRAM (trainable) side of :func:`partition`."""
+    return sum(t.numel() for t in bridge.flatten(partition(params)[0]).values())
+
+
+def frozen_count(params) -> int:
+    """Elements on the ROM (frozen) side of :func:`partition`."""
+    return sum(t.numel() for t in bridge.flatten(partition(params)[1]).values())
 
 
 # ---------------------------------------------------------------------------
@@ -245,3 +256,32 @@ def apply_linear(params, x, spec: ReBranchSpec):
         x2 = x.reshape(-1, x.shape[-1])
         y = y + rows.rowwise(lambda a: (a @ c) @ cu, x2).reshape(y.shape)
     return _bias(y, sram)
+
+
+def freeze_to_rom(params_dense, gen: torch.Generator, spec: ReBranchSpec):
+    """Tape-out of a tree of plain linears (``{'sram': {'w': [d_in,
+    d_out]}}``, optional ``'b'``): every trunk quantised into ROM, with its
+    branch attached (C and U drawn from ``gen`` in tree order, zero core).
+
+    The trunk (``w_q``, ``w_scale``) is the JAX package's bit for bit; its
+    C and U are not (the reference folds the process-salted ``hash`` of
+    each path into its key).  Each frozen layer lands on its ``w``'s
+    device.
+    """
+    def conv(node):
+        if isinstance(node, dict) and "w" in node.get("sram", {}):
+            w = node["sram"]["w"]
+            has_b = "b" in node["sram"]
+            p = init_linear(gen, w.shape[0], w.shape[1], spec, w_init=w,
+                            use_bias=has_b)
+            p = bridge.tree_map(p, lambda t: t.to(w.device))
+            if has_b:
+                p["sram"]["b"] = node["sram"]["b"]
+            return p
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        return node
+
+    return conv(params_dense)

@@ -7,9 +7,9 @@
   init_cache(cfg, batch, max_len)         -> cache
 
 The transformer family (dense; vlm and audio raise inside it) is ported;
-moe, ssm and hybrid wait for ROADMAP Queue 1 item 15.  ``verify_step``,
+moe, ssm and hybrid wait for ROADMAP Queue 1 item 3.  ``verify_step``,
 ``draft_config`` and ``supports_speculation`` wait with speculative decode
-(item 14).
+(item 2).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def _mod(cfg: ArchConfig):
     except KeyError:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 15)") from None
+            f"item 3)") from None
 
 
 def init(gen: torch.Generator, cfg: ArchConfig):

@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import bridge
 from repro_torch import engine as engine_lib
 from repro_torch.core import quant
 from repro_torch.core.rebranch import ReBranchSpec, conv_nhwc
@@ -323,31 +324,31 @@ MODEL_REGISTRY = {
 }
 
 
-def conv_site_shapes(cfg: CNNConfig) -> list | None:
-    """Every conv site of this config, in forward order, as
-    ``(site, k, c_in, c_out, out_hw, stride)``; None for names outside
-    MODEL_REGISTRY.  (The 1x1 'pred' conv never freezes into ROM and has
-    no site.)"""
+def _conv_sites(cfg: CNNConfig) -> list | None:
+    """:func:`conv_site_shapes` with each conv's input resolution:
+    ``(site, k, c_in, c_out, in_hw, out_hw, stride)``."""
     if cfg.name == "vgg8":
         out, c_in, hw = [], 3, cfg.input_size
         for i, c in enumerate(VGG8_CHANNELS):
-            out.append((f"convs.{i}", 3, c_in, c, hw, 1))
+            out.append((f"convs.{i}", 3, c_in, c, hw, hw, 1))
             c_in = c
             if i % 2 == 1:
                 hw //= 2
         return out
     if cfg.name == "resnet18":
         hw = cfg.input_size
-        out, c_in = [("stem", 3, 3, 64, hw, 1)], 64
+        out, c_in = [("stem", 3, 3, 64, hw, hw, 1)], 64
         for si, (c_out, blocks, stride) in enumerate(RESNET18_STAGES):
             for b in range(blocks):
                 st = stride if b == 0 else 1
                 hw_out = -(-hw // st)               # SAME stride st
                 site = f"stages.{si}.{b}"
-                out.append((f"{site}.conv1", 3, c_in, c_out, hw_out, st))
-                out.append((f"{site}.conv2", 3, c_out, c_out, hw_out, 1))
+                out.append((f"{site}.conv1", 3, c_in, c_out, hw, hw_out, st))
+                out.append((f"{site}.conv2", 3, c_out, c_out, hw_out, hw_out,
+                            1))
                 if st != 1 or c_in != c_out:        # same rule as init
-                    out.append((f"{site}.proj", 1, c_in, c_out, hw_out, st))
+                    out.append((f"{site}.proj", 1, c_in, c_out, hw, hw_out,
+                                st))
                 c_in, hw = c_out, hw_out
         return out
     if cfg.name in ("darknet19", "tiny_yolo"):
@@ -358,17 +359,115 @@ def conv_site_shapes(cfg: CNNConfig) -> list | None:
                 hw //= 2
                 continue
             c, k = item
-            out.append((f"convs.{ci}", k, c_in, c, hw, 1))
+            out.append((f"convs.{ci}", k, c_in, c, hw, hw, 1))
             c_in = c
             ci += 1
         for hi, (c, k) in enumerate(head):
-            out.append((f"head.{hi}", k, c_in, c, hw, 1))
+            out.append((f"head.{hi}", k, c_in, c, hw, hw, 1))
             c_in = c
         return out
     return None
+
+
+def conv_site_shapes(cfg: CNNConfig) -> list | None:
+    """Every conv site of this config, in forward order, as
+    ``(site, k, c_in, c_out, out_hw, stride)``; None for names outside
+    MODEL_REGISTRY.  (The 1x1 'pred' conv never freezes into ROM and has
+    no site.)"""
+    sites = _conv_sites(cfg)
+    return None if sites is None else [
+        (site, k, c_in, c_out, out_hw, st)
+        for site, k, c_in, c_out, _, out_hw, st in sites]
 
 
 def override_sites(cfg: CNNConfig) -> set | None:
     """The site-name set of :func:`conv_site_shapes` (None when unknown)."""
     shapes = conv_site_shapes(cfg)
     return None if shapes is None else {s[0] for s in shapes}
+
+
+# ---------------------------------------------------------------------------
+# tape-out and the cost model's counts
+# ---------------------------------------------------------------------------
+
+def conv_trainable_frac(spec: ReBranchSpec) -> float:
+    return 1.0 / (spec.d_ratio * spec.u_ratio)
+
+
+def freeze_to_rom(params, gen: torch.Generator, spec: ReBranchSpec):
+    """Tape-out of a pretrained all-trainable CNN: every plain 4-D conv
+    (``{'sram': {'w': [k, k, c_in, c_out]}}``) becomes a ReBranch conv
+    (int8 ROM trunk, fixed C/U, zero trainable core).  Dense heads (2-D
+    ``w``) and BN stay SRAM.
+
+    C and U are drawn from ``gen`` (on the CPU) conv by conv in tree
+    order, and every frozen conv lands on its ``w``'s device, so one seed
+    gives the same tree on the CPU and on the card.  The trunk is the JAX
+    package's bit for bit; C and U are not (other generators).
+    """
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) == {"sram"} and "w" in node["sram"]:
+                w = node["sram"]["w"]
+                if w.dim() != 4:
+                    return node              # dense head: stays SRAM
+                p = init_conv(gen, w.shape[0], w.shape[2], w.shape[3], spec,
+                              w_init=w)
+                return bridge.tree_map(p, lambda t: t.to(w.device))
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def traced_ops(cfg: CNNConfig) -> list:
+    """The convolutions and dot products one image's forward runs, as
+    ``(output elements, MACs)`` in forward order — the ops the JAX
+    package's ``count_macs_and_params`` finds in its jaxpr (every
+    ``conv_general_dilated`` and ``dot_general``), from shapes.
+
+    Per site that the reference lowering (``int8_native``, ``ideal``)
+    traces: a ROM trunk is one int8 dot over the patches; a live branch
+    three convs (1x1 compress at the input resolution, the k x k core at
+    the site's stride, 1x1 decompress); an SRAM site one plain conv.
+    Then the head: the 1x1 ``pred`` conv (YOLO) or the dense classifier.
+    """
+    ops, sites = [], _conv_sites(cfg)
+    for site, k, c_in, c_out, in_hw, out_hw, _ in sites:
+        spec = spec_for(cfg, site)
+        n_out = out_hw * out_hw * c_out
+        ops.append((n_out, n_out * k * k * c_in))    # trunk, or plain conv
+        if spec.enabled and spec.branch_enabled:
+            c_c = max(1, c_in // spec.d_ratio)
+            c_u = max(1, c_out // spec.u_ratio)
+            ops.append((in_hw * in_hw * c_c, in_hw * in_hw * c_c * c_in))
+            ops.append((out_hw * out_hw * c_u,
+                        out_hw * out_hw * c_u * k * k * c_c))
+            ops.append((n_out, n_out * c_u))
+    c_last, last_hw = sites[-1][3], sites[-1][5]
+    if cfg.name in ("darknet19", "tiny_yolo"):
+        n_pred = last_hw * last_hw * cfg.head_anchors * (5 + cfg.head_classes)
+        ops.append((n_pred, n_pred * c_last))
+    elif cfg.name == "vgg8":
+        k_fc = c_last * (cfg.input_size // 8) ** 2
+        ops.append((cfg.num_classes, cfg.num_classes * k_fc))
+    else:                                            # resnet18: global pool
+        ops.append((cfg.num_classes, cfg.num_classes * c_last))
+    return ops
+
+
+def count_macs_and_params(init_fn, apply_fn, cfg: CNNConfig):
+    """Static (parameter count, MACs per image) for the energy model.
+
+    Parameters are counted on ``init_fn``'s tree built with no memory
+    (``bridge.abstract``); MACs from :func:`traced_ops`, which walks the
+    sites by shape instead of tracing ``apply_fn`` (a trace of the port
+    would count its own lowering: im2col, fused routes).  Both equal the
+    JAX package's counts for its four paper models.
+    """
+    del apply_fn                  # the MACs come from shapes, not a trace
+    tree = bridge.abstract(init_fn, torch.Generator(), cfg)
+    n_params = sum(t.numel() for t in bridge.flatten(tree).values())
+    return n_params, sum(macs for _, macs in traced_ops(cfg))

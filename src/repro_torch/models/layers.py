@@ -29,7 +29,7 @@ from repro_torch.models.config import ArchConfig, torch_dtype
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 12: the vlm / "
+        f"{what} is not ported yet (ROADMAP Queue 1 item 3: the vlm / "
         f"audio branches of the transformer family)")
 
 
@@ -260,7 +260,7 @@ def apply_attention(params, x, cfg: ArchConfig, layer_idx: int,
         if s != 1:
             raise NotImplementedError(
                 "a multi-token decode block is speculative verify, which is "
-                "not ported yet (ROADMAP Queue 1 item 14)")
+                "not ported yet (ROADMAP Queue 1 item 2)")
         length = cache["length"]
         rows = torch.arange(b, device=x.device)
         k_view, v_view = _write_decode(cache, k, v, length, rows)

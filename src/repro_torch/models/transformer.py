@@ -40,7 +40,7 @@ def _check_family(cfg: ArchConfig):
     if cfg.family not in ("dense", "vlm", "audio"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 15)")
+            f"item 3)")
 
 
 def site_cfg(cfg: ArchConfig, site: str) -> ArchConfig:

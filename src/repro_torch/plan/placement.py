@@ -69,6 +69,20 @@ class PlanStats:
     branch_macs: int
     sram_macs: int
 
+    @property
+    def total_bits(self) -> int:
+        return self.rom_bits + self.branch_bits + self.sram_bits
+
+    @property
+    def weight_bits_total(self) -> int:
+        """All trunk weights at deployment width (ROM- or SRAM-resident),
+        branch structure excluded: the iso-capacity comparison basis."""
+        return self.rom_trunk_bits + self.sram_bits
+
+    @property
+    def total_macs(self) -> int:
+        return self.rom_macs + self.branch_macs + self.sram_macs
+
 
 @dataclasses.dataclass(frozen=True)
 class PlacementPlan:

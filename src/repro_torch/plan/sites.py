@@ -9,7 +9,7 @@ Site names are dotted paths resolved by ``models.config.spec_for``
 'head.N'); for the transformer family (dense/vlm/audio) they are
 ``blocks.attn``, ``blocks.mlp`` and the untied readout (``lm_head`` or
 ``codebook_head``).  The moe, ssm and hybrid trees wait for their models
-(ROADMAP Queue 1 item 15).
+(ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -104,7 +104,7 @@ def _arch_sites(cfg) -> list:
     if cfg.family in ("moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family} site tree waits for its model (ROADMAP "
-            f"Queue 1 item 15)")
+            f"Queue 1 item 3)")
     raise ValueError(f"no site tree for model family {cfg.family!r}")
 
 

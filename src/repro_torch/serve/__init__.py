@@ -1,9 +1,13 @@
 """Serving runtime (port of ``repro.serve``): a strict model registry
-compiling one resident cell per id, ``LMServer`` (continuous batching
-over a dense or paged KV pool) and ``CNNServer``."""
+compiling one resident cell per id (LRU-capped, each with an optional
+scenario store), ``LMServer`` (continuous batching over a dense or paged
+KV pool, with scenario swap barriers) and ``CNNServer``."""
 
 from repro_torch.serve.registry import (ModelEntry, compile_entry,  # noqa: F401
-                                        register, registered_ids, resolve)
+                                        evict, has_scenarios, max_resident,
+                                        register, registered_ids,
+                                        resident_ids, resolve,
+                                        scenario_store, set_max_resident)
 from repro_torch.serve.pool import PagedPool, SlotPool  # noqa: F401
 from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: F401
                                          Request)

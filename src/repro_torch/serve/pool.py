@@ -17,7 +17,7 @@ paged free row's masked decode writes land in the reserved trash block.
 The pools update the cache tensors in place; they index every leaf as
 [L, rows, ...], the stacked layout of the transformer family.  Speculative ``rollback``
 and ``prepare_tokens`` wait with speculative decode (ROADMAP Queue 1
-item 14).
+item 2).
 
 Pool sizing comes from the :class:`~repro_torch.plan.PlacementPlan`'s
 SRAM residency: the KV capacity lives in what the branch cores and any

@@ -4,8 +4,12 @@ entries).
 
 Resolution is strict: an unknown id raises with the registered set.
 ``compile_entry`` compiles an id at most once per process and shares the
-cell.  The LRU residency cap, tuning policy and scenario stores wait for
-later slices (ROADMAP Queue 1 items 10 and 14).
+cell; an optional LRU cap (:func:`set_max_resident`) bounds how many
+cells stay resident.  Each id may carry a
+:class:`~repro_torch.scenario.ScenarioStore` (:func:`scenario_store`):
+one resident cell then serves every registered scenario by branch
+hot-swap.  The tuning policy waits for ``tune/`` (ROADMAP Queue 1
+item 4).
 """
 
 from __future__ import annotations
@@ -28,29 +32,91 @@ class ModelEntry:
     plan: optional ``cfg -> PlacementPlan`` factory; ``None`` solves the
         minimum-area (all-ROM + branch) design point.
     engine: trunk engine of the solved plan's default spec.
+    scenarios: optional ((name, factory), ...) of branch scenarios; each
+        factory is ``(model, plan) -> branch tree`` and seeds the id's
+        store on its first :func:`scenario_store`.
     """
     model_id: str
     config: Callable[[], Any]
     plan: Callable[[Any], Any] | None = None
     engine: str | None = None
+    scenarios: tuple = ()
 
 
 _REGISTRY: dict[str, ModelEntry] = {}
-_COMPILED: dict[str, tuple] = {}          # id -> (CompiledModel, plan)
+_COMPILED: dict[str, tuple] = {}          # id -> (CompiledModel, plan),
+                                          # LRU-ordered: oldest first
+_STORES: dict[str, Any] = {}              # id -> ScenarioStore
 _LOCK = threading.Lock()
+_MAX_RESIDENT: int | None = None          # None -> unbounded residency
 
 
 def register(entry: ModelEntry, *, override: bool = False) -> ModelEntry:
     """Publish ``entry`` under its id; a duplicate id raises unless
-    ``override=True``, which also drops the id's resident cell."""
+    ``override=True``, which also drops the id's resident cell and its
+    scenario store (branches validated against the old cell's geometry
+    must never implant onto the new one)."""
     with _LOCK:
         if entry.model_id in _REGISTRY and not override:
             raise ValueError(
                 f"model id {entry.model_id!r} already registered; pass "
                 f"override=True to replace it")
         _REGISTRY[entry.model_id] = entry
-        _COMPILED.pop(entry.model_id, None)
+        _drop(entry.model_id)
     return entry
+
+
+def _drop(model_id: str) -> bool:
+    """Drop one id's resident cell and scenario store (caller holds
+    ``_LOCK``); the one eviction path.  Returns whether a cell was
+    resident."""
+    dropped = _COMPILED.pop(model_id, None) is not None
+    _STORES.pop(model_id, None)
+    return dropped
+
+
+def evict(model_id: str) -> bool:
+    """Drop the resident cell (and scenario store) of ``model_id``; the
+    next ``compile_entry`` recompiles.  Returns whether one was resident."""
+    with _LOCK:
+        return _drop(model_id)
+
+
+def set_max_resident(n: int | None) -> None:
+    """Cap how many compiled cells stay resident (LRU): compiling or
+    touching an id past the cap evicts the least recently used one, which
+    recompiles on its next load.  ``None`` removes the cap (the default)."""
+    global _MAX_RESIDENT
+    if n is not None and n < 1:
+        raise ValueError(f"max_resident must be >= 1 or None, got {n}")
+    with _LOCK:
+        _MAX_RESIDENT = n
+        _evict_over_cap()
+
+
+def max_resident() -> int | None:
+    """The current residency cap (``None``: unbounded)."""
+    return _MAX_RESIDENT
+
+
+def resident_ids() -> list[str]:
+    """Ids with a resident cell, least recently used first."""
+    with _LOCK:
+        return list(_COMPILED)
+
+
+def _touch(model_id: str) -> None:
+    """Move an id to the most recently used end (caller holds _LOCK)."""
+    if model_id in _COMPILED:
+        _COMPILED[model_id] = _COMPILED.pop(model_id)
+
+
+def _evict_over_cap() -> None:
+    """Evict LRU residents until under the cap (caller holds _LOCK)."""
+    if _MAX_RESIDENT is None:
+        return
+    while len(_COMPILED) > _MAX_RESIDENT:
+        _drop(next(iter(_COMPILED)))       # dict order: oldest first
 
 
 def registered_ids() -> list[str]:
@@ -67,17 +133,54 @@ def resolve(model_id: str) -> ModelEntry:
 
 
 def compile_entry(model_id: str):
-    """The resident cell for ``model_id``: (CompiledModel, plan)."""
-    with _LOCK:
-        if model_id in _COMPILED:
-            return _COMPILED[model_id]
+    """The resident cell for ``model_id``: (CompiledModel, plan).
+
+    Compiles outside the lock; a cell whose entry was re-registered while
+    it compiled is never published (it would serve the old config).
+    """
+    while True:
+        with _LOCK:
+            if model_id in _COMPILED:
+                _touch(model_id)           # LRU: a hit is a use
+                return _COMPILED[model_id]
         entry = resolve(model_id)
         cfg = entry.config()
         plan = (entry.plan(cfg) if entry.plan is not None
                 else plan_lib.solve(cfg, None, engine=entry.engine))
-        cell = (deploy.compile_model(cfg, plan=plan), plan)
-        _COMPILED[model_id] = cell
-        return cell
+        model = deploy.compile_model(cfg, plan=plan)
+        with _LOCK:
+            if _REGISTRY.get(model_id) is not entry:
+                continue          # re-registered mid-compile: stale cell
+            cell = _COMPILED.setdefault(model_id, (model, plan))
+            _touch(model_id)
+            _evict_over_cap()
+            return cell
+
+
+def has_scenarios(model_id: str) -> bool:
+    """True when the id has a live store or entry-declared scenarios."""
+    if model_id in _STORES:
+        return True
+    entry = _REGISTRY.get(model_id)
+    return bool(entry is not None and entry.scenarios)
+
+
+def scenario_store(model_id: str, *, capacity: int = 4, device=None):
+    """The id's ScenarioStore, bound to its resident cell: made (and
+    seeded from ``ModelEntry.scenarios``) on first use, with its cache on
+    ``device`` (default: the CUDA card); one per id per process, shared
+    by every server of the id."""
+    with _LOCK:
+        store = _STORES.get(model_id)
+    if store is not None:
+        return store
+    from repro_torch.scenario import ScenarioStore
+    model, plan = compile_entry(model_id)
+    store = ScenarioStore(model, plan, capacity=capacity, device=device)
+    for name, factory in resolve(model_id).scenarios:
+        store.register(name, branch=factory(model, plan))
+    with _LOCK:
+        return _STORES.setdefault(model_id, store)
 
 
 for _arch in configs.DENSE_ARCHS:

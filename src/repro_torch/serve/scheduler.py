@@ -19,9 +19,17 @@ port's kernels do by construction, and the GEMMs and reductions that
 would not (cuBLAS picks its kernel by shape on the card) run on bucketed
 rows (``core.rows``).  Decoding is greedy (argmax).
 
-Waiting for later slices (ROADMAP Queue 1 item 14): speculative decode
-(``spec_k > 0``), chunked prefill (``prefill_chunk``) and scenario
-swaps; prompts are prefilled whole.
+Scenario hot-swap (``repro_torch.scenario``): a swap is a BARRIER in the
+same FIFO queue requests ride.  It applies at a decode-step boundary once
+every request admitted before it has retired, so a request decodes
+entirely under the scenario it was submitted with — bit-identical to a
+fresh single-scenario cell — while requests behind the barrier wait.
+The swap itself is ``scenario.swap_params``: the trunk tensors pass
+through as the same objects, not one ROM byte is copied.
+
+Waiting for a later slice (ROADMAP Queue 1 item 2): speculative decode
+(``spec_k > 0``) and chunked prefill (``prefill_chunk``); prompts are
+prefilled whole.
 """
 
 from __future__ import annotations
@@ -33,6 +41,15 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.scenario import swap_params
+
+
+@dataclasses.dataclass
+class _Swap:
+    """A scenario-swap barrier in the admission queue."""
+    scenario: str
+    branch: object                        # the new branch tree
+
 
 @dataclasses.dataclass
 class Request:
@@ -41,6 +58,7 @@ class Request:
     prompt: np.ndarray                    # [S] int32 token ids
     max_new_tokens: int
     eos_id: int | None = None
+    scenario: str | None = None           # branch the request runs under
     # filled in by the scheduler:
     tokens: list = dataclasses.field(default_factory=list)
     slot: int | None = None
@@ -64,20 +82,22 @@ class ContinuousBatcher:
     :class:`~repro_torch.serve.pool.SlotPool` or paged
     :class:`~repro_torch.serve.pool.PagedPool`)."""
 
-    def __init__(self, model, params, pool, *, prefill_chunk: int = 0,
-                 spec_k: int = 0):
+    def __init__(self, model, params, pool, *, scenario: str | None = None,
+                 prefill_chunk: int = 0, spec_k: int = 0):
         if spec_k:
             raise NotImplementedError(
                 f"spec_k={spec_k}: speculative decode is not ported yet "
-                f"(ROADMAP Queue 1 item 14); pass spec_k=0")
+                f"(ROADMAP Queue 1 item 2); pass spec_k=0")
         if prefill_chunk:
             raise NotImplementedError(
                 f"prefill_chunk={prefill_chunk}: chunked prefill is not "
-                f"ported yet (ROADMAP Queue 1 item 14); pass "
+                f"ported yet (ROADMAP Queue 1 item 2); pass "
                 f"prefill_chunk=0 (whole-prompt admission)")
         self.model = model
         self.params = params
         self.pool = pool
+        self.scenario = scenario            # live branch label
+        self.swap_count = 0                 # swaps applied so far
         self.device = pool.cache["layers"]["k"].device
         self._queue: collections.deque = collections.deque()
         self._active: dict[int, Request] = {}       # slot -> request
@@ -87,18 +107,27 @@ class ContinuousBatcher:
         self._next_rid = 0
         self.step_count = 0
 
-    def swap(self, scenario, branch) -> None:
-        """Scenario hot-swap needs a ScenarioStore, which is not ported yet
-        (ROADMAP Queue 1 item 10)."""
-        raise ValueError(
-            f"no ScenarioStore attached to this server, cannot swap to "
-            f"{scenario!r}; scenario hot-swap is not ported yet (ROADMAP "
-            f"Queue 1 item 10)")
+    def pending_scenario(self) -> str | None:
+        """The branch label after every queued swap barrier applies: what
+        a request submitted now is admitted under."""
+        for item in reversed(self._queue):
+            if isinstance(item, _Swap):
+                return item.scenario
+        return self.scenario
+
+    def swap(self, scenario: str | None, branch) -> None:
+        """Queue a branch hot-swap, FIFO with requests: everything
+        submitted before it decodes under the old branch, everything after
+        under the new one."""
+        self._queue.append(_Swap(scenario=scenario, branch=branch))
 
     def submit(self, prompt, max_new_tokens: int,
-               eos_id: int | None = None) -> Request:
+               eos_id: int | None = None,
+               scenario: str | None = None) -> Request:
         """Queue one request; returns its live :class:`Request` handle.
-        Raises at the front door for requests that could never run."""
+        Raises at the front door for requests that could never run, and
+        for a scenario label other than the queue tail's (swap first;
+        ``LMServer.submit`` does)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -111,8 +140,16 @@ class ContinuousBatcher:
                 f"request needs {total} cache slots "
                 f"(prompt {prompt.size} + {max_new_tokens} new) but the "
                 f"pool was sized for max_len={self.pool.max_len}")
+        tail = self.pending_scenario()
+        if scenario is not None and scenario != tail:
+            raise ValueError(
+                f"submit(scenario={scenario!r}) but the queue tail runs "
+                f"scenario {tail!r}; call swap({scenario!r}, branch) "
+                f"first (LMServer.submit(..., scenario=...) does this "
+                f"through the scenario store)")
         req = Request(rid=self._next_rid, prompt=prompt,
-                      max_new_tokens=max_new_tokens, eos_id=eos_id)
+                      max_new_tokens=max_new_tokens, eos_id=eos_id,
+                      scenario=tail)
         req.submit_step = self.step_count
         req.submit_s = time.perf_counter()
         self._next_rid += 1
@@ -121,7 +158,7 @@ class ContinuousBatcher:
 
     @property
     def queued(self) -> int:
-        return len(self._queue)
+        return sum(1 for x in self._queue if isinstance(x, Request))
 
     @property
     def active(self) -> int:
@@ -143,12 +180,25 @@ class ContinuousBatcher:
         if len(req.tokens) >= req.max_new_tokens or hit_eos:
             self._finish(req)
 
+    def _apply_swap(self, sw: _Swap) -> None:
+        """The branch replaced over the same trunk tensors; the model and
+        the pool are reused as they are."""
+        self.params = swap_params(self.params, sw.branch)
+        self.scenario = sw.scenario
+        self.swap_count += 1
+
     def _admit(self) -> None:
         """FIFO admission: the head request admits only when the pool can
         guarantee it; it is prefilled solo, adopted, and its first token
-        comes from the prefill logits."""
+        comes from the prefill logits.  A swap barrier at the head applies
+        only once the active requests have retired."""
         while self._queue:
             head = self._queue[0]
+            if isinstance(head, _Swap):
+                if self._active:
+                    return        # in-flight requests finish on their branch
+                self._apply_swap(self._queue.popleft())
+                continue
             slot = self.pool.try_admit(head.prompt.size
                                        + head.max_new_tokens)
             if slot is None:

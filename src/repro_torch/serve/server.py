@@ -10,9 +10,11 @@
   uses frozen statistics and every trunk row is quantised on its own, so
   padding never changes a real row).
 
-The async ``generate`` front door, scenario stores, speculative decode
-and chunked prefill wait for later slices (ROADMAP Queue 1 items 10 and
-14).
+With a :class:`~repro_torch.scenario.ScenarioStore` attached, one cell
+serves N scenarios by swapping the SRAM branch over the resident ROM
+trunk: no trunk tensor is copied and no model is rebuilt.  The async
+``generate`` front door, speculative decode and chunked prefill wait for
+a later slice (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.models import api, cnn
+from repro_torch.scenario import swap_params
 from repro_torch.serve import registry
 from repro_torch.serve.pool import (PagedPool, SlotPool,
                                     default_block_size, suggest_paged,
@@ -38,12 +41,19 @@ class LMServer:
     demands paging.  ``n_blocks``/``block_size`` size the paged pool
     (defaults: dense-equivalent capacity in ``max_len // 8``-position
     blocks).  The KV cache lives on the params' device in ``dtype``.
+
+    With a store attached, ``swap_scenario`` (or ``submit(...,
+    scenario=...)``) queues a branch hot-swap behind the requests already
+    submitted: every request decodes entirely under the scenario it was
+    submitted with.
     """
 
     def __init__(self, model, params, *, n_slots: int, max_len: int,
-                 dtype=torch.float32, paged: bool | None = None,
-                 n_blocks: int | None = None, block_size: int | None = None):
+                 dtype=torch.float32, store=None, scenario=None,
+                 paged: bool | None = None, n_blocks: int | None = None,
+                 block_size: int | None = None):
         self.model = model
+        self.store = store
         device = next(iter(bridge.flatten(params).values())).device
         if paged is None:
             paged = api.supports_paging(model.cfg)
@@ -64,19 +74,31 @@ class LMServer:
         else:
             self.pool = SlotPool(model, n_slots, max_len, dtype=dtype,
                                  device=device)
-        self.batcher = ContinuousBatcher(model, params, self.pool)
+        self.batcher = ContinuousBatcher(model, params, self.pool,
+                                         scenario=scenario)
 
     @property
     def params(self):
+        """The live params tree (the batcher owns it; a swap replaces it)."""
         return self.batcher.params
 
-    def swap_scenario(self, name: str):
-        """Scenario hot-swap needs a ScenarioStore, which is not ported
-        yet (ROADMAP Queue 1 item 10); no server has one attached."""
-        self.batcher.swap(name, None)
+    @property
+    def scenario(self):
+        return self.batcher.scenario
 
-    def submit(self, prompt, max_new_tokens: int, eos_id=None):
-        return self.batcher.submit(prompt, max_new_tokens, eos_id=eos_id)
+    def swap_scenario(self, name: str):
+        """Queue a hot-swap to a registered scenario's branch; it applies
+        at a decode-step boundary once the requests before it retired."""
+        _need_store(self.store, "LMServer")
+        self.batcher.swap(name, self.store.get(name))
+
+    def submit(self, prompt, max_new_tokens: int, eos_id=None,
+               scenario=None):
+        if scenario is not None and \
+                scenario != self.batcher.pending_scenario():
+            self.swap_scenario(scenario)
+        return self.batcher.submit(prompt, max_new_tokens, eos_id=eos_id,
+                                   scenario=scenario)
 
     def step(self) -> bool:
         return self.batcher.step()
@@ -85,24 +107,34 @@ class LMServer:
         return self.batcher.drain(max_steps)
 
 
+def _need_store(store, server: str):
+    if store is None:
+        raise ValueError(
+            f"no ScenarioStore attached to this server; serve.load"
+            f"(model_id, scenario=...) or pass store= to {server}")
+
+
 class CNNServer:
     """Forward-only serving of one resident CNN cell in fixed-size chunks."""
 
-    def __init__(self, model, params, *, n_slots: int):
+    def __init__(self, model, params, *, n_slots: int, store=None,
+                 scenario=None):
         if n_slots < 1:
             raise ValueError(f"need at least one slot, got {n_slots}")
         self.model = model
         self.params = params
+        self.store = store
+        self.scenario = scenario
         self.n_slots = int(n_slots)
         self.device = next(iter(bridge.flatten(params).values())).device
 
     def swap_scenario(self, name: str):
-        """Scenario hot-swap needs a ScenarioStore, which is not ported
-        yet (ROADMAP Queue 1 item 10); no server has one attached."""
-        raise ValueError(
-            f"no ScenarioStore attached to this server, cannot swap to "
-            f"{name!r}; scenario hot-swap is not ported yet (ROADMAP "
-            f"Queue 1 item 10)")
+        """Hot-swap to a registered scenario's branch.  Forward serving is
+        synchronous, so the swap applies at once; the model is reused and
+        the trunk tensors stay the same objects."""
+        _need_store(self.store, "CNNServer")
+        self.params = swap_params(self.params, self.store.get(name))
+        self.scenario = name
 
     def submit(self, images) -> np.ndarray:
         """images: [B, H, W, C] (numpy or tensor) -> outputs for all B rows."""
@@ -124,8 +156,9 @@ class CNNServer:
 
 def load(model_id: str, *, params=None, seed: int = 0, n_slots=None,
          device=None, max_len: int = 128, dtype=torch.float32,
-         sram_capacity_bytes: int = 64 << 20, paged: bool | None = None,
-         n_blocks: int | None = None, block_size: int | None = None):
+         sram_capacity_bytes: int = 64 << 20, scenario: str | None = None,
+         paged: bool | None = None, n_blocks: int | None = None,
+         block_size: int | None = None):
     """One front door for LM decode and CNN forward serving.
 
     Resolves ``model_id`` through the registry (compiled at most once per
@@ -135,12 +168,23 @@ def load(model_id: str, *, params=None, seed: int = 0, n_slots=None,
     paged pools via :func:`~repro_torch.serve.pool.suggest_paged`, dense
     ones via :func:`~repro_torch.serve.pool.suggest_slots`.  The LM
     keywords are ignored for CNN configs.
+
+    scenario: start on a registered scenario's branch (see
+    ``registry.scenario_store``), swapped over the trunk before serving;
+    the server carries the id's store, so it can swap to the others.
     """
     model, plan = registry.compile_entry(model_id)
     if params is None:
         params = model.init(seed, device=device)
+    store = None
+    if scenario is not None or registry.has_scenarios(model_id):
+        store = registry.scenario_store(
+            model_id, device=next(iter(bridge.flatten(params).values())).device)
+    if scenario is not None:
+        params = swap_params(params, store.get(scenario))
     if isinstance(model.cfg, cnn.CNNConfig):
-        return CNNServer(model, params, n_slots=n_slots or 8)
+        return CNNServer(model, params, n_slots=n_slots or 8, store=store,
+                         scenario=scenario)
     if paged is None:
         paged = api.supports_paging(model.cfg)
     if n_slots is None:
@@ -155,5 +199,5 @@ def load(model_id: str, *, params=None, seed: int = 0, n_slots=None,
                 model, plan, max_len, dtype=dtype,
                 sram_capacity_bytes=sram_capacity_bytes)
     return LMServer(model, params, n_slots=n_slots, max_len=max_len,
-                    dtype=dtype, paged=paged, n_blocks=n_blocks,
-                    block_size=block_size)
+                    dtype=dtype, store=store, scenario=scenario, paged=paged,
+                    n_blocks=n_blocks, block_size=block_size)

@@ -148,7 +148,10 @@ def _spec_fields(spec):
 def test_solve_equal_across_packages(name):
     jcfg = jcnn.CNNConfig(name=name, input_size=32)
     tcfg = tcnn.CNNConfig(name=name, input_size=32)
-    budgets = [None] + [p["budget_mm2"] for p in jplan.sweep(jcfg, 5)]
+    points = tplan.sweep(tcfg, 5)
+    assert [p["budget_mm2"] for p in points] == \
+        [p["budget_mm2"] for p in jplan.sweep(jcfg, 5)]
+    budgets = [None] + [p["budget_mm2"] for p in points]
     for budget in budgets:
         jp = jplan.solve(jcfg, budget, engine="pallas_fused")
         tp = tplan.solve(tcfg, budget, engine="pallas_fused")

@@ -390,5 +390,5 @@ def test_unported_families_and_branches_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdeploy.compile_model(cfg).init(seed=0, device="cpu")
     moe = dataclasses.replace(tcfg, family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         tplan.site_tree(moe)
