@@ -151,6 +151,39 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    is 1, B's requests are admitted only after A's retired, the trunk
    tensors stay the same objects, and every request's tokens equal its
    solo decode under its own scenario, bit for bit.
+15. Training kernels at the train geometries: kernel 4 at Gemma-2B's four
+   linear geometries at M = B*S = 512 through ``ops.trunk_matmul_pallas``
+   under autograd: the forward ``torch.equal`` to the plain version, one
+   launch and none in the straight-through backward, dx ``torch.equal``
+   to ``g @ (w_q*s).T`` on the card; ``ms``, ``device_ms``, the bound and
+   ``torch._int_mm`` as in phase 5.  Kernel 1 at ResNet-18's 20 conv
+   geometries (32x32, batch 128) ``torch.equal`` to its plain version,
+   with its time and bound.
+16. Gemma-2B branch training at full width (``configs/gemma_2b.py::FULL``,
+   all-ROM, ``pallas``: kernel 4 behind all 126 linears), drawn on the
+   card: ``launch/train.py``'s loop (``make_train_step``, cosine schedule
+   with a warm-up of 5, ``markov_batch`` at the CLI's batch 8 x seq 64,
+   lr 3e-3) for 30 steps.  Every loss finite and the last below the
+   first; 126 kernel-4 launches a step, none in the backward; the ROM
+   fingerprint unchanged and every trunk tensor the same object at the
+   same ``data_ptr``; a checkpoint saved at step 15 (async) restored into
+   fresh templates, whose step 16 equals the uninterrupted one (bitwise,
+   at worst 1e-6 relative).  Prints the step time (CUDA events and the
+   host clock), trained tokens/s, the step split by part, the step with
+   the row slices on and off, the peak memory and the checkpoint's times.
+   Then one step at the 2-layer cut of full width, batch 4 x seq 32, on
+   the card and on the CPU from the same parameters: the loss within 1e-3
+   relative and every leaf of AdamW's ``m`` within 5e-2 of its absmax;
+   and ``launch/train.py``'s CLI (``--smoke``, its default engine) on the
+   card with checkpoints and ``--resume``.
+17. The paper's ResNet-18 ReBranch fine-tune (32x32, 100 classes): a
+   dense init, ``models.cnn.freeze_to_rom``, ``pallas`` (kernel 1 behind
+   every ROM conv), ``transfer_harness._train``'s loop with the port's
+   modules (AdamW without decay, lr 2e-3, CE of ``log_softmax``) on
+   ``image_batch`` at batch 128 for 50 steps: the loss falls, 20 kernel-1
+   launches a step, the ROM untouched, the first step's loss within 5e-2
+   of the CPU's, and each conv's STE dx on the card within 1e-5 of its
+   absmax of the CPU's for the same g.  Prints trained images/s.
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -164,7 +197,9 @@ where measured, from a replayed CUDA graph), ``launches`` from the
 serving phases; ``cim_matmul`` also carries ``ms_m128`` and
 ``library_ms`` (``torch._int_mm``), both per 126-launch pass at M = 128
 and timed as ``ms`` is; ``trunk_conv`` and ``rebranch_matmul`` carry
-``swap_launches``, their launches in phases 13 and 14.
+``swap_launches``, their launches in phases 13 and 14; ``trunk_conv`` and
+``cim_matmul`` carry ``train_launches`` (phases 16-17) and ``train_*ms``,
+per pass at the train geometry (phase 15).
 """
 
 from __future__ import annotations
@@ -2178,6 +2213,603 @@ def phase_lm_swap(smi: str) -> int:
     return counts["rebranch_matmul"]
 
 
+# ---------------------------------------------------------------------------
+# phases 15-17: branch training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 64, 3e-3     # launch/train.py's CLI
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SAVE_AT = 30, 5, 15
+TRAIN_CHUNKS = 4
+TRAIN_CUT = 2, 4, 32       # card-vs-CPU step: layers, batch, sequence
+M_REL = 5e-2               # AdamW's m after a step, of each leaf's absmax
+CNN_TRAIN = dict(batch=128, steps=50, lr=2e-3, seed=200)
+CNN_LOSS_REL = 5e-2        # the whole first-step loss, card vs CPU
+DX_RTOL = 1e-5             # each conv's STE dx, card vs CPU, of its absmax
+
+
+def resnet18_cfg():
+    from repro_torch.configs import paper_models
+    return paper_models.RESNET18
+
+
+def timed_step(fn):
+    """(result, CUDA-event ms, host-clock ms) of one call of ``fn``, the
+    host clock around the call and a synchronise."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def phase_train_kernels(dev, smi: str) -> dict:
+    """Kernel 4 at Gemma-2B's four linear geometries at M = B*S = 512
+    through ``ops.trunk_matmul_pallas`` under autograd: the forward
+    ``torch.equal`` to the plain version, one launch, none in the
+    backward, the STE dx ``torch.equal`` to ``g @ (w_q*s).T``; times as
+    phase 5's.  Kernel 1 at ResNet-18's conv geometries (32x32, batch
+    128): ``torch.equal`` to the plain version, times as phase 2's."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rebranch_conv as rc
+    from repro_torch.models import cnn
+    t_phase = time.perf_counter()
+    m = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {"cim_matmul": dict(ms=0.0, device_ms=0.0, plain_ms=0.0,
+                              bound_ms=0.0, library_ms=0.0,
+                              library_device_ms=0.0, dx_ms=0.0,
+                              max_abs_err=0.0),
+           "trunk_conv": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                              launches=0, max_abs_err=0.0)}
+    row = out["cim_matmul"]
+    print(f"kernel 4 at the train geometry M = {m} (batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}) [{smi}]")
+    print("kernel K N M fwd_equal dx_equal ms device_ms plain_ms bound_ms "
+          "bound_by library_ms library_device_ms dx_ms")
+    for (k, n), per_layer in LM_GEOMS.items():
+        copies = max(1, math.ceil(2.5 * L2_BYTES / (k * n)))
+        ws = [torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(copies)]
+        w_q = ws[0]
+        w_scale = torch.rand((n,), generator=gen, device=dev) * 1e-2 + 1e-3
+        x = torch.randn((m, k), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_(True)
+        before = cm.launches
+        y = kops.trunk_matmul_pallas(cm.IDEAL, x, w_q, w_scale)
+        check(cm.launches == before + 1, "trunk_matmul_pallas did not "
+              "launch kernel 4 once")
+        x_q, sx = quant.quantize_activations(x.detach())
+        want = (cm.cim_matmul_plain(x_q, w_q) * sx).to(x.dtype) \
+            * w_scale.to(x.dtype)
+        fwd_eq = torch.equal(y.detach(), want)
+        check(fwd_eq, f"kernel 4 forward != plain at {k}x{n}, M = {m}")
+        g = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+        (dx,) = torch.autograd.grad(y, x, g)
+        check(cm.launches == before + 1, "the STE backward launched a kernel")
+        ste_dx = lambda: g @ (w_q.to(g.dtype) * w_scale.to(g.dtype)).T
+        dx_eq = torch.equal(dx, ste_dx())
+        check(dx_eq, f"STE dx != g @ (w_q*s).T at {k}x{n}")
+        args = [(x_q, wi) for wi in ws]
+        ms = time_cycled_ms(cm.cim_matmul, args, 3 * copies)
+        dms = time_graph_ms(cm.cim_matmul, args, 3 * copies)
+        plain = time_cycled_ms(cm.cim_matmul_plain, args[:1], 2)
+        lib_args = [(a, b.t().contiguous().t()) for a, b in args]
+        lib = time_cycled_ms(torch._int_mm, lib_args, 3 * copies)
+        lib_dev = time_graph_ms(torch._int_mm, lib_args, 3 * copies)
+        dx_ms = time_ms(ste_dx, 3)
+        bound, by = lm_bound_ms(m, k, n)
+        print(f"cim_matmul {k} {n} {m} {fwd_eq} {dx_eq} {ms:.4f} {dms:.4f} "
+              f"{plain:.4f} {bound:.4f} {by} {lib:.4f} {lib_dev:.4f} "
+              f"{dx_ms:.4f}", flush=True)
+        count = per_layer * LM_LAYERS
+        for key, v in (("ms", ms), ("device_ms", dms), ("plain_ms", plain),
+                       ("bound_ms", bound), ("library_ms", lib),
+                       ("library_device_ms", lib_dev), ("dx_ms", dx_ms)):
+            row[key] += v * count
+        del ws, lib_args, args, x, y, dx
+        torch.cuda.empty_cache()
+    print(f"kernel 4 per Gemma-2B train forward at M = {m} "
+          f"({7 * LM_LAYERS} launches): {row['ms']:.3f} ms (device, graph "
+          f"replay: {row['device_ms']:.3f} ms), plain {row['plain_ms']:.3f} "
+          f"ms, bound {row['bound_ms']:.3f} ms, torch._int_mm "
+          f"{row['library_ms']:.3f} ms (device {row['library_device_ms']:.3f}"
+          f" ms); the STE dx GEMMs with their dequantised W "
+          f"{row['dx_ms']:.3f} ms [{smi}]")
+
+    cfg = resnet18_cfg()
+    n_img = CNN_TRAIN["batch"]
+    conv = out["trunk_conv"]
+    print(f"kernel 1 at ResNet-18's conv geometries, {cfg.input_size}x"
+          f"{cfg.input_size}, batch {n_img} [{smi}]")
+    print("site k c_in c_out stride M R equal ms plain_ms bound_ms bound_by")
+    for site, k, c_in, c_out, hw, stride in cnn.conv_site_shapes(cfg):
+        x = torch.randn((n_img, hw * stride, hw * stride, c_in),
+                        generator=gen, device=dev)
+        w_q = torch.randint(-127, 128, (k, k, c_in, c_out), generator=gen,
+                            device=dev, dtype=torch.int8)
+        before = rc.launches
+        got = rc.trunk_conv_dot(x, w_q, stride)
+        conv["launches"] += rc.launches - before
+        want = plain_trunk(x, w_q, stride=stride)
+        equal = torch.equal(got, want)
+        check(equal, f"{site}: kernel 1 != plain at stride {stride}")
+        ms = time_ms(lambda: rc.trunk_conv_dot(x, w_q, stride), 5)
+        plain = time_ms(lambda: plain_trunk(x, w_q, stride=stride), 2)
+        mm, r = n_img * hw * hw, k * k * c_in
+        bound, by = trunk_bound_ms(mm, r, c_out, x.numel())
+        print(f"{site} {k} {c_in} {c_out} {stride} {mm} {r} {equal} "
+              f"{ms:.4f} {plain:.4f} {bound:.4f} {by}", flush=True)
+        conv["ms"] += ms
+        conv["plain_ms"] += plain
+        conv["bound_ms"] += bound
+        del x, got, want
+        torch.cuda.empty_cache()
+    print(f"kernel 1 per ResNet-18 forward at batch {n_img} "
+          f"({conv['launches']} launches): {conv['ms']:.3f} ms, plain "
+          f"{conv['plain_ms']:.3f} ms, bound {conv['bound_ms']:.3f} ms "
+          f"[{smi}]")
+    print(f"phase 15 wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def lm_train_setup(cfg, seed: int = 0):
+    """The slice's training cell: ``cfg`` all-ROM under 'pallas' (kernel
+    4 behind every linear), parameters drawn on the card, and
+    ``launch/train.py``'s step at the CLI's defaults."""
+    from repro_torch import deploy, optim
+    from repro_torch.launch import steps
+    from repro_torch.optim import schedule
+    model = deploy.compile_model(cfg, engine="pallas")
+    check(model.layer_spec("blocks.mlp").trunk_impl == "pallas",
+          "the train cell does not run the pallas engine")
+    lr_fn = lambda s: schedule.cosine_with_warmup(
+        s, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+        total_steps=TRAIN_STEPS)
+    step_fn = steps.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR),
+                                    lr_fn=lr_fn, loss_chunks=TRAIN_CHUNKS,
+                                    model=model)
+    return model, step_fn
+
+
+def leaf_rel(got, want) -> float:
+    """max |got - want| over want's absmax (want on the CPU)."""
+    return ((got.float().cpu() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def worst_m(got, want) -> tuple[float, str]:
+    """The AdamW ``m`` leaf of ``got`` farthest from ``want``'s (CPU), as
+    (max |diff| over the leaf's absmax, name)."""
+    from repro_torch import bridge
+    ref = bridge.flatten(want["m"])
+    return max((leaf_rel(a, ref[k]), k)
+               for k, a in bridge.flatten(got["m"]).items())
+
+
+def lm_train_cpu_check(smi: str):
+    """One step at the 2-layer cut of full width (every linear geometry),
+    batch 4 x seq 32, on the card and on the CPU (plain versions) from the
+    same parameters, drawn on the card with non-zero cores.
+
+    In the cell's bf16 activations the loss is held to 1e-3 relative;
+    AdamW's ``m`` is printed beside the CPU's own move under a 2**-8
+    relative change of layer 0's ln1 scale (one bf16 rounding): the
+    quantised network is chaotic at the bf16 level, and an int8 code that
+    moves with one rounding moves ``m`` by ~0.1 of its absmax.  With f32
+    activations (the same kernels and geometries; card and CPU differ by
+    f32 roundings) ``m`` is held to 5e-2 of each leaf's absmax too."""
+    import dataclasses as dc
+
+    from repro_torch import bridge, configs, optim
+    from repro_torch.core import rebranch
+    from repro_torch.data import synthetic
+    layers_, batch, seq = TRAIN_CUT
+    cpu = torch.device("cpu")
+    for dtype in ("bfloat16", "float32"):
+        cfg = dc.replace(configs.get("gemma_2b"), num_layers=layers_,
+                         dtype=dtype)
+        model, step_fn = lm_train_setup(cfg)
+        params = with_cores(model.init(seed=3),
+                            torch.Generator().manual_seed(4))
+        dcfg = synthetic.DataConfig(seed=1, vocab_size=cfg.vocab_size,
+                                    seq_len=seq, global_batch=batch)
+        host = bridge.tree_map(params, lambda t: t.to(cpu))
+        ln1 = "['layers']['ln1']['sram']['scale']"
+        runs = {"card": params, "cpu": host}
+        if dtype == "bfloat16":
+            runs["cpu, ln1 x (1 + 2**-8)"] = bridge.map_named(
+                host, lambda k, t: t * (1 + 2.0 ** -8) if k == ln1 else t)
+        outs, secs = {}, {}
+        for where, p in runs.items():
+            t, f = rebranch.partition(p)
+            dev = t["ln_f"]["sram"]["scale"].device
+            t0 = time.perf_counter()
+            outs[where] = step_fn(t, f, optim.init(t),
+                                  synthetic.markov_batch(dcfg, 0,
+                                                         device=dev))
+            torch.cuda.synchronize()
+            secs[where] = time.perf_counter() - t0
+        del params, host, runs
+        (_, o_card, m_card), (_, o_cpu, m_cpu) = outs["card"], outs["cpu"]
+        loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+            / abs(float(m_cpu["loss"]))
+        check(loss_rel <= 1e-3, f"card-vs-CPU train step ({dtype}): loss "
+              f"off by {loss_rel:.2e} relative")
+        worst = worst_m(o_card, o_cpu)
+        if dtype == "float32":
+            check(worst[0] <= M_REL, f"card-vs-CPU train step (f32): m "
+                  f"leaf {worst[1]} off by {worst[0]:.2e} of its absmax")
+            note = f"(<= {M_REL})"
+        else:
+            moved = worst_m(outs["cpu, ln1 x (1 + 2**-8)"][1], o_cpu)
+            note = (f"(printed: the CPU's own m moves by {moved[0]:.2e} "
+                    f"at {moved[1]} under a 2**-8 change of layer 0's ln1 "
+                    f"scale)")
+        print(f"card vs CPU, one step of gemma_2b cut to {layers_} layers "
+              f"at full width, {dtype} activations, batch {batch} x seq "
+              f"{seq}: loss {float(m_card['loss']):.6f} / "
+              f"{float(m_cpu['loss']):.6f} (rel {loss_rel:.2e} <= 1e-3); "
+              f"worst m leaf {worst[1]} at {worst[0]:.2e} of its absmax "
+              f"{note}; card {secs['card']:.2f} s, CPU {secs['cpu']:.2f} s "
+              f"(host clock, first call) [{smi}]")
+        del outs
+        torch.cuda.empty_cache()
+
+
+def train_split(model, step_fn, trainable, frozen, opt, batch):
+    """One train step split by part (CUDA events, each part timed alone
+    on the step's own inputs): the blocks' forward, the readout's forward,
+    the readout's recompute + backward, AdamW, the whole value_and_grad;
+    and the step with the row slices on and off."""
+    from repro_torch import optim
+    from repro_torch.core import rebranch
+    from repro_torch.core import rows as rows_lib
+    from repro_torch.launch import steps
+    cfg = model.cfg
+
+    def loss_fn(t):
+        p = rebranch.combine(t, frozen)
+        return steps.chunked_readout_loss(p, model.features(p, batch),
+                                          batch["labels"], cfg, TRAIN_CHUNKS,
+                                          model=model)
+
+    params = rebranch.combine(trainable, frozen)
+    with torch.no_grad():
+        feats = model.features(params, batch)
+    blocks_fwd = time_ms(lambda: model.features(params, batch), 2)
+    with torch.no_grad():
+        readout_fwd = time_ms(lambda: steps.chunked_readout_loss(
+            params, feats, batch["labels"], cfg, TRAIN_CHUNKS, model=model), 2)
+
+    def readout_all():
+        f = feats.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = steps.chunked_readout_loss(params, f, batch["labels"],
+                                              cfg, TRAIN_CHUNKS, model=model)
+            return torch.autograd.grad(loss, f)
+
+    readout_bwd = time_ms(readout_all, 2) - readout_fwd
+    vg = time_ms(lambda: steps.value_and_grad(loss_fn, trainable), 2)
+    _, grads = steps.value_and_grad(loss_fn, trainable)
+    opt_ms = time_ms(lambda: optim.update(grads, opt, trainable,
+                                          optim.AdamWConfig(lr=TRAIN_LR),
+                                          lr=TRAIN_LR), 3)
+    del grads
+    sliced, by = rows_lib.rowwise, {}
+    try:
+        for on in (True, False, False, True):
+            rows_lib.rowwise = sliced if on else (lambda fn, *a: fn(*a))
+            by.setdefault(on, []).append(time_ms(
+                lambda: step_fn(trainable, frozen, opt, batch), 1))
+    finally:
+        rows_lib.rowwise = sliced
+    return {"blocks_fwd": blocks_fwd, "readout_fwd": readout_fwd,
+            "readout_bwd": readout_bwd, "optimizer": opt_ms,
+            "value_and_grad": vg,
+            "rows_on": sum(by[True]) / 2, "rows_off": sum(by[False]) / 2}
+
+
+def phase_lm_train(smi: str, kernel_pass_ms: float) -> int:
+    """Gemma-2B branch training at full width under 'pallas': 30 steps of
+    ``launch/train.py``'s loop on ``markov_batch`` at the CLI's defaults
+    (batch 8, seq 64, lr 3e-3, warm-up 5); the loss finite and falling,
+    126 kernel-4 launches per step and none in the backward, the ROM
+    untouched, and a checkpoint saved at step 15 (async) whose restored
+    run's step 16 equals the uninterrupted one.  The ROM fingerprint
+    before training (17.7 GB through SHA-256) is taken on a thread while
+    the card-vs-CPU step runs; the CLI last.  Returns kernel 4's launches
+    over the 30 steps."""
+    import tempfile
+    import threading
+
+    from repro_torch import bridge, configs, optim
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import rebranch, rom
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as train_cli
+    t_phase = time.perf_counter()
+    cfg = configs.get("gemma_2b")
+    model, step_fn = lm_train_setup(cfg)
+    params = model.init(seed=0)
+    trainable, frozen = rebranch.partition(params)
+    opt = optim.init(trainable)
+    trunk = trunk_objects(params)
+    ptrs = {k: t.data_ptr() for k, t in trunk.items()}
+    before = {}
+
+    def fingerprint():
+        t0 = time.perf_counter()
+        before["fp"] = rom.rom_fingerprint(params)
+        before["s"] = time.perf_counter() - t0
+
+    hasher = threading.Thread(target=fingerprint)
+    hasher.start()
+    lm_train_cpu_check(smi)
+    hasher.join()
+    check("fp" in before, "the ROM fingerprint before training failed")
+    print(f"gemma_2b train cell: ROM {rebranch.frozen_count(params)} params "
+          f"({rom.rom_bytes(params)} bytes), SRAM "
+          f"{rebranch.trainable_count(params)} trainable "
+          f"({rom.sram_bytes(params)} bytes); rom_fingerprint "
+          f"{before['s'] * 1e3:.1f} ms (on a thread beside the card-vs-CPU "
+          f"step) [{smi}]")
+    dcfg = synthetic.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    per_pass = 7 * cfg.num_layers
+    losses, ev_ms, host_ms, launches = [], [], [], 0
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        saver = saved = None
+        for s in range(TRAIN_STEPS):
+            batch = synthetic.markov_batch(dcfg, s)
+            reset_launches()
+            (trainable, opt, m), ev, host = timed_step(
+                lambda: step_fn(trainable, frozen, opt, batch))
+            counts = read_launches()
+            check(counts["cim_matmul"] == per_pass
+                  and sum(counts.values()) == per_pass,
+                  f"step {s}: expected {per_pass} kernel-4 launches, got "
+                  f"{counts}")
+            launches += counts["cim_matmul"]
+            losses.append(float(m["loss"]))
+            check(math.isfinite(losses[-1]), f"step {s}: loss {losses[-1]}")
+            ev_ms.append(ev)
+            host_ms.append(host)
+            if s + 1 == TRAIN_SAVE_AT:
+                t0 = time.perf_counter()
+                saver = ckpt.save(tmp, s + 1, trainable, opt, params,
+                                  async_=True)
+                save_call = time.perf_counter() - t0
+            if s + 1 == TRAIN_SAVE_AT + 1:
+                saved = (losses[-1], bridge.tree_map(trainable,
+                                                     lambda t: t.clone()))
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        saver.join()
+        save_wait = time.perf_counter() - t0
+        check(losses[-1] < losses[0], f"loss did not fall: {losses[0]:.4f} "
+              f"-> {losses[-1]:.4f}")
+        check(same_trunk(rebranch.combine(trainable, frozen), trunk, ptrs),
+              "training copied, replaced or moved a trunk tensor")
+        with open(os.path.join(tmp, f"step_{TRAIN_SAVE_AT:08d}",
+                               "meta.json")) as f:
+            check(json.load(f)["rom_fingerprint"] == before["fp"],
+                  "the ROM fingerprint moved between step 0 and step 15")
+        # restore step 15 into fresh templates (restore refuses a ROM whose
+        # fingerprint, taken now after 30 steps, differs from step 15's)
+        # and take step 16 again
+        meta = lambda tree: bridge.tree_map(
+            tree, lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                        device="meta"))
+        t0 = time.perf_counter()
+        step, rt, ro, _ = ckpt.restore(tmp, meta(trainable), meta(opt),
+                                       params)
+        restore_s = time.perf_counter() - t0
+        check(step == TRAIN_SAVE_AT and int(ro["step"]) == TRAIN_SAVE_AT,
+              f"restored step {step}")
+        rt, ro, rmet = step_fn(rt, frozen, ro,
+                               synthetic.markov_batch(dcfg, TRAIN_SAVE_AT))
+        loss16, t16 = saved
+        t16 = bridge.flatten(t16)
+        bitwise = float(rmet["loss"]) == loss16 and all(
+            torch.equal(a, t16[k]) for k, a in bridge.flatten(rt).items())
+        if not bitwise:
+            worst = max(leaf_rel(a, t16[k].cpu())
+                        for k, a in bridge.flatten(rt).items())
+            check(abs(float(rmet["loss"]) - loss16) <= 1e-6 * abs(loss16)
+                  and worst <= 1e-6, f"resumed step {TRAIN_SAVE_AT + 1}: "
+                  f"loss {float(rmet['loss'])} vs {loss16}, leaves off by "
+                  f"{worst:.2e}")
+        del rt, ro, saved, t16
+        split = train_split(model, step_fn, trainable, frozen, opt,
+                            synthetic.markov_batch(dcfg, 0))
+    steady = ev_ms[2:TRAIN_SAVE_AT]        # before the checkpoint's thread
+    step_ms = sum(steady) / len(steady)
+    host_step = sum(host_ms[2:TRAIN_SAVE_AT]) / len(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    parts = sum(split[k] for k in ("blocks_fwd", "readout_fwd",
+                                   "readout_bwd", "optimizer"))
+    print(f"gemma_2b branch training, {TRAIN_STEPS} steps, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, 'pallas': loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f} (entropy floor "
+          f"{synthetic.entropy_floor(dcfg):.4f}); {per_pass} kernel-4 "
+          f"launches per step, none in the backward; ROM fingerprint and "
+          f"trunk data_ptrs unchanged [{smi}]")
+    print(f"losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    print(f"train step (steps 3-{TRAIN_SAVE_AT}): {step_ms:.3f} ms CUDA "
+          f"events (min {min(steady):.3f}, max {max(steady):.3f}), "
+          f"{host_step:.3f} ms host clock; first step {ev_ms[0]:.3f} ms; "
+          f"steps {TRAIN_SAVE_AT + 1}-{TRAIN_STEPS} beside the checkpoint's "
+          f"thread {sum(ev_ms[TRAIN_SAVE_AT:]) / len(ev_ms[TRAIN_SAVE_AT:]):.3f}"
+          f" ms; {tokens / step_ms * 1e3:.1f} trained tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB [{smi}]")
+    print(f"train step split (CUDA events, parts timed alone): blocks "
+          f"forward {split['blocks_fwd']:.3f} ms (kernel 4's {per_pass} "
+          f"launches at M = {tokens}: {kernel_pass_ms:.3f} ms in phase 15), "
+          f"readout forward {split['readout_fwd']:.3f} ms, readout "
+          f"recompute + backward {split['readout_bwd']:.3f} ms, AdamW "
+          f"{split['optimizer']:.3f} ms, so the blocks' backward is the "
+          f"step's remainder {step_ms - parts:.3f} ms; value_and_grad "
+          f"alone {split['value_and_grad']:.3f} ms [{smi}]")
+    print(f"train step with the batch-variant ops on 16-row slices "
+          f"{split['rows_on']:.3f} ms, on all rows at once "
+          f"{split['rows_off']:.3f} ms (in turns, CUDA events) [{smi}]")
+    print(f"checkpoint at step {TRAIN_SAVE_AT}: save() returned in "
+          f"{save_call * 1e3:.1f} ms (the host snapshot; the ROM "
+          f"fingerprint and the write on its thread, still running "
+          f"{save_wait * 1e3:.1f} ms after step {TRAIN_STEPS}), restore "
+          f"{restore_s * 1e3:.1f} ms (its fingerprint included); the "
+          f"restored run's step {TRAIN_SAVE_AT + 1} equals the "
+          f"uninterrupted one {'bit for bit' if bitwise else 'within 1e-6'}"
+          f" [{smi}]")
+    del trainable, frozen, opt, params, split
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        cli = ["--arch", "gemma_2b", "--smoke", "--steps", "6", "--batch",
+               "8", "--seq", "64", "--warmup", "2", "--ckpt-dir", tmp,
+               "--ckpt-every", "3", "--log-every", "3"]
+        first = train_cli.main(cli)
+        more = train_cli.main(cli[:4] + ["8"] + cli[5:] + ["--resume"])
+        check(len(first) == 6 and len(more) == 2
+              and all(map(math.isfinite, first + more))
+              and ckpt.latest_steps(tmp) == [3, 6, 8],
+              f"the CLI: losses {first} then {more}, checkpoints "
+              f"{ckpt.latest_steps(tmp)}")
+    print(f"phase 16 wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def cnn_ce(logits, y):
+    """transfer_harness's CE: -mean log_softmax at the label."""
+    import torch.nn.functional as F
+    return -F.log_softmax(logits, dim=-1).gather(
+        -1, y.long()[:, None]).mean()
+
+
+def phase_cnn_train(dev, smi: str) -> int:
+    """The paper's ReBranch fine-tune of ResNet-18 (32x32, 100 classes):
+    dense init, ``freeze_to_rom``, 'pallas' (kernel 1 behind every ROM
+    conv), ``transfer_harness._train``'s loop with the port's modules on
+    ``image_batch`` at batch 128; the loss falls, the ROM is untouched,
+    kernel 1 launches once per ROM conv per step; each conv's STE dx on
+    the card within 1e-5 of its absmax of the CPU's for the same g, the
+    first step's loss within 5e-2 of the CPU's.  Returns kernel 1's
+    launches over the fine-tune."""
+    import dataclasses as dc
+
+    from repro_torch import bridge, deploy, optim
+    from repro_torch.core import rebranch, rom
+    from repro_torch.core.rebranch import ReBranchSpec, trunk_conv_ste_bwd
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import steps
+    from repro_torch.models import cnn
+    t_phase = time.perf_counter()
+    cfg = resnet18_cfg()
+    dense_cfg = dc.replace(cfg, rebranch=dc.replace(cfg.rebranch,
+                                                    enabled=False))
+    dense = cnn.MODEL_REGISTRY[cfg.name][0](torch.Generator().manual_seed(13),
+                                            dense_cfg)
+    params = cnn.freeze_to_rom(bridge.tree_map(dense, lambda t: t.to(dev)),
+                               torch.Generator().manual_seed(14),
+                               ReBranchSpec())
+    model = deploy.compile_model(cfg, engine="pallas")
+    sites = cnn.conv_site_shapes(cfg)
+    trainable, frozen = rebranch.partition(params)
+    trunk = trunk_objects(params)
+    ptrs = {k: t.data_ptr() for k, t in trunk.items()}
+    fp0 = rom.rom_fingerprint(params)
+    opt = optim.init(trainable)
+    ocfg = optim.AdamWConfig(lr=CNN_TRAIN["lr"], weight_decay=0.0)
+    batch = CNN_TRAIN["batch"]
+
+    def step(t, o, x, y):
+        loss, g = steps.value_and_grad(
+            lambda tt: cnn_ce(model.forward(rebranch.combine(tt, frozen), x),
+                              y), t)
+        t, o, _ = optim.update(g, o, t, ocfg)
+        return t, o, loss
+
+    x0, y0 = synthetic.image_batch(CNN_TRAIN["seed"], 0, batch,
+                                   cfg.input_size, cfg.num_classes)
+    # the first step's loss on the CPU, from the same parameters
+    cpu_params = bridge.tree_map(params, lambda t: t.cpu())
+    with torch.no_grad():
+        cpu_loss = float(cnn_ce(model.forward(cpu_params, x0.cpu()),
+                                y0.cpu()))
+    del cpu_params
+    losses, ev_ms, launches = [], [], 0
+    t_loop = time.perf_counter()
+    for s in range(CNN_TRAIN["steps"]):
+        x, y = (x0, y0) if s == 0 else synthetic.image_batch(
+            CNN_TRAIN["seed"], s, batch, cfg.input_size, cfg.num_classes)
+        reset_launches()
+        (trainable, opt, loss), ev, _ = timed_step(
+            lambda: step(trainable, opt, x, y))
+        counts = read_launches()
+        check(counts["trunk_conv"] == len(sites)
+              and sum(counts.values()) == len(sites),
+              f"step {s}: expected {len(sites)} kernel-1 launches (one per "
+              f"ROM conv), got {counts}")
+        launches += counts["trunk_conv"]
+        losses.append(float(loss))
+        ev_ms.append(ev)
+    wall = time.perf_counter() - t_loop
+    rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    check(rel <= CNN_LOSS_REL, f"first-step loss card {losses[0]} vs CPU "
+          f"{cpu_loss}: rel {rel:.2e}")
+    head, tail = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(all(map(math.isfinite, losses)) and tail < min(head, losses[0]),
+          f"the fine-tune's loss did not fall: {losses[0]:.4f}, first 5 "
+          f"mean {head:.4f} -> last 5 mean {tail:.4f}")
+    check(rom.rom_fingerprint(params) == fp0, "the ROM fingerprint moved")
+    check(same_trunk(rebranch.combine(trainable, frozen), trunk, ptrs),
+          "the fine-tune copied, replaced or moved a trunk tensor")
+    # each conv's STE dx: card vs CPU on the same g
+    gen = torch.Generator(device=dev).manual_seed(17)
+    worst = 0.0
+    for (site, k, c_in, c_out, hw, stride) in sites:
+        node = params
+        for p in site.split("."):
+            node = node[int(p)] if p.isdigit() else node[p]
+        w_q, w_scale = node["rom"]["w_q"], node["rom"]["w_scale"]
+        x = torch.randn((batch, hw * stride, hw * stride, c_in),
+                        generator=gen, device=dev).requires_grad_(True)
+        y = kops.trunk_conv(model.layer_spec(site).cim, stride, "SAME", x,
+                            w_q, w_scale)
+        g = torch.randn(y.shape, generator=gen, device=dev)
+        (dx,) = torch.autograd.grad(y, x, g)
+        want = trunk_conv_ste_bwd(stride, "SAME", tuple(x.shape), w_q.cpu(),
+                                  w_scale.cpu(), g.cpu())
+        err = leaf_rel(dx, want)
+        check(err <= DX_RTOL, f"{site}: STE dx card vs CPU off by {err:.2e}"
+              f" of its absmax")
+        worst = max(worst, err)
+    steady = ev_ms[2:]
+    step_ms = sum(steady) / len(steady)
+    print(f"resnet18 ReBranch fine-tune ({cfg.input_size}x{cfg.input_size}, "
+          f"{cfg.num_classes} classes, batch {batch}, {CNN_TRAIN['steps']} "
+          f"steps, 'pallas'): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(first 5 mean {head:.4f}, last 5 {tail:.4f}); first-step loss "
+          f"vs CPU rel {rel:.2e}; {len(sites)} kernel-1 launches per step; "
+          f"ROM untouched; every conv's STE dx within {worst:.2e} of the "
+          f"CPU's [{smi}]")
+    print(f"losses: {' '.join(f'{v:.4f}' for v in losses)}")
+    print(f"resnet18 train step (steps 3-{CNN_TRAIN['steps']}): "
+          f"{step_ms:.3f} ms CUDA events, {batch / step_ms * 1e3:.1f} "
+          f"images/s trained; {batch * CNN_TRAIN['steps'] / wall:.1f} "
+          f"images/s over the whole loop on the host clock (data made on "
+          f"the host included) [{smi}]")
+    print(f"phase 17 wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2217,6 +2849,13 @@ def main() -> int:
     phase_tapeout(cfg, dev, smi)
     swap_launches = {"trunk_conv": phase_cnn_swap(model, params, images, smi),
                      "rebranch_matmul": phase_lm_swap(smi)}
+    del model, params, images
+    torch.cuda.empty_cache()
+
+    train = phase_train_kernels(dev, smi)
+    train_launches = {
+        "cim_matmul": phase_lm_train(smi, train["cim_matmul"]["ms"]),
+        "trunk_conv": phase_cnn_train(dev, smi)}
 
     def row(name, source, replaces, launches, t):
         by = "bytes" if t["bytes_ms"] >= t["bound_ms"] / 2 else "operations"
@@ -2241,6 +2880,15 @@ def main() -> int:
             # launches over the scenario hot-swap phases (13: four served
             # chunks; 14: the mid-stream swap's prefills and decode steps)
             out["swap_launches"] = swap_launches[name]
+        if name in train_launches:
+            # phases 15-17: launches over the training loops (16: Gemma-2B,
+            # 30 steps; 17: ResNet-18, 50 steps), and per pass at the
+            # train geometry (kernel 4: M = 512, 126 launches; kernel 1:
+            # ResNet-18 at 32x32, batch 128, 20 launches), timed as ms is
+            out["train_launches"] = train_launches[name]
+            for key, v in train[name].items():
+                if key.endswith("ms"):
+                    out[f"train_{key}"] = v
         if name.startswith("rebranch_matmul"):
             out["library_ms_note"] = (
                 "null: no PyTorch call quantises per (row, k-block)")

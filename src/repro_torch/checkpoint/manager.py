@@ -75,14 +75,19 @@ def save(ckpt_dir: str, step: int, trainable, opt_state, params_full,
          *, extra: dict | None = None, keep: int = 3,
          async_: bool = False) -> threading.Thread | None:
     """Persist SRAM state atomically; returns the IO thread if async.
-    The host snapshot is taken on the caller's thread."""
-    meta = {"step": int(step),
-            "rom_fingerprint": rom.rom_fingerprint(params_full),
-            "extra": extra or {}}
+
+    The host snapshot of the SRAM state is taken on the caller's thread.
+    The ROM fingerprint is taken with the write, on the IO thread when
+    async: the ROM is immutable, and hashing it is most of a save's cost
+    at full width (Gemma-2B's 17.7 GB ROM)."""
+    extra = extra or {}
     arrays = _arrays("t", trainable)
     arrays.update(_arrays("o", opt_state))
 
     def _write():
+        meta = {"step": int(step),
+                "rom_fingerprint": rom.rom_fingerprint(params_full),
+                "extra": extra}
         _write_atomic(os.path.join(ckpt_dir, f"step_{int(step):08d}"),
                       arrays, "meta.json", meta)
         _gc(ckpt_dir, keep)

@@ -47,7 +47,7 @@ def rom_fingerprint(params) -> str:
         h.update(name.encode())
         h.update(dtype_name(leaf.dtype).encode())
         h.update(str(tuple(leaf.shape)).encode())
-        h.update(host_bytes(leaf).tobytes())
+        h.update(host_bytes(leaf).reshape(-1).view(np.uint8))   # no copy
     return h.hexdigest()
 
 

@@ -78,6 +78,15 @@ def layer(tree, i: int):
     return bridge.tree_map(tree, lambda t: t[i])
 
 
+def unstack(tree, n: int) -> list:
+    """The ``n`` per-layer slices (views) of a stacked params tree, one
+    ``unbind`` per leaf: under autograd a stacked leaf's gradient is then
+    one stack of its slices' gradients, not ``n`` full-size scatters."""
+    slices = {k: t.unbind(0) for k, t in bridge.flatten(tree).items()}
+    return [bridge.map_named(tree, lambda k, _: slices[k][i])
+            for i in range(n)]
+
+
 def init(gen: torch.Generator, cfg: ArchConfig):
     """Parameters drawn from ``gen`` on its device: the embedding, then the
     layers in order, then the readout.  Layers are drawn one at a time
@@ -129,9 +138,8 @@ def features(params, batch, cfg: ArchConfig):
     _check_family(cfg)
     x = _embed_inputs(params, batch, cfg)
     positions = batch.get("positions")
-    for i in range(cfg.num_layers):
-        x = _block_apply(layer(params["layers"], i), x, cfg, 0,
-                         positions=positions)[0]
+    for block in unstack(params["layers"], cfg.num_layers):
+        x = _block_apply(block, x, cfg, 0, positions=positions)[0]
     return x
 
 
