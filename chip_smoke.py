@@ -42,11 +42,12 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    prints how far the card's own output moves under a 1e-7 relative
    input perturbation.
 5. LM kernels: at Gemma-2B's four (K, N) linear geometries, at M = 1, 8,
-   16 and 128 rows, the fused ReBranch matmul kernel's unscaled trunk is
-   ``torch.equal`` to its plain version and its sketch t1 within 1e-5 of
-   its absmax; the CiM matmul kernel is ``torch.equal`` to its plain
-   version; row 0 of the M = 1 launch equals row 0 of the M = 8, 16 and
-   128 launches, bit for bit (other tile heights and splits).  Each line
+   16, 32 and 128 rows, the fused ReBranch matmul kernel's unscaled trunk
+   is ``torch.equal`` to its plain version and its sketch t1 within 1e-5
+   of its absmax; the CiM matmul kernel is ``torch.equal`` to its plain
+   version; row 0 of the M = 1 launch equals row 0 of the M = 8, 16, 32
+   and 128 launches, bit for bit (other tile heights and splits; M = 32
+   is a verify round of 8 rows x k = 4 and a prefill chunk).  Each line
    prints the plans the wrappers hand the kernels: the trunk's tile
    height and split (``tiling.split_k``) and, for kernel 3, the sketch's
    (``tiling.split_sketch``).  ``ms`` is the time per launch of launches
@@ -63,10 +64,12 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
 6. LM serving, the slice's main path: a registry entry ``gemma-2b`` (the
    full Gemma-2B config, all-ROM plan, engine ``pallas_fused``), seeded
    parameters drawn on the card with non-zero ReBranch cores,
-   ``serve.load(..., n_slots=8, max_len=256)`` (the default paged pool).
+   ``serve.load(..., n_slots=8, max_len=256)`` (the default paged pool,
+   prompts admitted in 32-token chunks, the default ``prefill_chunk``).
    Five requests of mixed prompt lengths, 32 new tokens each: the fused
-   kernel launches 126 times per solo prefill and per decode step, tokens
-   lie in the vocabulary; two requests are run solo on the card too and
+   kernel launches 126 times per prefill chunk and per decode step, tokens
+   lie in the vocabulary; two requests are run solo on the card too (a
+   whole-prompt prefill) and
    must give the same tokens and the same first-decode-step logits, bit
    for bit (the batch-variant GEMMs and reductions run on 16-row slices,
    ``repro_torch/core/rows.py``); so must three requests of a 24-row
@@ -76,7 +79,8 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    (attention, norms, embedding).
 7. The ``pallas`` engine: the same parameters through ``gemma-2b-pallas``
    (the CiM matmul kernel behind every ROM linear), four requests x 16
-   tokens; 126 launches per prefill and per decode step; the decode step
+   tokens; 126 launches per prefill chunk and per decode step; the decode
+   step
    time; then kernel 4's 126 calls of one decode step with 8 requests,
    recorded and run again in the served order (the served measure of
    kernel 4, as phase 6's ``fused kernel`` is of kernel 3).
@@ -184,6 +188,29 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    launches a step, the ROM untouched, the first step's loss within 5e-2
    of the CPU's, and each conv's STE dx on the card within 1e-5 of its
    absmax of the CPU's for the same g.  Prints trained images/s.
+18. Chunked prefill at full width: phase 6's cell and parameters with
+   ``prefill_chunk=32``, six requests with prompts of 40-200 tokens x 32
+   new tokens.  126 kernel-3 launches per chunk and per decode step; every
+   request's row as adopted (after its last chunk) ``torch.equal`` to a
+   whole-prompt solo prefill's cache (k, v, length); tokens and the first
+   decode step's logits equal to the solo decode, bit for bit; every
+   request in flight gains a token on every tick in which a chunk runs.
+   Prints the time to first token of the 200-token prompt and the decode
+   step (and the whole tick) on chunk ticks against plain ticks.
+19. Speculative decode at full width: the same cell at ``spec_k=4``, 8
+   requests x 32 new tokens, under the branch drafter (the SRAM branch
+   with every ROM trunk skipped) and under two oracle ``draft_source``s
+   that propose the plain greedy continuation with probability 0.6 and
+   0.95 per position, with spec off beside.  Every request's tokens equal
+   its plain greedy solo decode, bit for bit; each verify round and each
+   prefill chunk launches kernel 3 126 times and nothing else, each draft
+   prefill and draft step launches no kernel at all; no block is granted
+   or reserved after a run.  Tokens/s over three runs with the spread,
+   acceptance rate, verify rounds against plain decode steps, a round
+   split into its draft steps and its verify, and what the draft step
+   reads (C and U in f32).  Then one mid-stream ``swap_scenario`` under
+   spec (the branch drafter; scenarios A and B of phase 14): every
+   request equals its solo decode under its own scenario.
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -199,7 +226,11 @@ serving phases; ``cim_matmul`` also carries ``ms_m128`` and
 and timed as ``ms`` is; ``trunk_conv`` and ``rebranch_matmul`` carry
 ``swap_launches``, their launches in phases 13 and 14; ``trunk_conv`` and
 ``cim_matmul`` carry ``train_launches`` (phases 16-17) and ``train_*ms``,
-per pass at the train geometry (phase 15).
+per pass at the train geometry (phase 15); ``rebranch_matmul`` carries
+``chunk_launches`` and ``spec_launches``, its launches in phases 18 and
+19, and ``verify_ms``, ``verify_device_ms``, ``verify_plain_ms`` and
+``verify_bound_ms``, per 126-launch verify round at M = 32 (phase 5).
+Phases 18-19 run last, after the training phases.
 """
 
 from __future__ import annotations
@@ -232,7 +263,8 @@ LAYER_RTOL = 1e-5        # phase 4, of each layer output's absmax
 # Gemma-2B linears per layer as (K, N): q and o, k and v, gate and up, down
 LM_GEOMS = {(2048, 2048): 2, (2048, 256): 2, (2048, 16384): 2,
             (16384, 2048): 1}
-LM_ROWS = (1, 8, 16, 128)
+LM_ROWS = (1, 8, 16, 32, 128)   # 32: a verify round (8 rows x k = 4), a chunk
+LM_VERIFY_ROWS = 32
 LM_LAYERS = 18
 SKETCH_RTOL = 1e-5       # phase 5, of t1's absmax
 L2_BYTES = 50 << 20      # H100 L2; timed weights cycle through 2.5x this
@@ -782,6 +814,8 @@ def phase_lm_kernels(dev) -> dict:
            for name in ("rebranch_matmul", "cim_matmul")}
     out["cim_matmul"].update(library_ms=0.0, ms_m128=0.0,
                              library_device_ms=0.0, device_ms_m128=0.0)
+    out["rebranch_matmul"].update(verify_ms=0.0, verify_device_ms=0.0,
+                                  verify_plain_ms=0.0, verify_bound_ms=0.0)
     print("kernel K N M equal err ms device_ms plain_ms bound_ms bound_by "
           "library_ms library_device_ms trunk_tile_m trunk_splits "
           "(kernel 3: sketch_tile_m sketch_splits)")
@@ -849,6 +883,12 @@ def phase_lm_kernels(dev) -> dict:
             print(f"cim_matmul {k} {n} {m} {eq4} 0 {ms4:.4f} {dev4:.4f} "
                   f"{plain4:.4f} {b4:.4f} {by4} {lib_txt} {st.tile_m} "
                   f"{st.n_splits}", flush=True)
+            if m == LM_VERIFY_ROWS:  # a verify round's shapes: per round
+                row = out["rebranch_matmul"]
+                row["verify_ms"] += ms3 * count
+                row["verify_device_ms"] += dev3 * count
+                row["verify_plain_ms"] += plain3 * count
+                row["verify_bound_ms"] += b3 * count
             if m == LM_SLOTS:        # the decode step's shapes: per step
                 for name, t, d, p, b, by in (
                         ("rebranch_matmul", ms3, dev3, plain3, b3, by3),
@@ -883,6 +923,13 @@ def phase_lm_kernels(dev) -> dict:
         print(f"cim_matmul vs torch._int_mm at M = 128, {k}x{n}: kernel "
               f"{ms4:.4f} ms, _int_mm {lib4:.4f} ms (device, graph replay: "
               f"{dev4:.4f} ms and {lib4_dev:.4f} ms)")
+    row = out["rebranch_matmul"]
+    print(f"rebranch_matmul per verify round at M = {LM_VERIFY_ROWS} "
+          f"({LM_SLOTS} rows x k = {LM_VERIFY_ROWS // LM_SLOTS}, "
+          f"{7 * LM_LAYERS} launches): kernel {row['verify_ms']:.3f} ms "
+          f"(device, graph replay: {row['verify_device_ms']:.3f} ms), plain "
+          f"{row['verify_plain_ms']:.3f} ms, bound "
+          f"{row['verify_bound_ms']:.3f} ms")
     lm_host_costs(dev)
     row = out["cim_matmul"]
     print(f"cim_matmul per pass at M = 128 ({7 * LM_LAYERS} launches): "
@@ -979,9 +1026,10 @@ def phase_lm_serve():
           f"tokens in {wall * 1e3:.1f} ms ({n_tok / wall:.2f} tokens/s), "
           f"{steps} decode steps; launches {counts}")
     per_pass = 7 * cfg.num_layers              # 126 at full depth
-    check(launches == per_pass * (len(reqs) + steps),
-          f"expected {per_pass} fused-kernel launches per prefill and per "
-          f"decode step, got {launches} for {len(reqs)} prefills + {steps} "
+    chunks = prefill_calls(prompts, srv.batcher.prefill_chunk)
+    check(launches == per_pass * (chunks + steps),
+          f"expected {per_pass} fused-kernel launches per prefill chunk and "
+          f"per decode step, got {launches} for {chunks} chunks + {steps} "
           f"steps")
     check(counts["cim_matmul"] == counts["trunk_conv"] == 0,
           f"pallas_fused serving launched another kernel: {counts}")
@@ -1241,7 +1289,7 @@ def phase_lm_pallas(params):
     reset_launches()
     reqs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=n),
                        PALLAS_NEW) for n in PALLAS_PROMPTS]
-    srv.step()                       # admits all four, one decode step
+    srv.step()                       # admits the first, one decode step
     torch.cuda.synchronize()
     first = srv.batcher.step_count
     t0 = time.perf_counter()
@@ -1251,9 +1299,11 @@ def phase_lm_pallas(params):
     counts = read_launches()
     launches = counts["cim_matmul"]
     per_pass = 7 * model.cfg.num_layers
-    check(launches == per_pass * (len(reqs) + 1 + steps),
-          f"expected {per_pass} CiM-matmul launches per prefill and decode "
-          f"step, got {launches}")
+    chunks = prefill_calls([r.prompt for r in reqs],
+                           srv.batcher.prefill_chunk)
+    check(launches == per_pass * (chunks + 1 + steps),
+          f"expected {per_pass} CiM-matmul launches per prefill chunk and "
+          f"decode step, got {launches}")
     check(counts["rebranch_matmul"] == counts["trunk_conv"] == 0,
           f"pallas serving launched another kernel: {counts}")
     check(all(len(r.tokens) == PALLAS_NEW for r in reqs), "pallas tokens")
@@ -1308,6 +1358,8 @@ def phase_lm_cpu(model, params, srv):
     rs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=n), 4)
           for n in (5, 17, 33)]
     srv.step()                                   # admit; one decode step
+    while srv.batcher.prefilling:                # the 33-token prompt's
+        srv.step()                               # second chunk
     linears, attn = [], []
     apply_linear, apply_attention = rebranch_lib.apply_linear, \
         layers.apply_attention
@@ -1642,7 +1694,7 @@ def lm_bitserial_rows(x_all, xq_all, w, c, bs, one3, one4):
     from repro_torch.kernels import rebranch_matmul as rm
     from repro_torch.kernels import tiling
     k, n = w.shape
-    for m in (r for r in LM_ROWS if r != LM_SLOTS):
+    for m in (1, 16, 128):
         x, xq = x_all[:m].contiguous(), xq_all[:m].contiguous()
         trunk, t1 = rm.rebranch_trunk_sketch(x, w, c, bs)
         got4 = cm.cim_matmul(xq, w, bs)
@@ -1839,10 +1891,11 @@ def lm_serve_check(model_id, params, kernel, prompts, n_new, solo) -> int:
     del model.decode_step
     counts = read_launches()
     per_pass = 7 * model.cfg.num_layers
-    check(counts[kernel] == per_pass * (len(reqs) + steps)
+    chunks = prefill_calls(toks_in, srv.batcher.prefill_chunk)
+    check(counts[kernel] == per_pass * (chunks + steps)
           and sum(counts.values()) == counts[kernel],
           f"{model_id}: expected {per_pass} {kernel} launches per prefill "
-          f"and decode step, got {counts} for {len(reqs)} prefills + "
+          f"chunk and decode step, got {counts} for {chunks} chunks + "
           f"{steps} steps")
     for r in reqs:
         check(len(r.tokens) == n_new and all(0 <= t < vocab
@@ -2123,8 +2176,7 @@ def phase_lm_swap(smi: str) -> int:
     from repro_torch.core import rebranch, rom
     from repro_torch.serve import registry, server
 
-    model, _ = registry.compile_entry("gemma-2b")
-    params = with_cores(model.init(seed=0), torch.Generator().manual_seed(2))
+    model, params = lm_cell()
     trunk = trunk_objects(params)
     ptrs = {k: t.data_ptr() for k, t in trunk.items()}
     base = scenario.split_params(params)[0]
@@ -2175,10 +2227,12 @@ def phase_lm_swap(smi: str) -> int:
     counts = read_launches()
     del srv.batcher._apply_swap
     per_pass = 7 * model.cfg.num_layers
-    check(counts["rebranch_matmul"] == per_pass * (len(reqs) + steps)
+    chunks = prefill_calls(prompts["A"] + prompts["B"],
+                           srv.batcher.prefill_chunk)
+    check(counts["rebranch_matmul"] == per_pass * (chunks + steps)
           and sum(counts.values()) == counts["rebranch_matmul"],
-          f"expected {per_pass} fused-kernel launches per prefill and per "
-          f"decode step, got {counts} for {len(reqs)} prefills + {steps} "
+          f"expected {per_pass} fused-kernel launches per prefill chunk and "
+          f"per decode step, got {counts} for {chunks} chunks + {steps} "
           f"steps")
     check(srv.batcher.swap_count == 1 and srv.scenario == "B"
           and len(applied) == 1, f"swap count {srv.batcher.swap_count}")
@@ -2810,6 +2864,453 @@ def phase_cnn_train(dev, smi: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 18-19: chunked prefill and speculative decode
+# ---------------------------------------------------------------------------
+
+CHUNK = 32                 # phase 18's prefill_chunk (the default)
+CHUNK_PROMPTS = (40, 97, 200, 63, 150, 121)   # six prompts of 40-200 tokens
+CHUNK_NEW = 32
+STAGGER = 3                # phase 18's A/B: a request arrives every 3 ticks
+SPEC_K = 4
+SPEC_PROMPTS = (12, 40, 7, 100, 25, 60, 9, 33)   # 8 requests
+SPEC_NEW = 32
+SPEC_ALPHAS = (0.6, 0.95)  # the oracle drafter's per-position hit rate
+SPEC_RUNS = 3
+SPEC_SWAP_NEW = 16
+
+
+def prefill_calls(prompts, chunk: int) -> int:
+    """Prefill passes of ``prompts`` admitted with ``prefill_chunk`` =
+    ``chunk``: one per chunk (a prompt no longer than the chunk is one)."""
+    return sum(-(-len(p) // chunk) if chunk else 1 for p in prompts)
+
+
+def lm_cell():
+    """The ``gemma-2b`` cell (phase 6's registry entry) and phase 6's
+    parameters, drawn again on the card (the same seeds)."""
+    from repro_torch.serve import registry
+    model, _ = registry.compile_entry("gemma-2b")
+    params = with_cores(model.init(seed=0), torch.Generator().manual_seed(2))
+    torch.cuda.synchronize()
+    return model, params
+
+
+def solo_prefill_cache(model, params, prompt):
+    """A whole-prompt solo prefill's cache (no kernel count is read)."""
+    dev = params["ln_f"]["sram"]["scale"].device
+    cache = model.init_cache(1, LM_MAX_LEN, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        model.prefill(params, {"tokens": torch.as_tensor(prompt[None],
+                                                         device=dev)}, cache)
+    return cache
+
+
+def staggered(srv, prompts, n_new: int):
+    """Serve ``prompts`` arriving one every ``STAGGER`` ticks: (requests,
+    wall s, each request's time to first token in ms, the longest tick
+    that had rows in flight in ms), host clock, synchronised."""
+    b = srv.batcher
+    activate, first = b._activate, {}
+
+    def rec(req, slot, solo, logits):
+        first[req.rid] = time.perf_counter()
+        activate(req, slot, solo, logits)
+
+    b._activate = rec
+    reqs, longest, tick = [], 0.0, 0
+    try:
+        t0 = time.perf_counter()
+        while len(reqs) < len(prompts) or not b.idle:
+            if len(reqs) < len(prompts) and tick % STAGGER == 0:
+                reqs.append(srv.submit(prompts[len(reqs)], n_new))
+            busy = b.active > 0
+            t = time.perf_counter()
+            b.step()
+            torch.cuda.synchronize()
+            if busy:
+                longest = max(longest, (time.perf_counter() - t) * 1e3)
+            tick += 1
+        wall = time.perf_counter() - t0
+    finally:
+        del b._activate
+    return reqs, wall, [(first[r.rid] - r.submit_s) * 1e3 for r in reqs], \
+        longest
+
+
+def phase_chunked_prefill(smi: str) -> int:
+    """Phase 18: full-width Gemma-2B admitted in 32-token chunks.  Returns
+    kernel 3's launches over the served run."""
+    from repro_torch.serve import server
+    t_phase = time.perf_counter()
+    model, params = lm_cell()
+    srv = server.load("gemma-2b", params=params, n_slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN, prefill_chunk=CHUNK)
+    b = srv.batcher
+    check(b.prefill_chunk == CHUNK and srv.pool.block_size,
+          f"prefill_chunk {b.prefill_chunk}")
+    rng = np.random.default_rng(18)
+    vocab = model.cfg.vocab_size
+    srv.submit(rng.integers(0, vocab, size=45), 2)      # warm-up, 2 chunks
+    srv.drain()
+    prompts = [rng.integers(0, vocab, size=n) for n in CHUNK_PROMPTS]
+
+    adopted, first_logits, activated = {}, {}, {}
+    ticks = []     # per tick: (chunks run, decode ms, tick ms, all grew, n)
+    decode, prefill, activate = model.decode_step, model.prefill, b._activate
+    tick = {}
+
+    def rec_activate(req, slot, solo, logits):
+        activated[req.rid] = time.perf_counter()
+        adopted[req.rid] = {k: v.clone() for k, v in solo["layers"].items()}
+        activate(req, slot, solo, logits)
+
+    def rec_prefill(p, batch, cache):
+        tick["chunks"] += 1
+        return prefill(p, batch, cache)
+
+    def rec_decode(p, tok, cache):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = decode(p, tok, cache)
+        torch.cuda.synchronize()
+        tick["decode"] = (time.perf_counter() - t) * 1e3
+        for slot, req in b._active.items():
+            if len(req.tokens) == 1:
+                first_logits[req.rid] = logits[slot, -1].float().cpu()
+        return logits, cache
+
+    b._activate = rec_activate
+    model.prefill, model.decode_step = rec_prefill, rec_decode
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        reqs = [srv.submit(p, CHUNK_NEW) for p in prompts]
+        while not b.idle:
+            before = {r.rid: len(r.tokens) for r in b._active.values()}
+            tick.update(chunks=0, decode=None)
+            t = time.perf_counter()
+            b.step()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t) * 1e3
+            grew = all(len(r.tokens) > before[r.rid] for r in reqs
+                       if r.rid in before)
+            ticks.append((tick["chunks"], tick["decode"], dt, grew,
+                          len(before)))
+        wall = time.perf_counter() - t0
+    finally:
+        del b._activate, model.prefill, model.decode_step
+    counts = read_launches()
+    steps = sum(1 for t in ticks if t[1] is not None)
+    chunks = sum(t[0] for t in ticks)
+    per_pass = 7 * model.cfg.num_layers
+    check(chunks == prefill_calls(prompts, CHUNK),
+          f"{chunks} prefill chunks, expected "
+          f"{prefill_calls(prompts, CHUNK)}")
+    check(counts["rebranch_matmul"] == per_pass * (chunks + steps)
+          and sum(counts.values()) == counts["rebranch_matmul"],
+          f"expected {per_pass} kernel-3 launches per chunk and per decode "
+          f"step, got {counts} for {chunks} chunks + {steps} steps")
+    chunk_ticks = [t for t in ticks if t[0] and t[4]]
+    check(chunk_ticks and all(t[3] and t[1] is not None
+                              for t in chunk_ticks),
+          "an in-flight request gained no token on a tick a chunk ran")
+    check(srv.pool.blocks_in_use == 0 == srv.pool.blocks_reserved,
+          "blocks left after drain")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    print(f"phase 18: {len(reqs)} requests (prompts {CHUNK_PROMPTS}) x "
+          f"{CHUNK_NEW} tokens in {wall * 1e3:.1f} ms "
+          f"({n_tok / wall:.2f} tokens/s), {chunks} prefill chunks of "
+          f"<= {CHUNK} + {steps} decode steps; {per_pass} kernel-3 launches "
+          f"per chunk and per step ({counts}); {len(chunk_ticks)} ticks ran "
+          f"a chunk beside in-flight rows, each of them gained a token "
+          f"[{smi}]")
+    # every adopted row against the whole-prompt solo prefill, and every
+    # request against its solo decode
+    for r, p in zip(reqs, prompts):
+        want = solo_prefill_cache(model, params, p)["layers"]
+        row = adopted[r.rid]
+        for key in ("k", "v", "length"):
+            check(torch.equal(row[key], want[key]),
+                  f"request {r.rid} (prompt {len(p)}): chunked row {key} "
+                  f"!= the whole-prompt prefill's")
+        toks, first = _solo_run(model, params, p, CHUNK_NEW, LM_MAX_LEN)
+        check(toks == r.tokens
+              and torch.equal(first, first_logits[r.rid]),
+              f"request {r.rid}: chunked-admitted decode != solo")
+    print("phase 18: every chunked row equals its whole-prompt solo prefill "
+          "(k, v, length), and every request's tokens and first decode step "
+          "logits equal its solo decode, bit for bit")
+    longest = max(range(len(reqs)), key=lambda i: len(prompts[i]))
+    ttft = activated[reqs[longest].rid] - reqs[longest].submit_s
+    on = [t[1] for t in ticks if t[0] and t[1] is not None]
+    off = [t[1] for t in ticks if not t[0] and t[1] is not None]
+    on_tick = [t[2] for t in ticks if t[0] and t[1] is not None]
+    off_tick = [t[2] for t in ticks if not t[0] and t[1] is not None]
+    print(f"phase 18: time to first token of the {len(prompts[longest])}-"
+          f"token prompt {ttft * 1e3:.1f} ms (host clock, from submit, "
+          f"{-(-len(prompts[longest]) // CHUNK)} chunks); decode step of the "
+          f"in-flight rows on chunk ticks {np.mean(on):.3f} ms, on plain "
+          f"ticks {np.mean(off):.3f} ms; the whole tick "
+          f"{np.mean(on_tick):.3f} ms with a chunk, {np.mean(off_tick):.3f} "
+          f"ms without (host clock, synchronised; {len(on)} and {len(off)} "
+          f"ticks)")
+    # what chunking trades, in this call: the same requests arriving one
+    # every STAGGER ticks, admitted in chunks and whole (prefill_chunk=0)
+    runs = {}
+    for chunk in (CHUNK, 0):
+        s = server.load("gemma-2b", params=params, n_slots=LM_SLOTS,
+                        max_len=LM_MAX_LEN, prefill_chunk=chunk)
+        runs[chunk] = staggered(s, prompts, CHUNK_NEW)
+        check([r.tokens for r in runs[chunk][0]] == [r.tokens for r in reqs],
+              f"prefill_chunk={chunk}: other tokens than the first run")
+        del s
+    (_, c_wall, c_ttft, c_tick), (_, w_wall, w_ttft, w_tick) = \
+        runs[CHUNK], runs[0]
+    print(f"phase 18, requests arriving one every {STAGGER} ticks, chunks "
+          f"of {CHUNK} against whole prompts: {n_tok / c_wall:.2f} against "
+          f"{n_tok / w_wall:.2f} tokens/s; time to first token of the "
+          f"{len(prompts[longest])}-token prompt {c_ttft[longest]:.1f} "
+          f"against {w_ttft[longest]:.1f} ms (mean over the six "
+          f"{np.mean(c_ttft):.1f} against {np.mean(w_ttft):.1f}); the "
+          f"longest tick of in-flight rows {c_tick:.3f} against "
+          f"{w_tick:.3f} ms (host clock, synchronised)")
+    print(f"phase 18 wall {time.perf_counter() - t_phase:.1f} s")
+    del srv, params
+    torch.cuda.empty_cache()
+    return counts["rebranch_matmul"]
+
+
+def oracle_drafter(refs: list, vocab: int, alpha: float, seed: int = 0):
+    """``benchmarks/spec_decode.py``'s oracle ``draft_source``: the known
+    greedy continuation with probability ``alpha`` per position (a coin
+    seeded per request and position), else a wrong token."""
+    coins = [np.random.default_rng((seed, i)).random(len(ref))
+             for i, ref in enumerate(refs)]
+
+    def draft(active, last_tok, k):
+        drafts = np.zeros((last_tok.shape[0], k), np.int32)
+        for slot, req in active.items():
+            i = req.rid % len(refs)
+            pos = len(req.tokens)
+            for j in range(k):
+                t = refs[i][pos + j]
+                drafts[slot, j] = t if coins[i][pos + j] < alpha \
+                    else (t + 1) % vocab
+        return drafts
+
+    return draft
+
+
+class LaunchAudit:
+    """Wraps the model's prefill, verify and draft entry points: each
+    prefill chunk and each verify must launch kernel 3 ``per_pass`` times
+    and nothing else, each draft prefill and draft step no kernel at all.
+    With ``timed``, the verifies and draft steps are timed (synchronised,
+    host clock).  ``n`` counts the calls."""
+
+    NAMES = ("prefill", "verify_step", "draft_prefill", "draft_decode_step")
+
+    def __init__(self, model, per_pass: int, timed: bool = False):
+        self.model, self.per_pass, self.timed = model, per_pass, timed
+        self.n = dict.fromkeys(self.NAMES, 0)
+        self.ms = {"verify_step": [], "draft_decode_step": []}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            setattr(self.model, name,
+                    self._wrap(name, getattr(self.model, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.NAMES:
+            delattr(self.model, name)
+
+    def _wrap(self, name, real):
+        want = 0 if name.startswith("draft") else self.per_pass
+        timed = self.timed and name in self.ms
+
+        def call(*args):
+            before = read_launches()
+            if timed:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*args)
+            if timed:
+                torch.cuda.synchronize()
+                self.ms[name].append((time.perf_counter() - t) * 1e3)
+            after = read_launches()
+            got = {k: after[k] - before[k] for k in after}
+            check(got["rebranch_matmul"] == sum(got.values()) == want,
+                  f"{name} launched {got}, expected {want} of kernel 3")
+            self.n[name] += 1
+            return out
+
+        return call
+
+
+def spec_run(srv, prompts, n_new, refs, what: str):
+    """Serve ``prompts`` and hold every request to ``refs`` (plain greedy
+    solo decode) and the pool to zero blocks after the run."""
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, n_new) for p in prompts]
+    srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r, ref in zip(reqs, refs):
+        check(r.tokens == ref, f"{what}: request {r.rid} != plain greedy "
+              f"solo decode")
+    pool = srv.pool
+    check(pool.blocks_in_use + pool.blocks_reserved == 0,
+          f"{what}: {pool.blocks_in_use} blocks in use + "
+          f"{pool.blocks_reserved} reserved after the run")
+    return reqs, wall
+
+
+def phase_spec_decode(smi: str) -> int:
+    """Phase 19: full-width Gemma-2B, speculative decode at k = 4 under
+    the branch drafter and two oracle drafters, spec off beside.  Returns
+    kernel 3's launches over the checked runs."""
+    from repro_torch import bridge, scenario
+    from repro_torch.core import rebranch
+    from repro_torch.serve import registry, server
+    t_phase = time.perf_counter()
+    model, params = lm_cell()
+    per_pass = 7 * model.cfg.num_layers
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, vocab, size=n) for n in SPEC_PROMPTS]
+    refs = [_solo_run(model, params, p, SPEC_NEW, LM_MAX_LEN)[0]
+            for p in prompts]
+    drafters = {"off": None, "branch": None}
+    for alpha in SPEC_ALPHAS:
+        drafters[f"oracle {alpha}"] = oracle_drafter(refs, vocab, alpha)
+    rows, launches = {}, 0
+    for name, source in drafters.items():
+        srv = server.load("gemma-2b", params=params, n_slots=LM_SLOTS,
+                          max_len=LM_MAX_LEN,
+                          spec_k=0 if name == "off" else SPEC_K,
+                          draft_source=source)
+        b = srv.batcher
+        torch.cuda.synchronize()
+        reset_launches()
+        with LaunchAudit(model, per_pass, timed=True) as audit:
+            _, wall = spec_run(srv, prompts, SPEC_NEW, refs, name)
+        counts = read_launches()
+        passes = audit.n["prefill"] + audit.n["verify_step"] + (
+            b.step_count if name == "off" else 0)
+        check(counts["rebranch_matmul"] == per_pass * passes
+              and sum(counts.values()) == counts["rebranch_matmul"],
+              f"{name}: {counts} launches for {passes} passes")
+        check(name != "branch" or audit.n["draft_decode_step"] > 0,
+              "the branch drafter never ran")
+        launches += counts["rebranch_matmul"]
+        rates = []
+        for _ in range(SPEC_RUNS):                # timed, no audit
+            b.spec_rounds = b.drafted_total = b.matched_total = 0
+            start = b.step_count
+            reqs, wall = spec_run(srv, prompts, SPEC_NEW, refs, name)
+            rates.append(sum(len(r.tokens) for r in reqs) / wall)
+        rows[name] = dict(
+            rate=np.mean(rates), spread=(max(rates) - min(rates))
+            / min(rates), ticks=b.step_count - start,
+            accept=b.acceptance_rate, draft_ms=audit.ms["draft_decode_step"],
+            verify_ms=audit.ms["verify_step"])
+        runs = " ".join(f"{r:.2f}" for r in rates)
+        print(f"phase 19 {name}: tokens/s {runs} (mean {rows[name]['rate']:.2f}, spread "
+              f"{rows[name]['spread']:.2%}); {rows[name]['ticks']} "
+              f"{'decode steps' if name == 'off' else 'verify rounds'} for "
+              f"{len(prompts)} x {SPEC_NEW} tokens; acceptance "
+              f"{b.acceptance_rate:.3f}; kernel-3 launches {counts} "
+              f"(checked: {per_pass} per prefill chunk and verify round, "
+              f"none in {audit.n['draft_prefill']} draft prefills and "
+              f"{audit.n['draft_decode_step']} draft steps) [{smi}]",
+              flush=True)
+        del srv, b
+    off = rows["off"]
+    for name, row in rows.items():
+        if name == "off":
+            continue
+        draft = (f"{SPEC_K} draft steps x {np.mean(row['draft_ms']):.3f} ms"
+                 if row["draft_ms"] else "the oracle (host)")
+        print(f"phase 19 {name} vs off: {row['rate']:.2f} against "
+              f"{off['rate']:.2f} tokens/s ({row['rate'] / off['rate']:.3f}x)"
+              f"; {row['ticks']} verify rounds against {off['ticks']} plain "
+              f"decode steps; one round = {draft} + verify "
+              f"{np.mean(row['verify_ms']):.3f} ms (M = {LM_SLOTS} rows x k "
+              f"<= {SPEC_K}, {per_pass} kernel-3 launches) + the host's "
+              f"bookkeeping (synchronised, host clock)")
+    # what the branch-only draft reads: C and U (f32) of every ROM linear,
+    # cast to bf16 per call, against the trunk's int8 W
+    flat = bridge.flatten(params)
+    cu = sum(t.numel() * t.element_size() for k, t in flat.items()
+             if k.endswith(("['rom']['C']", "['rom']['U']")))
+    wq = sum(t.numel() * t.element_size() for k, t in flat.items()
+             if k.endswith("['rom']['w_q']"))
+    print(f"phase 19 draft step: {np.mean(rows['branch']['draft_ms']):.3f} "
+          f"ms at {LM_SLOTS} rows; it reads C and U, {cu / 1e9:.3f} GB in "
+          f"f32 ({cu / PEAK_BYTES * 1e3:.3f} ms at the HBM rate, before the "
+          f"bf16 copies it writes and reads again), where the trunk reads "
+          f"{wq / 1e9:.3f} GB of int8 W")
+    check(rows["oracle 0.95"]["accept"] > rows["oracle 0.6"]["accept"],
+          "the oracle's acceptance does not follow alpha")
+
+    # one mid-stream swap under spec (branch drafter): A, swap B, B
+    dev = params["ln_f"]["sram"]["scale"].device
+    store = registry.scenario_store("gemma-2b", device=dev)
+    base = scenario.split_params(params)[0]
+    if "A" not in store:
+        store.register("A", branch=bridge.tree_map(base, lambda t: t.cpu()))
+    if "B" not in store:
+        store.register("B", branch=scenario_branch(base, 31))
+    del base
+    srv = server.load("gemma-2b", params=params, n_slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN, scenario="A", spec_k=SPEC_K)
+    del params
+    prompts = {n: [rng.integers(0, vocab, size=k) for k in ks]
+               for n, ks in LM_SWAP_PROMPTS.items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    with LaunchAudit(model, per_pass) as audit:
+        reqs = [srv.submit(p, SPEC_SWAP_NEW, scenario="A")
+                for p in prompts["A"]]
+        srv.swap_scenario("B")
+        reqs += [srv.submit(p, SPEC_SWAP_NEW, scenario="B")
+                 for p in prompts["B"]]
+        srv.drain()
+    counts = read_launches()
+    check(counts["rebranch_matmul"] == per_pass * (audit.n["prefill"]
+                                                   + audit.n["verify_step"])
+          and sum(counts.values()) == counts["rebranch_matmul"],
+          f"swap under spec: {counts}")
+    launches += counts["rebranch_matmul"]
+    check(srv.batcher.swap_count == 1 and srv.scenario == "B",
+          "swap under spec: not applied once")
+    check(min(r.admit_step for r in reqs[4:])
+          >= max(r.finish_step for r in reqs[:4]),
+          "swap under spec: B admitted before A retired")
+    check(srv.pool.blocks_in_use + srv.pool.blocks_reserved == 0,
+          "swap under spec: blocks left")
+    trunk = scenario.split_params(srv.params)[1]
+    for name, rs in (("A", reqs[:4]), ("B", reqs[4:])):
+        full = rebranch.combine(store.get(name), trunk)
+        for r, p in zip(rs, prompts[name]):
+            toks, _ = _solo_run(model, full, p, SPEC_SWAP_NEW, LM_MAX_LEN)
+            check(toks == r.tokens, f"swap under spec: request {r.rid} "
+                  f"(scenario {name}) != its solo decode")
+        del full
+    print(f"phase 19 swap under spec (branch drafter, k = {SPEC_K}): 4 "
+          f"requests under A, swap, 4 under B, x {SPEC_SWAP_NEW} tokens; "
+          f"{audit.n['verify_step']} verify rounds, acceptance "
+          f"{srv.batcher.acceptance_rate:.3f}; every request equals its "
+          f"solo decode under its own scenario, bit for bit; {counts}")
+    print(f"phase 19 wall {time.perf_counter() - t_phase:.1f} s")
+    del srv, trunk
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2818,6 +3319,7 @@ def main() -> int:
     from repro_torch import device as device_lib
     from repro_torch.models import cnn
 
+    t_start = time.perf_counter()
     dev = device_lib.resolve()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2856,6 +3358,11 @@ def main() -> int:
     train_launches = {
         "cim_matmul": phase_lm_train(smi, train["cim_matmul"]["ms"]),
         "trunk_conv": phase_cnn_train(dev, smi)}
+    torch.cuda.empty_cache()
+
+    serve_launches = {"chunk_launches": phase_chunked_prefill(smi),
+                      "spec_launches": phase_spec_decode(smi)}
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
         by = "bytes" if t["bytes_ms"] >= t["bound_ms"] / 2 else "operations"
@@ -2889,6 +3396,15 @@ def main() -> int:
             for key, v in train[name].items():
                 if key.endswith("ms"):
                     out[f"train_{key}"] = v
+        if name == "rebranch_matmul":
+            # phases 18-19: launches over the chunked-prefill run and the
+            # speculative runs (checked: 126 per chunk and per verify
+            # round, none in a draft step); per verify round at M = 32 (8
+            # rows x k = 4, phase 5), timed as ms and device_ms are
+            out.update(serve_launches)
+            for key in ("verify_ms", "verify_device_ms", "verify_plain_ms",
+                        "verify_bound_ms"):
+                out[key] = t[key]
         if name.startswith("rebranch_matmul"):
             out["library_ms_note"] = (
                 "null: no PyTorch call quantises per (row, k-block)")

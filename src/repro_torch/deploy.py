@@ -12,11 +12,15 @@ LM configs (``models.config.ArchConfig``, the transformer family) get the
 serve surface too: ``prefill``, ``decode_step``, ``init_cache`` and
 ``init_paged_cache``, with the reference's cache-geometry errors.
 
+LM configs also get the speculative-decode surface: ``draft_cfg`` (the
+branch-only draft, ``api.draft_config``), ``draft_prefill``,
+``draft_decode_step`` and ``verify_step``.
+
 It resolves the engine through the strict registry, folds the per-site
 placement (a ``PlacementPlan`` or a ``layer_overrides`` map) into the
 config's ``rebranch_overrides``, and returns a :class:`CompiledModel`.
-The ``mesh=``/``tune=`` arguments and the speculative-decode surface
-(``verify_step``, ``draft_cfg``) wait for later slices (ROADMAP Queue 1).
+The ``mesh=``/``tune=`` arguments wait for later slices (ROADMAP Queue 1
+items 4-5).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ class CompiledModel:
         self.cfg = cfg
         self.engine = engine
         self._is_cnn = isinstance(cfg, cnn.CNNConfig)
+        self._draft_cfg = None          # lazy: see draft_cfg
         if self._is_cnn:
             self._init, self._apply = cnn.MODEL_REGISTRY[cfg.name]
 
@@ -103,6 +108,41 @@ class CompiledModel:
         self._check_cache("decode_step", tokens, cache)
         return api.decode_step(params, tokens, self.cfg, cache)
 
+    @property
+    def draft_cfg(self):
+        """The branch-only draft config (``api.draft_config``), built once.
+        It shares this cell's params tree: ``trunk_skip`` is control
+        flow, not weights."""
+        if self._draft_cfg is None:
+            self._lm_only("draft_cfg")
+            self._draft_cfg = api.draft_config(self.cfg)
+        return self._draft_cfg
+
+    def verify_step(self, params, tokens, cache):
+        """Speculative verify: one pass over a [B, k] token block through
+        the FULL trunk+branch cell (``cache`` updated in place).  Raises
+        for families that cannot speculate and on cache / block geometry
+        mismatches."""
+        self._lm_only("verify_step")
+        self._check_cache("verify_step", tokens, cache)
+        return api.verify_step(params, tokens, self.cfg, cache)
+
+    def draft_prefill(self, params, batch, cache):
+        """``prefill`` through the branch-only draft cell (ROM trunks
+        skipped): same params and cache geometry, another compute."""
+        self._lm_only("draft_prefill")
+        tokens = batch.get("tokens", batch.get("embeds"))
+        if tokens is not None:
+            self._check_cache("prefill", tokens, cache)
+        return api.prefill(params, batch, self.draft_cfg, cache)
+
+    def draft_decode_step(self, params, tokens, cache):
+        """``decode_step`` through the branch-only draft cell: the
+        token-proposal loop of speculative decode."""
+        self._lm_only("draft_decode_step")
+        self._check_cache("decode_step", tokens, cache)
+        return api.decode_step(params, tokens, self.draft_cfg, cache)
+
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
         self._lm_only("init_cache")
         return api.init_cache(self.cfg, batch, max_len, dtype,
@@ -148,6 +188,11 @@ class CompiledModel:
                 f"tokens {tuple(tokens.shape)} (seq={seq}); use prefill() "
                 f"for multi-token inputs (or verify_step() for a "
                 f"speculative k-token block)")
+        if what == "verify_step" and horizon is not None and seq > horizon:
+            raise ValueError(
+                f"verify_step: speculative block width {seq} exceeds "
+                f"the cache horizon {horizon} (every block entry needs "
+                f"a cache position); shrink spec_k or grow max_len")
         if (what == "prefill" and horizon is not None
                 and self.cfg.sliding_window == 0 and seq > horizon):
             raise ValueError(

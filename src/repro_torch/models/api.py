@@ -6,13 +6,16 @@
   decode_step(params, tokens, cfg, cache) -> (logits, cache)
   init_cache(cfg, batch, max_len)         -> cache
 
+  verify_step(params, tokens, cfg, cache) -> (logits, cache)
+  draft_config(cfg)                       -> branch-only draft cfg
+
 The transformer family (dense; vlm and audio raise inside it) is ported;
-moe, ssm and hybrid wait for ROADMAP Queue 1 item 3.  ``verify_step``,
-``draft_config`` and ``supports_speculation`` wait with speculative decode
-(item 2).
+moe, ssm and hybrid wait for ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -80,6 +83,58 @@ def init_paged_cache(cfg: ArchConfig, rows: int, n_blocks: int,
     return _mod(cfg).init_paged_cache(cfg, rows, n_blocks, block_size,
                                       max_len, dtype or torch.bfloat16,
                                       device)
+
+
+def supports_speculation(cfg: ArchConfig) -> bool:
+    """Whether the family can serve speculative (draft/verify) decode.
+
+    Verify writes k KV entries per row and must be able to UNDO the
+    rejected tail by truncating the row's length: every sequence-mixing
+    layer must keep a full-horizon attention cache (an SWA ring can wrap
+    within a k-block, and recurrent state cannot rewind)."""
+    return cfg.family in _FAMILY and cfg.sliding_window == 0
+
+
+def verify_step(params, tokens, cfg: ArchConfig, cache):
+    """Speculative verify: a k-token block decode
+    (``transformer.verify_step``); raises for families that cannot
+    speculate (:func:`supports_speculation`)."""
+    if not supports_speculation(cfg):
+        raise ValueError(
+            f"{cfg.name!r} (family {cfg.family!r}, sliding_window="
+            f"{cfg.sliding_window}) cannot run speculative verify: "
+            f"rolling back rejected drafts needs a full-horizon "
+            f"attention cache (ssm/hybrid recurrent state cannot "
+            f"rewind; SWA rings overwrite entries a rollback would "
+            f"need)")
+    return _mod(cfg).verify_step(params, tokens, cfg, cache)
+
+
+def draft_config(cfg: ArchConfig) -> ArchConfig:
+    """The branch-only DRAFT variant of ``cfg`` for speculative decode:
+    every ReBranch-enabled site, overrides included, gets
+    ``trunk_skip=True`` (its ROM trunk is skipped, only the SRAM branch
+    runs).  SRAM-resident sites (``enabled=False``) run in full.  The
+    draft shares the verify model's params tree verbatim: ``trunk_skip``
+    is control flow, not weights."""
+    def skip(spec):
+        if not spec.enabled or spec.trunk_skip:
+            return spec
+        return dataclasses.replace(spec, trunk_skip=True)
+
+    return dataclasses.replace(
+        cfg, rebranch=skip(cfg.rebranch),
+        rebranch_overrides=tuple(
+            (site, skip(spec))
+            for site, spec in getattr(cfg, "rebranch_overrides", ())))
+
+
+def supports_chunked_prefill(cfg: ArchConfig) -> bool:
+    """Whether prefill may be split into chunks across an existing cache:
+    the attention layers attend over the cached prefix at the chunk's
+    offset.  True for the attention-with-KV-cache family (recurrent
+    state would be rebuilt from position 0 on each call)."""
+    return cfg.family in _FAMILY
 
 
 def cache_geometry(cfg: ArchConfig, cache) -> tuple[int, int | None]:

@@ -10,6 +10,9 @@ stay plain PyTorch here; attention keeps the reference's own softmax
 geometry (online softmax over ``attn_chunk`` chunks at prefill, one masked
 softmax over the whole cache horizon at decode), which the batched-equals-
 solo serving invariant rests on.  Masks use -1e30, as the reference.
+Prefill against a cache runs its queries on fixed ``rows.ROW_BUCKET``-query
+slices, so a prompt prefilled in chunks gives the bits of a whole-prompt
+prefill; a speculative verify block runs one decode attention per query.
 
 KV caches are updated IN PLACE: ``apply_attention`` writes the new entries
 into the cache tensors it is given and returns them (the JAX scheduler
@@ -123,11 +126,12 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig):
 
 
 def _chunked_causal_attention(q, k, v, chunk: int, window: int = 0,
-                              kv_offset=0):
+                              kv_offset=0, qpos=None):
     """Causal attention by online softmax over KV chunks.
 
     q: [B, Sq, H, Dh], k/v: [B, Skv, KV, Dh].  ``kv_offset`` (an int or a
-    0-d tensor) is the absolute position of the first query.
+    0-d tensor) is the absolute position of the first query; ``qpos``
+    ([Sq]), when given, the absolute position of each query instead.
     """
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -135,7 +139,8 @@ def _chunked_causal_attention(q, k, v, chunk: int, window: int = 0,
     scale = 1.0 / np.sqrt(dh)
     q = q.float() * scale
     dev = q.device
-    qpos = kv_offset + torch.arange(sq, device=dev)
+    if qpos is None:
+        qpos = kv_offset + torch.arange(sq, device=dev)
 
     n_chunks = -(-skv // chunk)
     pad = n_chunks * chunk - skv
@@ -170,6 +175,24 @@ def _chunked_causal_attention(q, k, v, chunk: int, window: int = 0,
     return out.transpose(1, 2)          # [B, Sq, H, Dh]
 
 
+def _prefill_attention(q, k, v, chunk: int, window: int, kv_offset):
+    """:func:`_chunked_causal_attention` of the queries of one prefill call
+    against the cache view, computed on consecutive
+    :data:`~repro_torch.core.rows.ROW_BUCKET`-query slices (the last one
+    padded with position-0 queries): its GEMMs and reductions then see
+    one shape whatever the call's query count, so a query gets the same
+    bits in a chunk of a chunked prefill as in a whole-prompt prefill
+    (cuBLAS and PyTorch's reductions pick their order from the shape)."""
+    qpos = kv_offset + torch.arange(q.shape[1], device=q.device)
+
+    def block(qs, ps):                     # qs: [16, B, H, Dh]
+        out = _chunked_causal_attention(qs.transpose(0, 1), k, v, chunk,
+                                        window, qpos=ps)
+        return out.transpose(0, 1)
+
+    return rows.rowwise(block, q.transpose(0, 1), qpos).transpose(0, 1)
+
+
 def _gather_paged(leaf, table):
     """The logical [B, S, KV, Dh] view of a paged cache leaf.
 
@@ -180,6 +203,20 @@ def _gather_paged(leaf, table):
     b, nb = table.shape
     bs = leaf.shape[1]
     return leaf[table].reshape(b, nb * bs, *leaf.shape[2:])
+
+
+def _verify_attention(q, k_cache, v_cache, length, s_max: int):
+    """Speculative-verify attention: S queries against one cache view
+    that already holds this block's entries at ``length .. length+S-1``.
+    Query j sees the positions ``< length + 1 + j`` (its own entry and
+    everything before it; the drafted future entries are masked), through
+    one :func:`_decode_attention` call per query, so each query runs at
+    exactly the shapes of a plain decode step and an accepted token has
+    the bits of sequential decode."""
+    outs = [_decode_attention(q[:, j:j + 1], k_cache, v_cache,
+                              torch.clamp(length + 1 + j, max=s_max))
+            for j in range(q.shape[1])]
+    return torch.cat(outs, dim=1)
 
 
 def _decode_attention(q, k_cache, v_cache, valid_count):
@@ -255,18 +292,21 @@ def apply_attention(params, x, cfg: ArchConfig, layer_idx: int,
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
 
     if decode:
+        # s == 1: plain decode.  s > 1: speculative VERIFY, a k-token
+        # block per row, written entry by entry as k decode steps would
+        # and attended with per-query validity (a full-horizon cache only:
+        # ``api.supports_speculation``)
         if cache is None:
             raise ValueError("decode needs a KV cache")
-        if s != 1:
-            raise NotImplementedError(
-                "a multi-token decode block is speculative verify, which is "
-                "not ported yet (ROADMAP Queue 1 item 2)")
         length = cache["length"]
         rows = torch.arange(b, device=x.device)
         k_view, v_view = _write_decode(cache, k, v, length, rows)
         s_max = k_view.shape[1]
-        out = _decode_attention(q, k_view, v_view,
-                                torch.clamp(length + 1, max=s_max))
+        if s == 1:
+            out = _decode_attention(q, k_view, v_view,
+                                    torch.clamp(length + 1, max=s_max))
+        else:
+            out = _verify_attention(q, k_view, v_view, length, s_max)
         new_cache = {**cache, "length": length + s}
     else:
         if paged:
@@ -283,8 +323,8 @@ def apply_attention(params, x, cfg: ArchConfig, layer_idx: int,
             idx = offset + steps
             k_att = cache["k"].to(k.dtype).index_copy(1, idx, k)
             v_att = cache["v"].to(v.dtype).index_copy(1, idx, v)
-            out = _chunked_causal_attention(q, k_att, v_att, cfg.attn_chunk,
-                                            window, kv_offset=offset)
+            out = _prefill_attention(q, k_att, v_att, cfg.attn_chunk,
+                                     window, offset)
             cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
             cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
             new_cache = {"k": cache["k"], "v": cache["v"],

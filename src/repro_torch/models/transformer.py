@@ -9,6 +9,7 @@ API:
   forward(params, batch, cfg)                      -> logits
   prefill(params, batch, cfg, cache)               -> (logits, cache)
   decode_step(params, tokens, cfg, cache)          -> (logits, cache)
+  verify_step(params, tokens, cfg, cache)          -> (logits, cache)
   init_cache(cfg, batch, max_len)                  -> cache
 
 Parameters and caches keep the JAX package's STACKED layout: every leaf
@@ -193,8 +194,25 @@ def prefill(params, batch, cfg: ArchConfig, cache):
 
 
 def decode_step(params, tokens, cfg: ArchConfig, cache):
-    """One token per sequence against the KV cache; tokens [B, 1]."""
+    """One token per sequence against the KV cache; tokens [B, 1] (or a
+    [B, k] verify block, see :func:`verify_step`)."""
     _check_family(cfg)
     x = _token_embed(params, tokens, cfg)
     x, cache = _run_layers(params, x, cfg, cache, decode=True)
     return apply_head(params, x, cfg), cache
+
+
+def verify_step(params, tokens, cfg: ArchConfig, cache):
+    """Speculative VERIFY: a k-token block per sequence in one pass.
+
+    tokens: [B, k], per row the last accepted token and the first k-1
+    drafted ones.  Returns logits [B, k, V]: position i's argmax is the
+    true next token after input i (each token's KV is written before it
+    attends, with per-query validity), so the caller accepts the longest
+    drafted prefix that matches plus the first mismatch's correction, bit
+    for bit what k plain ``decode_step`` calls give on the accepted
+    prefix.  The cache comes back advanced by k on every row; the serving
+    pool rolls the rejected tail back (``rollback``).  The body IS
+    ``decode_step``: every layer takes any block width.
+    """
+    return decode_step(params, tokens, cfg, cache)

@@ -14,10 +14,12 @@ position), so batched tokens equal solo tokens across both layouts.
 Admission copies a solo-prefilled (batch=1, dense) cache into the
 request's row or blocks, bitwise.  Retirement returns the capacity; a
 paged free row's masked decode writes land in the reserved trash block.
-The pools update the cache tensors in place; they index every leaf as
-[L, rows, ...], the stacked layout of the transformer family.  Speculative ``rollback``
-and ``prepare_tokens`` wait with speculative decode (ROADMAP Queue 1
-item 2).
+Speculative decode grants a whole verify block's positions ahead
+(``prepare_tokens``) and truncates the rejected tail afterwards
+(``rollback``): lengths reset on every layer and, paged, the tail blocks
+return to the free list with the row's reservation re-credited.  The
+pools update the cache tensors in place; they index every leaf as [L,
+rows, ...], the stacked layout of the transformer family.
 
 Pool sizing comes from the :class:`~repro_torch.plan.PlacementPlan`'s
 SRAM residency: the KV capacity lives in what the branch cores and any
@@ -29,6 +31,17 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def _set_lengths(cache, new_lens: dict[int, int]) -> None:
+    """Write per-row ``length`` values into every layer of a serve cache
+    (the stacked [L, rows] lengths), in place."""
+    lengths = cache["layers"]["length"]
+    rows = sorted(new_lens)
+    idx = torch.as_tensor(rows, dtype=torch.long, device=lengths.device)
+    vals = torch.as_tensor([new_lens[r] for r in rows], dtype=lengths.dtype,
+                           device=lengths.device)
+    lengths[:, idx] = vals[None].expand(lengths.shape[0], -1)
 
 
 class SlotPool:
@@ -75,6 +88,18 @@ class SlotPool:
 
     def prepare_step(self) -> None:
         """Pre-decode hook: dense rows never need new capacity."""
+
+    def prepare_tokens(self, n: int) -> None:
+        """Pre-verify hook for an ``n``-token speculative block: dense rows
+        span the full horizon, nothing to grant."""
+
+    def rollback(self, new_lens: dict[int, int]) -> None:
+        """Truncate rows to ``{slot: new_length}`` after a verify rejected
+        part of a draft block: the rows' lengths reset on every layer; the
+        rejected entries past them are stale, hidden by the validity mask
+        until the next write overwrites them."""
+        if new_lens:
+            _set_lengths(self.cache, new_lens)
 
     def adopt(self, slot: int, solo_cache) -> None:
         """Copy a batch=1 cache into ``slot``'s row, leaf by leaf."""
@@ -206,11 +231,57 @@ class PagedPool:
         """Grant every active row the block holding its next write
         position, advance the host-side lengths, and sync the table; the
         scheduler calls this right before each batched decode."""
+        self.prepare_tokens(1)
+
+    def prepare_tokens(self, n: int) -> None:
+        """Grant every active row the blocks covering its next ``n`` write
+        positions (a speculative verify writes a k-token block per row)
+        and advance the host-side lengths by ``n``.  Grants stay within
+        the admission reservation (the scheduler clamps k to every row's
+        remaining budget); ``rollback`` returns what a rejected draft
+        leaves unused."""
+        if n < 1:
+            raise ValueError(f"need at least one token, got {n}")
         for row in self._len:
             pos = self._len[row]
-            while pos // self.block_size >= len(self._blocks[row]):
+            while (pos + n - 1) // self.block_size >= \
+                    len(self._blocks[row]):
                 self._grant(row)
-            self._len[row] = pos + 1
+            self._len[row] = pos + n
+        self.sync()
+
+    def rollback(self, new_lens: dict[int, int]) -> None:
+        """Truncate rows to ``{row: new_length}`` after a speculative
+        verify rejected part of a draft block.  The device lengths reset
+        on every layer (the validity mask hides the rejected entries until
+        the next block overwrites them); tail blocks past
+        ``ceil(new_length / block_size)`` return to the free list and
+        re-credit the row's reservation, so ``free - reserved`` is what it
+        was before the speculative grant; the table tail points back at
+        the trash block, so the row's masked writes cannot land in blocks
+        re-granted to someone else."""
+        if not new_lens:
+            return
+        for row, new_len in new_lens.items():
+            if row not in self._blocks:
+                raise ValueError(
+                    f"rollback of row {row}, which holds no blocks "
+                    f"(released, or never admitted)")
+            if not (0 <= new_len <= self._len.get(row, 0)):
+                raise ValueError(
+                    f"rollback of row {row} to length {new_len}, "
+                    f"outside [0, {self._len.get(row, 0)}] — rollback "
+                    f"only ever truncates")
+            keep = -(-new_len // self.block_size)
+            tail = self._blocks[row][keep:]
+            if tail:
+                del self._blocks[row][keep:]
+                self._free_blocks.extend(reversed(tail))
+                self._owed[row] = self._owed.get(row, 0) + len(tail)
+                self._table[row, keep:] = self._trash
+                self._dirty = True
+            self._len[row] = new_len
+        _set_lengths(self.cache, new_lens)
         self.sync()
 
     def release(self, row: int) -> None:

@@ -2,8 +2,11 @@
 (port of ``repro.serve.server``).
 
 * LM configs get :class:`LMServer`: the continuous batcher behind a
-  synchronous ``submit``/``step``/``drain`` surface, over a paged KV pool
-  by default for families that support it.
+  synchronous ``submit``/``step``/``drain`` surface plus an async
+  ``generate`` coroutine (concurrent callers share the batch: each waiter
+  pumps the scheduler one tick per event-loop round), over a paged KV
+  pool by default for families that support it, with chunked prefill and
+  optional speculative decode.
 * CNN configs get :class:`CNNServer`: submitted images run through the
   resident cell in ``n_slots``-row chunks; a short chunk is padded with
   zero images and the pad rows are sliced off the output (inference BN
@@ -12,12 +15,12 @@
 
 With a :class:`~repro_torch.scenario.ScenarioStore` attached, one cell
 serves N scenarios by swapping the SRAM branch over the resident ROM
-trunk: no trunk tensor is copied and no model is rebuilt.  The async
-``generate`` front door, speculative decode and chunked prefill wait for
-a later slice (ROADMAP Queue 1 item 2).
+trunk: no trunk tensor is copied and no model is rebuilt.
 """
 
 from __future__ import annotations
+
+import asyncio
 
 import numpy as np
 import torch
@@ -46,12 +49,20 @@ class LMServer:
     scenario=...)``) queues a branch hot-swap behind the requests already
     submitted: every request decodes entirely under the scenario it was
     submitted with.
+
+    ``prefill_chunk``, ``spec_k`` and ``draft_source`` go to the batcher:
+    chunked prefill admission (default: 32 where the family supports it)
+    and speculative decode (the branch-only draft, ROM trunks skipped, and
+    one batched full-cell verify per round; tokens bit-identical to
+    ``spec_k=0`` greedy decode).
     """
 
     def __init__(self, model, params, *, n_slots: int, max_len: int,
                  dtype=torch.float32, store=None, scenario=None,
                  paged: bool | None = None, n_blocks: int | None = None,
-                 block_size: int | None = None):
+                 block_size: int | None = None,
+                 prefill_chunk: int | None = None, spec_k: int = 0,
+                 draft_source=None):
         self.model = model
         self.store = store
         device = next(iter(bridge.flatten(params).values())).device
@@ -75,7 +86,10 @@ class LMServer:
             self.pool = SlotPool(model, n_slots, max_len, dtype=dtype,
                                  device=device)
         self.batcher = ContinuousBatcher(model, params, self.pool,
-                                         scenario=scenario)
+                                         scenario=scenario,
+                                         prefill_chunk=prefill_chunk,
+                                         spec_k=spec_k,
+                                         draft_source=draft_source)
 
     @property
     def params(self):
@@ -105,6 +119,18 @@ class LMServer:
 
     def drain(self, max_steps: int | None = None) -> int:
         return self.batcher.drain(max_steps)
+
+    async def generate(self, prompt, max_new_tokens: int, eos_id=None,
+                       scenario=None) -> list[int]:
+        """Submit and await one request; concurrent callers batch.  Each
+        waiter advances the shared scheduler one tick per event-loop
+        round, so N concurrent ``generate`` calls decode as one batch."""
+        req = self.submit(prompt, max_new_tokens, eos_id=eos_id,
+                          scenario=scenario)
+        while not req.done:
+            self.batcher.step()
+            await asyncio.sleep(0)
+        return list(req.tokens)
 
 
 def _need_store(store, server: str):
@@ -153,12 +179,20 @@ class CNNServer:
             outs.append(out[:real].cpu().numpy())
         return np.concatenate(outs, 0)
 
+    async def generate(self, image) -> np.ndarray:
+        """Async single-image front door: [H, W, C] (or [1, H, W, C]) ->
+        that image's output."""
+        await asyncio.sleep(0)
+        return self.submit(image[None] if np.asarray(image).ndim == 3
+                           else image)[0]
+
 
 def load(model_id: str, *, params=None, seed: int = 0, n_slots=None,
          device=None, max_len: int = 128, dtype=torch.float32,
          sram_capacity_bytes: int = 64 << 20, scenario: str | None = None,
          paged: bool | None = None, n_blocks: int | None = None,
-         block_size: int | None = None):
+         block_size: int | None = None, prefill_chunk: int | None = None,
+         spec_k: int = 0, draft_source=None):
     """One front door for LM decode and CNN forward serving.
 
     Resolves ``model_id`` through the registry (compiled at most once per
@@ -166,8 +200,10 @@ def load(model_id: str, *, params=None, seed: int = 0, n_slots=None,
     the CUDA card) unless given, and — for LMs without a forced
     ``n_slots`` — sizes the KV pool from the entry's placement plan:
     paged pools via :func:`~repro_torch.serve.pool.suggest_paged`, dense
-    ones via :func:`~repro_torch.serve.pool.suggest_slots`.  The LM
-    keywords are ignored for CNN configs.
+    ones via :func:`~repro_torch.serve.pool.suggest_slots`.  ``paged``,
+    ``n_blocks``, ``block_size``, ``prefill_chunk``, ``spec_k`` and
+    ``draft_source`` go to :class:`LMServer`; the LM keywords are ignored
+    for CNN configs.
 
     scenario: start on a registered scenario's branch (see
     ``registry.scenario_store``), swapped over the trunk before serving;
@@ -200,4 +236,6 @@ def load(model_id: str, *, params=None, seed: int = 0, n_slots=None,
                 sram_capacity_bytes=sram_capacity_bytes)
     return LMServer(model, params, n_slots=n_slots, max_len=max_len,
                     dtype=dtype, store=store, scenario=scenario, paged=paged,
-                    n_blocks=n_blocks, block_size=block_size)
+                    n_blocks=n_blocks, block_size=block_size,
+                    prefill_chunk=prefill_chunk, spec_k=spec_k,
+                    draft_source=draft_source)

@@ -12,6 +12,9 @@ against the JAX server's within 5e-2 of their absmax (ulp-level
 differences upstream of per-row quantisers, see ``test_torch_lm.py``).
 """
 
+import dataclasses
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -221,10 +224,21 @@ def test_front_door_validation_and_unported_options(cell):
         srv.submit(np.arange(10), 7)
     with pytest.raises(ValueError, match="no ScenarioStore"):
         srv.swap_scenario("night")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(srv.model, srv.params, srv.pool, spec_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(srv.model, srv.params, srv.pool, prefill_chunk=32)
+    # speculative decode and chunked prefill are ported: what they refuse
+    # is the reference's (a negative k; a config whose cache cannot roll
+    # back or whose prefill cannot continue a cache)
+    with pytest.raises(ValueError, match="spec_k must be >= 0"):
+        ContinuousBatcher(srv.model, srv.params, srv.pool, spec_k=-1)
+    swa = types.SimpleNamespace(cfg=dataclasses.replace(
+        srv.model.cfg, sliding_window=8))
+    with pytest.raises(ValueError, match="cannot speculate"):
+        ContinuousBatcher(swa, srv.params, srv.pool, spec_k=2)
+    ssm = types.SimpleNamespace(cfg=dataclasses.replace(
+        srv.model.cfg, family="ssm"))
+    with pytest.raises(ValueError, match="cannot chunk prefill"):
+        ContinuousBatcher(ssm, srv.params, srv.pool, prefill_chunk=32)
+    assert ContinuousBatcher(srv.model, srv.params, srv.pool, spec_k=2,
+                             prefill_chunk=32).spec_k == 2
     with pytest.raises(ValueError, match="double-released"):
         srv.pool.release(0)
     with pytest.raises(ValueError, match="does not divide"):

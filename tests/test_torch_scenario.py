@@ -468,12 +468,48 @@ class TestSchedulerSwap:
         assert b.scenario == "b" and b.swap_count == 1 and b.idle
 
     def test_spec_k_and_prefill_chunk_still_raise(self, lm_cell):
-        model, _, _, npA = lm_cell
+        """What the batcher still refuses, now that both are ported: a
+        negative ``spec_k`` (the reference's text)."""
+        model, _, _, _ = lm_cell
         pool = SlotPool(model, 1, MAX_LEN, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            ContinuousBatcher(model, {}, pool, spec_k=2)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            ContinuousBatcher(model, {}, pool, prefill_chunk=8)
+        with pytest.raises(ValueError, match="spec_k must be >= 0"):
+            ContinuousBatcher(model, {}, pool, spec_k=-1)
+        assert ContinuousBatcher(model, {}, pool, spec_k=2,
+                                 prefill_chunk=8).prefill_chunk == 8
+
+    def test_swap_barrier_waits_for_chunked_prefill_and_spec_rounds(
+            self, lm_cell):
+        """A swap queued behind a chunk-prefilling request holds through
+        its chunks and its speculative rounds (``prefill_chunk=2``,
+        ``spec_k=2``, the branch drafter); the request finishes under A
+        and the one behind the barrier decodes under B, each equal to its
+        solo decode in both packages."""
+        model, _, jmodel, npA = lm_cell
+        pA = bridge.to_torch(npA, "cpu")
+        brB = _perturb(rebranch.partition(pA)[0], 2)
+        pB = rebranch.combine(brB, rebranch.partition(pA)[1])
+        npB = bridge.to_numpy(pB)
+        b = ContinuousBatcher(model, pA,
+                              SlotPool(model, 2, MAX_LEN, device="cpu"),
+                              scenario="a", prefill_chunk=2, spec_k=2)
+        rng = np.random.default_rng(14)
+        pr = [rng.integers(0, 512, size=n) for n in (7, 5)]
+        r1 = b.submit(pr[0], 6, scenario="a")
+        b.step()                               # the first chunk only
+        assert b.prefilling and b.active == 0
+        b.swap("b", brB)
+        r2 = b.submit(pr[1], 5, scenario="b")
+        while not r1.done:
+            b.step()
+            assert b.scenario == "a" and r2.admit_step < 0
+        assert b.spec_rounds > 0
+        b.drain(max_steps=100)
+        assert b.scenario == "b" and b.swap_count == 1
+        assert r2.admit_step >= r1.finish_step
+        assert r1.tokens == _solo(model, pA, pr[0], 6) == \
+            _jax_solo(jmodel, npA, pr[0], 6)
+        assert r2.tokens == _solo(model, pB, pr[1], 5) == \
+            _jax_solo(jmodel, npB, pr[1], 5)
 
     def test_lm_server_submit_with_scenario_swaps(self, lm_cell):
         """LMServer.submit(..., scenario=) queues the swap through the
