@@ -163,13 +163,15 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    ``torch._int_mm`` as in phase 5.  Kernel 1 at ResNet-18's 20 conv
    geometries (32x32, batch 128) ``torch.equal`` to its plain version,
    with its time and bound.
-16. Gemma-2B branch training at full width (``configs/gemma_2b.py::FULL``,
-   all-ROM, ``pallas``: kernel 4 behind all 126 linears), drawn on the
+16. Gemma-2B branch training at full width (``configs/gemma_2b.py::FULL``
+   with its depth cut to 6 layers, which keeps the whole run near half its
+   time limit: the ROM fingerprints dominate this phase; all-ROM,
+   ``pallas``: kernel 4 behind all 42 linears), drawn on the
    card: ``launch/train.py``'s loop (``make_train_step``, cosine schedule
    with a warm-up of 5, ``markov_batch`` at the CLI's batch 8 x seq 64,
    lr 3e-3) for 30 steps.  Every loss finite and the last below the
-   first; 126 kernel-4 launches a step, none in the backward; the ROM
-   fingerprint unchanged and every trunk tensor the same object at the
+   first; 7 kernel-4 launches per layer a step, none in the backward; the
+   ROM fingerprint unchanged and every trunk tensor the same object at the
    same ``data_ptr``; a checkpoint saved at step 15 (async) restored into
    fresh templates, whose step 16 equals the uninterrupted one (bitwise,
    at worst 1e-6 relative).  Prints the step time (CUDA events and the
@@ -212,6 +214,52 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    spec (the branch drafter; scenarios A and B of phase 14): every
    request equals its solo decode under its own scenario.
 
+20. New kernel geometries: kernels 3 and 4 at every distinct ROM-linear
+   (K, N) of the FULL ``hymba_1_5b``, ``granite_moe_3b``,
+   ``falcon_mamba_7b`` and ``qwen2_moe_a2_7b`` configs (Cd = K // 4; K =
+   100, N = 132, Cd = 25, N = 32001 and 151936 among them; 20 in all), at
+   M = 1, 8, 16, 100 and 128 (and 32 for the MoE configs, which chunk
+   their prefill) in ``ideal``, ``per_subarray`` and ``bitserial``: the
+   decode rows take the 16-row tiles, a whole prompt's prefill (up to 128
+   rows in phases 21 and 23) the taller ones.  x is f32 as the configs
+   serve it, and bf16 too at M <= 16 (the kernel reads bf16 there).  The
+   unscaled trunk and kernel 4's output ``torch.equal`` to their plain
+   versions, t1 within 1e-5 of its absmax, row 0 of M = 1 equal to row 0
+   of every larger M.  The plain versions run once per mode at the
+   tallest M and each M is held to their first M rows (a plain row sums
+   exact integers over its own row; checked at M = 8).  ``ms``, ``device_ms``, the plain version's time
+   and the bound per geometry at M = 8.
+21. Hymba-1.5B at full width, the slice's main path: ``hymba-1.5b``
+   (all-ROM, ``pallas_fused``), seeded parameters drawn on the card with
+   non-zero cores, ``serve.load(..., n_slots=8, max_len=256)`` (the dense
+   ``SlotPool``: SWA rings and SSM state do not page; whole-prompt
+   prefill).  Five requests x 32 tokens: kernel 3 launches 353 times (11
+   ROM linears x 32 layers + the readout) per prefill and per decode
+   step, tokens lie in the vocabulary, two requests equal their solo runs
+   (tokens and first decode step logits, bit for bit).  A sustained window
+   of three runs x 16 requests x 64 tokens; one decode step split into
+   kernel 3, its epilogue, the SSM recurrence, the attention and the rest;
+   layer 0's 11 linears, SSM decode step and attention replayed on the
+   CPU (trunks ``torch.equal``, outputs within one bf16 ulp of their
+   absmax).  Then ``hymba-1.5b-pallas``: two requests x 8 tokens, 353
+   kernel-4 launches per prefill and per decode step.
+22. Granite-MoE-3B at full width: paged pool, 32-token chunks, 8 rows:
+   five requests x 32 tokens, kernel 3 launches 128 times (4 attention
+   linears x 32 layers; the stacked experts are plain PyTorch and the
+   readout is the tied table) per chunk and per decode step; the dropped
+   (token, expert) choices per tick; layer 0's MoE block at one decode
+   step replayed on the CPU with the same input (the assignments equal
+   except at near-ties of the k-th and (k+1)-th router probabilities, 1e-5,
+   whose count is printed; the output within one bf16 ulp of its absmax);
+   one decode step split as phase 21's, with the MoE blocks as a part;
+   a sustained window of three runs x 16 requests x 64 tokens, as phase
+   21's.  Batched == solo is not a gate: the rows of a step compete for
+   expert capacity in the reference's dispatch.
+23. Falcon-Mamba-7B at full width: 4 dense slots, 4 requests x 16 tokens,
+   257 kernel-3 launches per prefill and per decode step, one request
+   equal to its solo run bit for bit; the peak memory and the decode step
+   split as phase 21's.
+
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
 exits non-zero without one, and prints as its last line
@@ -229,8 +277,13 @@ and timed as ``ms`` is; ``trunk_conv`` and ``rebranch_matmul`` carry
 per pass at the train geometry (phase 15); ``rebranch_matmul`` carries
 ``chunk_launches`` and ``spec_launches``, its launches in phases 18 and
 19, and ``verify_ms``, ``verify_device_ms``, ``verify_plain_ms`` and
-``verify_bound_ms``, per 126-launch verify round at M = 32 (phase 5).
-Phases 18-19 run last, after the training phases.
+``verify_bound_ms``, per 126-launch verify round at M = 32 (phase 5);
+``rebranch_matmul`` and ``cim_matmul`` carry ``family_launches``, their
+launches in phases 21-23, and ``family_step``, per served model the
+kernel's calls of one decode step (8 rows; Falcon-Mamba 4) recorded as
+the server made them and run again in that order (``ms``, ``device_ms``,
+``plain_ms``, ``bound_ms``).  Phases 18-23 run last, after the training
+phases.
 """
 
 from __future__ import annotations
@@ -2273,6 +2326,7 @@ def phase_lm_swap(smi: str) -> int:
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 64, 3e-3     # launch/train.py's CLI
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SAVE_AT = 30, 5, 15
+TRAIN_LAYERS = 6           # phase 16's depth cut (the ROM is hashed 4 times)
 TRAIN_CHUNKS = 4
 TRAIN_CUT = 2, 4, 32       # card-vs-CPU step: layers, batch, sequence
 M_REL = 5e-2               # AdamW's m after a step, of each leaf's absmax
@@ -2570,13 +2624,14 @@ def train_split(model, step_fn, trainable, frozen, opt, batch):
 
 
 def phase_lm_train(smi: str, kernel_pass_ms: float) -> int:
-    """Gemma-2B branch training at full width under 'pallas': 30 steps of
+    """Gemma-2B branch training at full width, cut to ``TRAIN_LAYERS``
+    layers, under 'pallas': 30 steps of
     ``launch/train.py``'s loop on ``markov_batch`` at the CLI's defaults
     (batch 8, seq 64, lr 3e-3, warm-up 5); the loss finite and falling,
-    126 kernel-4 launches per step and none in the backward, the ROM
-    untouched, and a checkpoint saved at step 15 (async) whose restored
+    7 kernel-4 launches per layer and step and none in the backward, the
+    ROM untouched, and a checkpoint saved at step 15 (async) whose restored
     run's step 16 equals the uninterrupted one.  The ROM fingerprint
-    before training (17.7 GB through SHA-256) is taken on a thread while
+    before training (~6 GB through SHA-256) is taken on a thread while
     the card-vs-CPU step runs; the CLI last.  Returns kernel 4's launches
     over the 30 steps."""
     import tempfile
@@ -2588,7 +2643,8 @@ def phase_lm_train(smi: str, kernel_pass_ms: float) -> int:
     from repro_torch.data import synthetic
     from repro_torch.launch import train as train_cli
     t_phase = time.perf_counter()
-    cfg = configs.get("gemma_2b")
+    cfg = dataclasses.replace(configs.get("gemma_2b"),
+                              num_layers=TRAIN_LAYERS)
     model, step_fn = lm_train_setup(cfg)
     params = model.init(seed=0)
     trainable, frozen = rebranch.partition(params)
@@ -2654,10 +2710,10 @@ def phase_lm_train(smi: str, kernel_pass_ms: float) -> int:
         with open(os.path.join(tmp, f"step_{TRAIN_SAVE_AT:08d}",
                                "meta.json")) as f:
             check(json.load(f)["rom_fingerprint"] == before["fp"],
-                  "the ROM fingerprint moved between step 0 and step 15")
-        # restore step 15 into fresh templates (restore refuses a ROM whose
-        # fingerprint, taken now after 30 steps, differs from step 15's)
-        # and take step 16 again
+                  "the ROM fingerprint moved between step 0 and the save")
+        # restore the saved step into fresh templates (restore refuses a
+        # ROM whose fingerprint, taken now after the last step, differs
+        # from the save's) and take the next step again
         meta = lambda tree: bridge.tree_map(
             tree, lambda t: torch.empty(t.shape, dtype=t.dtype,
                                         device="meta"))
@@ -2689,7 +2745,8 @@ def phase_lm_train(smi: str, kernel_pass_ms: float) -> int:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     parts = sum(split[k] for k in ("blocks_fwd", "readout_fwd",
                                    "readout_bwd", "optimizer"))
-    print(f"gemma_2b branch training, {TRAIN_STEPS} steps, batch "
+    print(f"gemma_2b branch training at {cfg.num_layers} layers, "
+          f"{TRAIN_STEPS} steps, batch "
           f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, 'pallas': loss {losses[0]:.4f} "
           f"-> {losses[-1]:.4f} (entropy floor "
           f"{synthetic.entropy_floor(dcfg):.4f}); {per_pass} kernel-4 "
@@ -2705,7 +2762,10 @@ def phase_lm_train(smi: str, kernel_pass_ms: float) -> int:
           f"max_memory_allocated {peak / 2**30:.3f} GiB [{smi}]")
     print(f"train step split (CUDA events, parts timed alone): blocks "
           f"forward {split['blocks_fwd']:.3f} ms (kernel 4's {per_pass} "
-          f"launches at M = {tokens}: {kernel_pass_ms:.3f} ms in phase 15), "
+          f"launches at M = {tokens}: derived "
+          f"{kernel_pass_ms * cfg.num_layers / LM_LAYERS:.3f} ms, phase "
+          f"15's measured {kernel_pass_ms:.3f} ms for all {LM_LAYERS} "
+          f"layers scaled by {cfg.num_layers}/{LM_LAYERS}), "
           f"readout forward {split['readout_fwd']:.3f} ms, readout "
           f"recompute + backward {split['readout_bwd']:.3f} ms, AdamW "
           f"{split['optimizer']:.3f} ms, so the blocks' backward is the "
@@ -3311,6 +3371,693 @@ def phase_spec_decode(smi: str) -> int:
     return launches
 
 
+FAMILY_ARCHS = ("hymba_1_5b", "granite_moe_3b", "falcon_mamba_7b",
+                "qwen2_moe_a2_7b")
+# phase 20: a solo row, the pools' decode rows, a ragged prompt near the
+# longest served whole (100, phase 21) and a whole 128-row prompt
+FAMILY_ROWS = (1, 8, 16, 100, 128)
+BF16_ROWS = 16                 # phase 20: bf16 x is read as it is up to here
+MOE_CHUNK_ROWS = 32            # phase 20: the MoE configs' prefill chunks
+FAMILY_MAX_LEN = 256
+HYMBA_SLOTS = 8
+HYMBA_PROMPTS, HYMBA_NEW = (12, 40, 7, 100, 25), 32
+HYMBA_SUSTAINED_REQS, HYMBA_SUSTAINED_NEW = 16, 64
+HYMBA_PALLAS_PROMPTS, HYMBA_PALLAS_NEW = (10, 30), 8
+GRANITE_SLOTS = 8
+GRANITE_PROMPTS, GRANITE_NEW = (12, 40, 7, 100, 25), 32
+FALCON_SLOTS = 4
+FALCON_PROMPTS, FALCON_NEW = (12, 40, 7, 30), 16
+NEAR_TIE = 1e-5          # phase 22: router probabilities closer than this
+
+
+def family_kernel_sites(cfg) -> dict:
+    """{(K, N): kernel launches per decode step} of ``cfg``'s ROM linears:
+    every matmul site member but the stacked experts (plain PyTorch,
+    ``models.moe``); a tied readout is no ROM linear."""
+    from repro_torch import plan as plan_lib
+    geoms = {}
+    for site in plan_lib.site_tree(cfg):
+        for label, (k, n) in site.members:
+            if not label.startswith("experts."):
+                geoms[(k, n)] = geoms.get((k, n), 0) + site.count
+    return geoms
+
+
+def phase_family_kernels(dev):
+    """Phase 20: kernels 3 and 4 against their plain versions at every
+    distinct ROM-linear geometry of the four new FULL configs, at every M
+    of FAMILY_ROWS (and 32 for the MoE configs) in all three CiM modes,
+    with f32 x (as served) and, at M <= BF16_ROWS, bf16 x; each M held to
+    the first M rows of one plain call per mode at the tallest M; timed
+    per geometry at M = 8."""
+    from repro_torch import configs
+    from repro_torch.core import cim as cim_lib
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_matmul as rm
+    t_phase = time.perf_counter()
+    owners = {}
+    for arch in FAMILY_ARCHS:
+        for kn in family_kernel_sites(configs.get(arch)):
+            owners.setdefault(kn, []).append(arch)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    print("phase 20: kernel K N Cd M mode equal err ms device_ms plain_ms "
+          "bound_ms bound_by configs")
+    for (k, n), archs in sorted(owners.items()):
+        cdim = k // 4
+        moe = any(a in configs.MOE_ARCHS for a in archs)
+        rows = sorted(FAMILY_ROWS + ((MOE_CHUNK_ROWS,) if moe else ()))
+        x = torch.randn((max(rows), k), generator=gen, device=dev)
+        xq = torch.randint(-127, 128, (max(rows), k), generator=gen,
+                           device=dev, dtype=torch.int8)
+        copies = max(1, math.ceil(2.5 * L2_BYTES / (k * n + 4 * k * cdim)))
+        ws = [torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(copies)]
+        cs = [torch.randn((k, cdim), generator=gen, device=dev) / k ** .5
+              for _ in range(copies)]
+        w, c = ws[0], cs[0]
+        for mode in ("ideal",) + ADC_MODES:
+            cfg = cim_lib.CiMConfig(mode=mode)
+            # the plain versions once per mode at the tallest M: a plain
+            # row is exact integer sums over that row alone (checked at M
+            # = 8), so every shorter M is held to their first M rows
+            tops = {torch.float32: x,
+                    torch.bfloat16: x[:BF16_ROWS].bfloat16()}
+            plain3 = {dt: rm.rebranch_matmul_plain(xt, w, c, cfg)
+                      for dt, xt in tops.items()}
+            plain4 = cm.cim_matmul_plain(xq, w, cfg)
+            m8 = LM_SLOTS
+            check(torch.equal(cm.cim_matmul_plain(xq[:m8], w, cfg),
+                              plain4[:m8])
+                  and all(torch.equal(
+                      rm.rebranch_matmul_plain(xt[:m8], w, c, cfg)[0],
+                      plain3[dt][0][:m8]) for dt, xt in tops.items()),
+                  f"plain rows depend on M ({k}x{n}, {mode})")
+            first = {}
+            for m in rows:
+                xqm = xq[:m].contiguous()
+                got4 = cm.cim_matmul(xqm, w, cfg)
+                xs = [x[:m].contiguous()]
+                if m <= BF16_ROWS:
+                    xs.append(xs[0].bfloat16())
+                rels = []
+                for xm in xs:
+                    trunk, t1 = rm.rebranch_trunk_sketch(xm, w, c, cfg)
+                    want_trunk, want_t1 = (p[:m] for p in plain3[xm.dtype])
+                    torch.cuda.synchronize()
+                    what = (f"({k}x{n}, Cd={cdim}, M={m}, {mode}, "
+                            f"x {xm.dtype})")
+                    check(torch.equal(trunk, want_trunk),
+                          f"kernel 3 trunk != plain {what}")
+                    err = (t1 - want_t1).abs().max().item()
+                    rels.append(err / want_t1.abs().max().item())
+                    check(rels[-1] <= SKETCH_RTOL, f"kernel 3 sketch off by "
+                          f"{rels[-1]} of its absmax {what}")
+                    row0 = (trunk[:1], t1[:1], got4[:1])
+                    first.setdefault(xm.dtype, row0)
+                    check(all(torch.equal(a, b) for a, b in
+                              zip(first[xm.dtype], row0)),
+                          f"row 0 differs between M = 1 and M = {m} {what}")
+                check(torch.equal(got4, plain4[:m]),
+                      f"kernel 4 != plain ({k}x{n}, M={m}, {mode})")
+                rel = max(rels)
+                if m != LM_SLOTS or mode != "ideal":
+                    print(f"kernel3+4 {k} {n} {cdim} {m} {mode} True "
+                          f"{rel:.2e}", flush=True)
+                    continue
+                xm = xs[0]
+                args3 = [(xm, wi, ci) for wi, ci in zip(ws, cs)]
+                args4 = [(xqm, wi) for wi in ws]
+                reps = 3 * copies
+                t3 = (time_cycled_ms(rm.rebranch_trunk_sketch, args3, reps),
+                      time_graph_ms(rm.rebranch_trunk_sketch, args3, reps),
+                      time_cycled_ms(rm.rebranch_matmul_plain, args3, copies),
+                      *lm_bound_ms(m, k, n, cdim))
+                t4 = (time_cycled_ms(cm.cim_matmul, args4, reps),
+                      time_graph_ms(cm.cim_matmul, args4, reps),
+                      time_cycled_ms(cm.cim_matmul_plain, args4, copies),
+                      *lm_bound_ms(m, k, n))
+                for name, t in (("rebranch_matmul", t3), ("cim_matmul", t4)):
+                    print(f"{name} {k} {n} {cdim if name[0] == 'r' else 0} "
+                          f"{m} {mode} True {rel:.2e} {t[0]:.4f} {t[1]:.4f} "
+                          f"{t[2]:.4f} {t[3]:.4f} {t[4]} {','.join(archs)}",
+                          flush=True)
+        del ws, cs, plain3, plain4
+        torch.cuda.empty_cache()
+    print(f"phase 20: {len(owners)} geometries in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def family_cell(model_id: str, arch: str, engine: str = "pallas_fused"):
+    """Register ``model_id`` as ``arch``'s FULL config under the all-ROM
+    plan on ``engine``, compile it, and check the plan."""
+    from repro_torch import configs
+    from repro_torch import plan as plan_lib
+    from repro_torch.serve import registry
+    registry.register(registry.ModelEntry(
+        model_id=model_id, config=lambda: configs.get(arch),
+        plan=lambda cfg: plan_lib.solve(cfg, engine=engine)))
+    model, plan = registry.compile_entry(model_id)
+    for site in plan_lib.site_tree(model.cfg):
+        spec = model.layer_spec(site.name)
+        check(spec.enabled and spec.branch_enabled
+              and spec.trunk_impl == engine,
+              f"{model_id} {site.name}: not all-ROM {engine} ({spec})")
+    return model
+
+
+def family_params(model):
+    """Seeded parameters drawn on the card, with non-zero cores."""
+    t0 = time.perf_counter()
+    params = with_cores(model.init(seed=0), torch.Generator().manual_seed(2))
+    torch.cuda.synchronize()
+    print(f"{model.cfg.name} params drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return params
+
+
+def served_run(srv, model, prompts, n_new: int):
+    """Serve ``prompts`` with every launch count set to 0 just before:
+    (requests, each request's first decode step logits, decode steps,
+    launch counts, wall s)."""
+    first = {}
+    decode = model.decode_step
+
+    def recording(p, tok, cache):
+        logits, cache = decode(p, tok, cache)
+        for slot, req in srv.batcher._active.items():
+            if len(req.tokens) == 1:
+                first[req.rid] = logits[slot, -1].float().cpu()
+        return logits, cache
+
+    torch.cuda.synchronize()
+    reset_launches()
+    model.decode_step = recording
+    try:
+        t0 = time.perf_counter()
+        reqs = [srv.submit(p, n_new) for p in prompts]
+        steps = srv.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.decode_step
+    counts = read_launches()
+    vocab = model.cfg.vocab_size
+    for r in reqs:
+        check(len(r.tokens) == n_new and all(0 <= t < vocab
+                                             for t in r.tokens),
+              f"{model.cfg.name} request {r.rid}: tokens {r.tokens}")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    print(f"{model.cfg.name}: served {len(reqs)} requests (prompts "
+          f"{tuple(len(p) for p in prompts)}), {n_tok} tokens in "
+          f"{wall * 1e3:.1f} ms, {steps} decode steps; launches {counts}")
+    return reqs, first, steps, counts, wall
+
+
+def check_solo(model, params, reqs, prompts, first, n_new: int, which):
+    """Requests ``which`` against their solo runs on the card: the same
+    tokens and first decode step logits, bit for bit."""
+    for i in which:
+        toks, solo_first = _solo_run(model, params, prompts[i], n_new,
+                                     FAMILY_MAX_LEN)
+        r = reqs[i]
+        diff = (solo_first - first[r.rid]).abs().max().item()
+        check(toks == r.tokens and diff == 0.0,
+              f"{model.cfg.name} request {i}: batched != solo on the card "
+              f"(tokens {r.tokens} vs {toks}, logits diff {diff})")
+    print(f"{model.cfg.name}: requests {tuple(which)} equal their solo runs "
+          f"on the card (tokens and first decode step logits, bit for bit)")
+
+
+def sustained_window(srv, vocab: int, n_req: int, n_new: int, seed: int):
+    """Three runs of ``n_req`` requests x ``n_new`` tokens (prompts drawn
+    in SUSTAINED_PROMPTS): tokens/s per run and the spread."""
+    rng = np.random.default_rng(seed)
+    rates = []
+    for run in range(SUSTAINED_RUNS):
+        sizes = rng.integers(SUSTAINED_PROMPTS[0], SUSTAINED_PROMPTS[1] + 1,
+                             size=n_req)
+        t0 = time.perf_counter()
+        rs = [srv.submit(rng.integers(0, vocab, size=int(s)), n_new)
+              for s in sizes]
+        steps = srv.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        toks = sum(len(r.tokens) for r in rs)
+        check(toks == n_req * n_new, "sustained tokens")
+        rates.append(toks / dt)
+        print(f"sustained run {run}: {n_req} requests, {toks} tokens in "
+              f"{dt * 1e3:.1f} ms, {steps} decode steps, {toks / dt:.2f} "
+              f"tokens/s")
+    spread = (max(rates) - min(rates)) / min(rates)
+    print(f"sustained tokens/s: mean {sum(rates) / len(rates):.2f}, min "
+          f"{min(rates):.2f}, max {max(rates):.2f}, spread {spread:.2%}")
+    return sum(rates) / len(rates)
+
+
+class Recorder:
+    """Replaces ``name`` on ``module`` with a wrapper that records each
+    call's arguments (and result) in ``calls`` while the block runs."""
+
+    def __init__(self, module, name: str, keep=None):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.keep = keep                     # record at most this many
+        self.calls = []
+
+    def __enter__(self):
+        def call(*args, **kw):
+            out = self.real(*args, **kw)
+            if self.keep is None or len(self.calls) < self.keep:
+                self.calls.append((args, kw, out))
+            return out
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def pass_times(kernel, plain, calls, sketch: bool) -> dict:
+    """One served decode step's calls of a kernel (``calls``: argument
+    tuples in the order the server made them) run again in that order:
+    ``ms`` eager (host cost included), ``device_ms`` as a replayed CUDA
+    graph, ``plain_ms`` the plain version over the same calls, and the
+    bound summed over them.  A step's weights lie far past the L2 cache,
+    so each is read from HBM as when served."""
+    def run(fn):
+        return lambda: [fn(*a) for a in calls]
+
+    bounds = [lm_bound_ms(a[0].shape[0], *a[1].shape,
+                          a[2].shape[1] if sketch else 0) for a in calls]
+    with torch.no_grad():
+        return {"rows": calls[0][0].shape[0], "launches": len(calls),
+                "ms": time_ms(run(kernel), 5),
+                "device_ms": time_graph_ms(run(kernel), [()], 3),
+                "plain_ms": time_ms(run(plain), 1),
+                "bound_ms": sum(b for b, _ in bounds),
+                "bound_by": max(bounds)[1]}
+
+
+def print_pass(what: str, name: str, t: dict, smi: str):
+    print(f"{what} {name} per decode step at {t['rows']} rows, served order "
+          f"({t['launches']} launches): {t['ms']:.3f} ms (device, graph "
+          f"replay: {t['device_ms']:.3f} ms), plain {t['plain_ms']:.3f} ms, "
+          f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}) [{smi}]")
+
+
+def decode_split(model, params, srv, n_rows: int, smi: str) -> dict:
+    """One decode step of ``n_rows`` rows split into kernel 3, its
+    epilogue, the SSM recurrence (the depthwise conv's taps, the state
+    update and readout), the attention (cache writes, softmax), the MoE
+    blocks (routing, dispatch, the plain stacked experts, combine) and the
+    rest (norms, fusion, embedding, readout, host gaps), CUDA events.  The
+    parts a family lacks read 0; ``kernel`` holds kernel 3's
+    :func:`pass_times` over the step's calls."""
+    from repro_torch import bridge
+    from repro_torch.core import rebranch as rebranch_lib
+    from repro_torch.kernels import rebranch_matmul as rm
+    from repro_torch.models import layers, moe, ssm
+    rng = np.random.default_rng(211)
+    rs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=20), 8)
+          for _ in range(n_rows)]
+    srv.step()                            # admit all, one decode step
+    cache = srv.pool.cache
+    tok = torch.as_tensor(srv.batcher._tok, device=srv.batcher.device)
+    snapshot = bridge.tree_map(cache, lambda t: t.clone())
+    recs = {"linear": Recorder(rebranch_lib, "apply_linear"),
+            "taps": Recorder(ssm, "_conv_taps"),
+            "recurrence": Recorder(ssm, "_recurrence"),
+            "write": Recorder(layers, "_write_decode"),
+            "attend": Recorder(layers, "_decode_attention"),
+            "moe": Recorder(moe, "apply_moe_block")}
+    for r in recs.values():
+        r.__enter__()
+    try:
+        with torch.no_grad():
+            model.decode_step(params, tok, cache)
+    finally:
+        for r in recs.values():
+            r.__exit__()
+    per_pass = sum(family_kernel_sites(model.cfg).values())
+    check(len(recs["linear"].calls) == per_pass,
+          f"recorded {len(recs['linear'].calls)} linears, not {per_pass}")
+
+    def restore():
+        bridge.tree_map2(cache, snapshot, lambda d, s: d.copy_(s))
+
+    def replay(*names):
+        def run():
+            for name in names:
+                fn = recs[name].real
+                for a, kw, _ in recs[name].calls:
+                    fn(*a, **kw)
+        return run
+
+    calls = [(a[0], a[1].reshape(-1, a[1].shape[-1]).contiguous())
+             for a, _, _ in recs["linear"].calls]
+    kernel = pass_times(rm.rebranch_trunk_sketch, rm.rebranch_matmul_plain,
+                        [(x, p["rom"]["w_q"], p["rom"]["C"])
+                         for p, x in calls], sketch=True)
+    print_pass(model.cfg.name, "kernel 3", kernel, smi)
+    with torch.no_grad():
+        parts = [rm.rebranch_trunk_sketch(x, p["rom"]["w_q"], p["rom"]["C"])
+                 for p, x in calls]
+
+        def epilogues():
+            for (p, x), (trunk, t1) in zip(calls, parts):
+                rm.epilogue(x.dtype, trunk, t1, p["rom"]["w_scale"],
+                            p["sram"]["core"], p["rom"]["U"])
+
+        def step():
+            restore()
+            model.decode_step(params, tok, cache)
+
+        copy_ms = time_ms(restore, 5)
+        out = {"step_ms": time_ms(step, 5) - copy_ms,
+               "kernel_ms": kernel["ms"],
+               "epilogue_ms": time_ms(epilogues, 5),
+               "ssm_ms": time_ms(replay("taps", "recurrence"), 5),
+               "attention_ms": time_ms(replay("write", "attend"), 5),
+               "moe_ms": time_ms(replay("moe"), 5)}
+        restore()
+    out["rest_ms"] = out["step_ms"] - sum(
+        v for k, v in out.items() if k != "step_ms")
+    out["kernel"] = kernel
+    print(f"{model.cfg.name} decode step at {n_rows} rows (CUDA events): "
+          f"whole {out['step_ms']:.3f} ms = kernel 3 {out['kernel_ms']:.3f} "
+          f"ms ({per_pass} launches) + epilogue {out['epilogue_ms']:.3f} ms "
+          f"+ SSM recurrence {out['ssm_ms']:.3f} ms (conv taps, state "
+          f"update, readout) + attention {out['attention_ms']:.3f} ms "
+          f"(cache writes, softmax) + MoE blocks {out['moe_ms']:.3f} ms "
+          f"(routing, dispatch, plain stacked experts, combine) + rest "
+          f"(norms, fusion, embedding, readout, host gaps) "
+          f"{out['rest_ms']:.3f} ms")
+    srv.drain()
+    check(all(len(r.tokens) == 8 for r in rs), "split-step requests")
+    return out
+
+
+def cpu_tree(tree):
+    from repro_torch import bridge
+    return bridge.tree_map(tree, lambda t: t.detach().cpu())
+
+
+def within_ulp(name: str, ref, got) -> float:
+    """Check ``got`` within one bf16 ulp of ``ref``'s absmax; returns the
+    difference in those ulps."""
+    amax = ref.abs().max().item()
+    diff = (ref.float() - got.cpu().float()).abs().max().item()
+    print(f"{name}: max abs diff {diff:.3e} = {diff / bf16_ulp(amax):.2f} "
+          f"bf16 ulp at the absmax {amax:.3e}")
+    check(diff <= bf16_ulp(amax),
+          f"{name} off by more than one bf16 ulp at its absmax")
+    return diff / bf16_ulp(amax)
+
+
+def hymba_cpu_replay(model, params, srv):
+    """Layer 0 of one decode step recorded on the card and run again on
+    the CPU plain versions: its 11 linears (trunk ``torch.equal``, output
+    within one bf16 ulp at its absmax), its SSM decode step and its
+    attention (live rows, one bf16 ulp)."""
+    from repro_torch import bridge
+    from repro_torch.core import rebranch as rebranch_lib
+    from repro_torch.kernels import rebranch_matmul as rm
+    from repro_torch.models import layers, ssm
+    rng = np.random.default_rng(212)
+    rs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=n), 4)
+          for n in (5, 17, 33)]
+    srv.step()
+    live = sorted(srv.batcher._active)
+    with Recorder(rebranch_lib, "apply_linear", keep=11) as lin, \
+            Recorder(ssm, "apply_ssm_block", keep=1) as blk, \
+            Recorder(layers, "apply_attention", keep=1) as att:
+        # the block and attention records need their caches as they were
+        cache0 = bridge.tree_map(srv.pool.cache["layers"][0],
+                                 lambda t: t.clone())
+        srv.step()
+    srv.drain()
+    check(len(lin.calls) == 11 and len(blk.calls) == len(att.calls) == 1
+          and len(live) == len(rs), "layer-0 recording")
+    names = ("q", "k", "v", "o", "in_proj", "x_proj", "dt_proj", "out_proj",
+             "gate", "up", "down")
+    for name, (a, kw, y) in zip(names, lin.calls):
+        p, x, spec = a
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        with torch.no_grad():
+            trunk, _ = rm.rebranch_trunk_sketch(x2, p["rom"]["w_q"],
+                                                p["rom"]["C"])
+            ref_trunk, _ = rm.rebranch_matmul_plain(
+                x2.cpu(), p["rom"]["w_q"].cpu(), p["rom"]["C"].cpu())
+            ref = rebranch_lib.apply_linear(cpu_tree(p), x.cpu(), spec)
+        check(torch.equal(trunk.cpu(), ref_trunk),
+              f"hymba layer 0 {name}: card trunk != CPU trunk")
+        within_ulp(f"hymba layer 0 {name}", ref, y)
+    (p, x, cfg), kw, (y, _) = blk.calls[0]
+    with torch.no_grad():
+        ref, _ = ssm.apply_ssm_block(cpu_tree(p), x.cpu(), cfg,
+                                     cache=cpu_tree(cache0["ssm"]),
+                                     decode=True, prefix=kw["prefix"])
+    within_ulp(f"hymba layer 0 SSM decode step, live rows {live}",
+               ref[live], y[live])
+    (p, x, cfg, idx), kw, (y, _) = att.calls[0]
+    with torch.no_grad():
+        ref, _ = layers.apply_attention(cpu_tree(p), x.cpu(), cfg, idx,
+                                        cache=cpu_tree(cache0["attn"]),
+                                        decode=True)
+    within_ulp(f"hymba layer 0 attention, live rows {live}", ref[live],
+               y[live])
+    check(all(len(r.tokens) == 4 for r in rs), "replay requests")
+
+
+def phase_hymba(smi: str) -> dict:
+    """Phase 21, the slice's main path: full-width Hymba-1.5B through
+    ``LMServer`` under ``pallas_fused`` (kernel 3 behind its 353 ROM
+    linears), then under ``pallas`` (kernel 4).  Returns the launch
+    counts and the step split."""
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.serve import server
+    from repro_torch.serve.pool import SlotPool
+    t_phase = time.perf_counter()
+    print(f"phase 21 on {smi}")
+    model = family_cell("hymba-1.5b", "hymba_1_5b")
+    cfg = model.cfg
+    per_pass = sum(family_kernel_sites(cfg).values())
+    check(per_pass == 11 * cfg.num_layers + 1,
+          f"hymba ROM linears per pass {per_pass}")
+    params = family_params(model)
+    srv = server.load("hymba-1.5b", params=params, n_slots=HYMBA_SLOTS,
+                      max_len=FAMILY_MAX_LEN)
+    check(isinstance(srv.pool, SlotPool) and srv.batcher.prefill_chunk == 0,
+          "hymba: not a dense pool with whole-prompt prefill")
+    rng = np.random.default_rng(21)
+    vocab = cfg.vocab_size
+    warm = srv.submit(rng.integers(0, vocab, size=9), 3)    # not counted
+    srv.drain()
+    check(len(warm.tokens) == 3, "warm-up request")
+    prompts = [rng.integers(0, vocab, size=n) for n in HYMBA_PROMPTS]
+    reqs, first, steps, counts, wall = served_run(srv, model, prompts,
+                                                  HYMBA_NEW)
+    launches = counts["rebranch_matmul"]
+    check(launches == per_pass * (len(prompts) + steps),
+          f"expected {per_pass} kernel-3 launches per prefill and per "
+          f"decode step, got {launches} for {len(prompts)} prefills + "
+          f"{steps} steps")
+    check(counts["cim_matmul"] == counts["trunk_conv"] == 0,
+          f"hymba under pallas_fused launched another kernel: {counts}")
+    check_solo(model, params, reqs, prompts, first, HYMBA_NEW, (0, 1))
+    rate = sustained_window(srv, vocab, HYMBA_SUSTAINED_REQS,
+                            HYMBA_SUSTAINED_NEW, 210)
+    split = decode_split(model, params, srv, HYMBA_SLOTS, smi)
+    hymba_cpu_replay(model, params, srv)
+    del srv
+    torch.cuda.empty_cache()
+
+    # the same parameters under the 'pallas' engine: kernel 4
+    pmodel = family_cell("hymba-1.5b-pallas", "hymba_1_5b", engine="pallas")
+    psrv = server.load("hymba-1.5b-pallas", params=params,
+                       n_slots=HYMBA_SLOTS, max_len=FAMILY_MAX_LEN)
+    prompts = [rng.integers(0, vocab, size=n) for n in HYMBA_PALLAS_PROMPTS]
+    reqs, _, psteps, pcounts, pwall = served_run(psrv, pmodel, prompts,
+                                                 HYMBA_PALLAS_NEW)
+    plaunches = pcounts["cim_matmul"]
+    check(plaunches == per_pass * (len(prompts) + psteps),
+          f"hymba-1.5b-pallas: expected {per_pass} kernel-4 launches per "
+          f"prefill and per decode step, got {plaunches}")
+    check(pcounts["rebranch_matmul"] == pcounts["trunk_conv"] == 0,
+          f"hymba under pallas launched another kernel: {pcounts}")
+    print(f"hymba-1.5b-pallas: {per_pass} kernel-4 launches per decode step "
+          f"({plaunches} over {len(prompts)} prefills + {psteps} steps); "
+          f"wall per tick {pwall / psteps * 1e3:.2f} ms (host clock, "
+          f"prefills included)")
+    rs = [psrv.submit(rng.integers(0, vocab, size=20), 4)
+          for _ in range(HYMBA_SLOTS)]
+    psrv.step()                           # admit all, one decode step
+    with Recorder(cm, "cim_matmul") as rec:
+        psrv.step()
+    psrv.drain()
+    check(len(rec.calls) == per_pass and all(r.done for r in rs),
+          f"recorded {len(rec.calls)} kernel-4 calls, not {per_pass}")
+    pkernel = pass_times(cm.cim_matmul, cm.cim_matmul_plain,
+                         [a for a, _, _ in rec.calls], sketch=False)
+    print_pass("hymba-1.5b-pallas", "kernel 4", pkernel, smi)
+    del psrv, params, rec
+    torch.cuda.empty_cache()
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "pallas_launches": plaunches,
+            "tokens_per_s": rate, "split": split, "pallas_kernel": pkernel}
+
+
+def granite_replay(model, params, srv):
+    """Layer 0's MoE block at one decode step, recorded on the card and run
+    again on the CPU with the same input: the (token, expert, slot)
+    assignments equal but where a token's k-th and (k+1)-th router
+    probabilities lie within NEAR_TIE, and the output within one bf16 ulp
+    of its absmax."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(221)
+    rs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=n), 8)
+          for n in (5, 17, 33, 9)]
+    while srv.batcher.active < len(rs):
+        srv.step()
+    with Recorder(moe, "apply_moe_block", keep=1) as blk:
+        srv.step()
+    srv.drain()
+    (p, x, cfg), _, y = blk.calls[0]
+    cp, cx = cpu_tree(p), x.cpu()
+    xg = x.reshape(1, -1, x.shape[-1])
+    with torch.no_grad():
+        got = moe.route(p, xg, cfg)
+        want = moe.route(cp, cx.reshape(1, -1, x.shape[-1]), cfg)
+        probs = torch.softmax(cx.reshape(-1, x.shape[-1]).float()
+                              @ cp["router"]["sram"]["w"], dim=-1)
+        ranked = probs.sort(dim=-1, descending=True).values
+        k = cfg.num_experts_per_tok
+        near = (ranked[:, k - 1] - ranked[:, k]).abs() < NEAR_TIE
+        ref = moe.apply_moe_block(cp, cx, cfg)
+    same = [torch.equal(a.cpu()[0, ~near], b[0, ~near])
+            for a, b in zip(got[:1] + got[2:], want[:1] + want[2:])]
+    print(f"granite layer 0 routing replay: {int(near.sum())} near-ties "
+          f"(k-th and (k+1)-th probabilities within {NEAR_TIE}) of "
+          f"{near.numel()} tokens; assignments equal elsewhere: {all(same)}")
+    check(all(same), "granite layer 0: card routing != CPU routing")
+    within_ulp("granite layer 0 MoE block output", ref, y)
+    check(all(len(r.tokens) == 8 for r in rs), "replay requests")
+
+
+def phase_granite(smi: str) -> dict:
+    """Phase 22: full-width Granite-MoE-3B through ``LMServer`` (paged
+    pool, 32-token prefill chunks): kernel 3 behind the 128 attention
+    linears, the stacked experts in plain PyTorch."""
+    from repro_torch.models import moe
+    from repro_torch.serve import server
+    from repro_torch.serve.pool import PagedPool
+    t_phase = time.perf_counter()
+    print(f"phase 22 on {smi}")
+    model = family_cell("granite-moe-3b", "granite_moe_3b")
+    cfg = model.cfg
+    per_pass = sum(family_kernel_sites(cfg).values())
+    check(per_pass == 4 * cfg.num_layers, f"granite per pass {per_pass}")
+    params = family_params(model)
+    srv = server.load("granite-moe-3b", params=params, n_slots=GRANITE_SLOTS,
+                      max_len=FAMILY_MAX_LEN)
+    check(isinstance(srv.pool, PagedPool) and srv.batcher.prefill_chunk
+          == CHUNK, "granite: not a paged pool with 32-token chunks")
+    rng = np.random.default_rng(22)
+    vocab = cfg.vocab_size
+    srv.submit(rng.integers(0, vocab, size=9), 3)            # warm-up
+    srv.drain()
+    prompts = [rng.integers(0, vocab, size=n) for n in GRANITE_PROMPTS]
+    in_decode = []
+    decode = model.decode_step
+
+    def flagged(*args):
+        in_decode.append(True)
+        try:
+            return decode(*args)
+        finally:
+            in_decode.pop()
+
+    reqs, _, steps, counts, wall = served_run(srv, model, prompts,
+                                              GRANITE_NEW)
+    launches = counts["rebranch_matmul"]
+    chunks = prefill_calls(prompts, CHUNK)
+    check(launches == per_pass * (chunks + steps),
+          f"expected {per_pass} kernel-3 launches per prefill chunk and per "
+          f"decode step, got {launches} for {chunks} chunks + {steps} steps")
+    check(counts["cim_matmul"] == counts["trunk_conv"] == 0,
+          f"granite launched another kernel: {counts}")
+    check(srv.pool.blocks_in_use == 0, "granite: blocks leaked")
+    # dropped (token, expert) choices per decode step, all layers
+    real_route = moe.route
+    per_step = []
+
+    def counting(*args):
+        out = real_route(*args)
+        if in_decode:
+            per_step[-1] += int((~out[3]).sum())
+        return out
+
+    moe.route = counting
+    model.decode_step = flagged
+    try:
+        rs = [srv.submit(rng.integers(0, vocab, size=n), 8)
+              for n in (12, 40, 7, 100)]
+        while not srv.batcher.idle:
+            per_step.append(0)
+            srv.step()
+    finally:
+        moe.route = real_route
+        del model.decode_step
+    check(all(len(r.tokens) == 8 for r in rs), "granite drop-count run")
+    print(f"granite: dropped (token, expert) choices per tick over "
+          f"{cfg.num_layers} layers: {per_step}")
+    granite_replay(model, params, srv)
+    split = decode_split(model, params, srv, GRANITE_SLOTS, smi)
+    rate = sustained_window(srv, vocab, HYMBA_SUSTAINED_REQS,
+                            HYMBA_SUSTAINED_NEW, 220)
+    del srv, params
+    torch.cuda.empty_cache()
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "tokens_per_s": rate, "split": split}
+
+
+def phase_falcon(smi: str) -> dict:
+    """Phase 23: full-width Falcon-Mamba-7B through ``LMServer`` (4 dense
+    slots): kernel 3 behind its 257 ROM linears; one request equals its
+    solo run bit for bit; peak memory and the decode step."""
+    from repro_torch.serve import server
+    t_phase = time.perf_counter()
+    print(f"phase 23 on {smi}")
+    torch.cuda.reset_peak_memory_stats()
+    model = family_cell("falcon-mamba-7b", "falcon_mamba_7b")
+    cfg = model.cfg
+    per_pass = sum(family_kernel_sites(cfg).values())
+    check(per_pass == 4 * cfg.num_layers + 1, f"falcon per pass {per_pass}")
+    params = family_params(model)
+    srv = server.load("falcon-mamba-7b", params=params, n_slots=FALCON_SLOTS,
+                      max_len=FAMILY_MAX_LEN)
+    rng = np.random.default_rng(23)
+    vocab = cfg.vocab_size
+    prompts = [rng.integers(0, vocab, size=n) for n in FALCON_PROMPTS]
+    reqs, first, steps, counts, wall = served_run(srv, model, prompts,
+                                                  FALCON_NEW)
+    launches = counts["rebranch_matmul"]
+    check(launches == per_pass * (len(prompts) + steps),
+          f"expected {per_pass} kernel-3 launches per prefill and per "
+          f"decode step, got {launches}")
+    check(counts["cim_matmul"] == counts["trunk_conv"] == 0,
+          f"falcon launched another kernel: {counts}")
+    check_solo(model, params, reqs, prompts, first, FALCON_NEW, (1,))
+    split = decode_split(model, params, srv, FALCON_SLOTS, smi)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"falcon-mamba-7b: peak memory {peak:.2f} GiB")
+    del srv, params
+    torch.cuda.empty_cache()
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "split": split, "peak_gib": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3362,6 +4109,21 @@ def main() -> int:
 
     serve_launches = {"chunk_launches": phase_chunked_prefill(smi),
                       "spec_launches": phase_spec_decode(smi)}
+    torch.cuda.empty_cache()
+
+    phase_family_kernels(dev)
+    hymba = phase_hymba(smi)
+    granite, falcon = phase_granite(smi), phase_falcon(smi)
+    family_launches = {
+        "rebranch_matmul": {"hymba-1.5b": hymba["launches"],
+                            "granite-moe-3b": granite["launches"],
+                            "falcon-mamba-7b": falcon["launches"]},
+        "cim_matmul": {"hymba-1.5b-pallas": hymba["pallas_launches"]}}
+    family_step = {
+        "rebranch_matmul": {"hymba-1.5b": hymba["split"]["kernel"],
+                            "granite-moe-3b": granite["split"]["kernel"],
+                            "falcon-mamba-7b": falcon["split"]["kernel"]},
+        "cim_matmul": {"hymba-1.5b-pallas": hymba["pallas_kernel"]}}
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -3388,10 +4150,11 @@ def main() -> int:
             # chunks; 14: the mid-stream swap's prefills and decode steps)
             out["swap_launches"] = swap_launches[name]
         if name in train_launches:
-            # phases 15-17: launches over the training loops (16: Gemma-2B,
-            # 30 steps; 17: ResNet-18, 50 steps), and per pass at the
-            # train geometry (kernel 4: M = 512, 126 launches; kernel 1:
-            # ResNet-18 at 32x32, batch 128, 20 launches), timed as ms is
+            # phases 15-17: launches over the training loops (16: Gemma-2B
+            # cut to 6 layers, 30 steps; 17: ResNet-18, 50 steps), and per
+            # pass at the train geometry (kernel 4: M = 512, 126 launches;
+            # kernel 1: ResNet-18 at 32x32, batch 128, 20 launches), timed
+            # as ms is
             out["train_launches"] = train_launches[name]
             for key, v in train[name].items():
                 if key.endswith("ms"):
@@ -3405,6 +4168,13 @@ def main() -> int:
             for key in ("verify_ms", "verify_device_ms", "verify_plain_ms",
                         "verify_bound_ms"):
                 out[key] = t[key]
+        if name in family_launches:
+            # phases 21-23: launches over each new family's served run
+            # (checked: one per ROM linear per prefill and decode step),
+            # and per served model one decode step's calls of the kernel
+            # run again in the served order
+            out["family_launches"] = family_launches[name]
+            out["family_step"] = family_step[name]
         if name.startswith("rebranch_matmul"):
             out["library_ms_note"] = (
                 "null: no PyTorch call quantises per (row, k-block)")

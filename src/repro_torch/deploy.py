@@ -8,9 +8,10 @@
     params = model.init(seed=0)             # on the CUDA card
     y = model.forward(params, images)       # NHWC images on the same device
 
-LM configs (``models.config.ArchConfig``, the transformer family) get the
-serve surface too: ``prefill``, ``decode_step``, ``init_cache`` and
-``init_paged_cache``, with the reference's cache-geometry errors.
+LM configs (``models.config.ArchConfig``: the dense, moe, ssm and hybrid
+families) get the serve surface too: ``prefill``, ``decode_step``,
+``init_cache`` and ``init_paged_cache``, with the reference's
+cache-geometry errors (an attention-free cache has no horizon to check).
 
 LM configs also get the speculative-decode surface: ``draft_cfg`` (the
 branch-only draft, ``api.draft_config``), ``draft_prefill``,

@@ -9,8 +9,8 @@
   verify_step(params, tokens, cfg, cache) -> (logits, cache)
   draft_config(cfg)                       -> branch-only draft cfg
 
-The transformer family (dense; vlm and audio raise inside it) is ported;
-moe, ssm and hybrid wait for ROADMAP Queue 1 item 3.
+Every family is ported: dense and moe (the transformer module; its vlm
+and audio branches raise inside it), ssm and hybrid.
 """
 
 from __future__ import annotations
@@ -20,19 +20,19 @@ import dataclasses
 import torch
 
 from repro_torch import bridge
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.config import ArchConfig
 
-_FAMILY = {"dense": transformer, "vlm": transformer, "audio": transformer}
+_FAMILY = {
+    "dense": transformer, "vlm": transformer, "audio": transformer,
+    "moe": transformer,            # the moe block dispatches inside it
+    "ssm": ssm,
+    "hybrid": hybrid,
+}
 
 
 def _mod(cfg: ArchConfig):
-    try:
-        return _FAMILY[cfg.family]
-    except KeyError:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 3)") from None
+    return _FAMILY[cfg.family]
 
 
 def init(gen: torch.Generator, cfg: ArchConfig):
@@ -67,8 +67,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 
 def supports_paging(cfg: ArchConfig) -> bool:
     """Whether the family can serve decode through a paged KV cache: every
-    sequence-mixing layer must keep one uniform full-attention horizon."""
-    return cfg.family in _FAMILY and cfg.sliding_window == 0
+    sequence-mixing layer must keep one uniform full-attention horizon
+    (ssm state is O(1), nothing to page; hybrid mixes ssm state with SWA
+    rings, which cannot share one block table)."""
+    return _mod(cfg) is transformer and cfg.sliding_window == 0
 
 
 def init_paged_cache(cfg: ArchConfig, rows: int, n_blocks: int,
@@ -92,7 +94,7 @@ def supports_speculation(cfg: ArchConfig) -> bool:
     rejected tail by truncating the row's length: every sequence-mixing
     layer must keep a full-horizon attention cache (an SWA ring can wrap
     within a k-block, and recurrent state cannot rewind)."""
-    return cfg.family in _FAMILY and cfg.sliding_window == 0
+    return _mod(cfg) is transformer and cfg.sliding_window == 0
 
 
 def verify_step(params, tokens, cfg: ArchConfig, cache):
@@ -132,17 +134,20 @@ def draft_config(cfg: ArchConfig) -> ArchConfig:
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
     """Whether prefill may be split into chunks across an existing cache:
     the attention layers attend over the cached prefix at the chunk's
-    offset.  True for the attention-with-KV-cache family (recurrent
-    state would be rebuilt from position 0 on each call)."""
-    return cfg.family in _FAMILY
+    offset.  True for the attention-with-KV-cache family (ssm/hybrid
+    prompts prefill whole)."""
+    return _mod(cfg) is transformer
 
 
 def cache_geometry(cfg: ArchConfig, cache) -> tuple[int, int | None]:
     """(batch, horizon) a serve cache was built for, from shapes only.
 
     Leaves carry batch at axis 1 under stacked layers (axis 0 otherwise).
-    Paged caches report their LOGICAL geometry: the block-table row count
-    and ``table_width * block_size``.
+    The horizon is the largest K/V sequence axis (full-attention layers
+    hold ``max_len``, SWA layers their window), ``None`` for the
+    attention-free (O(1) state) ssm family.  Paged caches report their
+    LOGICAL geometry: the block-table row count and ``table_width *
+    block_size``.
     """
     axis = 1 if cfg.scan_layers else 0
     first = _first_layer(cache)

@@ -1,8 +1,11 @@
-"""Decoder-only LM, the dense family (port of ``repro.models.transformer``).
+"""Decoder-only LM, the dense and moe families (port of
+``repro.models.transformer``).
 
 Covers yi-34b, qwen1.5-32b (QKV bias), gemma-2b (GeGLU, head_dim 256,
-MQA) and deepseek-67b.  The vlm (M-RoPE, frontend embeddings) and audio
-(multi-codebook) branches raise ``NotImplementedError`` naming ROADMAP.
+MQA), deepseek-67b, and the MoE models granite-moe-3b and qwen2-moe-a2.7b
+(the MoE block, ``models.moe``, in place of the MLP).  The vlm (M-RoPE,
+frontend embeddings) and audio (multi-codebook) branches raise
+``NotImplementedError`` naming ROADMAP.
 
 API:
   init(gen, cfg)                                   -> params
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.core import rebranch
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ArchConfig, spec_for
 
 
@@ -38,10 +41,9 @@ def _check_family(cfg: ArchConfig):
         raise layers._not_ported("multi-codebook audio (musicgen)")
     if cfg.mrope:
         raise layers._not_ported("M-RoPE (qwen2-vl)")
-    if cfg.family not in ("dense", "vlm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 3)")
+    if cfg.family not in ("dense", "vlm", "audio", "moe"):
+        raise ValueError(f"models.transformer serves the dense and moe "
+                         f"families, not {cfg.family!r}")
 
 
 def site_cfg(cfg: ArchConfig, site: str) -> ArchConfig:
@@ -54,12 +56,16 @@ def site_cfg(cfg: ArchConfig, site: str) -> ArchConfig:
 
 
 def _block_init(gen, cfg: ArchConfig):
-    return {
+    block = {
         "ln1": layers.init_rmsnorm(cfg.d_model, gen.device),
         "attn": layers.init_attention(gen, site_cfg(cfg, "blocks.attn")),
         "ln2": layers.init_rmsnorm(cfg.d_model, gen.device),
-        "mlp": layers.init_mlp(gen, site_cfg(cfg, "blocks.mlp")),
     }
+    if cfg.family == "moe":
+        block["moe"] = moe.init_moe_block(gen, site_cfg(cfg, "blocks.moe"))
+    else:
+        block["mlp"] = layers.init_mlp(gen, site_cfg(cfg, "blocks.mlp"))
+    return block
 
 
 def _block_apply(params, x, cfg: ArchConfig, layer_idx: int,
@@ -70,7 +76,11 @@ def _block_apply(params, x, cfg: ArchConfig, layer_idx: int,
         positions=positions, cache=cache, decode=decode)
     x = x + h
     h2 = layers.apply_rmsnorm(params["ln2"], x, cfg.norm_eps)
-    h2 = layers.apply_mlp(params["mlp"], h2, site_cfg(cfg, "blocks.mlp"))
+    if cfg.family == "moe":
+        h2 = moe.apply_moe_block(params["moe"], h2,
+                                 site_cfg(cfg, "blocks.moe"))
+    else:
+        h2 = layers.apply_mlp(params["mlp"], h2, site_cfg(cfg, "blocks.mlp"))
     return x + h2, new_cache
 
 
@@ -88,22 +98,27 @@ def unstack(tree, n: int) -> list:
             for i in range(n)]
 
 
-def init(gen: torch.Generator, cfg: ArchConfig):
-    """Parameters drawn from ``gen`` on its device: the embedding, then the
-    layers in order, then the readout.  Layers are drawn one at a time
-    into preallocated stacked tensors, so the peak is one layer above the
-    stacked tree."""
-    _check_family(cfg)
-    params = {"embed": layers.init_embedding(gen, cfg.vocab_size,
-                                             cfg.d_model)}
-    first = _block_init(gen, cfg)
+def init_stacked(gen: torch.Generator, cfg: ArchConfig, block_init):
+    """``cfg.num_layers`` blocks of ``block_init(gen, cfg)`` drawn in order
+    into preallocated stacked [L, ...] tensors, one at a time, so the peak
+    is one layer above the stacked tree."""
+    first = block_init(gen, cfg)
     stacked = bridge.tree_map(
         first, lambda t: t.new_empty((cfg.num_layers, *t.shape)))
     for i in range(cfg.num_layers):
-        block = first if i == 0 else _block_init(gen, cfg)
+        block = first if i == 0 else block_init(gen, cfg)
         bridge.tree_map2(layer(stacked, i), block, lambda d, s: d.copy_(s))
         del block
-    params["layers"] = stacked
+    return stacked
+
+
+def init(gen: torch.Generator, cfg: ArchConfig):
+    """Parameters drawn from ``gen`` on its device: the embedding, then the
+    layers in order (:func:`init_stacked`), then the readout."""
+    _check_family(cfg)
+    params = {"embed": layers.init_embedding(gen, cfg.vocab_size,
+                                             cfg.d_model)}
+    params["layers"] = init_stacked(gen, cfg, _block_init)
     params["ln_f"] = layers.init_rmsnorm(cfg.d_model, gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = rebranch.init_linear(

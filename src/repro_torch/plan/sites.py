@@ -8,8 +8,10 @@ Site names are dotted paths resolved by ``models.config.spec_for``
 ``models.cnn.conv_site_shapes`` ('stem', 'convs.N', 'stages.S.B.convK',
 'head.N'); for the transformer family (dense/vlm/audio) they are
 ``blocks.attn``, ``blocks.mlp`` and the untied readout (``lm_head`` or
-``codebook_head``).  The moe, ssm and hybrid trees wait for their models
-(ROADMAP Queue 1 item 3).
+``codebook_head``); moe: ``blocks.attn``, ``blocks.moe``, the readout;
+ssm (mamba): ``blocks.{in,x,dt,out}_proj``, ``lm_head``; hybrid (hymba):
+``blocks.attn``, ``blocks.ssm.{in,x,dt,out}_proj``, ``blocks.mlp``,
+``lm_head``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,13 @@ class Site:
     work (token for LMs, inference for CNNs) per occurrence, ``count``
     identical occurrences (stacked layers), the representative weight
     shape ((d_in, d_out) or (k, k, c_in, c_out)), and for composite
-    matmul sites their ``members`` ((label, (d_in, d_out)), ...)."""
+    matmul sites their ``members`` ((label, (d_in, d_out)), ...).
+
+    ``branch_members`` ((d_in, d_out, core_rep, core_active), ...) is the
+    ReBranch accounting per occurrence: ``core_rep`` replicas of the core
+    share ONE fixed C/U pair (stacked MoE experts: rep = E), of which
+    ``core_active`` run per token (top-k); ``None`` derives it from
+    ``members`` with rep = active = 1."""
     name: str
     kind: str                       # 'matmul' | 'conv'
     weights: int
@@ -31,6 +39,7 @@ class Site:
     count: int = 1
     shape: tuple = ()
     members: tuple = ()
+    branch_members: tuple | None = None
 
     @property
     def total_weights(self) -> int:
@@ -43,7 +52,8 @@ class Site:
     def branch_costs(self, spec) -> tuple:
         """(rom_proj_weights, core_weights, branch_macs) per occurrence:
         C/U projections are fixed (ROM), the core is the SRAM tensor
-        (``core.rebranch.init_linear`` / ``models.cnn.init_conv``)."""
+        (``core.rebranch.init_linear`` / ``models.cnn.init_conv`` /
+        ``models.moe.init_expert_linear``)."""
         if self.kind == "conv":
             k, _, c_in, c_out = self.shape
             c_c = max(1, c_in // spec.d_ratio)
@@ -52,13 +62,18 @@ class Site:
             proj = c_in * c_c + c_u * c_out
             core = k * k * c_c * c_u
             return proj, core, int((proj + k * k * c_c * c_u) * reuse)
+        bm = self.branch_members
+        if bm is None:
+            bm = tuple((a, b, 1, 1)
+                       for _, (a, b) in (self.members or
+                                         (("w", self.shape),)))
         proj = core = bmacs = 0
-        for _, (d_in, d_out) in (self.members or (("w", self.shape),)):
+        for d_in, d_out, rep, active in bm:
             d_c = max(1, d_in // spec.d_ratio)
             d_u = max(1, d_out // spec.u_ratio)
             proj += d_in * d_c + d_u * d_out
-            core += d_c * d_u
-            bmacs += d_in * d_c + d_c * d_u + d_u * d_out
+            core += d_c * d_u * rep
+            bmacs += (d_in * d_c + d_c * d_u + d_u * d_out) * active
         return proj, core, bmacs
 
 
@@ -95,17 +110,61 @@ def _head_sites(cfg):
     return [_matmul_site("lm_head", [("w", (cfg.d_model, cfg.vocab_size))])]
 
 
+def _moe_site(cfg) -> Site:
+    """Stacked ReBranch experts: weights cover all E experts, MACs per
+    token the top-k active ones (plus the always-on shared experts); the
+    experts share one C/U pair per stack with a per-expert core
+    (``models.moe.init_expert_linear``): (d_in, d_out, rep=E, active=k)."""
+    d, ff, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
+    k = cfg.num_experts_per_tok
+    members = [("gate", (d, ff)), ("up", (d, ff)), ("down", (ff, d))]
+    w_expert = sum(a * b for _, (a, b) in members)
+    weights, macs = e * w_expert, k * w_expert
+    all_members = [(f"experts.{lbl}", (e * a, b)) for lbl, (a, b) in members]
+    branch = [(a, b, e, k) for _, (a, b) in members]
+    if cfg.num_shared_experts:
+        shared = _mlp_members(cfg, d_ff=cfg.num_shared_experts * ff)
+        w_shared = sum(a * b for _, (a, b) in shared)
+        weights += w_shared
+        macs += w_shared
+        all_members += [(f"shared.{lbl}", shape) for lbl, shape in shared]
+        branch += [(a, b, 1, 1) for _, (a, b) in shared]
+    return Site(name="blocks.moe", kind="matmul", weights=weights,
+                macs=macs, count=cfg.num_layers,
+                members=tuple((lbl, tuple(s)) for lbl, s in all_members),
+                branch_members=tuple(branch))
+
+
+def _ssm_proj_sites(cfg, prefix: str) -> list:
+    d, di, n, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    return [_matmul_site(f"{prefix}.{name}", [("w", shape)],
+                         count=cfg.num_layers)
+            for name, shape in (("in_proj", (d, 2 * di)),
+                                ("x_proj", (di, dtr + 2 * n)),
+                                ("dt_proj", (dtr, di)),
+                                ("out_proj", (di, d)))]
+
+
 def _arch_sites(cfg) -> list:
-    if cfg.family in ("dense", "vlm", "audio"):
-        return [_matmul_site("blocks.attn", _attn_members(cfg),
-                             count=cfg.num_layers),
-                _matmul_site("blocks.mlp", _mlp_members(cfg),
-                             count=cfg.num_layers)] + _head_sites(cfg)
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family} site tree waits for its model (ROADMAP "
-            f"Queue 1 item 3)")
-    raise ValueError(f"no site tree for model family {cfg.family!r}")
+    fam = cfg.family
+    attn = _matmul_site("blocks.attn", _attn_members(cfg),
+                        count=cfg.num_layers)
+    if fam in ("dense", "vlm", "audio"):
+        return [attn, _matmul_site("blocks.mlp", _mlp_members(cfg),
+                                   count=cfg.num_layers)] + _head_sites(cfg)
+    if fam == "moe":
+        return [attn, _moe_site(cfg)] + _head_sites(cfg)
+    # ssm/hybrid always build a real lm_head (their families ignore
+    # tie_embeddings/num_codebooks), so the site is unconditional
+    lm_head = _matmul_site("lm_head", [("w", (cfg.d_model,
+                                              cfg.vocab_size))])
+    if fam == "ssm":
+        return _ssm_proj_sites(cfg, "blocks") + [lm_head]
+    if fam == "hybrid":
+        return ([attn] + _ssm_proj_sites(cfg, "blocks.ssm")
+                + [_matmul_site("blocks.mlp", _mlp_members(cfg),
+                                count=cfg.num_layers), lm_head])
+    raise ValueError(f"no site tree for model family {fam!r}")
 
 
 def site_tree(cfg) -> tuple:

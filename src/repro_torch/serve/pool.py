@@ -18,8 +18,12 @@ Speculative decode grants a whole verify block's positions ahead
 (``prepare_tokens``) and truncates the rejected tail afterwards
 (``rollback``): lengths reset on every layer and, paged, the tail blocks
 return to the free list with the row's reservation re-credited.  The
-pools update the cache tensors in place; they index every leaf as [L,
-rows, ...], the stacked layout of the transformer family.
+pools update the cache tensors in place.  A dense pool holds any family's
+cache: every leaf carries the batch row at axis 1 under stacked layers
+([L, rows, ...]: dense, moe, ssm) and at axis 0 in the hybrid's per-layer
+list; an SSM leaf (``conv``, ``h``) has no ``length``.  Only the
+transformer family without sliding windows pages
+(``api.supports_paging``).
 
 Pool sizing comes from the :class:`~repro_torch.plan.PlacementPlan`'s
 SRAM residency: the KV capacity lives in what the branch cores and any
@@ -32,10 +36,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import bridge
+from repro_torch.models import api
+
 
 def _set_lengths(cache, new_lens: dict[int, int]) -> None:
     """Write per-row ``length`` values into every layer of a serve cache
-    (the stacked [L, rows] lengths), in place."""
+    (the stacked [L, rows] lengths: only the transformer family rolls
+    back), in place."""
     lengths = cache["layers"]["length"]
     rows = sorted(new_lens)
     idx = torch.as_tensor(rows, dtype=torch.long, device=lengths.device)
@@ -56,6 +64,7 @@ class SlotPool:
         self.max_len = int(max_len)
         self.dtype = dtype
         self.device = device
+        self._axis = 1 if model.cfg.scan_layers else 0   # rows' axis
         self.cache = model.init_cache(n_slots, max_len, dtype=dtype,
                                       device=device)
         self._free = list(range(n_slots))[::-1]     # pop() -> slot 0 first
@@ -103,9 +112,9 @@ class SlotPool:
 
     def adopt(self, slot: int, solo_cache) -> None:
         """Copy a batch=1 cache into ``slot``'s row, leaf by leaf."""
-        layers, solo = self.cache["layers"], solo_cache["layers"]
-        for key in layers:
-            layers[key][:, slot] = solo[key][:, 0].to(layers[key].dtype)
+        axis = self._axis
+        bridge.tree_map2(self.cache, solo_cache, lambda dst, src: dst.select(
+            axis, slot).copy_(src.select(axis, 0)))
 
     def solo_cache(self):
         """A fresh batch=1 cache with this pool's geometry (for the
@@ -339,19 +348,12 @@ class PagedPool:
         self._dirty = False
 
 
-def _cache_bytes(cfg, batch: int, max_len: int, dtype) -> int:
-    """Bytes of ``init_cache(cfg, batch, max_len)`` from its shapes."""
-    s = max_len if cfg.sliding_window == 0 else min(max_len,
-                                                     cfg.sliding_window)
-    kv = 2 * batch * s * cfg.num_kv_heads * cfg.head_dim
-    item = torch.empty((), dtype=dtype).element_size()
-    return cfg.num_layers * (kv * item + batch * 4)
-
-
 def cache_bytes_per_slot(model, max_len: int, dtype=torch.float32) -> int:
-    """Bytes one slot (batch row) of the KV cache occupies, computed from
-    the cache's shapes (no allocation)."""
-    return _cache_bytes(model.cfg, 1, max_len, dtype)
+    """Bytes one slot (batch row) of the cache occupies, from the shapes of
+    ``init_cache`` built on the meta device (no allocation)."""
+    cache = api.init_cache(model.cfg, 1, max_len, dtype, device="meta")
+    return sum(t.numel() * t.element_size()
+               for t in bridge.flatten(cache).values())
 
 
 def suggest_slots(model, plan, max_len: int, *,

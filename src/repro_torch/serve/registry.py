@@ -1,6 +1,6 @@
 """Model registry: model id -> (config, plan, engine) -> one resident cell
-(port of ``repro.serve.registry``: the CNN entries and the dense LM smoke
-entries).
+(port of ``repro.serve.registry``: the CNN entries and the smoke entries
+of every ported LM family).
 
 Resolution is strict: an unknown id raises with the registered set.
 ``compile_entry`` compiles an id at most once per process and shares the
@@ -183,7 +183,7 @@ def scenario_store(model_id: str, *, capacity: int = 4, device=None):
         return _STORES.setdefault(model_id, store)
 
 
-for _arch in configs.DENSE_ARCHS:
+for _arch in configs.PORTED_ARCHS:
     register(ModelEntry(
         model_id=_arch.replace("_", "-") + "-smoke",
         config=(lambda a=_arch: configs.get_smoke(a))))

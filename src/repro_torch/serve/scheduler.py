@@ -58,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import bridge
 from repro_torch.models import api
 from repro_torch.scenario import swap_params
 from repro_torch.serve.pool import SlotPool
@@ -127,7 +128,7 @@ class ContinuousBatcher:
         self.pool = pool
         self.scenario = scenario            # live branch label
         self.swap_count = 0                 # swaps applied so far
-        self.device = pool.cache["layers"]["k"].device
+        self.device = next(iter(bridge.flatten(pool.cache).values())).device
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if spec_k and not api.supports_speculation(model.cfg):

@@ -415,3 +415,46 @@ def test_pools_past_the_row_bucket_decode_as_solo(n_slots):
                 toks.append(int(logits[0, -1].argmax()))
         assert toks == reqs[i].tokens
         assert torch.equal(solo_first, first[reqs[i].rid])
+
+
+# ---------------------------------------------------------------------------
+# kernels 3 and 4 at the new geometries, on the card
+# ---------------------------------------------------------------------------
+
+# (M, K, N): hymba's dt_proj (K = 100, Cd = 25), its x_proj (N = 132), its
+# lm_head (N = 32001), its MLP down (K = 5504, a ragged last k-block) and
+# falcon-mamba's x_proj (N = 288); the decode rows take the 16-row tiles,
+# and each geometry runs again at a ragged prefill near the longest served
+# prompt (M = 100) and at a whole 128-row one, which take the taller tiles
+NEW_GEOMS = [(1, 100, 3200), (8, 100, 3200), (8, 3200, 132),
+             (1, 1600, 32001), (16, 5504, 1600), (8, 8192, 288)] + [
+    (m, k, n) for k, n in ((100, 3200), (3200, 132), (1600, 32001),
+                           (5504, 1600), (8192, 288))
+    for m in (100, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ("ideal", "per_subarray", "bitserial"))
+@pytest.mark.parametrize("m,k,n", NEW_GEOMS)
+def test_kernels_3_and_4_at_the_new_geometries(m, k, n, mode):
+    dev = _card()
+    cfg = cim.CiMConfig(mode=mode)
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen).to(dev)
+    xq = torch.randint(-127, 128, (m, k), generator=gen,
+                       dtype=torch.int8).to(dev)
+    w = torch.randint(-127, 128, (k, n), generator=gen,
+                      dtype=torch.int8).to(dev)
+    c = (torch.randn((k, k // 4), generator=gen) / k ** .5).to(dev)
+    for xx in (x, x.bfloat16()):
+        trunk, t1 = rm.rebranch_trunk_sketch(xx, w, c, cfg)
+        want_trunk, want_t1 = rm.rebranch_matmul_plain(xx, w, c, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(trunk, want_trunk)
+        assert (t1 - want_t1).abs().max().item() <= \
+            1e-5 * want_t1.abs().max().item()
+        one = rm.rebranch_trunk_sketch(xx[:1].contiguous(), w, c, cfg)
+        assert torch.equal(one[0], trunk[:1])
+    got = cm.cim_matmul(xq, w, cfg)
+    assert torch.equal(got, cm.cim_matmul_plain(xq, w, cfg))
+    assert torch.equal(cm.cim_matmul(xq[:1].contiguous(), w, cfg), got[:1])

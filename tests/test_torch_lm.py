@@ -389,6 +389,7 @@ def test_unported_families_and_branches_raise():
         cfg = dataclasses.replace(tcfg, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdeploy.compile_model(cfg).init(seed=0, device="cpu")
-    moe = dataclasses.replace(tcfg, family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        tplan.site_tree(moe)
+    # the moe family is ported: its site tree enumerates
+    moe = tconfigs.get_smoke("granite_moe_3b")
+    assert [s.name for s in tplan.site_tree(moe)] == ["blocks.attn",
+                                                      "blocks.moe"]
