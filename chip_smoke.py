@@ -229,23 +229,26 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    tallest M and each M is held to their first M rows (a plain row sums
    exact integers over its own row; checked at M = 8).  ``ms``, ``device_ms``, the plain version's time
    and the bound per geometry at M = 8.
-21. Hymba-1.5B at full width, the slice's main path: ``hymba-1.5b``
-   (all-ROM, ``pallas_fused``), seeded parameters drawn on the card with
-   non-zero cores, ``serve.load(..., n_slots=8, max_len=256)`` (the dense
-   ``SlotPool``: SWA rings and SSM state do not page; whole-prompt
-   prefill).  Five requests x 32 tokens: kernel 3 launches 353 times (11
-   ROM linears x 32 layers + the readout) per prefill and per decode
+21. Hymba-1.5B at full width, its depth cut to 16 of 32 layers (the
+   script's time limit; layers 0 and 15 keep global attention, the rest a
+   sliding window): ``hymba-1.5b`` (all-ROM, ``pallas_fused``), seeded
+   parameters drawn on the card with non-zero cores, ``serve.load(...,
+   n_slots=8, max_len=256)`` (the dense ``SlotPool``: SWA rings and SSM
+   state do not page; whole-prompt prefill).  Five requests x 32 tokens:
+   kernel 3 launches 177 times (11 ROM linears x 16 layers + the readout)
+   per prefill and per decode
    step, tokens lie in the vocabulary, two requests equal their solo runs
    (tokens and first decode step logits, bit for bit).  A sustained window
    of three runs x 16 requests x 64 tokens; one decode step split into
    kernel 3, its epilogue, the SSM recurrence, the attention and the rest;
    layer 0's 11 linears, SSM decode step and attention replayed on the
    CPU (trunks ``torch.equal``, outputs within one bf16 ulp of their
-   absmax).  Then ``hymba-1.5b-pallas``: two requests x 8 tokens, 353
+   absmax).  Then ``hymba-1.5b-pallas``: two requests x 8 tokens, 177
    kernel-4 launches per prefill and per decode step.
-22. Granite-MoE-3B at full width: paged pool, 32-token chunks, 8 rows:
-   five requests x 32 tokens, kernel 3 launches 128 times (4 attention
-   linears x 32 layers; the stacked experts are plain PyTorch and the
+22. Granite-MoE-3B at full width, its depth cut to 16 of 32 layers (the
+   script's time limit): paged pool, 32-token chunks, 8 rows: five
+   requests x 32 tokens, kernel 3 launches 64 times (4 attention linears
+   x 16 layers; the stacked experts are plain PyTorch and the
    readout is the tied table) per chunk and per decode step; the dropped
    (token, expert) choices per tick; layer 0's MoE block at one decode
    step replayed on the CPU with the same input (the assignments equal
@@ -259,6 +262,54 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    257 kernel-3 launches per prefill and per decode step, one request
    equal to its solo run bit for bit; the peak memory and the decode step
    split as phase 21's.
+24. The vlm and audio geometries: phase 20's checks at the six new ROM
+   linear (K, N) of the FULL ``qwen2_vl_2b`` (1536 -> 1536, 256, 8960;
+   8960 -> 1536) and ``musicgen_large`` (2048 -> 8192; 8192 -> 2048)
+   configs (Gemma-2B's, phase 5, left out), at M = 1, 8, 16, 32 and 128.
+25. Qwen2-VL-2B at full width, the slice's main path: ``qwen2-vl-2b``
+   (all-ROM, ``pallas_fused``; M-RoPE, q/k/v biases, the tied 151936-row
+   readout a plain bf16 GEMM), seeded parameters with non-zero cores,
+   ``serve.load(..., n_slots=8, max_len=256)`` (paged, 32-token chunks).
+   Five requests x 32 tokens: 196 kernel-3 launches (7 x 28 layers) per
+   chunk and per decode step; three requests equal their whole-prompt solo
+   runs (two of them admitted in chunks), tokens and first decode step
+   logits bit for bit; a sustained window of three runs x 16 requests x
+   64 tokens; one decode step split as phase 21's; layer 0's 7 linears and
+   attention replayed on the CPU (trunks ``torch.equal``, outputs within
+   one bf16 ulp).  ``spec_k=4`` (the branch drafter): four requests equal
+   plain greedy solo decode, 196 launches per chunk and per verify round,
+   none in a draft.  A model-level prefill of frontend embeddings [1, 24,
+   1536] with a 2x3x4 grid's three position streams: 196 launches, other
+   logits than text positions, and at a 2-layer cut card vs CPU within
+   5e-2 of the absmax.  Then ``qwen2-vl-2b-pallas``: two requests, 196
+   kernel-4 launches per chunk and per decode step, and kernel 4's calls of
+   one decode step rerun in the served order.
+26. MusicGen-large at full width (4 codebooks): ``launch/steps.py``'s
+   ``make_prefill_step`` / ``make_serve_step`` under ``pallas_fused`` (the
+   reference's ``LMServer`` cannot serve [B, 1, Q] tokens; the port's
+   refuses the config): 8 rows of 32-token prompts, 64 greedy steps, 289
+   kernel-3 launches (6 x 48 layers + the codebook head) per prefill and
+   per step; rows 0 and 5 equal their solo runs (prefill and first step
+   logits, all tokens) bit for bit; the 289 kernel-3 calls of a batched
+   prefill (M = 256; the head at M = 8) held to the plain version (trunk
+   ``torch.equal``, sketch within 1e-5 of its absmax); layer 0's 6
+   linears, its attention and the codebook head replayed on the CPU; the
+   step time and tokens/s, and kernel 3's calls of one step rerun in the
+   served order.
+27. Training over the new families: Granite-MoE-3B, Hymba-1.5B,
+   Falcon-Mamba-7B, Qwen2-VL-2B and MusicGen-large at full width, depth
+   cut to 2 layers, 10 steps each under ``pallas`` at the CLI's batch 8 x
+   seq 64: the loss finite and falling; kernel 4 once per ROM linear of
+   the blocks a step, plus the readout head once per loss chunk in the
+   forward and again in its recompute (a forward alone shows it: none in
+   the STE backward); every kernel-4 call of step 0 (M = 512 in the
+   blocks) ``torch.equal`` to the plain version; the ROM fingerprint and
+   trunk ``data_ptr``s unchanged.  Granite's stacked expert trunk (plain, not kernel 4) under
+   autograd on the card against the CPU: the forward ``torch.equal``, the
+   STE dx within 1e-5.  Hymba's trained branch saved with
+   ``save_branch``, registered from the checkpoint and hot-swapped
+   mid-stream into an ``LMServer``: the tokens after the swap equal a
+   fresh cell's, those before it the untrained cell's, the trunk unmoved.
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -282,8 +333,10 @@ per pass at the train geometry (phase 15); ``rebranch_matmul`` carries
 launches in phases 21-23, and ``family_step``, per served model the
 kernel's calls of one decode step (8 rows; Falcon-Mamba 4) recorded as
 the server made them and run again in that order (``ms``, ``device_ms``,
-``plain_ms``, ``bound_ms``).  Phases 18-23 run last, after the training
-phases.
+``plain_ms``, ``bound_ms``), with phases 25-26's models among them;
+``cim_matmul`` carries ``family_train_launches``, its launches over
+phase 27's steps per model and per step.  Phases 18-27 run last, after
+the training phases.
 """
 
 from __future__ import annotations
@@ -3380,10 +3433,12 @@ BF16_ROWS = 16                 # phase 20: bf16 x is read as it is up to here
 MOE_CHUNK_ROWS = 32            # phase 20: the MoE configs' prefill chunks
 FAMILY_MAX_LEN = 256
 HYMBA_SLOTS = 8
+HYMBA_LAYERS = 16        # phase 21's depth cut (of 32), for the time limit
 HYMBA_PROMPTS, HYMBA_NEW = (12, 40, 7, 100, 25), 32
 HYMBA_SUSTAINED_REQS, HYMBA_SUSTAINED_NEW = 16, 64
 HYMBA_PALLAS_PROMPTS, HYMBA_PALLAS_NEW = (10, 30), 8
 GRANITE_SLOTS = 8
+GRANITE_LAYERS = 16      # phase 22's depth cut (of 32), for the time limit
 GRANITE_PROMPTS, GRANITE_NEW = (12, 40, 7, 100, 25), 32
 FALCON_SLOTS = 4
 FALCON_PROMPTS, FALCON_NEW = (12, 40, 7, 30), 16
@@ -3403,29 +3458,32 @@ def family_kernel_sites(cfg) -> dict:
     return geoms
 
 
-def phase_family_kernels(dev):
-    """Phase 20: kernels 3 and 4 against their plain versions at every
-    distinct ROM-linear geometry of the four new FULL configs, at every M
-    of FAMILY_ROWS (and 32 for the MoE configs) in all three CiM modes,
-    with f32 x (as served) and, at M <= BF16_ROWS, bf16 x; each M held to
-    the first M rows of one plain call per mode at the tallest M; timed
-    per geometry at M = 8."""
+def phase_family_kernels(dev, phase: int = 20, archs=FAMILY_ARCHS,
+                         family_rows=FAMILY_ROWS, skip=()):
+    """Phase 20 (and 24): kernels 3 and 4 against their plain versions at
+    every distinct ROM-linear geometry of the ``archs``' FULL configs but
+    those in ``skip``, at every M of ``family_rows`` (and 32 for the MoE
+    configs) in all three CiM modes, with f32 x (as served) and, at M <=
+    BF16_ROWS, bf16 x; each M held to the first M rows of one plain call
+    per mode at the tallest M; timed per geometry at M = 8."""
     from repro_torch import configs
     from repro_torch.core import cim as cim_lib
     from repro_torch.kernels import cim_matmul as cm
     from repro_torch.kernels import rebranch_matmul as rm
     t_phase = time.perf_counter()
     owners = {}
-    for arch in FAMILY_ARCHS:
+    for arch in archs:
         for kn in family_kernel_sites(configs.get(arch)):
-            owners.setdefault(kn, []).append(arch)
-    gen = torch.Generator(device=dev).manual_seed(20)
-    print("phase 20: kernel K N Cd M mode equal err ms device_ms plain_ms "
-          "bound_ms bound_by configs")
+            if kn not in skip:
+                owners.setdefault(kn, []).append(arch)
+    gen = torch.Generator(device=dev).manual_seed(phase)
+    print(f"phase {phase}: kernel K N Cd M mode equal err ms device_ms "
+          f"plain_ms bound_ms bound_by configs")
     for (k, n), archs in sorted(owners.items()):
         cdim = k // 4
         moe = any(a in configs.MOE_ARCHS for a in archs)
-        rows = sorted(FAMILY_ROWS + ((MOE_CHUNK_ROWS,) if moe else ()))
+        rows = sorted(set(family_rows)
+                      | ({MOE_CHUNK_ROWS} if moe else set()))
         x = torch.randn((max(rows), k), generator=gen, device=dev)
         xq = torch.randint(-127, 128, (max(rows), k), generator=gen,
                            device=dev, dtype=torch.int8)
@@ -3503,18 +3561,25 @@ def phase_family_kernels(dev):
                           flush=True)
         del ws, cs, plain3, plain4
         torch.cuda.empty_cache()
-    print(f"phase 20: {len(owners)} geometries in "
+    print(f"phase {phase}: {len(owners)} geometries in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
-def family_cell(model_id: str, arch: str, engine: str = "pallas_fused"):
-    """Register ``model_id`` as ``arch``'s FULL config under the all-ROM
-    plan on ``engine``, compile it, and check the plan."""
+def family_cell(model_id: str, arch: str, engine: str = "pallas_fused",
+                layers: int | None = None):
+    """Register ``model_id`` as ``arch``'s FULL config (its depth cut to
+    ``layers`` if given) under the all-ROM plan on ``engine``, compile it,
+    and check the plan."""
     from repro_torch import configs
     from repro_torch import plan as plan_lib
     from repro_torch.serve import registry
+
+    def config():
+        cfg = configs.get(arch)
+        return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+
     registry.register(registry.ModelEntry(
-        model_id=model_id, config=lambda: configs.get(arch),
+        model_id=model_id, config=config,
         plan=lambda cfg: plan_lib.solve(cfg, engine=engine)))
     model, plan = registry.compile_entry(model_id)
     for site in plan_lib.site_tree(model.cfg):
@@ -3617,19 +3682,29 @@ def sustained_window(srv, vocab: int, n_req: int, n_new: int, seed: int):
 
 class Recorder:
     """Replaces ``name`` on ``module`` with a wrapper that records each
-    call's arguments (and result) in ``calls`` while the block runs."""
+    call's arguments (and result) in ``calls`` while the block runs; the
+    keyword argument ``clone_kw`` (a cache the call updates in place) is
+    recorded as it was before the call."""
 
-    def __init__(self, module, name: str, keep=None):
+    def __init__(self, module, name: str, keep=None, clone_kw=None):
         self.module, self.name = module, name
         self.real = getattr(module, name)
         self.keep = keep                     # record at most this many
+        self.clone_kw = clone_kw
         self.calls = []
 
     def __enter__(self):
+        from repro_torch import bridge
+
         def call(*args, **kw):
+            if self.keep is not None and len(self.calls) >= self.keep:
+                return self.real(*args, **kw)
+            saved = dict(kw)
+            if self.clone_kw is not None:
+                saved[self.clone_kw] = bridge.tree_map(
+                    kw[self.clone_kw], lambda t: t.clone())
             out = self.real(*args, **kw)
-            if self.keep is None or len(self.calls) < self.keep:
-                self.calls.append((args, kw, out))
+            self.calls.append((args, saved, out))
             return out
         setattr(self.module, self.name, call)
         return self
@@ -3638,12 +3713,56 @@ class Recorder:
         setattr(self.module, self.name, self.real)
 
 
+class PlainCheck(Recorder):
+    """:class:`Recorder` that keeps no call: each launch's result is held
+    to ``plain`` on the same arguments as the call returns (the plain
+    version launches no kernel): ``torch.equal``, but for kernel 3's
+    sketch (``sketch``: the second output) within SKETCH_RTOL of its
+    absmax, as in phases 5 and 24.  ``shapes`` counts the calls per (M,
+    K, N); ``sketch_err`` is the worst sketch error."""
+
+    def __init__(self, module, name: str, plain, what: str,
+                 sketch: bool = False):
+        super().__init__(module, name)
+        self.plain, self.what, self.sketch = plain, what, sketch
+        self.shapes, self.sketch_err = {}, 0.0
+
+    def __enter__(self):
+        def call(*args, **kw):
+            out = self.real(*args, **kw)
+            with torch.no_grad():
+                want = self.plain(*args, **kw)
+            mkn = (*args[0].shape, args[1].shape[1])
+            where = f"{self.what}: {self.name} at (M, K, N) = {mkn}"
+            if self.sketch:
+                check(torch.equal(out[0], want[0]),
+                      f"{where}: trunk != its plain version")
+                rel = ((out[1] - want[1]).abs().max()
+                       / want[1].abs().max()).item()
+                check(rel <= SKETCH_RTOL, f"{where}: sketch off by {rel} "
+                      f"of its absmax")
+                self.sketch_err = max(self.sketch_err, rel)
+            else:
+                check(torch.equal(out, want), f"{where}: != its plain "
+                      f"version")
+            self.shapes[mkn] = self.shapes.get(mkn, 0) + 1
+            return out
+        setattr(self.module, self.name, call)
+        return self
+
+    def summary(self) -> str:
+        return ", ".join(f"{m}x{k}->{n} ({c})"
+                         for (m, k, n), c in sorted(self.shapes.items()))
+
+
 def pass_times(kernel, plain, calls, sketch: bool) -> dict:
     """One served decode step's calls of a kernel (``calls``: argument
     tuples in the order the server made them) run again in that order:
     ``ms`` eager (host cost included), ``device_ms`` as a replayed CUDA
-    graph, ``plain_ms`` the plain version over the same calls, and the
-    bound summed over them.  A step's weights lie far past the L2 cache,
+    graph, ``plain_ms`` the plain version over the same calls, the bound
+    summed over them and, for kernel 4 (``sketch`` false),
+    ``torch._int_mm`` over the same calls timed both ways (``library_ms``,
+    ``library_device_ms``).  A step's weights lie far past the L2 cache,
     so each is read from HBM as when served."""
     def run(fn):
         return lambda: [fn(*a) for a in calls]
@@ -3651,19 +3770,41 @@ def pass_times(kernel, plain, calls, sketch: bool) -> dict:
     bounds = [lm_bound_ms(a[0].shape[0], *a[1].shape,
                           a[2].shape[1] if sketch else 0) for a in calls]
     with torch.no_grad():
-        return {"rows": calls[0][0].shape[0], "launches": len(calls),
-                "ms": time_ms(run(kernel), 5),
-                "device_ms": time_graph_ms(run(kernel), [()], 3),
-                "plain_ms": time_ms(run(plain), 1),
-                "bound_ms": sum(b for b, _ in bounds),
-                "bound_by": max(bounds)[1]}
+        out = {"rows": calls[0][0].shape[0], "launches": len(calls),
+               "ms": time_ms(run(kernel), 5),
+               "device_ms": time_graph_ms(run(kernel), [()], 3),
+               "plain_ms": time_ms(run(plain), 1),
+               "bound_ms": sum(b for b, _ in bounds),
+               "bound_by": max(bounds)[1]}
+        if not sketch:
+            # kernel 4's yardstick: torch._int_mm over the same calls, each
+            # zero-padded to what it takes (M > 16, K and N multiples of
+            # 8); it sums all of K in int32 (no k-blocks, no ADC)
+            lib = [int_mm_operands(a[0], a[1]) for a in calls]
+            out["library_ms"] = time_ms(
+                lambda: [torch._int_mm(*a) for a in lib], 5)
+            out["library_device_ms"] = time_graph_ms(
+                lambda: [torch._int_mm(*a) for a in lib], [()], 3)
+        return out
+
+
+def int_mm_operands(x, w):
+    """int8 x [M, K] and w [K, N] zero-padded to what ``torch._int_mm``
+    takes: M to max(32, a multiple of 8), K and N to multiples of 8."""
+    (m, k), n = x.shape, w.shape[1]
+    mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    return (torch.nn.functional.pad(x, [0, kp - k, 0, mp - m]).contiguous(),
+            torch.nn.functional.pad(w, [0, np_ - n, 0, kp - k]).contiguous())
 
 
 def print_pass(what: str, name: str, t: dict, smi: str):
+    lib = ("" if "library_ms" not in t else
+           f", torch._int_mm {t['library_ms']:.3f} ms (device "
+           f"{t['library_device_ms']:.3f} ms)")
     print(f"{what} {name} per decode step at {t['rows']} rows, served order "
           f"({t['launches']} launches): {t['ms']:.3f} ms (device, graph "
           f"replay: {t['device_ms']:.3f} ms), plain {t['plain_ms']:.3f} ms, "
-          f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}) [{smi}]")
+          f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}){lib} [{smi}]")
 
 
 def decode_split(model, params, srv, n_rows: int, smi: str) -> dict:
@@ -3780,9 +3921,7 @@ def hymba_cpu_replay(model, params, srv):
     the CPU plain versions: its 11 linears (trunk ``torch.equal``, output
     within one bf16 ulp at its absmax), its SSM decode step and its
     attention (live rows, one bf16 ulp)."""
-    from repro_torch import bridge
     from repro_torch.core import rebranch as rebranch_lib
-    from repro_torch.kernels import rebranch_matmul as rm
     from repro_torch.models import layers, ssm
     rng = np.random.default_rng(212)
     rs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=n), 4)
@@ -3790,57 +3929,79 @@ def hymba_cpu_replay(model, params, srv):
     srv.step()
     live = sorted(srv.batcher._active)
     with Recorder(rebranch_lib, "apply_linear", keep=11) as lin, \
-            Recorder(ssm, "apply_ssm_block", keep=1) as blk, \
-            Recorder(layers, "apply_attention", keep=1) as att:
-        # the block and attention records need their caches as they were
-        cache0 = bridge.tree_map(srv.pool.cache["layers"][0],
-                                 lambda t: t.clone())
+            Recorder(ssm, "apply_ssm_block", keep=1,
+                     clone_kw="cache") as blk, \
+            Recorder(layers, "apply_attention", keep=1,
+                     clone_kw="cache") as att:
         srv.step()
     srv.drain()
     check(len(lin.calls) == 11 and len(blk.calls) == len(att.calls) == 1
           and len(live) == len(rs), "layer-0 recording")
-    names = ("q", "k", "v", "o", "in_proj", "x_proj", "dt_proj", "out_proj",
-             "gate", "up", "down")
-    for name, (a, kw, y) in zip(names, lin.calls):
-        p, x, spec = a
-        x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        with torch.no_grad():
-            trunk, _ = rm.rebranch_trunk_sketch(x2, p["rom"]["w_q"],
-                                                p["rom"]["C"])
-            ref_trunk, _ = rm.rebranch_matmul_plain(
-                x2.cpu(), p["rom"]["w_q"].cpu(), p["rom"]["C"].cpu())
-            ref = rebranch_lib.apply_linear(cpu_tree(p), x.cpu(), spec)
-        check(torch.equal(trunk.cpu(), ref_trunk),
-              f"hymba layer 0 {name}: card trunk != CPU trunk")
-        within_ulp(f"hymba layer 0 {name}", ref, y)
+    replay_linears("hymba layer 0", ("q", "k", "v", "o", "in_proj", "x_proj",
+                                     "dt_proj", "out_proj", "gate", "up",
+                                     "down"), lin.calls)
     (p, x, cfg), kw, (y, _) = blk.calls[0]
     with torch.no_grad():
         ref, _ = ssm.apply_ssm_block(cpu_tree(p), x.cpu(), cfg,
-                                     cache=cpu_tree(cache0["ssm"]),
+                                     cache=cpu_tree(kw["cache"]),
                                      decode=True, prefix=kw["prefix"])
     within_ulp(f"hymba layer 0 SSM decode step, live rows {live}",
                ref[live], y[live])
-    (p, x, cfg, idx), kw, (y, _) = att.calls[0]
-    with torch.no_grad():
-        ref, _ = layers.apply_attention(cpu_tree(p), x.cpu(), cfg, idx,
-                                        cache=cpu_tree(cache0["attn"]),
-                                        decode=True)
-    within_ulp(f"hymba layer 0 attention, live rows {live}", ref[live],
-               y[live])
+    replay_attention("hymba layer 0", att.calls[0], live)
     check(all(len(r.tokens) == 4 for r in rs), "replay requests")
 
 
-def phase_hymba(smi: str) -> dict:
-    """Phase 21, the slice's main path: full-width Hymba-1.5B through
-    ``LMServer`` under ``pallas_fused`` (kernel 3 behind its 353 ROM
-    linears), then under ``pallas`` (kernel 4).  Returns the launch
-    counts and the step split."""
+def pallas_pass(model_id: str, arch: str, params, prompt_lens, n_new: int,
+                n_slots: int, per_pass: int, rng, smi: str,
+                layers: int | None = None):
+    """``params`` served under the 'pallas' engine (kernel 4 behind every
+    ROM linear): one request per prompt length, ``per_pass`` kernel-4
+    launches per prefill chunk and per decode step and no other kernel;
+    then the kernel's calls of one decode step of ``n_slots`` rows rerun in
+    the served order (:func:`pass_times`).  Returns (launches, times)."""
     from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.serve import server
+    model = family_cell(model_id, arch, engine="pallas", layers=layers)
+    srv = server.load(model_id, params=params, n_slots=n_slots,
+                      max_len=FAMILY_MAX_LEN)
+    vocab = model.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, size=n) for n in prompt_lens]
+    _, _, steps, counts, wall = served_run(srv, model, prompts, n_new)
+    launches = counts["cim_matmul"]
+    chunks = prefill_calls(prompts, srv.batcher.prefill_chunk)
+    check(launches == per_pass * (chunks + steps)
+          and counts["rebranch_matmul"] == counts["trunk_conv"] == 0,
+          f"{model_id}: expected {per_pass} kernel-4 launches per prefill "
+          f"chunk and per decode step, got {counts} for {chunks} chunks + "
+          f"{steps} steps")
+    print(f"{model_id}: {per_pass} kernel-4 launches per pass ({launches} "
+          f"over {chunks} prefill chunks + {steps} steps); wall per tick "
+          f"{wall / steps * 1e3:.2f} ms (host clock, prefills included)")
+    rs = [srv.submit(rng.integers(0, vocab, size=20), 4)
+          for _ in range(n_slots)]
+    while srv.batcher.active < len(rs):
+        srv.step()
+    with Recorder(cm, "cim_matmul") as rec:
+        srv.step()
+    srv.drain()
+    check(len(rec.calls) == per_pass and all(r.done for r in rs),
+          f"recorded {len(rec.calls)} kernel-4 calls, not {per_pass}")
+    times = pass_times(cm.cim_matmul, cm.cim_matmul_plain,
+                       [a for a, _, _ in rec.calls], sketch=False)
+    print_pass(model_id, "kernel 4", times, smi)
+    return launches, times
+
+
+def phase_hymba(smi: str) -> dict:
+    """Phase 21: full-width Hymba-1.5B, cut to HYMBA_LAYERS layers,
+    through ``LMServer`` under ``pallas_fused`` (kernel 3 behind its 11
+    ROM linears a layer and the readout), then under ``pallas`` (kernel
+    4).  Returns the launch counts and the step split."""
     from repro_torch.serve import server
     from repro_torch.serve.pool import SlotPool
     t_phase = time.perf_counter()
     print(f"phase 21 on {smi}")
-    model = family_cell("hymba-1.5b", "hymba_1_5b")
+    model = family_cell("hymba-1.5b", "hymba_1_5b", layers=HYMBA_LAYERS)
     cfg = model.cfg
     per_pass = sum(family_kernel_sites(cfg).values())
     check(per_pass == 11 * cfg.num_layers + 1,
@@ -3874,34 +4035,11 @@ def phase_hymba(smi: str) -> dict:
     torch.cuda.empty_cache()
 
     # the same parameters under the 'pallas' engine: kernel 4
-    pmodel = family_cell("hymba-1.5b-pallas", "hymba_1_5b", engine="pallas")
-    psrv = server.load("hymba-1.5b-pallas", params=params,
-                       n_slots=HYMBA_SLOTS, max_len=FAMILY_MAX_LEN)
-    prompts = [rng.integers(0, vocab, size=n) for n in HYMBA_PALLAS_PROMPTS]
-    reqs, _, psteps, pcounts, pwall = served_run(psrv, pmodel, prompts,
-                                                 HYMBA_PALLAS_NEW)
-    plaunches = pcounts["cim_matmul"]
-    check(plaunches == per_pass * (len(prompts) + psteps),
-          f"hymba-1.5b-pallas: expected {per_pass} kernel-4 launches per "
-          f"prefill and per decode step, got {plaunches}")
-    check(pcounts["rebranch_matmul"] == pcounts["trunk_conv"] == 0,
-          f"hymba under pallas launched another kernel: {pcounts}")
-    print(f"hymba-1.5b-pallas: {per_pass} kernel-4 launches per decode step "
-          f"({plaunches} over {len(prompts)} prefills + {psteps} steps); "
-          f"wall per tick {pwall / psteps * 1e3:.2f} ms (host clock, "
-          f"prefills included)")
-    rs = [psrv.submit(rng.integers(0, vocab, size=20), 4)
-          for _ in range(HYMBA_SLOTS)]
-    psrv.step()                           # admit all, one decode step
-    with Recorder(cm, "cim_matmul") as rec:
-        psrv.step()
-    psrv.drain()
-    check(len(rec.calls) == per_pass and all(r.done for r in rs),
-          f"recorded {len(rec.calls)} kernel-4 calls, not {per_pass}")
-    pkernel = pass_times(cm.cim_matmul, cm.cim_matmul_plain,
-                         [a for a, _, _ in rec.calls], sketch=False)
-    print_pass("hymba-1.5b-pallas", "kernel 4", pkernel, smi)
-    del psrv, params, rec
+    plaunches, pkernel = pallas_pass("hymba-1.5b-pallas", "hymba_1_5b",
+                                     params, HYMBA_PALLAS_PROMPTS,
+                                     HYMBA_PALLAS_NEW, HYMBA_SLOTS, per_pass,
+                                     rng, smi, layers=HYMBA_LAYERS)
+    del params
     torch.cuda.empty_cache()
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "pallas_launches": plaunches,
@@ -3946,15 +4084,17 @@ def granite_replay(model, params, srv):
 
 
 def phase_granite(smi: str) -> dict:
-    """Phase 22: full-width Granite-MoE-3B through ``LMServer`` (paged
-    pool, 32-token prefill chunks): kernel 3 behind the 128 attention
-    linears, the stacked experts in plain PyTorch."""
+    """Phase 22: full-width Granite-MoE-3B, cut to GRANITE_LAYERS layers,
+    through ``LMServer`` (paged pool, 32-token prefill chunks): kernel 3
+    behind the 4 attention linears of each layer, the stacked experts in
+    plain PyTorch."""
     from repro_torch.models import moe
     from repro_torch.serve import server
     from repro_torch.serve.pool import PagedPool
     t_phase = time.perf_counter()
     print(f"phase 22 on {smi}")
-    model = family_cell("granite-moe-3b", "granite_moe_3b")
+    model = family_cell("granite-moe-3b", "granite_moe_3b",
+                        layers=GRANITE_LAYERS)
     cfg = model.cfg
     per_pass = sum(family_kernel_sites(cfg).values())
     check(per_pass == 4 * cfg.num_layers, f"granite per pass {per_pass}")
@@ -4058,6 +4198,583 @@ def phase_falcon(smi: str) -> dict:
     return {"launches": launches, "split": split, "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# phases 24-27: the vlm and audio families; training and swaps over the
+# new families
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, AUDIO_ARCH = "qwen2_vl_2b", "musicgen_large"
+VLM_AUDIO_ROWS = (1, 8, 16, 32, 128)      # phase 24
+QWEN_SLOTS = 8
+QWEN_PROMPTS, QWEN_NEW = (12, 40, 7, 100, 25), 32
+QWEN_SPEC_PROMPTS, QWEN_SPEC_NEW = (12, 40, 7, 33), 16
+QWEN_PALLAS_PROMPTS, QWEN_PALLAS_NEW = (10, 30), 8
+QWEN_GRID = (2, 3, 4)        # phase 25's embeds prefill: t x h x w (S = 24)
+EMBEDS_CUT = 2               # phase 25: the card-vs-CPU embeds prefill's depth
+LOGITS_RTOL = 5e-2           # whole LM forwards, card vs CPU, of the absmax
+MUSICGEN_ROWS, MUSICGEN_PROMPT, MUSICGEN_NEW = 8, 32, 64
+MUSICGEN_MAX_LEN = 128
+FAMILY_TRAIN_ARCHS = ("granite_moe_3b", "hymba_1_5b", "falcon_mamba_7b",
+                      VLM_ARCH, AUDIO_ARCH)
+FAMILY_TRAIN_LAYERS = 2      # phase 27's depth cut (full width)
+FAMILY_TRAIN_STEPS = 10
+SWAP_SLOTS, SWAP_NEW = 4, 8  # phase 27's Hymba hot-swap
+
+
+def replay_linears(what: str, names, calls):
+    """Recorded ``apply_linear`` calls run again on the CPU: the unscaled
+    trunk ``torch.equal`` (kernel 3 on the card against the plain version
+    on the CPU) and the output within one bf16 ulp of its absmax."""
+    from repro_torch.core import rebranch as rebranch_lib
+    from repro_torch.kernels import rebranch_matmul as rm
+    for name, (a, _, y) in zip(names, calls):
+        p, x, spec = a
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        with torch.no_grad():
+            trunk, _ = rm.rebranch_trunk_sketch(x2, p["rom"]["w_q"],
+                                                p["rom"]["C"])
+            ref_trunk, _ = rm.rebranch_matmul_plain(
+                x2.cpu(), p["rom"]["w_q"].cpu(), p["rom"]["C"].cpu())
+            ref = rebranch_lib.apply_linear(cpu_tree(p), x.cpu(), spec)
+        check(torch.equal(trunk.cpu(), ref_trunk),
+              f"{what} {name}: card trunk != CPU trunk")
+        within_ulp(f"{what} {name}", ref, y)
+
+
+def replay_attention(what: str, rec, live):
+    """A recorded decode-step ``apply_attention`` (its cache as it was)
+    run again on the CPU: the live rows within one bf16 ulp."""
+    from repro_torch.models import layers
+    (p, x, cfg, idx), kw, (y, _) = rec
+    with torch.no_grad():
+        ref, _ = layers.apply_attention(cpu_tree(p), x.cpu(), cfg, idx,
+                                        cache=cpu_tree(kw["cache"]),
+                                        decode=True)
+    within_ulp(f"{what} attention, live rows {live}", ref[live], y[live])
+
+
+def qwen_cpu_replay(model, params, srv):
+    """Layer 0 of one decode step (3 live rows of the paged pool) recorded
+    on the card and run again on the CPU plain versions: its 7 linears
+    (q, k, v with their biases, o, gate, up, down) and its attention."""
+    from repro_torch.core import rebranch as rebranch_lib
+    from repro_torch.models import layers
+    rng = np.random.default_rng(252)
+    rs = [srv.submit(rng.integers(0, model.cfg.vocab_size, size=n), 4)
+          for n in (5, 17, 33)]
+    while srv.batcher.active < len(rs):
+        srv.step()
+    live = sorted(srv.batcher._active)
+    with Recorder(rebranch_lib, "apply_linear", keep=7) as lin, \
+            Recorder(layers, "apply_attention", keep=1,
+                     clone_kw="cache") as att:
+        srv.step()
+    srv.drain()
+    check(len(lin.calls) == 7 and len(att.calls) == 1, "layer-0 recording")
+    check("b" in lin.calls[0][0][0]["sram"], "qwen2-vl q has no bias")
+    replay_linears("qwen2-vl layer 0", ("q", "k", "v", "o", "gate", "up",
+                                        "down"), lin.calls)
+    replay_attention("qwen2-vl layer 0", att.calls[0], live)
+    check(all(len(r.tokens) == 4 for r in rs), "replay requests")
+
+
+def qwen_embeds_prefill(model, params, per_pass: int, smi: str):
+    """A model-level prefill of frontend embeddings [1, S, d] with three
+    distinct position streams (an image grid's t, h, w): on the card at
+    full depth (one kernel-3 launch per ROM linear; other logits than
+    text positions give); then at the EMBEDS_CUT-layer cut, card against
+    the CPU plain path within LOGITS_RTOL of the absmax."""
+    from repro_torch import bridge, deploy
+    from repro_torch import plan as plan_lib
+    cfg = model.cfg
+    dev = params["ln_f"]["sram"]["scale"].device
+    t, h, w = QWEN_GRID
+    s = t * h * w
+    gen = torch.Generator().manual_seed(253)
+    embeds = torch.randn((1, s, cfg.d_model), generator=gen)
+    grid = torch.stack(torch.meshgrid(torch.arange(t), torch.arange(h),
+                                      torch.arange(w), indexing="ij"),
+                       -1).reshape(1, s, 3)
+    batch = {"embeds": embeds.to(dev), "positions": grid.to(dev)}
+
+    def prefill(m, p, b, where):
+        cache = m.init_cache(1, 64, dtype=torch.float32, device=where)
+        with torch.no_grad():
+            return m.prefill(p, b, cache)[0]
+
+    reset_launches()
+    logits = prefill(model, params, batch, dev)
+    counts = read_launches()
+    check(counts["rebranch_matmul"] == per_pass
+          and sum(counts.values()) == per_pass,
+          f"embeds prefill: expected {per_pass} kernel-3 launches, got "
+          f"{counts}")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "embeds prefill logits")
+    text = prefill(model, params, {"embeds": batch["embeds"]}, dev)
+    moved = (logits.float() - text.float()).abs().max().item()
+    check(moved > 0, "three position streams gave text positions' logits")
+    cut_cfg = dataclasses.replace(cfg, num_layers=EMBEDS_CUT)
+    cut = deploy.compile_model(cut_cfg, plan=plan_lib.solve(
+        cut_cfg, engine="pallas_fused"))
+    cut_params = dict(params, layers=bridge.tree_map(
+        params["layers"], lambda x: x[:EMBEDS_CUT]))
+    card = prefill(cut, cut_params, batch, dev).float().cpu()
+    cpu = prefill(cut, cpu_tree(cut_params),
+                  {k: v.cpu() for k, v in batch.items()}, "cpu").float()
+    rel = (card - cpu).abs().max().item() / cpu.abs().max().item()
+    print(f"qwen2-vl embeds prefill [1, {s}, {cfg.d_model}], positions a "
+          f"{t}x{h}x{w} grid: {per_pass} kernel-3 launches, logits moved "
+          f"{moved:.3e} from text positions; at {EMBEDS_CUT} layers card "
+          f"vs CPU {rel:.3e} of the absmax, argmax {int(card.argmax())} / "
+          f"{int(cpu.argmax())} [{smi}]")
+    check(rel <= LOGITS_RTOL, f"embeds prefill card vs CPU off by {rel}")
+
+
+def phase_qwen(smi: str) -> dict:
+    """Phase 25, the slice's main path: full-width Qwen2-VL-2B through
+    ``LMServer`` under ``pallas_fused`` (kernel 3 behind its 196 ROM
+    linears; the tied readout a bf16 GEMM), then under ``pallas``
+    (kernel 4)."""
+    from repro_torch.serve import server
+    from repro_torch.serve.pool import PagedPool
+    t_phase = time.perf_counter()
+    print(f"phase 25 on {smi}")
+    model = family_cell("qwen2-vl-2b", VLM_ARCH)
+    cfg = model.cfg
+    per_pass = sum(family_kernel_sites(cfg).values())
+    check(per_pass == 7 * cfg.num_layers, f"qwen2-vl per pass {per_pass}")
+    params = family_params(model)
+    srv = server.load("qwen2-vl-2b", params=params, n_slots=QWEN_SLOTS,
+                      max_len=FAMILY_MAX_LEN)
+    check(isinstance(srv.pool, PagedPool) and srv.batcher.prefill_chunk
+          == CHUNK, "qwen2-vl: not a paged pool with 32-token chunks")
+    rng = np.random.default_rng(25)
+    vocab = cfg.vocab_size
+    warm = srv.submit(rng.integers(0, vocab, size=9), 3)     # not counted
+    srv.drain()
+    check(len(warm.tokens) == 3, "warm-up request")
+    prompts = [rng.integers(0, vocab, size=n) for n in QWEN_PROMPTS]
+    reqs, first, steps, counts, wall = served_run(srv, model, prompts,
+                                                  QWEN_NEW)
+    launches = counts["rebranch_matmul"]
+    chunks = prefill_calls(prompts, CHUNK)
+    check(launches == per_pass * (chunks + steps),
+          f"expected {per_pass} kernel-3 launches per prefill chunk and per "
+          f"decode step, got {launches} for {chunks} chunks + {steps} steps")
+    check(counts["cim_matmul"] == counts["trunk_conv"] == 0,
+          f"qwen2-vl under pallas_fused launched another kernel: {counts}")
+    check(srv.pool.blocks_in_use == 0, "qwen2-vl: blocks leaked")
+    # 0 and 2 fit one chunk; 1 (40) and 3 (100) are admitted in chunks:
+    # all against whole-prompt solo runs
+    check_solo(model, params, reqs, prompts, first, QWEN_NEW, (0, 1, 3))
+    rate = sustained_window(srv, vocab, HYMBA_SUSTAINED_REQS,
+                            HYMBA_SUSTAINED_NEW, 250)
+    split = decode_split(model, params, srv, QWEN_SLOTS, smi)
+    qwen_cpu_replay(model, params, srv)
+    del srv
+    torch.cuda.empty_cache()
+
+    # speculative decode (the branch drafter): tokens == plain greedy
+    ssrv = server.load("qwen2-vl-2b", params=params, n_slots=QWEN_SLOTS,
+                       max_len=FAMILY_MAX_LEN, spec_k=SPEC_K)
+    prompts = [rng.integers(0, vocab, size=n) for n in QWEN_SPEC_PROMPTS]
+    torch.cuda.synchronize()
+    reset_launches()
+    sreqs = [ssrv.submit(p, QWEN_SPEC_NEW) for p in prompts]
+    ssrv.drain()
+    counts = read_launches()
+    rounds = ssrv.batcher.spec_rounds
+    schunks = prefill_calls(prompts, CHUNK)
+    check(counts["rebranch_matmul"] == per_pass * (schunks + rounds)
+          and sum(counts.values()) == counts["rebranch_matmul"],
+          f"spec: expected {per_pass} kernel-3 launches per prefill chunk "
+          f"and per verify round (none in a draft), got {counts} for "
+          f"{schunks} chunks + {rounds} rounds")
+    for i, (r, p) in enumerate(zip(sreqs, prompts)):
+        toks, _ = _solo_run(model, params, p, QWEN_SPEC_NEW, FAMILY_MAX_LEN)
+        check(toks == r.tokens, f"qwen2-vl spec request {i}: tokens "
+              f"{r.tokens} != plain greedy {toks}")
+    check(ssrv.pool.blocks_in_use == 0 == ssrv.pool.blocks_reserved,
+          "spec: blocks left")
+    print(f"qwen2-vl spec_k={SPEC_K}: {len(sreqs)} requests x "
+          f"{QWEN_SPEC_NEW} tokens equal plain greedy solo decode bit for "
+          f"bit; {rounds} verify rounds, {counts['rebranch_matmul']} "
+          f"kernel-3 launches ({per_pass} per chunk and per round)")
+    spec_launches = counts["rebranch_matmul"]
+    del ssrv
+    qwen_embeds_prefill(model, params, per_pass, smi)
+    torch.cuda.empty_cache()
+
+    # the same parameters under the 'pallas' engine: kernel 4
+    plaunches, pkernel = pallas_pass("qwen2-vl-2b-pallas", VLM_ARCH, params,
+                                     QWEN_PALLAS_PROMPTS, QWEN_PALLAS_NEW,
+                                     QWEN_SLOTS, per_pass, rng, smi)
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "spec_launches": spec_launches,
+            "pallas_launches": plaunches, "tokens_per_s": rate,
+            "split": split, "pallas_kernel": pkernel}
+
+
+def musicgen_generate(model, params, tokens, new: int):
+    """``launch/steps.py``'s model-level path: ``make_prefill_step`` on
+    [B, S, Q] tokens, then ``new - 1`` greedy ``make_serve_step`` calls.
+    Returns (tokens [B, new, Q], prefill logits, first decode step
+    logits, CUDA-event ms per decode step)."""
+    from repro_torch.launch import steps
+    cfg = model.cfg
+    dev = tokens.device
+    firsts = []
+    decode = model.decode_step
+
+    def recording(p, tok, cache):
+        logits, cache = decode(p, tok, cache)
+        if not firsts:
+            firsts.append(logits.float().cpu())
+        return logits, cache
+
+    model.decode_step = recording
+    try:
+        logits, cache = steps.make_prefill_step(
+            cfg, tokens.shape[0], MUSICGEN_MAX_LEN, model, device=dev)(
+                params, {"tokens": tokens})
+        check(bool(torch.isfinite(logits).all()),
+              "musicgen: non-finite prefill logits")
+        serve = steps.make_serve_step(cfg, model)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)     # [B, 1, Q]
+        out, ms = [tok], []
+        for _ in range(new - 1):
+            (tok, cache), ev, _ = timed_step(
+                lambda: serve(params, {"tokens": tok}, cache))
+            out.append(tok)
+            ms.append(ev)
+    finally:
+        del model.decode_step
+    return torch.cat(out, 1).cpu(), logits.float().cpu(), firsts[0], ms
+
+
+def phase_musicgen(smi: str) -> dict:
+    """Phase 26: full-width MusicGen-large (4 codebooks) served at model
+    level through ``make_prefill_step`` / ``make_serve_step`` under
+    ``pallas_fused``: kernel 3 behind its 289 ROM linears (the codebook
+    head among them); batched == solo; a batched prefill's kernel-3 calls
+    held to the plain version; layer 0 and the head on the CPU."""
+    from repro_torch.core import rebranch as rebranch_lib
+    from repro_torch.kernels import rebranch_matmul as rm
+    from repro_torch.models import layers
+    t_phase = time.perf_counter()
+    print(f"phase 26 on {smi}")
+    model = family_cell("musicgen-large", AUDIO_ARCH)
+    cfg = model.cfg
+    per_pass = sum(family_kernel_sites(cfg).values())
+    check(per_pass == 6 * cfg.num_layers + 1,
+          f"musicgen per pass {per_pass}")
+    params = family_params(model)
+    dev = params["ln_f"]["sram"]["scale"].device
+    q = cfg.num_codebooks
+    gen = torch.Generator().manual_seed(26)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (MUSICGEN_ROWS, MUSICGEN_PROMPT, q),
+                           generator=gen).to(dev)
+    musicgen_generate(model, params, prompt[:, :8], 3)       # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    toks, pre, first, ms = musicgen_generate(model, params, prompt,
+                                             MUSICGEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    launches = counts["rebranch_matmul"]
+    check(launches == per_pass * MUSICGEN_NEW
+          and sum(counts.values()) == launches,
+          f"musicgen: expected {per_pass} kernel-3 launches per prefill and "
+          f"per decode step, got {counts}")
+    check(tuple(toks.shape) == (MUSICGEN_ROWS, MUSICGEN_NEW, q)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"musicgen tokens {tuple(toks.shape)}")
+    step_ms = sum(ms[2:]) / len(ms[2:])
+    rate = MUSICGEN_ROWS * 1e3 / step_ms
+    print(f"musicgen-large: {MUSICGEN_ROWS} rows x {MUSICGEN_PROMPT}-token "
+          f"prompts x {q} codebooks, {MUSICGEN_NEW} greedy steps in "
+          f"{wall * 1e3:.1f} ms (host clock, prefill included); decode step "
+          f"{step_ms:.3f} ms (CUDA events, mean of steps 3-{len(ms)}), "
+          f"{rate:.2f} tokens/s ({q} codebook ids each); {per_pass} "
+          f"kernel-3 launches per pass ({launches}) [{smi}]")
+    for i in (0, MUSICGEN_ROWS - 3):
+        stoks, spre, sfirst, _ = musicgen_generate(
+            model, params, prompt[i:i + 1], MUSICGEN_NEW)
+        check(torch.equal(stoks[0], toks[i]) and torch.equal(spre[0], pre[i])
+              and torch.equal(sfirst[0], first[i]),
+              f"musicgen row {i}: batched != solo on the card")
+    print(f"musicgen-large: rows 0 and {MUSICGEN_ROWS - 3} equal their solo "
+          f"runs (prefill and first decode step logits, {MUSICGEN_NEW} "
+          f"steps of tokens, bit for bit)")
+
+    # one decode step recorded: layer 0's 6 linears, its attention and the
+    # codebook head replayed on the CPU; kernel 3's calls of the step
+    # rerun in the served order
+    from repro_torch.launch import steps
+    with PlainCheck(rm, "rebranch_trunk_sketch", rm.rebranch_matmul_plain,
+                    "musicgen batched prefill", sketch=True) as chk:
+        logits, cache = steps.make_prefill_step(
+            cfg, MUSICGEN_ROWS, MUSICGEN_MAX_LEN, model, device=dev)(
+                params, {"tokens": prompt})
+    by_m = {}
+    for (m, _, _), c in chk.shapes.items():
+        by_m[m] = by_m.get(m, 0) + c
+    # the blocks at M = rows x prompt, the codebook head on the last
+    # position of each row
+    check(by_m == {MUSICGEN_ROWS * MUSICGEN_PROMPT: per_pass - 1,
+                   MUSICGEN_ROWS: 1},
+          f"musicgen batched prefill: kernel-3 calls {chk.shapes}")
+    print(f"musicgen-large batched prefill: all {per_pass} kernel-3 calls "
+          f"against rebranch_matmul_plain: trunk torch.equal, t1 within "
+          f"{chk.sketch_err:.2e} of its absmax: {chk.summary()}")
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    with Recorder(rebranch_lib, "apply_linear") as lin, \
+            Recorder(layers, "apply_attention", keep=1,
+                     clone_kw="cache") as att, torch.no_grad():
+        model.decode_step(params, tok, cache)
+    check(len(lin.calls) == per_pass, f"recorded {len(lin.calls)} linears")
+    replay_linears("musicgen layer 0", ("q", "k", "v", "o", "up", "down"),
+                   lin.calls[:6])
+    replay_linears("musicgen", ("codebook_head",), lin.calls[-1:])
+    replay_attention("musicgen layer 0", att.calls[0],
+                     list(range(MUSICGEN_ROWS)))
+    calls = [(a[1].reshape(-1, a[1].shape[-1]).contiguous(),
+              a[0]["rom"]["w_q"], a[0]["rom"]["C"]) for a, _, _ in lin.calls]
+    kernel = pass_times(rm.rebranch_trunk_sketch, rm.rebranch_matmul_plain,
+                        calls, sketch=True)
+    print_pass("musicgen-large", "kernel 3", kernel, smi)
+    del params, lin, cache, calls
+    torch.cuda.empty_cache()
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "step_ms": step_ms, "tokens_per_s": rate,
+            "kernel": kernel}
+
+
+def stacked_ste_check(params, dev):
+    """Granite's layer-0 gate expert stack through
+    ``moe.stacked_trunk_matmul`` under autograd on the card and on the
+    CPU, no kernel launched: the forward ``torch.equal`` in f32 and in the
+    served bf16; the straight-through dx (a batched GEMM on each device)
+    within DX_RTOL of its absmax in f32 and within one bf16 ulp of it in
+    bf16."""
+    from repro_torch.models import moe
+    rom = params["layers"]["moe"]["experts"]["gate"]["rom"]
+    w_q, w_s = rom["w_q"][0], rom["w_scale"][0]
+    e, d_in, d_out = w_q.shape
+    gen = torch.Generator().manual_seed(271)
+    x = torch.randn((e, 64, d_in), generator=gen)
+    g = torch.randn((e, 64, d_out), generator=gen)
+    reset_launches()
+    for dt in (torch.float32, torch.bfloat16):
+        outs = []
+        for where in (dev, "cpu"):
+            xx = x.to(where, dt).requires_grad_(True)
+            y = moe.stacked_trunk_matmul(xx, w_q.to(where), w_s.to(where))
+            (dx,) = torch.autograd.grad(y, xx, g.to(where, dt))
+            outs.append((y.detach().cpu(), dx.cpu()))
+        what = (f"granite stacked expert trunk [{e}, 64, {d_in}] x [{e}, "
+                f"{d_in}, {d_out}], {dt}")
+        check(torch.equal(outs[0][0], outs[1][0]),
+              f"{what}: card forward != CPU forward")
+        if dt == torch.float32:
+            rel = ((outs[0][1] - outs[1][1]).abs().max()
+                   / outs[1][1].abs().max()).item()
+            print(f"{what}: forward card == CPU, STE dx {rel:.2e} of the "
+                  f"absmax")
+            check(rel <= DX_RTOL, f"{what}: STE dx off by {rel}")
+        else:
+            within_ulp(f"{what}: forward card == CPU; STE dx",
+                       outs[1][1], outs[0][1])
+    check(sum(read_launches().values()) == 0,
+          "the stacked expert trunk launched a kernel")
+
+
+def hymba_swap_check(model, plan, params, trainable, smi: str) -> int:
+    """The trained Hymba branch (``trainable``) saved with
+    ``save_branch``, registered from its checkpoint in a
+    ``ScenarioStore`` and hot-swapped mid-stream into an ``LMServer``
+    serving the untrained ``params``: the trunk tensors stay
+    the same objects, and the requests after the swap give the tokens of a
+    fresh server on the restored branch's tree.  Returns kernel-4
+    launches."""
+    import tempfile
+
+    from repro_torch import scenario
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import rebranch
+    from repro_torch.serve import server
+    dev = params["ln_f"]["sram"]["scale"].device
+    trunk = trunk_objects(params)
+    ptrs = {k: t.data_ptr() for k, t in trunk.items()}
+    rng = np.random.default_rng(272)
+    prompts = [rng.integers(0, model.cfg.vocab_size, size=n)
+               for n in (9, 30, 17, 5)]
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        ckpt.save_branch(tmp, "trained", trainable, model_name=model.cfg.name,
+                         plan=plan)
+        store = scenario.ScenarioStore(model, plan, capacity=2, device=dev)
+        store.register("base", branch=scenario.split_params(params)[0])
+        store.register("trained", ckpt_dir=tmp)
+        restored = ckpt.restore_branch(
+            tmp, "trained", scenario.branch_template(model), plan=plan,
+            model_name=model.cfg.name, device=dev)
+        srv = server.LMServer(model, params, n_slots=SWAP_SLOTS,
+                              max_len=FAMILY_MAX_LEN, store=store,
+                              scenario="base")
+        reset_launches()
+        reqs = [srv.submit(p, SWAP_NEW, scenario="base")
+                for p in prompts[:2]]
+        srv.step()
+        srv.swap_scenario("trained")
+        reqs += [srv.submit(p, SWAP_NEW, scenario="trained")
+                 for p in prompts[2:]]
+        steps = srv.drain()
+        counts = read_launches()
+    check(srv.batcher.swap_count == 1 and srv.scenario == "trained",
+          "hymba: the swap did not apply")
+    check(same_trunk(srv.params, trunk, ptrs),
+          "hymba: the swap copied or moved a trunk tensor")
+    fresh = server.LMServer(
+        model, rebranch.combine(restored, rebranch.partition(params)[1]),
+        n_slots=SWAP_SLOTS, max_len=FAMILY_MAX_LEN)
+    want = [fresh.submit(p, SWAP_NEW) for p in prompts[2:]]
+    fresh.drain()
+    check([r.tokens for r in reqs[2:]] == [r.tokens for r in want],
+          "hymba: swapped tokens != a fresh cell's")
+    base = server.LMServer(model, params, n_slots=SWAP_SLOTS,
+                           max_len=FAMILY_MAX_LEN)
+    want = [base.submit(p, SWAP_NEW) for p in prompts[:2]]
+    base.drain()
+    check([r.tokens for r in reqs[:2]] == [r.tokens for r in want],
+          "hymba: the requests before the swap != the untrained cell's")
+    print(f"hymba trained branch: saved, registered from its checkpoint, "
+          f"swapped mid-stream ({len(reqs)} requests, {steps} steps, "
+          f"{counts['cim_matmul']} kernel-4 launches); the tokens after the "
+          f"swap equal a fresh cell's, those before the untrained cell's; "
+          f"trunk unmoved [{smi}]")
+    return counts["cim_matmul"]
+
+
+def phase_family_train(dev, smi: str) -> dict:
+    """Phase 27: each new family at full width, its depth cut to
+    FAMILY_TRAIN_LAYERS, trained FAMILY_TRAIN_STEPS steps under 'pallas'
+    (``launch/train.py``'s step at the CLI's batch 8 x seq 64): the loss
+    finite and falling, every kernel-4 call of step 0 ``torch.equal`` to
+    ``cim_matmul_plain``, kernel 4 once per ROM linear of the blocks a step
+    plus the readout head once per loss chunk in the forward and again in
+    the backward's recompute of that chunk (none in the STE backward),
+    the ROM fingerprint and the trunk ``data_ptr``s unchanged.  Granite's
+    stacked expert trunk under autograd card vs CPU; Hymba's trained
+    branch hot-swapped into an ``LMServer``.  Returns kernel-4 launches
+    per model."""
+    from repro_torch import configs, deploy, optim
+    from repro_torch import plan as plan_lib
+    from repro_torch.core import rebranch, rom
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.launch import steps
+    t_phase = time.perf_counter()
+    print(f"phase 27 on {smi}")
+    out = {}
+    for arch in FAMILY_TRAIN_ARCHS:
+        t_model = time.perf_counter()
+        cfg = dataclasses.replace(configs.get(arch),
+                                  num_layers=FAMILY_TRAIN_LAYERS)
+        plan = plan_lib.solve(cfg, engine="pallas")
+        model = deploy.compile_model(cfg, plan=plan)
+        params = with_cores(model.init(seed=0),
+                            torch.Generator().manual_seed(27))
+        init_params = params
+        trainable, frozen = rebranch.partition(params)
+        opt = optim.init(trainable)
+        trunk = trunk_objects(params)
+        ptrs = {k: t.data_ptr() for k, t in trunk.items()}
+        fp0 = rom.rom_fingerprint(params)
+        step_fn = steps.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR),
+                                        loss_chunks=TRAIN_CHUNKS,
+                                        model=model)
+        heads = sum(s.count for s in plan_lib.site_tree(cfg)
+                    if s.name in ("lm_head", "codebook_head"))
+        blocks = sum(family_kernel_sites(cfg).values()) - heads
+        expect = blocks + 2 * TRAIN_CHUNKS * heads
+        dcfg = synthetic.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    num_codebooks=cfg.num_codebooks)
+        losses, ev_ms, launches = [], [], 0
+        for s in range(FAMILY_TRAIN_STEPS):
+            batch = synthetic.markov_batch(dcfg, s, device=dev)
+            reset_launches()
+            if s == 0:
+                # step 0 (left out of the mean step time): every kernel-4
+                # call against cim_matmul_plain on its inputs
+                with PlainCheck(cm, "cim_matmul", cm.cim_matmul_plain,
+                                f"{arch} train step") as chk:
+                    (trainable, opt, m), ev, _ = timed_step(
+                        lambda: step_fn(trainable, frozen, opt, batch))
+                check(sum(chk.shapes.values()) == expect,
+                      f"{arch}: plain-checked {chk.shapes}")
+                print(f"{arch} train step 0: all {expect} kernel-4 calls "
+                      f"torch.equal to cim_matmul_plain: {chk.summary()}")
+            else:
+                (trainable, opt, m), ev, _ = timed_step(
+                    lambda: step_fn(trainable, frozen, opt, batch))
+            counts = read_launches()
+            check(counts["cim_matmul"] == expect
+                  and sum(counts.values()) == expect,
+                  f"{arch} step {s}: expected {expect} kernel-4 launches, "
+                  f"got {counts}")
+            launches += expect
+            losses.append(float(m["loss"]))
+            check(math.isfinite(losses[-1]), f"{arch} step {s}: loss "
+                  f"{losses[-1]}")
+            ev_ms.append(ev)
+        reset_launches()
+        with torch.no_grad():
+            p = rebranch.combine(trainable, frozen)
+            steps.chunked_readout_loss(p, model.features(p, batch),
+                                       batch["labels"], cfg, TRAIN_CHUNKS,
+                                       model=model)
+        fwd = read_launches()["cim_matmul"]
+        check(fwd == blocks + TRAIN_CHUNKS * heads,
+              f"{arch}: a forward launched {fwd} kernel-4 calls")
+        check(losses[-1] < losses[0], f"{arch}: loss did not fall "
+              f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+        params = rebranch.combine(trainable, frozen)
+        check(same_trunk(params, trunk, ptrs),
+              f"{arch}: training copied, replaced or moved a trunk tensor")
+        check(rom.rom_fingerprint(params) == fp0,
+              f"{arch}: the ROM fingerprint moved")
+        step_ms = sum(ev_ms[2:]) / len(ev_ms[2:])
+        print(f"{arch} at {FAMILY_TRAIN_LAYERS} layers, full width: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} "
+              f"steps; {expect} kernel-4 launches a step ({blocks} block "
+              f"linears + the head {heads} x {TRAIN_CHUNKS} chunks x 2), a "
+              f"forward {fwd}, so none in the STE backward; step "
+              f"{step_ms:.3f} ms (CUDA events, mean of steps 3-"
+              f"{len(ev_ms)}), {TRAIN_BATCH * TRAIN_SEQ * 1e3 / step_ms:.0f} "
+              f"trained tokens/s; ROM fingerprint and trunk unchanged "
+              f"({time.perf_counter() - t_model:.1f} s) [{smi}]")
+        entry = {"launches": launches, "per_step": expect,
+                 "step_ms": step_ms, "loss": (losses[0], losses[-1])}
+        if arch == "granite_moe_3b":
+            stacked_ste_check(params, dev)
+        if arch == "hymba_1_5b":
+            entry["swap_launches"] = hymba_swap_check(
+                model, plan, init_params, trainable, smi)
+        out[arch] = entry
+        del params, init_params, trainable, frozen, opt, trunk, batch, p
+        torch.cuda.empty_cache()
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4124,6 +4841,26 @@ def main() -> int:
                             "granite-moe-3b": granite["split"]["kernel"],
                             "falcon-mamba-7b": falcon["split"]["kernel"]},
         "cim_matmul": {"hymba-1.5b-pallas": hymba["pallas_kernel"]}}
+    torch.cuda.empty_cache()
+
+    phase_family_kernels(dev, 24, (VLM_ARCH, AUDIO_ARCH), VLM_AUDIO_ROWS,
+                         skip=set(LM_GEOMS))
+    qwen = phase_qwen(smi)
+    musicgen = phase_musicgen(smi)
+    family_train = phase_family_train(dev, smi)
+    family_launches["rebranch_matmul"].update({
+        "qwen2-vl-2b": qwen["launches"],
+        "qwen2-vl-2b-spec": qwen["spec_launches"],
+        "musicgen-large": musicgen["launches"]})
+    family_launches["cim_matmul"]["qwen2-vl-2b-pallas"] = \
+        qwen["pallas_launches"]
+    family_step["rebranch_matmul"].update({
+        "qwen2-vl-2b": qwen["split"]["kernel"],
+        "musicgen-large": musicgen["kernel"]})
+    family_step["cim_matmul"]["qwen2-vl-2b-pallas"] = qwen["pallas_kernel"]
+    family_train_launches = {
+        arch: {"launches": e["launches"], "per_step": e["per_step"]}
+        for arch, e in family_train.items()}
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -4175,6 +4912,11 @@ def main() -> int:
             # run again in the served order
             out["family_launches"] = family_launches[name]
             out["family_step"] = family_step[name]
+        if name == "cim_matmul":
+            # phase 27: launches over each new family's 10 train steps at
+            # the 2-layer cut, and per step (checked: the block linears
+            # plus the head per loss chunk, forward and recompute)
+            out["family_train_launches"] = family_train_launches
         if name.startswith("rebranch_matmul"):
             out["library_ms_note"] = (
                 "null: no PyTorch call quantises per (row, k-block)")

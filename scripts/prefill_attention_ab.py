@@ -14,7 +14,20 @@ random bf16 q/k/v, this holds each chunk's output rows against the same
 rows of the whole-prompt call, for the queries run all at once
 (``layers._chunked_causal_attention``) and on fixed 16-query slices
 (``layers._prefill_attention``, what the port runs), and times both.
-Prints one line per prompt and mode; exits 1 if the sliced mode differs.
+
+A model-level prefill of B prompts must also give each row the bits of
+its solo prefill.  For 8 rows of random bf16 q/k/v at the attention
+geometries of Gemma-2B, Qwen2-VL-2B (12 query heads, 2 KV heads,
+head_dim 128) and MusicGen-large (32 and 32, head_dim 64, ``max_len``
+128: phase 26 of ``chip_smoke.py``), this holds each row of one call
+over all 8 rows (``layers._prefill_attention``, what the port runs)
+against the same row run alone, and times the batched call against 8
+one-row calls.
+
+Prints one line per prompt and mode; exits 1 if the sliced mode differs
+from the whole prompt.  The servers prefill one row per call, so the
+batched lines are a measurement, not a check: phase 26 holds MusicGen's
+model-level batched prefill to its solo runs.
 """
 
 from __future__ import annotations
@@ -30,6 +43,54 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 H, KV, DH, MAX_LEN, ATTN_CHUNK, CHUNK = 8, 1, 256, 256, 1024, 32
 PROMPTS = (40, 97, 200)
+ROWS = 8
+# (model, query heads, KV heads, head_dim, max_len, prompt lengths)
+BATCH_GEOMS = (("gemma-2b", 8, 1, 256, 256, (32, 97)),
+               ("qwen2-vl-2b", 12, 2, 128, 256, (32, 97)),
+               ("musicgen-large", 32, 32, 64, 128, (8, 32)))
+
+
+def events_ms(fn, reps: int = 10) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def batched_vs_solo(gen, dev):
+    from repro_torch.models import layers
+    for name, h, kv, dh, max_len, prompts in BATCH_GEOMS:
+        for s in prompts:
+            q = torch.randn((ROWS, s, h, dh), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            k, v = (torch.randn((ROWS, max_len, kv, dh), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            k[:, s:] = 0
+            v[:, s:] = 0
+
+            def batched():
+                return layers._prefill_attention(q, k, v, ATTN_CHUNK, 0, 0)
+
+            def solo():
+                return torch.cat([layers._prefill_attention(
+                    q[i:i + 1], k[i:i + 1], v[i:i + 1], ATTN_CHUNK, 0, 0)
+                    for i in range(ROWS)])
+            got, want = batched(), solo()
+            rows = [i for i in range(ROWS) if not torch.equal(got[i],
+                                                               want[i])]
+            diff = (got - want).abs().max().item()
+            print(f"{name} attention ({h} q / {kv} kv heads, head_dim {dh}, "
+                  f"max_len {max_len}), {ROWS} rows x {s}-token prompts: "
+                  f"batched == solo {not rows} (max abs diff {diff:.3e}, "
+                  f"rows differing {rows}); one call "
+                  f"{events_ms(batched):.3f} ms, {ROWS} one-row calls "
+                  f"{events_ms(solo):.3f} ms (CUDA events)")
 
 
 def main() -> int:
@@ -79,6 +140,7 @@ def main() -> int:
                   f"rows differ); whole-prompt call "
                   f"{start.elapsed_time(end) / 10:.3f} ms (CUDA events)")
             ok &= same or name != "16-query slices"
+    batched_vs_solo(gen, dev)
     return 0 if ok else 1
 
 

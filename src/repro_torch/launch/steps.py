@@ -5,8 +5,10 @@
   prefill_step : full-sequence forward writing a fresh KV cache
   serve_step   : one decode token against the cache
 
-The multi-device half of the reference (input specs, batch and cache
-shardings, model-state shardings) waits for ROADMAP Queue 1 item 5.
+``input_specs`` gives each step's inputs as meta-device tensors (shapes
+and dtypes, no allocation).  The multi-device half of the reference
+(batch and cache shardings, model-state shardings) waits for ROADMAP
+Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -17,6 +19,37 @@ import torch.utils.checkpoint
 from repro_torch import bridge, deploy, optim
 from repro_torch.core import rebranch
 from repro_torch.models.config import ArchConfig
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta-device stand-ins; no allocation)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, seq_len: int, global_batch: int,
+                kind: str) -> dict:
+    """Stand-ins for every model input of a step of the given kind:
+    int32 tokens ([B, S], or [B, S, Q] codebooks; [B, 1(, Q)] to decode),
+    labels to train, and the vlm's bf16 frontend embeddings [B, S, d]."""
+    i32 = torch.int32
+    tok_shape = ((global_batch, seq_len, cfg.num_codebooks)
+                 if cfg.num_codebooks else (global_batch, seq_len))
+    if kind in ("train", "prefill"):
+        specs = {"tokens": _spec(tok_shape, i32)}
+        if kind == "train":
+            specs["labels"] = _spec(tok_shape, i32)
+        if cfg.family == "vlm":
+            specs["embeds"] = _spec((global_batch, seq_len, cfg.d_model),
+                                    torch.bfloat16)
+        return specs
+    if kind == "decode":
+        one = ((global_batch, 1, cfg.num_codebooks)
+               if cfg.num_codebooks else (global_batch, 1))
+        return {"tokens": _spec(one, i32)}
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -44,7 +77,8 @@ def chunked_readout_loss(params, feats, labels, cfg: ArchConfig,
     ``torch.utils.checkpoint`` (the port of the reference's checkpointed
     scan): the full-vocab logits exist for one chunk at a time, and the
     backward recomputes each chunk's logits.  The chunk count falls to the
-    largest divisor of S at or below ``num_chunks``, as the reference's."""
+    largest divisor of S at or below ``num_chunks``, as the reference's.
+    Labels are [B, S] or [B, S, Q] (multi-codebook logits [B, S, Q, V])."""
     model = model or deploy.compile_model(cfg)
     s = feats.shape[1]
     nc = num_chunks

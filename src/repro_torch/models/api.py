@@ -9,8 +9,8 @@
   verify_step(params, tokens, cfg, cache) -> (logits, cache)
   draft_config(cfg)                       -> branch-only draft cfg
 
-Every family is ported: dense and moe (the transformer module; its vlm
-and audio branches raise inside it), ssm and hybrid.
+Every family is ported: dense, vlm, audio and moe (the transformer
+module), ssm and hybrid.
 """
 
 from __future__ import annotations

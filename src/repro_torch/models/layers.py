@@ -22,18 +22,14 @@ passes a copy.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant, rebranch, rows
 from repro_torch.models.config import ArchConfig, torch_dtype
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 3: the vlm / "
-        f"audio branches of the transformer family)")
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +81,7 @@ def embedding_as_logits(params, x, cfg: ArchConfig):
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings
+# rotary embeddings (RoPE and qwen2-vl M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float):
@@ -93,14 +89,33 @@ def rope_frequencies(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(head_dim: int, device: torch.device) -> torch.Tensor:
+    """The position stream (0 temporal, 1 height, 2 width) of each of the
+    head_dim/2 rotary frequencies: the rotary half split 2:1:1 as the
+    reference splits it (for head_dim 128: [32, 16, 16]; Hugging Face's
+    Qwen2-VL uses [16, 24, 24])."""
+    n = head_dim // 2
+    sec = [n - 2 * (n // 4), n // 4, n // 4]
+    return torch.as_tensor(np.repeat(np.arange(3), sec), device=device)
+
+
 def apply_rope(x, positions, theta: float = 10_000.0, mrope: bool = False):
-    """x: [B, S, H, Dh]; positions: [B, S]."""
-    if mrope:
-        raise _not_ported("M-RoPE (qwen2-vl)")
+    """x: [B, S, H, Dh]; positions: [B, S] (or [B, S, 3] for M-RoPE).
+
+    M-RoPE (qwen2-vl) on [B, S, 3] positions: each rotary frequency takes
+    its angle from the stream :func:`_mrope_streams` assigns it.  [B, S]
+    positions stand for three equal streams, whose angles are RoPE's
+    products exactly, so they take the RoPE line.
+    """
     dh = x.shape[-1]
     freqs = torch.as_tensor(rope_frequencies(dh, theta).astype(np.float32),
                             device=x.device)
-    angles = positions.float()[..., None] * freqs
+    if mrope and positions.dim() == 3:
+        angles = (positions.float()[..., _mrope_streams(dh, x.device)]
+                  * freqs)                               # [B, S, dh/2]
+    else:
+        angles = positions.float()[..., None] * freqs
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,11 +1,11 @@
-"""Decoder-only LM, the dense and moe families (port of
+"""Decoder-only LM: the dense, vlm, audio and moe families (port of
 ``repro.models.transformer``).
 
-Covers yi-34b, qwen1.5-32b (QKV bias), gemma-2b (GeGLU, head_dim 256,
-MQA), deepseek-67b, and the MoE models granite-moe-3b and qwen2-moe-a2.7b
-(the MoE block, ``models.moe``, in place of the MLP).  The vlm (M-RoPE,
-frontend embeddings) and audio (multi-codebook) branches raise
-``NotImplementedError`` naming ROADMAP.
+Covers musicgen-large (4-codebook audio tokens), qwen2-vl-2b (M-RoPE and
+the frontend-embedding stub), yi-34b, qwen1.5-32b (QKV bias), gemma-2b
+(GeGLU, head_dim 256, MQA), deepseek-67b, and the MoE models
+granite-moe-3b and qwen2-moe-a2.7b (the MoE block, ``models.moe``, in
+place of the MLP).
 
 API:
   init(gen, cfg)                                   -> params
@@ -33,17 +33,13 @@ import torch
 from repro_torch import bridge
 from repro_torch.core import rebranch
 from repro_torch.models import layers, moe
-from repro_torch.models.config import ArchConfig, spec_for
+from repro_torch.models.config import ArchConfig, spec_for, torch_dtype
 
 
 def _check_family(cfg: ArchConfig):
-    if cfg.num_codebooks:
-        raise layers._not_ported("multi-codebook audio (musicgen)")
-    if cfg.mrope:
-        raise layers._not_ported("M-RoPE (qwen2-vl)")
     if cfg.family not in ("dense", "vlm", "audio", "moe"):
-        raise ValueError(f"models.transformer serves the dense and moe "
-                         f"families, not {cfg.family!r}")
+        raise ValueError(f"models.transformer serves the dense, vlm, audio "
+                         f"and moe families, not {cfg.family!r}")
 
 
 def site_cfg(cfg: ArchConfig, site: str) -> ArchConfig:
@@ -120,29 +116,48 @@ def init(gen: torch.Generator, cfg: ArchConfig):
                                              cfg.d_model)}
     params["layers"] = init_stacked(gen, cfg, _block_init)
     params["ln_f"] = layers.init_rmsnorm(cfg.d_model, gen.device)
-    if not cfg.tie_embeddings:
+    if cfg.num_codebooks:      # musicgen: per-codebook readout heads
+        params["codebook_head"] = rebranch.init_linear(
+            gen, cfg.d_model, cfg.num_codebooks * cfg.vocab_size,
+            spec_for(cfg, "codebook_head"))
+    elif not cfg.tie_embeddings:
         params["lm_head"] = rebranch.init_linear(
             gen, cfg.d_model, cfg.vocab_size, spec_for(cfg, "lm_head"))
     return params
 
 
 def _token_embed(params, tokens, cfg: ArchConfig):
-    if tokens.dim() == 3:
-        raise layers._not_ported("multi-codebook audio (musicgen)")
+    """tokens [B, S] (or [B, S, Q] codebooks: codebook 0's embedding, then
+    codebooks 1..Q-1 added one at a time in the activation dtype, the
+    reference's order)."""
+    if cfg.num_codebooks and tokens.dim() == 3:
+        embs = layers.apply_embedding(params["embed"], tokens[..., 0], cfg)
+        for q in range(1, cfg.num_codebooks):
+            embs = embs + layers.apply_embedding(params["embed"],
+                                                 tokens[..., q], cfg)
+        return embs
     return layers.apply_embedding(params["embed"], tokens, cfg)
 
 
 def _embed_inputs(params, batch, cfg: ArchConfig):
+    """tokens and/or precomputed frontend embeddings [B, S, d] (the vision
+    / audio stub), cast to the activation dtype and summed."""
     if "embeds" in batch:
-        raise layers._not_ported("frontend embeddings (vlm / audio stubs)")
+        x = batch["embeds"].to(torch_dtype(cfg.dtype))
+        if "tokens" in batch:
+            x = x + _token_embed(params, batch["tokens"], cfg)
+        return x
     return _token_embed(params, batch["tokens"], cfg)
 
 
 def apply_head(params, x, cfg: ArchConfig):
-    """ln_f + readout projection on [..., d] -> [..., V]."""
+    """ln_f + readout projection on [..., d] -> [..., V] / [..., Q, V]."""
     x = layers.apply_rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if cfg.num_codebooks:
-        raise layers._not_ported("multi-codebook audio (musicgen)")
+        logits = rebranch.apply_linear(params["codebook_head"], x,
+                                       spec_for(cfg, "codebook_head"))
+        return logits.reshape(*logits.shape[:-1], cfg.num_codebooks,
+                              cfg.vocab_size)
     if cfg.tie_embeddings:
         return layers.embedding_as_logits(params["embed"], x, cfg)
     return rebranch.apply_linear(params["lm_head"], x,
@@ -160,7 +175,7 @@ def features(params, batch, cfg: ArchConfig):
 
 
 def forward(params, batch, cfg: ArchConfig):
-    """Full-sequence forward: logits [B, S, V]."""
+    """Full-sequence forward: logits [B, S, V] (or [B, S, Q, V])."""
     return apply_head(params, features(params, batch, cfg), cfg)
 
 
@@ -200,7 +215,9 @@ def _run_layers(params, x, cfg: ArchConfig, cache, positions=None,
 
 
 def prefill(params, batch, cfg: ArchConfig, cache):
-    """Prompt [B, S] into ``cache``; logits of the last position."""
+    """Prompt into ``cache`` (``tokens`` [B, S] or [B, S, Q] and/or
+    ``embeds`` [B, S, d]; ``positions`` [B, S], or [B, S, 3] for
+    M-RoPE); logits of the last position."""
     _check_family(cfg)
     x = _embed_inputs(params, batch, cfg)
     x, cache = _run_layers(params, x, cfg, cache,
@@ -209,8 +226,9 @@ def prefill(params, batch, cfg: ArchConfig, cache):
 
 
 def decode_step(params, tokens, cfg: ArchConfig, cache):
-    """One token per sequence against the KV cache; tokens [B, 1] (or a
-    [B, k] verify block, see :func:`verify_step`)."""
+    """One token per sequence against the KV cache; tokens [B, 1] (or
+    [B, 1, Q] codebooks, or a [B, k] verify block, see
+    :func:`verify_step`)."""
     _check_family(cfg)
     x = _token_embed(params, tokens, cfg)
     x, cache = _run_layers(params, x, cfg, cache, decode=True)

@@ -50,6 +50,11 @@ class LMServer:
     submitted: every request decodes entirely under the scenario it was
     submitted with.
 
+    A multi-codebook (audio) config is refused: the batcher's requests
+    carry one token per position, and MusicGen decodes [B, 1, Q] tokens
+    through ``launch.steps.make_serve_step``.  (The reference builds the
+    server and fails at the first decode step.)
+
     ``prefill_chunk``, ``spec_k`` and ``draft_source`` go to the batcher:
     chunked prefill admission (default: 32 where the family supports it)
     and speculative decode (the branch-only draft, ROM trunks skipped, and
@@ -63,6 +68,13 @@ class LMServer:
                  block_size: int | None = None,
                  prefill_chunk: int | None = None, spec_k: int = 0,
                  draft_source=None):
+        if model.cfg.num_codebooks:
+            raise ValueError(
+                f"LMServer serves one token per position; {model.cfg.name!r} "
+                f"decodes {model.cfg.num_codebooks} codebooks per position "
+                f"([B, 1, Q] tokens, [B, 1, Q, V] logits).  Serve it at "
+                f"model level: launch.steps.make_prefill_step / "
+                f"make_serve_step")
         self.model = model
         self.store = store
         device = next(iter(bridge.flatten(params).values())).device

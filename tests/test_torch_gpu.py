@@ -458,3 +458,20 @@ def test_kernels_3_and_4_at_the_new_geometries(m, k, n, mode):
     got = cm.cim_matmul(xq, w, cfg)
     assert torch.equal(got, cm.cim_matmul_plain(xq, w, cfg))
     assert torch.equal(cm.cim_matmul(xq[:1].contiguous(), w, cfg), got[:1])
+
+
+# the vlm and audio geometries (K, N): Qwen2-VL-2B's q/o, k/v, gate/up and
+# down (K = 8960: a 256-wide last k-block), MusicGen-large's up and
+# codebook head, and its down; at a decode step's 8 rows and a verify
+# round's or prefill chunk's 32
+VLM_AUDIO_GEOMS = [(m, k, n) for k, n in ((1536, 1536), (1536, 256),
+                                          (1536, 8960), (8960, 1536),
+                                          (2048, 8192), (8192, 2048))
+                   for m in (8, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ("ideal", "per_subarray", "bitserial"))
+@pytest.mark.parametrize("m,k,n", VLM_AUDIO_GEOMS)
+def test_kernels_3_and_4_at_the_vlm_and_audio_geometries(m, k, n, mode):
+    test_kernels_3_and_4_at_the_new_geometries(m, k, n, mode)

@@ -27,7 +27,7 @@ from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rebranch_conv as rc
 from repro_torch.launch import steps
-from repro_torch.models import cnn
+from repro_torch.models import cnn, moe
 
 
 def _card():
@@ -151,3 +151,28 @@ def test_resnet18_branch_step_launches_kernel1_per_conv():
     assert rc.launches - before == len(cnn.conv_site_shapes(cfg))
     assert torch.isfinite(loss)
     assert all(torch.isfinite(g).all() for g in bridge.flatten(grads).values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,c,d_in,d_out", [(40, 64, 1536, 512),
+                                            (3, 5, 100, 48)])
+def test_stacked_expert_trunk_ste_card_matches_cpu(e, c, d_in, d_out):
+    """``moe.stacked_trunk_matmul`` (plain PyTorch in both packages, not
+    kernel 4) on the card: the forward ``torch.equal`` to the CPU's (exact
+    int sums), the straight-through dx ``g @ (w_q*s).T`` within 1e-5 of
+    the CPU's absmax, and no gradient for the int8 W or its scale."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(e + d_in)
+    x = torch.randn((e, c, d_in), generator=gen)
+    w_q = torch.randint(-127, 128, (e, d_in, d_out), generator=gen,
+                        dtype=torch.int8)
+    w_s = torch.rand((e, 1, d_out), generator=gen) * 1e-2 + 1e-3
+    g = torch.randn((e, c, d_out), generator=gen)
+    outs = []
+    for where in ("cpu", dev):
+        xx = x.to(where).requires_grad_(True)
+        y = moe.stacked_trunk_matmul(xx, w_q.to(where), w_s.to(where))
+        (dx,) = torch.autograd.grad(y, xx, g.to(where))
+        outs.append((y.detach().cpu(), dx.cpu()))
+    assert torch.equal(outs[1][0], outs[0][0])
+    assert _rel(outs[1][1], outs[0][1]) <= 1e-5
