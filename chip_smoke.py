@@ -48,9 +48,10 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    version; row 0 of the M = 1 launch equals row 0 of the M = 8, 16, 32
    and 128 launches, bit for bit (other tile heights and splits; M = 32
    is a verify round of 8 rows x k = 4 and a prefill chunk).  Each line
-   prints the plans the wrappers hand the kernels: the trunk's tile
-   height and split (``tiling.split_k``) and, for kernel 3, the sketch's
-   (``tiling.split_sketch``).  ``ms`` is the time per launch of launches
+   prints the plans the wrappers handed the kernels, read back from the
+   launch structs: the trunk's tile height and split (the tuning table's
+   or ``tiling.split_k``'s) and, for kernel 3, the sketch's
+   (``tiling.split_sketch``'s).  ``ms`` is the time per launch of launches
    from Python that cycle through weight copies larger than the L2 cache
    (a decode step reads each layer's weights once), host cost included,
    from CUDA events: what a serving step pays, and the measure of earlier
@@ -164,9 +165,9 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    geometries (32x32, batch 128) ``torch.equal`` to its plain version,
    with its time and bound.
 16. Gemma-2B branch training at full width (``configs/gemma_2b.py::FULL``
-   with its depth cut to 6 layers, which keeps the whole run near half its
+   with its depth cut to 3 layers, which keeps the whole run inside its
    time limit: the ROM fingerprints dominate this phase; all-ROM,
-   ``pallas``: kernel 4 behind all 42 linears), drawn on the
+   ``pallas``: kernel 4 behind all 21 linears), drawn on the
    card: ``launch/train.py``'s loop (``make_train_step``, cosine schedule
    with a warm-up of 5, ``markov_batch`` at the CLI's batch 8 x seq 64,
    lr 3e-3) for 30 steps.  Every loss finite and the last below the
@@ -207,7 +208,7 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    its plain greedy solo decode, bit for bit; each verify round and each
    prefill chunk launches kernel 3 126 times and nothing else, each draft
    prefill and draft step launches no kernel at all; no block is granted
-   or reserved after a run.  Tokens/s over three runs with the spread,
+   or reserved after a run.  Tokens/s over two runs with the spread,
    acceptance rate, verify rounds against plain decode steps, a round
    split into its draft steps and its verify, and what the draft step
    reads (C and U in f32).  Then one mid-stream ``swap_scenario`` under
@@ -303,13 +304,36 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    the blocks a step, plus the readout head once per loss chunk in the
    forward and again in its recompute (a forward alone shows it: none in
    the STE backward); every kernel-4 call of step 0 (M = 512 in the
-   blocks) ``torch.equal`` to the plain version; the ROM fingerprint and
-   trunk ``data_ptr``s unchanged.  Granite's stacked expert trunk (plain, not kernel 4) under
+   blocks) ``torch.equal`` to the plain version; step 1's kernel-4 calls
+   rerun in order (``ms``, ``device_ms``, the plain version, the bound
+   and ``torch._int_mm``, as phases 21-26 time a served step); the ROM
+   fingerprint and trunk ``data_ptr``s unchanged.  Granite's stacked expert trunk (plain, not kernel 4) under
    autograd on the card against the CPU: the forward ``torch.equal``, the
    STE dx within 1e-5.  Hymba's trained branch saved with
    ``save_branch``, registered from the checkpoint and hot-swapped
    mid-stream into an ``LMServer``: the tokens after the swap equal a
    fresh cell's, those before it the untrained cell's, the trunk unmoved.
+28. Launch-plan tuning: ``tune.autotune.check_table`` passes on the
+   checked-in ``repro_torch/tune/hopper_table.json`` (generated on an H100
+   by ``python -m repro_torch.tune``); the autotuner runs over Tiny-YOLO's
+   conv sites at 32x32, batches 1 and 8, in all three modes for all three
+   kernels: every legal plan (tile heights x splits, the sketch's too) is
+   run, read back from the launch struct, held ``torch.equal`` to the
+   shape rule's plan's output (0 dropped, or the phase fails) and timed
+   (replayed CUDA graph, best of 2); per geometry the candidates, the
+   rule's and the best time.  Then DarkNet-19/416 at batch 8 and at batch
+   1 (where the table moves plans) with the table on (phase 3's cell)
+   against ``compile_model(..., tune=False)`` on the same parameters:
+   ``torch.equal``, 20 launches a forward, the forward and kernel 1's 20
+   launches timed both ways (eager; the launches also as a replayed CUDA
+   graph).
+29. Tiny-YOLO at 416x416 (``tiny-yolo-416``) and VGG-8 at 32x32
+   (``vgg8-32-tuned``), registered with ``tune=True`` (``pallas_fused``),
+   seeded parameters with non-zero cores, served through ``CNNServer``
+   with 8 slots: a full chunk, then two of its images alone, whose rows
+   equal the chunk's bit for bit; one trunk launch per site per chunk;
+   every conv layer of one image replayed on the CPU within 1e-5 of its
+   absmax (phase 4's replay); images/s over three runs of 64 images.
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -341,6 +365,7 @@ the training phases.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -747,10 +772,11 @@ def phase_serve(cfg):
     return model, params, images[:SLOTS], launches
 
 
-def phase_cpu(model, params, image):
+def cpu_layers(model, params, image):
     """Every conv call of one image's forward on the card, replayed on the
-    CPU on the same input; in an ADC mode each ROM site's unscaled trunk
-    too, which must be bitwise equal."""
+    CPU on the same input: (card output, calls, worst max abs diff of a
+    layer's absmax, ADC-mode trunks held bitwise, seconds).  In an ADC mode
+    each ROM site's unscaled trunk must be bitwise equal to the CPU's."""
     from repro_torch import bridge
     from repro_torch.kernels import rebranch_conv as rc
     from repro_torch.models import cnn
@@ -770,7 +796,6 @@ def phase_cpu(model, params, image):
             card = model.forward(params, x.cuda())
     finally:
         cnn.apply_conv = apply_conv
-    check(len(calls) == 21, f"expected 21 conv calls, recorded {len(calls)}")
     worst, trunks = 0.0, 0
     t0 = time.perf_counter()
     for p, xin, spec, stride, ep, y in calls:
@@ -790,7 +815,18 @@ def phase_cpu(model, params, image):
             check(torch.equal(trunk.cpu(), ref_trunk),
                   f"{spec.cim.mode} trunk on the card != CPU trunk")
             trunks += 1
-    secs = time.perf_counter() - t0
+    return card, len(calls), worst, trunks, time.perf_counter() - t0
+
+
+def phase_cpu(model, params, image):
+    """Every conv call of one image's forward on the card, replayed on the
+    CPU on the same input; in an ADC mode each ROM site's unscaled trunk
+    too, which must be bitwise equal."""
+    from repro_torch import bridge
+
+    x = torch.from_numpy(image)
+    card, n_calls, worst, trunks, secs = cpu_layers(model, params, image)
+    check(n_calls == 21, f"expected 21 conv calls, recorded {n_calls}")
     print(f"cpu reference, layer by layer (21 convs, plain versions, "
           f"{secs:.1f} s): worst max abs diff {worst:.3e} of the layer "
           f"output's absmax (tolerance {LAYER_RTOL}); {trunks} ADC-mode "
@@ -896,6 +932,10 @@ def lm_host_costs(dev):
             lambda: x.float(),
         "torch.cuda.current_stream (the wrappers read the raw handle)":
             lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "kernel 4's plan and launch struct (cim_matmul._launch, cached)":
+            lambda: cm._launch(m, k, n, cm.IDEAL),
+        "kernel 3's (rebranch_matmul._launch, cached)":
+            lambda: rm._launch(m, k, n, k // 4, rm.IDEAL, True),
     }
     print(f"host us per call at M = {m}, {k}x{n} (host clock, calls back "
           f"to back): " + "; ".join(f"{name} {host_us(fn):.2f}"
@@ -912,7 +952,6 @@ def phase_lm_kernels(dev) -> dict:
     device's share.  ``torch._int_mm`` is timed both ways too."""
     from repro_torch.kernels import cim_matmul as cm
     from repro_torch.kernels import rebranch_matmul as rm
-    from repro_torch.kernels import tiling
     gen = torch.Generator(device=dev).manual_seed(5)
     out = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0,
@@ -979,16 +1018,17 @@ def phase_lm_kernels(dev) -> dict:
                 del lib_args
             b3, by3 = lm_bound_ms(m, k, n, cdim)
             b4, by4 = lm_bound_ms(m, k, n)
-            # the plans the wrappers hand the kernels
-            st, ss = tiling.split_k(m, n, k), tiling.split_sketch(m, cdim, k)
+            # the plans the wrappers handed the kernels, read back
+            st, ss, s4 = (rm.last_launch.trunk, rm.last_launch.sketch,
+                          cm.last_launch.plan)
             lib_txt = "none none" if lib4 is None else \
                 f"{lib4:.4f} {lib4_dev:.4f}"
             print(f"rebranch_matmul {k} {n} {m} {eq3} {rel3:.2e} {ms3:.4f} "
                   f"{dev3:.4f} {plain3:.4f} {b3:.4f} {by3} none none "
                   f"{st.tile_m} {st.n_splits} {ss.tile_m} {ss.n_splits}")
             print(f"cim_matmul {k} {n} {m} {eq4} 0 {ms4:.4f} {dev4:.4f} "
-                  f"{plain4:.4f} {b4:.4f} {by4} {lib_txt} {st.tile_m} "
-                  f"{st.n_splits}", flush=True)
+                  f"{plain4:.4f} {b4:.4f} {by4} {lib_txt} {s4.tile_m} "
+                  f"{s4.n_splits}", flush=True)
             if m == LM_VERIFY_ROWS:  # a verify round's shapes: per round
                 row = out["rebranch_matmul"]
                 row["verify_ms"] += ms3 * count
@@ -2379,7 +2419,8 @@ def phase_lm_swap(smi: str) -> int:
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 64, 3e-3     # launch/train.py's CLI
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SAVE_AT = 30, 5, 15
-TRAIN_LAYERS = 6           # phase 16's depth cut (the ROM is hashed 4 times)
+TRAIN_LAYERS = 3           # phase 16's depth cut (the ROM is hashed 4 times;
+                           # the script's time limit)
 TRAIN_CHUNKS = 4
 TRAIN_CUT = 2, 4, 32       # card-vs-CPU step: layers, batch, sequence
 M_REL = 5e-2               # AdamW's m after a step, of each leaf's absmax
@@ -2989,7 +3030,7 @@ SPEC_K = 4
 SPEC_PROMPTS = (12, 40, 7, 100, 25, 60, 9, 33)   # 8 requests
 SPEC_NEW = 32
 SPEC_ALPHAS = (0.6, 0.95)  # the oracle drafter's per-position hit rate
-SPEC_RUNS = 3
+SPEC_RUNS = 2              # timed runs per drafter (the script's time limit)
 SPEC_SWAP_NEW = 16
 
 
@@ -4722,6 +4763,11 @@ def phase_family_train(dev, smi: str) -> dict:
                       f"{arch}: plain-checked {chk.shapes}")
                 print(f"{arch} train step 0: all {expect} kernel-4 calls "
                       f"torch.equal to cim_matmul_plain: {chk.summary()}")
+            elif s == 1:
+                # step 1's kernel-4 calls, rerun in order after the loop
+                with Recorder(cm, "cim_matmul") as rec:
+                    (trainable, opt, m), ev, _ = timed_step(
+                        lambda: step_fn(trainable, frozen, opt, batch))
             else:
                 (trainable, opt, m), ev, _ = timed_step(
                     lambda: step_fn(trainable, frozen, opt, batch))
@@ -4735,6 +4781,15 @@ def phase_family_train(dev, smi: str) -> dict:
             check(math.isfinite(losses[-1]), f"{arch} step {s}: loss "
                   f"{losses[-1]}")
             ev_ms.append(ev)
+        kernel = pass_times(cm.cim_matmul, cm.cim_matmul_plain,
+                            [a for a, _, _ in rec.calls], sketch=False)
+        del rec
+        print(f"{arch} kernel 4 over one train step's {kernel['launches']} "
+              f"calls, rerun in order: {kernel['ms']:.3f} ms (device "
+              f"{kernel['device_ms']:.3f}), plain {kernel['plain_ms']:.3f}, "
+              f"bound {kernel['bound_ms']:.3f} ({kernel['bound_by']}), "
+              f"torch._int_mm {kernel['library_ms']:.3f} (device "
+              f"{kernel['library_device_ms']:.3f})")
         reset_launches()
         with torch.no_grad():
             p = rebranch.combine(trainable, frozen)
@@ -4762,7 +4817,8 @@ def phase_family_train(dev, smi: str) -> dict:
               f"trained tokens/s; ROM fingerprint and trunk unchanged "
               f"({time.perf_counter() - t_model:.1f} s) [{smi}]")
         entry = {"launches": launches, "per_step": expect,
-                 "step_ms": step_ms, "loss": (losses[0], losses[-1])}
+                 "step_ms": step_ms, "loss": (losses[0], losses[-1]),
+                 "kernel": kernel}
         if arch == "granite_moe_3b":
             stacked_ste_check(params, dev)
         if arch == "hymba_1_5b":
@@ -4772,6 +4828,182 @@ def phase_family_train(dev, smi: str) -> dict:
         del params, init_params, trainable, frozen, opt, trunk, batch, p
         torch.cuda.empty_cache()
     print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+TUNE_MODEL, TUNE_SIZE, TUNE_BATCHES = "tiny_yolo", 32, (1, 8)   # phase 28
+TUNE_REPEAT = 2
+TUNE_MODES = ("ideal", "per_subarray", "bitserial")
+# phase 29: (registry id, family, input size), served with tune=True
+TUNED_SERVED = (("tiny-yolo-416", "tiny_yolo", 416),
+                ("vgg8-32-tuned", "vgg8", 32))
+TUNED_RUNS, TUNED_CHUNKS = 3, 8
+
+
+def phase_tune(dev, smi: str) -> dict:
+    """28. The checked-in table's static check; the autotuner over
+    Tiny-YOLO's sites (every legal plan bitwise equal to the rule's);
+    DarkNet-19/416 at batch 8 with the table on against ``tune=False``."""
+    from repro_torch import deploy
+    from repro_torch.kernels import rebranch_conv as rc
+    from repro_torch.kernels import tiling
+    from repro_torch.models import cnn
+    from repro_torch.serve import registry
+    from repro_torch.tune import autotune, table
+    t0 = time.perf_counter()
+    check(autotune.check_table(), "hopper_table.json fails its check")
+    meta = json.load(open(table._DEFAULT_PATH))["meta"]
+    print(f"table generated on {meta['device']} (this card: {smi})")
+
+    geoms = autotune.conv_geometries((TUNE_MODEL,), (TUNE_SIZE,), TUNE_MODES,
+                                     tiling.TUNED_KERNELS, TUNE_BATCHES)
+    print(f"autotuner over {TUNE_MODEL} at {TUNE_SIZE}x{TUNE_SIZE}, batches "
+          f"{TUNE_BATCHES}, {len(geoms)} geometries (device ms per launch, "
+          f"replayed CUDA graph, best of {TUNE_REPEAT}):")
+    print("geometry candidates dropped rule_ms best_ms speedup best_plan")
+    n_cands = n_dropped = n_changed = 0
+    for g in geoms:
+        res = autotune.tune_geometry(g, repeat=TUNE_REPEAT, device=dev)
+        n_cands += res.n_candidates
+        n_dropped += res.n_mismatched
+        n_changed += res.changed
+        print(f"{g.key} {res.n_candidates} {res.n_mismatched} "
+              f"{res.default_ms:.4f} {res.best_ms:.4f} {res.speedup:.3f} "
+              f"{autotune.describe(res.best) if res.changed else 'rule'}",
+              flush=True)
+    print(f"autotuner: {len(geoms)} geometries, {n_cands} candidates, "
+          f"{n_dropped} dropped, {n_changed} won by another plan than the "
+          f"rule's; {time.perf_counter() - t0:.1f} s")
+    check(n_dropped == 0, f"{n_dropped} legal plans moved a bit")
+
+    cfg = registry.resolve("darknet19-416").config()
+    on, plan = registry.compile_entry("darknet19-416")
+    off = deploy.compile_model(cfg, plan=plan, tune=False)
+    sites = cnn.conv_site_shapes(on.cfg)
+    entries = table.load_table()
+    params = with_cores(on.init(seed=0), torch.Generator().manual_seed(2))
+    images = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (BATCH, SIZE, SIZE, 3), dtype=np.float32)).to(dev)
+    out = {}
+    for batch in (BATCH, 1):
+        x = images[:batch]
+        tuned = sum(
+            entries[table.key("trunk_conv", "ideal", "float32",
+                              batch * hw * hw, k * k * c_in, c_out)]
+            != tiling.rule_plan("trunk_conv", "ideal", batch * hw * hw,
+                                k * k * c_in, c_out)
+            for _, k, c_in, c_out, hw, _ in sites)
+        with torch.no_grad():
+            reset_launches()
+            y_on = on.forward(params, x)
+            y_off = off.forward(params, x)
+            torch.cuda.synchronize()
+            counts = read_launches()
+            check(counts["trunk_conv"] == 2 * len(sites),
+                  f"{counts} launches for two forwards of {len(sites)} "
+                  f"sites")
+            check(torch.equal(y_on, y_off), f"DarkNet-19 at batch {batch} "
+                  f"with the table on != with tune=False")
+            on_ms = time_ms(lambda: on.forward(params, x), 5)
+            off_ms = time_ms(lambda: off.forward(params, x), 5)
+            trunk = {}
+            for name, model in (("on", on), ("off", off)):
+                calls = []
+                dot = rc.trunk_conv_dot
+
+                def recording(*args, **kwargs):
+                    calls.append((args, kwargs))
+                    return dot(*args, **kwargs)
+
+                rc.trunk_conv_dot = recording
+                try:
+                    model.forward(params, x)
+                finally:
+                    rc.trunk_conv_dot = dot
+                scope = (table.disabled() if model.tune is False
+                         else contextlib.nullcontext())
+
+                def run(calls=calls):
+                    return [dot(*a, **k) for a, k in calls]
+
+                with scope:          # eager (host included), and the graph
+                    trunk[name] = (time_ms(run, 5),
+                                   time_graph_ms(run, [()], 3))
+        print(f"DarkNet-19/416, batch {batch}: table on == tune=False bit "
+              f"for bit ({tuned} of {len(sites)} sites take another plan "
+              f"than the rule's); forward {on_ms:.3f} ms on, {off_ms:.3f} "
+              f"ms off (CUDA events, eager); kernel 1's {len(sites)} "
+              f"launches {trunk['on'][0]:.3f} ms on, {trunk['off'][0]:.3f} "
+              f"ms off (eager), {trunk['on'][1]:.3f} and "
+              f"{trunk['off'][1]:.3f} ms (device, graph replay)")
+        out[batch] = {"forward_on_ms": on_ms, "forward_off_ms": off_ms,
+                      "trunk_on_ms": trunk["on"],
+                      "trunk_off_ms": trunk["off"], "tuned_sites": tuned}
+    del params, images, x, y_on, y_off
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"phase 28 {secs:.1f} s")
+    return {"darknet19": out, "changed": n_changed,
+            "geometries": len(geoms), "s": secs}
+
+
+def phase_tuned_serve(smi: str) -> dict:
+    """29. Tiny-YOLO at 416x416 and VGG-8 at 32x32 from the registry with
+    ``tune=True``, served through ``CNNServer``."""
+    from repro_torch.models import cnn
+    from repro_torch.serve import registry, server
+    t0 = time.perf_counter()
+    out = {}
+    for model_id, name, size in TUNED_SERVED:
+        registry.register(registry.ModelEntry(
+            model_id=model_id, engine="pallas_fused", tune=True,
+            config=lambda n=name, s=size: cnn.CNNConfig(name=n,
+                                                        input_size=s)))
+        model, _ = registry.compile_entry(model_id)
+        check(model.tune is True, f"{model_id}: tune not forwarded")
+        n_sites = len(cnn.conv_site_shapes(model.cfg))
+        params = with_cores(model.init(seed=0),
+                            torch.Generator().manual_seed(2))
+        srv = server.load(model_id, params=params, n_slots=SLOTS)
+        rng = np.random.default_rng(7)
+        images = rng.standard_normal((SLOTS, size, size, 3),
+                                     dtype=np.float32)
+        srv.submit(images)                         # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launches()
+        batched = srv.submit(images)
+        solo = [srv.submit(images[i:i + 1]) for i in (0, SLOTS - 1)]
+        counts = read_launches()
+        check(counts == {"trunk_conv": 3 * n_sites, "cim_matmul": 0,
+                         "rebranch_matmul": 0},
+              f"{model_id}: {counts} for 3 chunks of {n_sites} sites")
+        check(bool(np.isfinite(batched).all()), f"{model_id}: non-finite")
+        for i, row in zip((0, SLOTS - 1), solo):
+            check(np.array_equal(row[0], batched[i]),
+                  f"{model_id}: image {i} solo != batched")
+        n_img = TUNED_CHUNKS * SLOTS
+        many = rng.standard_normal((n_img, size, size, 3), dtype=np.float32)
+        rates = []
+        for _ in range(TUNED_RUNS):
+            t1 = time.perf_counter()
+            srv.submit(many)
+            rates.append(n_img / (time.perf_counter() - t1))
+        _, n_calls, worst, _, cpu_s = cpu_layers(model, params, images[:1])
+        check(worst <= LAYER_RTOL,
+              f"{model_id}: a layer on the card disagrees with the CPU")
+        spread = (max(rates) - min(rates)) / min(rates)
+        print(f"{model_id} (tune=True, pallas_fused, {n_sites} sites): "
+              f"batched == solo bit for bit; {n_sites} trunk launches per "
+              f"chunk; {n_calls} conv layers within {worst:.3e} of the CPU's "
+              f"absmax ({cpu_s:.1f} s); images/s over {TUNED_RUNS} runs of "
+              f"{n_img}: " + ", ".join(f"{r:.2f}" for r in rates)
+              + f" (spread {spread:.2%})", flush=True)
+        out[model_id] = {"images_per_s": sum(rates) / len(rates),
+                         "spread": spread, "worst_layer": worst}
+        registry.evict(model_id)
+        del srv, params, many
+        torch.cuda.empty_cache()
+    print(f"phase 29 {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4861,6 +5093,10 @@ def main() -> int:
     family_train_launches = {
         arch: {"launches": e["launches"], "per_step": e["per_step"]}
         for arch, e in family_train.items()}
+    torch.cuda.empty_cache()
+
+    phase_tune(dev, smi)
+    phase_tuned_serve(smi)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -4888,7 +5124,7 @@ def main() -> int:
             out["swap_launches"] = swap_launches[name]
         if name in train_launches:
             # phases 15-17: launches over the training loops (16: Gemma-2B
-            # cut to 6 layers, 30 steps; 17: ResNet-18, 50 steps), and per
+            # cut to 3 layers, 30 steps; 17: ResNet-18, 50 steps), and per
             # pass at the train geometry (kernel 4: M = 512, 126 launches;
             # kernel 1: ResNet-18 at 32x32, batch 128, 20 launches), timed
             # as ms is

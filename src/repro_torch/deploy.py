@@ -19,14 +19,15 @@ branch-only draft, ``api.draft_config``), ``draft_prefill``,
 
 It resolves the engine through the strict registry, folds the per-site
 placement (a ``PlacementPlan`` or a ``layer_overrides`` map) into the
-config's ``rebranch_overrides``, and returns a :class:`CompiledModel`.
-The ``mesh=``/``tune=`` arguments wait for later slices (ROADMAP Queue 1
-items 4-5).
+config's ``rebranch_overrides``, binds the tuning-table policy
+(``tune=``), and returns a :class:`CompiledModel`.  Sharding (``mesh=``)
+is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -38,6 +39,7 @@ from repro_torch.core.rebranch import ReBranchSpec
 from repro_torch.engine.base import TrunkEngine
 from repro_torch.models import api, cnn
 from repro_torch.models.config import ArchConfig, spec_for
+from repro_torch.tune import table as tune_table
 
 
 def valid_sites(cfg) -> set | None:
@@ -47,13 +49,28 @@ def valid_sites(cfg) -> set | None:
     return None if tree is None else plan_lib.valid_addresses(tree)
 
 
-class CompiledModel:
-    """A model bound to its resolved engine(s) and per-site mapping.  LM
-    configs expose the serve surface; CNN configs init/forward only."""
+def _scoped(method):
+    """Run a model call under the model's tuning policy: ``tune=False``
+    pins the shape rule's launch plans (``tune.disabled()``) for every
+    kernel the call reaches; ``None`` and ``True`` use the table."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        if self.tune is False:
+            with tune_table.disabled():
+                return method(self, *args, **kwargs)
+        return method(self, *args, **kwargs)
+    return call
 
-    def __init__(self, cfg, engine: TrunkEngine):
+
+class CompiledModel:
+    """A model bound to its resolved engine(s), per-site mapping and
+    tuning policy.  LM configs expose the serve surface; CNN configs
+    init/forward only."""
+
+    def __init__(self, cfg, engine: TrunkEngine, tune: bool | None = None):
         self.cfg = cfg
         self.engine = engine
+        self.tune = tune
         self._is_cnn = isinstance(cfg, cnn.CNNConfig)
         self._draft_cfg = None          # lazy: see draft_cfg
         if self._is_cnn:
@@ -80,6 +97,7 @@ class CompiledModel:
         with torch.no_grad():
             return api.init(gen, self.cfg)
 
+    @_scoped
     def forward(self, params, batch):
         """CNNs: head output for an NHWC image batch.  LMs: logits for a
         ``{"tokens": [B, S]}`` batch.  On the params' device."""
@@ -87,14 +105,17 @@ class CompiledModel:
             return self._apply(params, batch, self.cfg)
         return api.forward(params, batch, self.cfg)
 
+    @_scoped
     def features(self, params, batch):
         self._lm_only("features")
         return api.features(params, batch, self.cfg)
 
+    @_scoped
     def apply_head(self, params, x):
         self._lm_only("apply_head")
         return api.apply_head(params, x, self.cfg)
 
+    @_scoped
     def prefill(self, params, batch, cache):
         """Prompt into ``cache`` (updated in place); last-position logits."""
         self._lm_only("prefill")
@@ -103,6 +124,7 @@ class CompiledModel:
             self._check_cache("prefill", tokens, cache)
         return api.prefill(params, batch, self.cfg, cache)
 
+    @_scoped
     def decode_step(self, params, tokens, cache):
         """One token per row against ``cache`` (updated in place)."""
         self._lm_only("decode_step")
@@ -119,6 +141,7 @@ class CompiledModel:
             self._draft_cfg = api.draft_config(self.cfg)
         return self._draft_cfg
 
+    @_scoped
     def verify_step(self, params, tokens, cache):
         """Speculative verify: one pass over a [B, k] token block through
         the FULL trunk+branch cell (``cache`` updated in place).  Raises
@@ -128,6 +151,7 @@ class CompiledModel:
         self._check_cache("verify_step", tokens, cache)
         return api.verify_step(params, tokens, self.cfg, cache)
 
+    @_scoped
     def draft_prefill(self, params, batch, cache):
         """``prefill`` through the branch-only draft cell (ROM trunks
         skipped): same params and cache geometry, another compute."""
@@ -137,6 +161,7 @@ class CompiledModel:
             self._check_cache("prefill", tokens, cache)
         return api.prefill(params, batch, self.draft_cfg, cache)
 
+    @_scoped
     def draft_decode_step(self, params, tokens, cache):
         """``decode_step`` through the branch-only draft cell: the
         token-proposal loop of speculative decode."""
@@ -211,11 +236,11 @@ class CompiledModel:
         kind = "cnn" if self._is_cnn else self.cfg.family
         return (f"<CompiledModel {self.cfg.name!r} ({kind}) engine="
                 f"{self.engine.name!r} overrides="
-                f"{len(self.cfg.rebranch_overrides)}>")
+                f"{len(self.cfg.rebranch_overrides)} tune={self.tune}>")
 
 
 def compile_model(cfg, *, engine=None, layer_overrides=None,
-                  plan=None) -> CompiledModel:
+                  plan=None, tune: bool | None = None) -> CompiledModel:
     """Resolve engines + per-site ROM/SRAM placement and bundle the model.
 
     engine: registry name or TrunkEngine instance overriding the
@@ -226,6 +251,11 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
     plan: a :class:`~repro_torch.plan.PlacementPlan`; canonical — it
         replaces the config's mapping wholesale.  Mutually exclusive with
         ``layer_overrides``.
+    tune: the launch-plan policy of every call of the model.  ``None``
+        (default) and ``True`` take the kernels' plans from the tuning
+        table (``True`` raises unless the engine's ``capabilities.tune``
+        says its kernels read it); ``False`` pins the shape rule's plans
+        (``tune.disabled()`` around every call).  No plan moves a bit.
     """
     if not isinstance(cfg, (cnn.CNNConfig, ArchConfig)):
         raise TypeError(f"compile_model takes a cnn.CNNConfig or an "
@@ -253,6 +283,11 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
                     f"with override=True or give it a distinct name")
         base = dataclasses.replace(base, trunk_impl=name)
     eng = engine_lib.resolve(base)          # strict + capability gate
+    if tune is True and not eng.capabilities.tune:
+        raise ValueError(
+            f"tune=True but engine {eng.name!r} has no tuned kernels "
+            f"(capabilities.tune is False); deploy on a table-aware "
+            f"engine ('pallas'/'pallas_fused') or drop the flag")
 
     if plan is None:
         plan = plan_lib.PlacementPlan.build(cfg, layer_overrides,
@@ -266,4 +301,4 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
             engine_lib.resolve(spec)        # gate per-layer engines too
     cfg = dataclasses.replace(cfg, rebranch=base,
                               rebranch_overrides=tuple(sorted(merged.items())))
-    return CompiledModel(cfg, eng)
+    return CompiledModel(cfg, eng, tune=tune)

@@ -23,11 +23,14 @@ class EngineCapabilities:
     time (``None``: the engine ignores ``cfg.mode``); ``epilogue`` is read
     by the conv layers; ``fused_ops`` lists the primitives with a fused
     trunk+branch path ('matmul'/'conv').  ``grads``/``devices`` are
-    advisory."""
+    advisory.  ``tune``: the engine's kernels take their launch plans from
+    the ``repro_torch.tune`` table; ``deploy.compile_model`` refuses
+    ``tune=True`` on an engine without it."""
     fidelity_modes: tuple | None = ("ideal", "per_subarray", "bitserial")
     grads: bool = True
     devices: tuple = ("cpu", "cuda")
     epilogue: bool = False
+    tune: bool = False
     fused_ops: tuple = ()
 
 

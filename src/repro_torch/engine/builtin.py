@@ -7,7 +7,7 @@ dequant     : dequantised float trunk on fake-quantised activations.
 pallas      : the trunk conv and matmul on the hand-written CUDA kernels
               (``kernels/csrc/trunk_conv.cu``, ``cim_matmul.cu``) in all
               three fidelity modes (the plain PyTorch versions on a CPU
-              tensor).
+              tensor), under the tuning table's launch plans.
 pallas_fused: 'pallas' plus the fused trunk+branch conv (the trunk
               kernel reads the NHWC input itself, the branch compresses
               it once per pixel: no patch matrix on the card) and the
@@ -57,7 +57,8 @@ class PallasEngine(base.TrunkEngine):
 
     name = "pallas"
     capabilities = base.EngineCapabilities(
-        fidelity_modes=("ideal", "per_subarray", "bitserial"), epilogue=True)
+        fidelity_modes=("ideal", "per_subarray", "bitserial"), epilogue=True,
+        tune=True)
 
     def matmul(self, cfg, x, w_q, w_scale):
         return kops.trunk_matmul_pallas(cfg, x, w_q, w_scale)
@@ -78,7 +79,7 @@ class PallasFusedEngine(PallasEngine):
     name = "pallas_fused"
     capabilities = base.EngineCapabilities(
         fidelity_modes=("ideal", "per_subarray", "bitserial"), grads=False,
-        epilogue=True, fused_ops=("conv", "matmul"))
+        epilogue=True, tune=True, fused_ops=("conv", "matmul"))
 
     def fused_matmul(self, cfg, x, w_q, w_scale, c, core, u):
         lead = x.shape[:-1]         # the kernel is 2D: flatten [..., K]

@@ -29,11 +29,14 @@ from repro_torch.core import adc as adc_lib
 from repro_torch.core import cim as cim_lib
 from repro_torch.kernels import _build
 from repro_torch.kernels import tiling
+from repro_torch.tune import table as tune_table
 
 IDEAL = cim_lib.CiMConfig(mode="ideal")
 
-# Kernel launches of cim_matmul since the count was last set to 0.
+# Kernel launches of cim_matmul since the count was last set to 0, and
+# the CimLaunch of the last one (the tuner reads its plan back).
 launches = 0
+last_launch = None
 
 
 def cim_block_dot(cfg: cim_lib.CiMConfig, x: torch.Tensor,
@@ -219,17 +222,34 @@ def c_sketch(s: tiling.SketchSplit):
                       s.n_kblocks, int(s.sub_slots))
 
 
-@functools.lru_cache(maxsize=4096)
-def _launch(m: int, k: int, n: int, cfg: cim_lib.CiMConfig):
+def _launch(m: int, k: int, n: int, cfg: cim_lib.CiMConfig,
+            plan: tune_table.Plan | None = None):
     """(CimLaunch, scratch floats) of one launch: the shapes, the mode,
-    the ADC constants and ``tiling.split_plan``'s plan, made once per
-    shape and config."""
+    the ADC constants and the plan of ``tiling.resolve_plan`` (``plan``,
+    else the tuning table's, else ``tiling.split_plan``'s).  Made once per
+    shape, config, plan and table state: the state's serial is part of the
+    cache key, so an ``overrides()`` or ``disabled()`` context is never
+    served a plan resolved outside it."""
+    return _launch_at(tune_table.serial(), m, k, n, cfg, plan)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_at(serial: int, m: int, k: int, n: int, cfg: cim_lib.CiMConfig,
+               plan):
+    del serial                  # a key only
     mode, lsb, levels = kernel_args(cfg)
     rows = cfg.rows_per_subarray
-    sp = tiling.split_plan(m, n, k, cfg.mode, rows)
+    p = tiling.resolve_plan("cim_matmul", cfg.mode, "int8", m, k, n, rows,
+                            plan)
+    sp = tiling.trunk_split(p, m, n, k, rows)
     launch = CimLaunch(m, k, n, tiling.block_k(k, rows), mode,
                        AdcParams(lsb, levels), c_split(sp))
     return launch, sp.scratch_floats(m, n)
+
+
+def launched_plan(launch) -> tune_table.Plan:
+    """The plan a CimLaunch (or ConvLaunch) carries to the kernel."""
+    return tune_table.Plan(launch.plan.tile_m, launch.plan.kb_per)
 
 
 def bind(lib_name: str, entry: str, n_pointers: int, launch_type) -> object:
@@ -276,15 +296,17 @@ def scratch(floats: int, device):
 
 
 def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
-               cfg: cim_lib.CiMConfig = IDEAL) -> torch.Tensor:
+               cfg: cim_lib.CiMConfig = IDEAL,
+               plan: tune_table.Plan | None = None) -> torch.Tensor:
     """Blocked CiM matmul int8 [M, K] x int8 [K, N] -> f32 [M, N].
 
     A CUDA tensor launches ``csrc/cim_matmul.cu`` in ``cfg``'s mode (a
     config the kernel does not take, or a build or launch failure,
-    raises), with the tile height and split of ``tiling.split_plan``; a
-    CPU tensor takes :func:`cim_matmul_plain`.  The split's f32 parts are
-    left uninitialised: every part is written before the reduction reads
-    it.
+    raises), with the tile height and split of ``tiling.resolve_plan``
+    (``plan``, the tuning table's, or ``tiling.split_plan``'s: none moves
+    a bit); a CPU tensor takes :func:`cim_matmul_plain`.  The split's f32
+    parts are left uninitialised: every part is written before the
+    reduction reads it.
     """
     if x_q.device.type == "cpu":
         return cim_matmul_plain(x_q, w_q, cfg)
@@ -303,7 +325,7 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     n = w_q.shape[1]
     if 0 in (m, k, n):
         return torch.zeros((m, n), dtype=torch.float32, device=x_q.device)
-    launch, floats = _launch(m, k, n, cfg)
+    launch, floats = _launch(m, k, n, cfg, plan)
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     parts = scratch(floats, x_q.device)
     rc = call(_kernel(), x_q.device, x_q.data_ptr(), w_q.data_ptr(),
@@ -311,6 +333,7 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
               adc_pointer(cfg, x_q.device), launch)
     if rc != 0:
         raise RuntimeError(f"cim_matmul kernel launch failed: CUDA error {rc}")
-    global launches
+    global launches, last_launch
     launches += 1
+    last_launch = launch
     return out

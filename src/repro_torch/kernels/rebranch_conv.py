@@ -32,11 +32,14 @@ from repro_torch.core import cim as cim_lib
 from repro_torch.core import quant
 from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import tiling
+from repro_torch.tune import table as tune_table
 
 IDEAL = cim_lib.CiMConfig(mode="ideal")
 
-# Kernel launches of trunk_conv_dot since the count was last set to 0.
+# Kernel launches of trunk_conv_dot since the count was last set to 0,
+# and the ConvLaunch of the last one (the tuner reads its plan back).
 launches = 0
+last_launch = None
 
 
 def patch_matrix(x: torch.Tensor, kh: int, kw: int, stride: int,
@@ -97,18 +100,28 @@ def conv_geometry(x_shape, kh: int, kw: int, stride: int,
     return ConvGeom(n, h, w, c, oh, ow, kh, kw, stride, ph0, pw0)
 
 
-@functools.lru_cache(maxsize=4096)
 def conv_launch(x_shape: tuple, w_shape: tuple, stride: int, padding: str,
-                cfg: cim_lib.CiMConfig):
+                cfg: cim_lib.CiMConfig, plan: tune_table.Plan | None = None):
     """(ConvLaunch, scratch floats) of one launch: the geometry, the mode,
-    the ADC constants and ``tiling.split_plan``'s plan of the implied
-    [M, R] x [R, C_out] product, made once per shape and config."""
+    the ADC constants and ``tiling.resolve_plan``'s plan of the implied
+    [M, R] x [R, C_out] product, made once per shape, config, plan and
+    table state (as ``cim_matmul._launch``)."""
+    return _conv_launch_at(tune_table.serial(), x_shape, w_shape, stride,
+                           padding, cfg, plan)
+
+
+@functools.lru_cache(maxsize=4096)
+def _conv_launch_at(serial: int, x_shape: tuple, w_shape: tuple, stride: int,
+                    padding: str, cfg: cim_lib.CiMConfig, plan):
+    del serial                  # a key only
     kh, kw, c_in, c_out = w_shape
     mode, lsb, levels = cm.kernel_args(cfg)
     geom = conv_geometry(x_shape, kh, kw, stride, padding)
     m, r = geom.n * geom.oh * geom.ow, kh * kw * c_in
     rows = cfg.rows_per_subarray
-    sp = tiling.split_plan(m, c_out, r, cfg.mode, rows)
+    p = tiling.resolve_plan("trunk_conv", cfg.mode, "float32", m, r, c_out,
+                            rows, plan)
+    sp = tiling.trunk_split(p, m, c_out, r, rows)
     launch = ConvLaunch(geom, r, c_out, tiling.block_k(r, rows), mode,
                         cm.AdcParams(lsb, levels), cm.c_split(sp))
     return launch, sp.scratch_floats(m, c_out)
@@ -121,15 +134,17 @@ def _kernel():
 
 
 def trunk_conv_dot(x: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
-                   padding: str = "SAME",
-                   cfg: cim_lib.CiMConfig = IDEAL) -> torch.Tensor:
+                   padding: str = "SAME", cfg: cim_lib.CiMConfig = IDEAL,
+                   plan: tune_table.Plan | None = None) -> torch.Tensor:
     """UNscaled trunk accumulation [N*OH*OW, C_out] of the conv of x
     [N, H, W, C_in] with w_q int8 [KH, KW, C_in, C_out].
 
     A CUDA tensor launches ``csrc/trunk_conv.cu`` in ``cfg``'s mode on x
     itself (f32, contiguous NHWC; a config the kernel does not take, or a
-    build or launch failure, raises); a CPU tensor takes the plain version
-    :func:`trunk_patch_dot_plain` on :func:`patch_matrix`.
+    build or launch failure, raises) under ``tiling.resolve_plan``'s plan
+    (``plan``, the tuning table's or the shape rule's); a CPU tensor takes
+    the plain version :func:`trunk_patch_dot_plain` on
+    :func:`patch_matrix`.
     """
     kh, kw, c_in, c_out = w_q.shape
     if x.device.type == "cpu":
@@ -146,7 +161,7 @@ def trunk_conv_dot(x: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
     if not (x.is_contiguous() and w_q.is_contiguous()):
         raise ValueError("trunk kernel needs contiguous x and W")
     launch, floats = conv_launch(tuple(x.shape), tuple(w_q.shape), stride,
-                                 padding, cfg)
+                                 padding, cfg, plan)
     g = launch.geom
     m = g.n * g.oh * g.ow
     out = torch.empty((m, c_out), dtype=torch.float32, device=x.device)
@@ -158,8 +173,9 @@ def trunk_conv_dot(x: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
                  cm.adc_pointer(cfg, x.device), launch)
     if rc != 0:
         raise RuntimeError(f"trunk_conv kernel launch failed: CUDA error {rc}")
-    global launches
+    global launches, last_launch
     launches += 1
+    last_launch = launch
     return out
 
 

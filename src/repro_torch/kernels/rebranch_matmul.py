@@ -32,12 +32,15 @@ from repro_torch.core import rows
 from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import tiling
 from repro_torch.kernels.rebranch_conv import trunk_patch_dot_plain
+from repro_torch.tune import table as tune_table
 
 IDEAL = cim_lib.CiMConfig(mode="ideal")
 
 # Kernel launches of rebranch_trunk_sketch since the count was last set
-# to 0.
+# to 0, and the FusedLaunch of the last one (the tuner reads its plans
+# back).
 launches = 0
+last_launch = None
 
 
 def rebranch_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -66,20 +69,42 @@ FusedLaunch = cm.mirror("FusedLaunch", [
     ("sketch", cm.SketchPlan)])
 
 
-@functools.lru_cache(maxsize=4096)
 def _launch(m: int, k: int, n: int, cdim: int, cfg: cim_lib.CiMConfig,
-            x_bf16: bool):
+            x_bf16: bool, plan: tune_table.Plan | None = None,
+            x_dtype: torch.dtype | None = None):
     """(FusedLaunch, trunk scratch floats, sketch scratch floats) of one
-    launch, made once per shape, config and x dtype: the plans of
-    ``tiling.split_plan`` (the trunk) and ``tiling.split_sketch``."""
+    launch: the plans of ``tiling.resolve_plan`` (``plan``, the tuning
+    table's entry keyed on the name of x's dtype, by default bfloat16
+    where the kernel reads bf16, or ``tiling.split_plan``'s and
+    ``tiling.split_sketch``'s), made once per shape, config, x dtype, plan
+    and table state (as ``cim_matmul._launch``)."""
+    return _launch_at(tune_table.serial(), m, k, n, cdim, cfg, x_bf16, plan,
+                      x_dtype or (torch.bfloat16 if x_bf16 else
+                                  torch.float32))
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_at(serial: int, m: int, k: int, n: int, cdim: int,
+               cfg: cim_lib.CiMConfig, x_bf16: bool, plan,
+               x_dtype: torch.dtype):
+    del serial                  # a key only
+    dtype = str(x_dtype).removeprefix("torch.")
     mode, lsb, levels = cm.kernel_args(cfg)
     rows = cfg.rows_per_subarray
-    st = tiling.split_plan(m, n, k, cfg.mode, rows)
-    ss = tiling.split_sketch(m, cdim, k, rows)
+    p = tiling.resolve_plan("rebranch_matmul", cfg.mode, dtype, m, k, n,
+                            rows, plan, cdim=cdim)
+    st = tiling.trunk_split(p, m, n, k, rows)
+    ss = tiling.sketch_split(p, m, cdim, k, rows)
     launch = FusedLaunch(m, k, n, cdim, tiling.block_k(k, rows), mode,
                          int(x_bf16), cm.AdcParams(lsb, levels),
                          cm.c_split(st), cm.c_sketch(ss))
     return launch, st.scratch_floats(m, n), ss.scratch_floats(m, cdim)
+
+
+def launched_plan(launch) -> tune_table.Plan:
+    """The plan a FusedLaunch carries to the kernel."""
+    return tune_table.Plan(launch.trunk.tile_m, launch.trunk.kb_per,
+                           launch.sketch.tile_m, launch.sketch.sub_per)
 
 
 @functools.cache
@@ -89,13 +114,15 @@ def _kernel():
 
 
 def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
-                          c: torch.Tensor, cfg: cim_lib.CiMConfig = IDEAL):
+                          c: torch.Tensor, cfg: cim_lib.CiMConfig = IDEAL,
+                          plan: tune_table.Plan | None = None):
     """(UNscaled trunk [M, N], t1 [M, Cd]) of x [M, K], W [K, N], C [K, Cd].
 
     A CUDA tensor launches ``csrc/rebranch_matmul.cu`` in ``cfg``'s mode
     (a config the kernel does not take, or a build or launch failure,
-    raises), with the tile heights and splits of ``tiling.split_plan``
-    (the trunk) and ``tiling.split_sketch`` (the sketch); a CPU tensor
+    raises), with the tile heights and splits of ``tiling.resolve_plan``
+    (``plan``, the tuning table's, or ``tiling.split_plan``'s for the
+    trunk and ``tiling.split_sketch``'s for the sketch); a CPU tensor
     takes :func:`rebranch_matmul_plain`.  The kernel reads x in f32 or,
     at M <= 16, bf16 with K even; any other x, and a bf16 C, is widened
     first.  Widening is exact, so
@@ -128,7 +155,8 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
               and x.is_contiguous() and x.data_ptr() % 4 == 0)
     xk = x if x_bf16 else x.float().contiguous()
     cf = c.float().contiguous()
-    launch, floats_t, floats_s = _launch(m, k, n, cdim, cfg, x_bf16)
+    launch, floats_t, floats_s = _launch(m, k, n, cdim, cfg, x_bf16, plan,
+                                         x.dtype)
     trunk = torch.empty((m, n), dtype=torch.float32, device=x.device)
     t1 = torch.empty((m, cdim), dtype=torch.float32, device=x.device)
     parts = cm.scratch(floats_t + floats_s, x.device)
@@ -140,8 +168,9 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"rebranch_matmul kernel launch failed: CUDA error {rc}")
-    global launches
+    global launches, last_launch
     launches += 1
+    last_launch = launch
     return trunk, t1
 
 

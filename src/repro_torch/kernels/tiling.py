@@ -16,6 +16,13 @@ and a split always falls on k-partition boundaries: every k-block's part
 is computed whole by one block and the parts are added in ascending order
 (``csrc/mma_tile.cuh``, ``csrc/bitserial_tile.cuh``), so neither the tile
 height nor the split moves a bit.
+
+:func:`resolve_plan` decides the plan of one launch (port of
+``resolve_tiling``): an explicit ``plan=`` wins outright; else the tuning
+table's entry (``repro_torch.tune.table``, measured on the H100) if it is
+legal for the geometry (:func:`plan_legal`); else the shape rule's plan
+(:func:`rule_plan`).  A plan only fixes the tile heights and the splits,
+so a legal one never moves a bit either.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from __future__ import annotations
 import functools
 import math
 from typing import NamedTuple
+
+from repro_torch.tune import table as tune_table
+from repro_torch.tune.table import Plan
 
 BLOCK_K = 512
 SMS = 132             # streaming multiprocessors of an H100 SXM
@@ -189,3 +199,103 @@ def split_sketch(m: int, cdim: int, k: int, rows: int = 128) -> SketchSplit:
         per = -(-n_sub // min(n_sub, math.ceil(SKETCH_TARGET / tiles)))
         per = 1 if per < spk else min(n_sub, -(-per // spk) * spk)
     return make_sketch_split(m, cdim, k, rows, tm, per)
+
+
+# ---------------------------------------------------------------------------
+# launch plans: what the kernels compile, the shape rule, the table's guard
+# ---------------------------------------------------------------------------
+
+TUNED_KERNELS = ("trunk_conv", "cim_matmul", "rebranch_matmul")
+
+
+def tall_tile_m(mode: str) -> int:
+    """The taller trunk tile: 64 rows, or 32 in bitserial."""
+    return 32 if mode == "bitserial" else 64
+
+
+def trunk_heights(mode: str) -> tuple[int, int]:
+    """The trunk tile heights the kernels compile in ``mode``
+    (``cim_matmul.cu::launch_mode``, ``trunk_conv.cu::launch_tile``)."""
+    return 16, tall_tile_m(mode)
+
+
+def height_pairs(mode: str, dtype: str, m: int) -> tuple:
+    """The (trunk, sketch) tile heights the fused kernel compiles
+    (``rebranch_matmul.cu::launch_height``): (16, 8), (16, 16) and (tall,
+    64), the last for an f32 x only; a bf16 x at M <= 16 is read as bf16."""
+    pairs = ((16, 8), (16, 16))
+    if dtype == "bfloat16" and m <= 16:
+        return pairs
+    return pairs + ((tall_tile_m(mode), 64),)
+
+
+def legal_sub_per(k: int, rows: int, sub_per: int) -> bool:
+    """``split_sketch``'s sub-block rule: a split of one sub-block, or of
+    whole k-blocks (the last split may end on K's ragged end)."""
+    n_sub = -(-k // rows)
+    spk = block_k(k, rows) // rows
+    return 1 <= sub_per <= n_sub and (
+        sub_per == 1 or sub_per == n_sub or sub_per % spk == 0)
+
+
+def plan_legal(kernel: str, mode: str, dtype: str, m: int, k: int, n: int,
+               rows: int, plan: Plan) -> bool:
+    """Whether ``plan`` may run the geometry: a tile height the kernel
+    compiles in ``mode`` (for the fused matmul a height pair it compiles),
+    splits of whole k-blocks, at most one per k-block, and a sketch split
+    that obeys :func:`legal_sub_per`."""
+    del n
+    if plan.kb_per_split > len(k_partition(k, rows)):
+        return False
+    if kernel == "rebranch_matmul":
+        return (plan.sketch_tile_m is not None
+                and (plan.tile_m, plan.sketch_tile_m)
+                in height_pairs(mode, dtype, m)
+                and legal_sub_per(k, rows, plan.sub_per_split))
+    if kernel not in TUNED_KERNELS:
+        raise ValueError(f"unknown tunable kernel {kernel!r}")
+    return plan.sketch_tile_m is None and plan.tile_m in trunk_heights(mode)
+
+
+def rule_plan(kernel: str, mode: str, m: int, k: int, n: int,
+              rows: int = 128, cdim: int | None = None) -> Plan:
+    """The shape rule's plan: :func:`split_plan`'s, and for the fused
+    matmul :func:`split_sketch`'s (which needs the sketch width
+    ``cdim``)."""
+    sp = split_plan(m, n, k, mode, rows)
+    if kernel != "rebranch_matmul":
+        return Plan(sp.tile_m, sp.kb_per_split)
+    ss = split_sketch(m, cdim, k, rows)
+    return Plan(sp.tile_m, sp.kb_per_split, ss.tile_m, ss.sub_per_split)
+
+
+def resolve_plan(kernel: str, mode: str, dtype: str, m: int, k: int, n: int,
+                 rows: int, plan: Plan | None = None, *,
+                 cdim: int | None = None) -> Plan:
+    """The plan of one launch: ``plan`` if given (raising if it is not
+    legal: it would reach no kernel), else the table's entry for the
+    geometry if it is legal, else :func:`rule_plan`'s.  An illegal table
+    entry (a hand edit, a table of another kernel version) is dropped, as
+    ``resolve_tiling`` drops a block_k that changes the partition."""
+    if plan is not None:
+        if not plan_legal(kernel, mode, dtype, m, k, n, rows, plan):
+            raise ValueError(f"{plan} is not a legal plan for "
+                             f"{tune_table.key(kernel, mode, dtype, m, k, n)}")
+        return plan
+    entry = tune_table.lookup(kernel, mode, dtype, m, k, n)
+    if entry is not None and plan_legal(kernel, mode, dtype, m, k, n, rows,
+                                        entry):
+        return entry
+    return rule_plan(kernel, mode, m, k, n, rows, cdim)
+
+
+def trunk_split(plan: Plan, m: int, n: int, k: int, rows: int) -> Split:
+    """The trunk's Split of ``plan`` for an [m, k] x [k, n] launch."""
+    return make_split(m, n, k, rows, plan.tile_m, plan.kb_per_split)
+
+
+def sketch_split(plan: Plan, m: int, cdim: int, k: int,
+                 rows: int) -> SketchSplit:
+    """The sketch's SketchSplit of a fused-matmul ``plan``."""
+    return make_sketch_split(m, cdim, k, rows, plan.sketch_tile_m,
+                             plan.sub_per_split)

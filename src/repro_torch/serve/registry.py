@@ -1,6 +1,6 @@
-"""Model registry: model id -> (config, plan, engine) -> one resident cell
-(port of ``repro.serve.registry``: the CNN entries and the smoke entries
-of every ported LM family).
+"""Model registry: model id -> (config, plan, engine, tune) -> one
+resident cell (port of ``repro.serve.registry``: the CNN entries and the
+smoke entries of every ported LM family).
 
 Resolution is strict: an unknown id raises with the registered set.
 ``compile_entry`` compiles an id at most once per process and shares the
@@ -8,8 +8,7 @@ cell; an optional LRU cap (:func:`set_max_resident`) bounds how many
 cells stay resident.  Each id may carry a
 :class:`~repro_torch.scenario.ScenarioStore` (:func:`scenario_store`):
 one resident cell then serves every registered scenario by branch
-hot-swap.  The tuning policy waits for ``tune/`` (ROADMAP Queue 1
-item 4).
+hot-swap.
 """
 
 from __future__ import annotations
@@ -32,6 +31,9 @@ class ModelEntry:
     plan: optional ``cfg -> PlacementPlan`` factory; ``None`` solves the
         minimum-area (all-ROM + branch) design point.
     engine: trunk engine of the solved plan's default spec.
+    tune: the tuning-table policy, forwarded to ``deploy.compile_model``
+        (``None``/``True``: the table's launch plans; ``False``: the shape
+        rule's).
     scenarios: optional ((name, factory), ...) of branch scenarios; each
         factory is ``(model, plan) -> branch tree`` and seeds the id's
         store on its first :func:`scenario_store`.
@@ -40,6 +42,7 @@ class ModelEntry:
     config: Callable[[], Any]
     plan: Callable[[Any], Any] | None = None
     engine: str | None = None
+    tune: bool | None = None
     scenarios: tuple = ()
 
 
@@ -147,7 +150,7 @@ def compile_entry(model_id: str):
         cfg = entry.config()
         plan = (entry.plan(cfg) if entry.plan is not None
                 else plan_lib.solve(cfg, None, engine=entry.engine))
-        model = deploy.compile_model(cfg, plan=plan)
+        model = deploy.compile_model(cfg, plan=plan, tune=entry.tune)
         with _LOCK:
             if _REGISTRY.get(model_id) is not entry:
                 continue          # re-registered mid-compile: stale cell
