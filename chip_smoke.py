@@ -267,22 +267,23 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    linear (K, N) of the FULL ``qwen2_vl_2b`` (1536 -> 1536, 256, 8960;
    8960 -> 1536) and ``musicgen_large`` (2048 -> 8192; 8192 -> 2048)
    configs (Gemma-2B's, phase 5, left out), at M = 1, 8, 16, 32 and 128.
-25. Qwen2-VL-2B at full width, the slice's main path: ``qwen2-vl-2b``
+25. Qwen2-VL-2B at full width, its depth cut to 14 of 28 layers (the
+   script's time limit, as phases 21-22): ``qwen2-vl-2b``
    (all-ROM, ``pallas_fused``; M-RoPE, q/k/v biases, the tied 151936-row
    readout a plain bf16 GEMM), seeded parameters with non-zero cores,
    ``serve.load(..., n_slots=8, max_len=256)`` (paged, 32-token chunks).
-   Five requests x 32 tokens: 196 kernel-3 launches (7 x 28 layers) per
+   Five requests x 32 tokens: 98 kernel-3 launches (7 x 14 layers) per
    chunk and per decode step; three requests equal their whole-prompt solo
    runs (two of them admitted in chunks), tokens and first decode step
    logits bit for bit; a sustained window of three runs x 16 requests x
    64 tokens; one decode step split as phase 21's; layer 0's 7 linears and
    attention replayed on the CPU (trunks ``torch.equal``, outputs within
    one bf16 ulp).  ``spec_k=4`` (the branch drafter): four requests equal
-   plain greedy solo decode, 196 launches per chunk and per verify round,
+   plain greedy solo decode, 98 launches per chunk and per verify round,
    none in a draft.  A model-level prefill of frontend embeddings [1, 24,
-   1536] with a 2x3x4 grid's three position streams: 196 launches, other
+   1536] with a 2x3x4 grid's three position streams: 98 launches, other
    logits than text positions, and at a 2-layer cut card vs CPU within
-   5e-2 of the absmax.  Then ``qwen2-vl-2b-pallas``: two requests, 196
+   5e-2 of the absmax.  Then ``qwen2-vl-2b-pallas``: two requests, 98
    kernel-4 launches per chunk and per decode step, and kernel 4's calls of
    one decode step rerun in the served order.
 26. MusicGen-large at full width (4 codebooks): ``launch/steps.py``'s
@@ -334,6 +335,30 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    equal the chunk's bit for bit; one trunk launch per site per chunk;
    every conv layer of one image replayed on the CPU within 1e-5 of its
    absmax (phase 4's replay); images/s over three runs of 64 images.
+30. DarkNet-19 served H-sharded (``repro_torch/kernels/halo_conv.py``, the
+   ``pallas_sharded`` engine): four ranks spawned in one gloo world on the
+   one card (NCCL refuses two ranks on one device), each building meshes
+   4x1 and 2x2 (the ``data`` axis, which ``cnn_h`` shards H over, of size
+   4 and 2) with ``launch.mesh.make_mesh``.  Every rank draws
+   ``darknet19`` at 416x416 (``fuse_bn_act``, live cores) from one seed;
+   the ROM fingerprints, all-gathered, must be equal.  Each rank records
+   the unsharded ``pallas`` model's 21 conv layers on batch 8.  Per mesh:
+   ``compile_model(..., engine="pallas_sharded", mesh=)``'s forward with
+   the counts at 0, then ``CNNServer`` requests of 8 and 5 images: one
+   kernel-1 launch per site at which the rank holds rows (20 at 416), no
+   layer gathered (0 fallbacks), the 8-image request equal to the forward
+   and both requests equal on every rank (SHA-256 of the arrays,
+   all-gathered); kernel 1 at every slab geometry of the sharded forward
+   (VALID) ``torch.equal`` to its plain version; at every site the
+   sharded trunk on the rank's slab of the unsharded layer's input
+   ``torch.equal`` to the same rows of the unsharded trunk (``ideal`` on
+   the batch, ``per_subarray`` and ``bitserial`` on image 0), each layer
+   within 1e-5 of its absmax.  Prints the whole forward against the
+   unsharded one beside the unsharded model's move under a 1e-7 input
+   perturbation (not gated), the bytes the halo exchange, the pool
+   re-layouts and the head gather sent beside ``halo_bytes``' sum and an
+   all-gather of the same conv inputs, and each rank's forward host time
+   (four ranks time-share one card: no scaling figure).
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -359,8 +384,10 @@ kernel's calls of one decode step (8 rows; Falcon-Mamba 4) recorded as
 the server made them and run again in that order (``ms``, ``device_ms``,
 ``plain_ms``, ``bound_ms``), with phases 25-26's models among them;
 ``cim_matmul`` carries ``family_train_launches``, its launches over
-phase 27's steps per model and per step.  Phases 18-27 run last, after
-the training phases.
+phase 27's steps per model and per step; ``trunk_conv`` carries
+``sharded_launches``, per mesh of phase 30 each rank's launches over its
+sharded forward and two requests.  Phases 18-27 run after the training
+phases, 28-30 last.
 """
 
 from __future__ import annotations
@@ -4247,6 +4274,7 @@ def phase_falcon(smi: str) -> dict:
 VLM_ARCH, AUDIO_ARCH = "qwen2_vl_2b", "musicgen_large"
 VLM_AUDIO_ROWS = (1, 8, 16, 32, 128)      # phase 24
 QWEN_SLOTS = 8
+QWEN_LAYERS = 14         # phase 25's depth cut (of 28), for the time limit
 QWEN_PROMPTS, QWEN_NEW = (12, 40, 7, 100, 25), 32
 QWEN_SPEC_PROMPTS, QWEN_SPEC_NEW = (12, 40, 7, 33), 16
 QWEN_PALLAS_PROMPTS, QWEN_PALLAS_NEW = (10, 30), 8
@@ -4373,15 +4401,15 @@ def qwen_embeds_prefill(model, params, per_pass: int, smi: str):
 
 
 def phase_qwen(smi: str) -> dict:
-    """Phase 25, the slice's main path: full-width Qwen2-VL-2B through
-    ``LMServer`` under ``pallas_fused`` (kernel 3 behind its 196 ROM
-    linears; the tied readout a bf16 GEMM), then under ``pallas``
-    (kernel 4)."""
+    """Phase 25, the slice's main path: full-width Qwen2-VL-2B cut to
+    QWEN_LAYERS layers through ``LMServer`` under ``pallas_fused`` (kernel
+    3 behind its 98 ROM linears; the tied readout a bf16 GEMM), then under
+    ``pallas`` (kernel 4)."""
     from repro_torch.serve import server
     from repro_torch.serve.pool import PagedPool
     t_phase = time.perf_counter()
     print(f"phase 25 on {smi}")
-    model = family_cell("qwen2-vl-2b", VLM_ARCH)
+    model = family_cell("qwen2-vl-2b", VLM_ARCH, layers=QWEN_LAYERS)
     cfg = model.cfg
     per_pass = sum(family_kernel_sites(cfg).values())
     check(per_pass == 7 * cfg.num_layers, f"qwen2-vl per pass {per_pass}")
@@ -4450,7 +4478,8 @@ def phase_qwen(smi: str) -> dict:
     # the same parameters under the 'pallas' engine: kernel 4
     plaunches, pkernel = pallas_pass("qwen2-vl-2b-pallas", VLM_ARCH, params,
                                      QWEN_PALLAS_PROMPTS, QWEN_PALLAS_NEW,
-                                     QWEN_SLOTS, per_pass, rng, smi)
+                                     QWEN_SLOTS, per_pass, rng, smi,
+                                     layers=QWEN_LAYERS)
     del params
     torch.cuda.empty_cache()
     print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
@@ -5007,6 +5036,309 @@ def phase_tuned_serve(smi: str) -> dict:
     return out
 
 
+SHARD_MESHES = ((4, 1), (2, 2))   # phase 30: (data, model); H over data
+SHARD_RANKS = 4
+SHARD_REQUESTS = (8, 5)
+SHARD_TIMED = 3                   # timed forwards per rank and mesh
+SHARD_DEADLINE_S = 300
+
+
+def sharded_layer_checks(mesh, calls) -> tuple[int, float]:
+    """Phase 30, one rank: every layer the unsharded forward recorded, run
+    again under ``mesh`` on this rank's slab of its input.  At each ROM
+    site the sharded trunk must be ``torch.equal`` to this rank's rows of
+    the unsharded 'pallas' trunk: ``ideal`` on the whole batch, the ADC
+    modes on image 0.  The whole layer (trunk, branch, epilogue) must be
+    within LAYER_RTOL of its output's absmax.  Returns (sites, worst)."""
+    from repro_torch import engine
+    from repro_torch.core import cim
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import cnn
+    n, r = mesh.shape["data"], mesh.coordinate("data")
+    pallas, sharded = engine.get("pallas"), engine.get("pallas_sharded")
+    sites, worst = 0, 0.0
+    for i, (p, xin, spec, stride, ep, y) in enumerate(calls):
+        a, b = shd.h_layout(y.shape[1], n)[r]
+        if spec.enabled:
+            spec = dataclasses.replace(spec, trunk_impl="pallas_sharded")
+        with torch.no_grad(), shd.use_mesh(mesh):
+            yl = cnn.apply_conv(p, shd.shard(xin, "cnn_batch", "cnn_h"),
+                                spec, stride, ep)
+        check(yl.shape[1] == b - a, f"layer {i}: {yl.shape[1]} rows, not "
+              f"{b - a}")
+        if b > a:
+            worst = max(worst, ((yl - y[:, a:b]).abs().max()
+                                / y.abs().max()).item())
+        if not spec.enabled:
+            continue
+        sites += 1
+        w_q, w_s = p["rom"]["w_q"], p["rom"]["w_scale"]
+        for mode, xs in (("ideal", xin),
+                         *((m, xin[:1]) for m in ADC_MODES)):
+            c = cim.CiMConfig(mode=mode)
+            with torch.no_grad(), shd.use_mesh(mesh):
+                got = sharded.conv(c, shd.shard(xs, "cnn_batch", "cnn_h"),
+                                   w_q, w_s, stride=stride)
+                want = pallas.conv(c, xs, w_q, w_s, stride=stride)
+            check(torch.equal(got, want[:, a:b]),
+                  f"layer {i} ({mode}): the sharded trunk on rank "
+                  f"{mesh.coordinate('data')} != the unsharded trunk's rows")
+    check(worst <= LAYER_RTOL, f"a sharded layer is {worst} of its absmax "
+          f"from the unsharded one")
+    return sites, worst
+
+
+def phase_sharded_rank(rank: int, world: int, size: int) -> dict:
+    """Phase 30, one spawned rank: DarkNet-19 at ``size`` served H-sharded
+    on each mesh of SHARD_MESHES, held to the unsharded 'pallas' model."""
+    import hashlib
+
+    import torch.distributed as dist
+    from repro_torch import deploy
+    from repro_torch import device as device_lib
+    from repro_torch.core import rom
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.engine import sharded as sharded_engine
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rebranch_conv as rc
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import cnn
+    from repro_torch.serve import server
+    check(_build.target("trunk_conv").exists(),
+          "kernel 1 is not built: the parent builds it before the ranks")
+    dev = device_lib.resolve()
+    cfg = cnn.CNNConfig(name="darknet19", input_size=size, fuse_bn_act=True)
+    plain = deploy.compile_model(cfg, engine="pallas")
+    params = with_cores(plain.init(seed=0), torch.Generator().manual_seed(2))
+    prints = [None] * world
+    dist.all_gather_object(prints, rom.rom_fingerprint(params))
+    check(len(set(prints)) == 1, "ROM fingerprints differ across ranks")
+    images = np.random.default_rng(30).standard_normal(
+        (BATCH, size, size, 3), dtype=np.float32)
+    x = torch.from_numpy(images).to(dev)
+
+    calls, apply_conv = [], cnn.apply_conv
+
+    def recording(p, xx, spec, stride=1, epilogue=None):
+        y = apply_conv(p, xx, spec, stride, epilogue)
+        calls.append((p, xx, spec, stride, epilogue, y))
+        return y
+
+    cnn.apply_conv = recording
+    try:
+        with torch.no_grad():
+            y_plain = plain.forward(params, x)
+    finally:
+        cnn.apply_conv = apply_conv
+    check(len(calls) == 21, f"recorded {len(calls)} conv layers, not 21")
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        moved = plain.forward(params, x * (1 + 1e-7 * noise.to(dev)))
+    amax = y_plain.abs().max().item()
+    out = {"self_moved": (moved - y_plain).abs().max().item() / amax,
+           "fingerprint": prints[0][:16]}
+    plain_ms = []
+    for _ in range(SHARD_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            plain.forward(params, x)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    out["plain_ms"] = plain_ms
+
+    for shape in SHARD_MESHES:
+        mesh = mesh_lib.make_mesh(shape, backend="gloo")
+        model = deploy.compile_model(cfg, engine="pallas_sharded", mesh=mesh)
+        res = out[f"{shape[0]}x{shape[1]}"] = {"repr": repr(model)}
+        slabs, dot = [], rc.trunk_conv_dot
+
+        def recording_dot(xx, w_q, stride=1, padding="SAME", cfg=rc.IDEAL,
+                          plan=None):
+            slabs.append((xx, w_q, stride, padding, cfg))
+            return dot(xx, w_q, stride, padding, cfg, plan)
+
+        # the main path: a forward, then CNNServer requests of 8 and 5
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        sharded_engine.fallbacks = 0
+        shd.reset_traffic()
+        rc.trunk_conv_dot = recording_dot
+        try:
+            with torch.no_grad():
+                y = model.forward(params, x)
+            torch.cuda.synchronize()
+        finally:
+            rc.trunk_conv_dot = dot
+        res["forward_launches"] = read_launches()["trunk_conv"]
+        res["traffic"] = (dict(shd.rows_sent), dict(shd.bytes_sent))
+        srv = server.CNNServer(model, params, n_slots=SLOTS)
+        served = [srv.submit(images[:b]) for b in SHARD_REQUESTS]
+        counts = read_launches()
+        res["launches"] = counts["trunk_conv"]
+        res["fallbacks"] = sharded_engine.fallbacks
+        # one launch per site at which this rank holds output rows (every
+        # site at 416: each rank holds rows down to the 13x13 stage)
+        n, r = mesh.shape["data"], mesh.coordinate("data")
+        per_forward = sum(
+            b > a for _, _, _, _, _, hw, _ in cnn._conv_sites(cfg)
+            for a, b in [shd.h_layout(hw, n)[r]])
+        check(res["forward_launches"] == per_forward,
+              f"{res['forward_launches']} kernel-1 launches in a sharded "
+              f"forward, not {per_forward}")
+        check(counts == {"trunk_conv": per_forward
+                         * (1 + len(SHARD_REQUESTS)),
+                         "cim_matmul": 0, "rebranch_matmul": 0},
+              f"{counts} over a forward and {len(SHARD_REQUESTS)} chunks")
+        check(res["fallbacks"] == 0, f"{res['fallbacks']} gathered layers")
+        check(y.shape == y_plain.shape and bool(torch.isfinite(y).all()),
+              "sharded forward output")
+        res["whole"] = (y - y_plain).abs().max().item() / amax
+        check(np.array_equal(served[0], y.cpu().numpy()),
+              "CNNServer's 8 images != the sharded forward")
+        digests = [None] * world
+        dist.all_gather_object(digests, [hashlib.sha256(o.tobytes())
+                                         .hexdigest() for o in served])
+        check(all(d == digests[0] for d in digests),
+              "CNNServer returned other arrays on other ranks")
+        short = SHARD_REQUESTS[1]
+        res["served_rel"] = float(np.abs(
+            served[1] - y_plain[:short].cpu().numpy()).max() / amax)
+
+        # kernel 1 at every slab geometry of the sharded forward
+        geoms = {}
+        for xx, w_q, stride, padding, c in slabs:
+            geoms.setdefault((tuple(xx.shape), tuple(w_q.shape), stride,
+                              padding), (xx, w_q, stride, padding, c))
+        for (xs, ws, stride, padding), (xx, w_q, _, _, c) in geoms.items():
+            check(padding == "VALID", f"slab {xs} launched {padding}")
+            got = dot(xx, w_q, stride, padding, c)
+            want = plain_trunk(xx, w_q, c, stride, padding)
+            check(torch.equal(got, want), f"kernel 1 at slab {xs} x {ws} "
+                  f"!= its plain version")
+        res["geometries"] = sorted(geoms)
+        del geoms
+
+        # kernel 1's launches of one sharded forward, timed on rank 0 with
+        # the other ranks idle at a barrier, beside the unsharded forward's
+        # 20 launches, the plain version and the bound
+        dist.barrier()
+        if rank == 0:
+            def sharded_pass():
+                for xx, w_q, stride, padding, c in slabs:
+                    dot(xx, w_q, stride, padding, c)
+
+            def unsharded_pass():
+                for xx, w_q, stride in whole:
+                    dot(xx, w_q, stride, "SAME")
+
+            whole = [(xin.float().contiguous(), p["rom"]["w_q"], stride)
+                     for p, xin, spec, stride, _, _ in calls if spec.enabled]
+            bound = ops = 0.0
+            for xx, w_q, stride, _, _ in slabs:
+                k, _, c_in, c_out = w_q.shape
+                m = xx.shape[0] * (xx.shape[1] - k + 1) * (xx.shape[2] - k
+                                                           + 1)
+                b, _ = trunk_bound_ms(m, k * k * c_in, c_out, xx.numel())
+                bound += b
+                ops += 2.0 * m * k * k * c_in * c_out / PEAK_INT8_OPS * 1e3
+            res["kernel"] = {
+                "ms": time_ms(sharded_pass, 5),
+                "plain_ms": time_ms(lambda: [plain_trunk(xx, w_q, c, st, pd)
+                                             for xx, w_q, st, pd, c in slabs],
+                                    2),
+                "bound_ms": bound, "bytes_ms": bound if bound > ops else 0.0,
+                "unsharded_ms": time_ms(unsharded_pass, 5)}
+        dist.barrier()
+        del slabs
+
+        res["sites"], res["worst_layer"] = sharded_layer_checks(mesh, calls)
+        times = []
+        for _ in range(SHARD_TIMED):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.forward(params, x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["forward_ms"] = times
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded(smi: str) -> dict:
+    """30. DarkNet-19/416 served H-sharded over a 4-rank gloo mesh on the
+    one card (4x1 and 2x2), held to the unsharded 'pallas' model."""
+    from repro_torch.kernels import halo_conv
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import cnn
+    t0 = time.perf_counter()
+    print(f"phase 30 on {smi}: DarkNet-19/{SIZE} at batch {BATCH}, "
+          f"pallas_sharded, {SHARD_RANKS} gloo ranks on one card; the "
+          f"ranks time-share the card, so the host times are no scaling "
+          f"figure")
+    ranks = mesh_lib.spawn(phase_sharded_rank, SHARD_RANKS, backend="gloo",
+                           args=(SIZE,), deadline_s=SHARD_DEADLINE_S)
+    sites = cnn._conv_sites(cnn.CNNConfig(name="darknet19", input_size=SIZE))
+    print(f"ROM fingerprint {ranks[0]['fingerprint']}... equal on "
+          f"{SHARD_RANKS} ranks; unsharded forward host ms per rank: "
+          + "; ".join(", ".join(f"{t:.2f}" for t in r["plain_ms"])
+                      for r in ranks))
+    launches, kernel = {}, {}
+    for shape in SHARD_MESHES:
+        key = f"{shape[0]}x{shape[1]}"
+        res = [r[key] for r in ranks]
+        n, groups = shape[0], SHARD_RANKS // shape[0]
+        halo = gather = 0
+        for _, k, c_in, _, hw, _, _ in sites:
+            if k == 1:
+                continue            # 1x1 convs exchange nothing
+            for c in (c_in, max(1, c_in // 4)):   # the trunk, the core
+                halo += halo_conv.halo_bytes((BATCH, hw, hw, c), k, 1,
+                                             "SAME", n)
+                gather += (n - 1) * BATCH * hw * hw * c * 4
+        sent = {kind: sum(r["traffic"][1].get(kind, 0) for r in res)
+                for kind in ("halo", "relayout", "gather")}
+        relayout_rows = sum(r["traffic"][0].get("relayout", 0) for r in res)
+        geoms = sorted({g for r in res for g in r["geometries"]})
+        print(f"mesh {key} ({res[0]['repr']}): {res[0]['sites']} sites "
+              f"torch.equal to the unsharded trunk (ideal, batch "
+              f"{BATCH}; {', '.join(ADC_MODES)}, image 0), layers within "
+              f"{max(r['worst_layer'] for r in res):.3e} of their absmax, "
+              f"{len(geoms)} slab geometries of kernel 1 (all ranks) "
+              f"torch.equal to the plain version; fallbacks "
+              f"{[r['fallbacks'] for r in res]}; kernel-1 launches per "
+              f"rank {[r['forward_launches'] for r in res]} a forward, "
+              f"{[r['launches'] for r in res]} over the forward and "
+              f"requests of {SHARD_REQUESTS}")
+        print(f"  whole forward vs unsharded: {res[0]['whole']:.3e} of the "
+              f"absmax (the unsharded model moves {ranks[0]['self_moved']:.3e}"
+              f" under a 1e-7 input perturbation); CNNServer equal on "
+              f"every rank, the {SHARD_REQUESTS[1]}-image request "
+              f"{res[0]['served_rel']:.3e} from unsharded")
+        print(f"  per forward over the world: halo_bytes sum "
+              f"{halo * (n - 1) * groups} (per device pair {halo}), bytes "
+              f"sent {sent['halo']} halo + {sent['relayout']} re-layout "
+              f"({relayout_rows} rows) + {sent['gather']} head gather; an "
+              f"all-gather of the same conv inputs {gather * groups}")
+        print(f"  forward host ms per rank: " + "; ".join(
+            ", ".join(f"{t:.2f}" for t in r["forward_ms"]) for r in res))
+        print("  slab geometries (x x W, VALID, stride 1): "
+              + " ".join(f"{xs}x{ws}" for xs, ws, _, _ in geoms))
+        k = res[0]["kernel"]
+        print(f"  kernel 1, rank 0's {res[0]['forward_launches']} slab "
+              f"launches of a forward (the other ranks idle): "
+              f"{k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, bound "
+              f"{k['bound_ms']:.3f} ms; the unsharded forward's 20 "
+              f"launches {k['unsharded_ms']:.3f} ms (CUDA events)")
+        launches[key] = [r["launches"] for r in res]
+        kernel[key] = k
+    print(f"phase 30 {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "kernel": kernel}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5097,6 +5429,7 @@ def main() -> int:
 
     phase_tune(dev, smi)
     phase_tuned_serve(smi)
+    sharded = phase_sharded(smi)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -5148,6 +5481,15 @@ def main() -> int:
             # run again in the served order
             out["family_launches"] = family_launches[name]
             out["family_step"] = family_step[name]
+        if name == "trunk_conv":
+            # phase 30: kernel-1 launches per rank on each mesh over the
+            # sharded forward and two CNNServer requests (checked: 20 a
+            # forward, none gathered)
+            out["sharded_launches"] = sharded["launches"]
+            # rank 0's slab launches of one sharded forward per mesh:
+            # ms, plain_ms, bound_ms (and the unsharded 20 launches'
+            # unsharded_ms), timed as ms is
+            out["sharded"] = sharded["kernel"]
         if name == "cim_matmul":
             # phase 27: launches over each new family's 10 train steps at
             # the 2-layer cut, and per step (checked: the block linears

@@ -20,12 +20,14 @@ branch-only draft, ``api.draft_config``), ``draft_prefill``,
 It resolves the engine through the strict registry, folds the per-site
 placement (a ``PlacementPlan`` or a ``layer_overrides`` map) into the
 config's ``rebranch_overrides``, binds the tuning-table policy
-(``tune=``), and returns a :class:`CompiledModel`.  Sharding (``mesh=``)
-is not ported.
+(``tune=``) and, for CNNs, a mesh (``mesh=``: a
+``launch.mesh.Mesh``; the model then runs H-sharded over its ranks on the
+'pallas_sharded' engine), and returns a :class:`CompiledModel`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -36,7 +38,9 @@ from repro_torch import device as device_lib
 from repro_torch import engine as engine_lib
 from repro_torch import plan as plan_lib
 from repro_torch.core.rebranch import ReBranchSpec
+from repro_torch.distributed import sharding as shd
 from repro_torch.engine.base import TrunkEngine
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import api, cnn
 from repro_torch.models.config import ArchConfig, spec_for
 from repro_torch.tune import table as tune_table
@@ -50,15 +54,18 @@ def valid_sites(cfg) -> set | None:
 
 
 def _scoped(method):
-    """Run a model call under the model's tuning policy: ``tune=False``
-    pins the shape rule's launch plans (``tune.disabled()``) for every
-    kernel the call reaches; ``None`` and ``True`` use the table."""
+    """Run a model call under the model's mesh (``sharding.use_mesh``) and
+    tuning policy: ``tune=False`` pins the shape rule's launch plans
+    (``tune.disabled()``) for every kernel the call reaches; ``None`` and
+    ``True`` use the table."""
     @functools.wraps(method)
     def call(self, *args, **kwargs):
-        if self.tune is False:
-            with tune_table.disabled():
-                return method(self, *args, **kwargs)
-        return method(self, *args, **kwargs)
+        with contextlib.ExitStack() as stack:
+            if self.mesh is not None:
+                stack.enter_context(shd.use_mesh(self.mesh))
+            if self.tune is False:
+                stack.enter_context(tune_table.disabled())
+            return method(self, *args, **kwargs)
     return call
 
 
@@ -67,10 +74,12 @@ class CompiledModel:
     tuning policy.  LM configs expose the serve surface; CNN configs
     init/forward only."""
 
-    def __init__(self, cfg, engine: TrunkEngine, tune: bool | None = None):
+    def __init__(self, cfg, engine: TrunkEngine, tune: bool | None = None,
+                 mesh=None):
         self.cfg = cfg
         self.engine = engine
         self.tune = tune
+        self.mesh = mesh
         self._is_cnn = isinstance(cfg, cnn.CNNConfig)
         self._draft_cfg = None          # lazy: see draft_cfg
         if self._is_cnn:
@@ -100,8 +109,13 @@ class CompiledModel:
     @_scoped
     def forward(self, params, batch):
         """CNNs: head output for an NHWC image batch.  LMs: logits for a
-        ``{"tokens": [B, S]}`` batch.  On the params' device."""
+        ``{"tokens": [B, S]}`` batch.  On the params' device.
+
+        Under a mesh every rank passes the whole batch, keeps its rows of
+        the H layout (``sharding.shard``) and returns the whole output (the
+        heads gather H), as the reference returns one global array."""
         if self._is_cnn:
+            batch = shd.shard(batch, "cnn_batch", "cnn_h")
             return self._apply(params, batch, self.cfg)
         return api.forward(params, batch, self.cfg)
 
@@ -234,13 +248,18 @@ class CompiledModel:
 
     def __repr__(self):
         kind = "cnn" if self._is_cnn else self.cfg.family
+        mesh = "" if self.mesh is None else \
+            " mesh=" + "x".join(str(self.mesh.shape[a])
+                                for a in self.mesh.axis_names)
         return (f"<CompiledModel {self.cfg.name!r} ({kind}) engine="
                 f"{self.engine.name!r} overrides="
-                f"{len(self.cfg.rebranch_overrides)} tune={self.tune}>")
+                f"{len(self.cfg.rebranch_overrides)} tune={self.tune}"
+                f"{mesh}>")
 
 
 def compile_model(cfg, *, engine=None, layer_overrides=None,
-                  plan=None, tune: bool | None = None) -> CompiledModel:
+                  plan=None, tune: bool | None = None,
+                  mesh=None) -> CompiledModel:
     """Resolve engines + per-site ROM/SRAM placement and bundle the model.
 
     engine: registry name or TrunkEngine instance overriding the
@@ -256,10 +275,24 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
         table (``True`` raises unless the engine's ``capabilities.tune``
         says its kernels read it); ``False`` pins the shape rule's plans
         (``tune.disabled()`` around every call).  No plan moves a bit.
+    mesh: a ``launch.mesh.Mesh`` the CNN is deployed onto: every call runs
+        under ``sharding.use_mesh(mesh)``, NHWC activations sharded over H
+        on the axis of the ``"cnn_h"`` rule.  Every ROM site's engine must
+        run its conv sharded (``'conv' in capabilities.sharded_ops``:
+        'pallas_sharded').  LM configs raise: their tensor-parallel
+        serving is a later slice.
     """
     if not isinstance(cfg, (cnn.CNNConfig, ArchConfig)):
         raise TypeError(f"compile_model takes a cnn.CNNConfig or an "
                         f"ArchConfig, got {type(cfg).__name__}")
+    if mesh is not None and not isinstance(mesh, mesh_lib.AbstractMesh):
+        raise TypeError(f"mesh= takes a launch.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if mesh is not None and not isinstance(cfg, cnn.CNNConfig):
+        raise NotImplementedError(
+            f"compile_model(mesh=) serves CNNs over a mesh; "
+            f"{cfg.name!r} is an LM, whose sharded serving comes with "
+            f"{shd.LM_SLICE}")
     if plan is not None:
         if layer_overrides:
             raise ValueError(
@@ -296,9 +329,15 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
         merged.update(plan.as_overrides())
     else:
         merged = dict(plan.as_overrides())
-    for spec in merged.values():
-        if spec.enabled:
-            engine_lib.resolve(spec)        # gate per-layer engines too
+    for site, spec in [("(default)", base), *merged.items()]:
+        if not spec.enabled:
+            continue
+        site_eng = engine_lib.resolve(spec)  # gate per-layer engines too
+        if mesh is not None and "conv" not in site_eng.capabilities.sharded_ops:
+            raise ValueError(
+                f"mesh= needs every ROM site on an engine that runs its conv "
+                f"sharded ('pallas_sharded'); site {site} is on "
+                f"{site_eng.name!r}")
     cfg = dataclasses.replace(cfg, rebranch=base,
                               rebranch_overrides=tuple(sorted(merged.items())))
-    return CompiledModel(cfg, eng, tune=tune)
+    return CompiledModel(cfg, eng, tune=tune, mesh=mesh)

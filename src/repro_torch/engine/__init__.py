@@ -10,3 +10,4 @@ from repro_torch.engine.registry import (  # noqa: F401
     get, register, registered_names, resolve,
 )
 from repro_torch.engine import builtin as _builtin  # noqa: F401  registers
+from repro_torch.engine import sharded as _sharded  # noqa: F401  'pallas_sharded'

@@ -30,6 +30,7 @@ class EngineCapabilities:
     grads: bool = True
     devices: tuple = ("cpu", "cuda")
     epilogue: bool = False
+    sharded_ops: tuple = ()
     tune: bool = False
     fused_ops: tuple = ()
 

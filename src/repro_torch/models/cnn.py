@@ -13,6 +13,15 @@ trunk conv's engine epilogue.
 Initialisation draws from an explicit ``torch.Generator`` on the CPU and
 moves the tree to the target device, so a seed gives the same parameters
 on every device.
+
+Under a mesh (``distributed.sharding.use_mesh``, bound by
+``deploy.compile_model(mesh=)``) activations are this rank's slab of the H
+layout.  The rows move only where GSPMD moved them for the reference: the
+trunk conv in its engine ('pallas_sharded'), the branch's KxK core and
+SRAM convs in ``halo_conv.sharded_conv_nhwc``, a pool whose 2x2 windows
+straddle a cut, and the heads (VGG-8's flatten, ResNet-18's mean, the YOLO
+predictor's output), which gather H so that every rank returns the whole
+output.  Without a mesh every line runs as on one device.
 """
 
 from __future__ import annotations
@@ -27,7 +36,9 @@ from repro_torch import bridge
 from repro_torch import engine as engine_lib
 from repro_torch.core import quant
 from repro_torch.core.rebranch import ReBranchSpec, conv_nhwc
+from repro_torch.distributed import sharding as shd
 from repro_torch.engine import base as engine_base
+from repro_torch.kernels.halo_conv import sharded_conv_nhwc
 from repro_torch.models.config import spec_for
 
 
@@ -36,7 +47,17 @@ def _randn(gen, *shape):
 
 
 def _pool(x):
-    """2x2 VALID max pool (NHWC)."""
+    """2x2 VALID max pool (NHWC).  Under a mesh, each rank first fetches
+    the input rows of its output rows' windows (the reference's
+    ``shard(x, "cnn_batch", "cnn_h")`` after its pool): rows move only
+    where a window straddles a cut."""
+    at = shd.h_axis()
+    if at is not None:
+        mesh, axis = at
+        h, n = shd.global_h(x, mesh, axis), mesh.shape[axis]
+        want = [(2 * a, 2 * b) for a, b in shd.h_layout(h // 2, n)]
+        x = shd.move_rows(x, shd.h_layout(h, n), want, mesh, axis,
+                          "relayout")
     n, h, w, c = x.shape
     x = x[:, :h // 2 * 2, :w // 2 * 2]
     return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
@@ -71,10 +92,13 @@ def apply_conv(params, x, spec: ReBranchSpec, stride: int = 1,
     add, so act(BN(trunk + branch)) holds on every route.
     """
     if not spec.enabled:
-        return engine_base.finish(conv_nhwc(x, params["sram"]["w"], stride),
-                                  epilogue)
+        return engine_base.finish(
+            sharded_conv_nhwc(x, params["sram"]["w"], stride), epilogue)
     rom = params["rom"]
     eng = engine_lib.resolve(spec)          # strict + capability-gated
+    if "conv" not in eng.capabilities.sharded_ops and shd.h_axis():
+        raise ValueError(f"engine {eng.name!r} does not run a conv on the "
+                         f"H layout of a mesh; deploy on 'pallas_sharded'")
     has_branch = spec.branch_enabled and "core" in params["sram"]
     fuse = epilogue is not None and eng.capabilities.epilogue
     if has_branch and "conv" in eng.capabilities.fused_ops:
@@ -89,7 +113,7 @@ def apply_conv(params, x, spec: ReBranchSpec, stride: int = 1,
                  stride=stride, padding="SAME", epilogue=trunk_ep)
     if has_branch:
         t = conv_nhwc(x, rom["C"].to(x.dtype), 1)
-        t = conv_nhwc(t, params["sram"]["core"].to(x.dtype), stride)
+        t = sharded_conv_nhwc(t, params["sram"]["core"].to(x.dtype), stride)
         b = conv_nhwc(t, rom["U"].to(x.dtype), 1)
         if fuse:
             if epilogue.scale is not None:
@@ -169,7 +193,7 @@ def apply_vgg8(params, x, cfg: CNNConfig):
             x = F.relu(_bn_apply(bn, apply_conv(conv, x, spec)))
         if i % 2 == 1:
             x = _pool(x)
-    x = x.reshape(x.shape[0], -1)
+    x = shd.gather_h(x).reshape(x.shape[0], -1)
     return x @ params["fc"]["sram"]["w"] + params["fc"]["sram"]["b"]
 
 
@@ -236,7 +260,7 @@ def apply_resnet18(params, x, cfg: CNNConfig):
                 sc = conv_bn(blk["proj"], blk["proj_bn"], x,
                              spec_for(cfg, f"{site}.proj"), st)
             x = F.relu(h + sc)
-    x = x.mean(dim=(1, 2))
+    x = shd.gather_h(x).mean(dim=(1, 2))
     return x @ params["fc"]["sram"]["w"] + params["fc"]["sram"]["b"]
 
 
@@ -312,6 +336,7 @@ def apply_darknet(params, x, cfg: CNNConfig):
                           spec_for(cfg, f"head.{hi}"))
     x = apply_conv(params["pred"], x,
                    dataclasses.replace(cfg.rebranch, enabled=False))
+    x = shd.gather_h(x)
     b, h, w, _ = x.shape
     return x.reshape(b, h, w, cfg.head_anchors, 5 + cfg.head_classes)
 

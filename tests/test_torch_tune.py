@@ -386,7 +386,7 @@ def test_compile_model_tune_gate():
                                     tune=True).tune is True
     assert deploy.compile_model(cfg, engine="pallas").tune is None
     with pytest.raises(TypeError):
-        deploy.compile_model(cfg, mesh=object())       # not ported
+        deploy.compile_model(cfg, mesh=object())       # not a mesh
 
 
 def test_tune_false_pins_the_rule_for_every_call():
