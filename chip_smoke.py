@@ -359,6 +359,33 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    re-layouts and the head gather sent beside ``halo_bytes``' sum and an
    all-gather of the same conv inputs, and each rank's forward host time
    (four ranks time-share one card: no scaling figure).
+31. Branch training over a mesh (``launch/steps.py::BranchStep``, the
+   sharded trunk's STE backward and ``move_rows``' adjoint), 4 gloo
+   ranks on the one card.  (a) DarkNet-19 at 416x416, batch 8,
+   ``pallas_sharded`` on (pod 2, data 2, model 1): the images ride
+   ``pod``, H rides ``data``; three branch steps of a seeded regression
+   loss on the 13x13x125 head, each with the counts at 0: one kernel-1
+   launch per ROM conv per rank (none in the backward), 0 gathered, the
+   reduced gradients bitwise equal on every rank (SHA-256, all-gathered)
+   and, on rank 0, within 1e-5 of each leaf's absmax of the unsharded
+   'pallas' step on the whole batch; kernel 1 at every training slab
+   geometry ``torch.equal`` to its plain version; each ROM site's sharded
+   STE dx (two images, one a pod block) within 1e-5 of the unsharded dx;
+   the ROM fingerprint unmoved.  (c) That state saved from the 2x2 mesh
+   (rank 0 writes) and restored onto 4x1 with ``shardings=``, bitwise.
+   (b) Gemma-2B at full width cut to 3 layers, 8 x 64 tokens over (4,
+   1), 2 rows a rank.  With f32 activations, one step plain and one
+   through the int8 error-feedback all-reduce: kernel-4 launches per rank
+   a step as the single-rank step's, every call at M = 128
+   ``torch.equal`` to its plain version, the gradients within 1e-5 of
+   rank 0's whole-batch step and the int8 mean within 0.05 of the plain
+   one.  Then with the configuration's bf16 activations, one plain step:
+   on rank 0 a witness with no mesh (the ranks' 2-row blocks run in turn
+   in one process and averaged) gives bf16's own gap to the whole-batch
+   step; the mesh's gradients within 1e-5 of the witness and within
+   twice that gap of the whole-batch step.  Wire bytes a step, per-rank
+   step and all-reduce host ms, and kernel 1's and kernel 4's launches of
+   one step timed on rank 0 with the other ranks idle.
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -386,8 +413,12 @@ the server made them and run again in that order (``ms``, ``device_ms``,
 ``cim_matmul`` carries ``family_train_launches``, its launches over
 phase 27's steps per model and per step; ``trunk_conv`` carries
 ``sharded_launches``, per mesh of phase 30 each rank's launches over its
-sharded forward and two requests.  Phases 18-27 run after the training
-phases, 28-30 last.
+sharded forward and two requests; ``trunk_conv`` and ``cim_matmul`` carry
+``dist_train_launches``, each rank's launches in phase 31, and
+``dist_train``, rank 0's launches of one step timed with the other
+ranks idle (``ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
+``library_ms``).  Phases 18-27
+run after the training phases, 28-31 last.
 """
 
 from __future__ import annotations
@@ -3858,11 +3889,14 @@ def pass_times(kernel, plain, calls, sketch: bool) -> dict:
 
 def int_mm_operands(x, w):
     """int8 x [M, K] and w [K, N] zero-padded to what ``torch._int_mm``
-    takes: M to max(32, a multiple of 8), K and N to multiples of 8."""
+    takes: M to max(32, a multiple of 8), K and N to multiples of 8; w laid
+    out column-major, as phases 5 and 15 hand it (cuBLASLt's int8 GEMM
+    takes its fast path for a row-major x and a column-major w)."""
     (m, k), n = x.shape, w.shape[1]
     mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
     return (torch.nn.functional.pad(x, [0, kp - k, 0, mp - m]).contiguous(),
-            torch.nn.functional.pad(w, [0, np_ - n, 0, kp - k]).contiguous())
+            torch.nn.functional.pad(w, [0, np_ - n, 0, kp - k]).t()
+            .contiguous().t())
 
 
 def print_pass(what: str, name: str, t: dict, smi: str):
@@ -5339,6 +5373,598 @@ def phase_sharded(smi: str) -> dict:
     return {"launches": launches, "kernel": kernel}
 
 
+# ---------------------------------------------------------------------------
+# phase 31: branch training over a mesh of ranks
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 4
+DIST_MESH = (2, 2, 1), ("pod", "data", "model")   # batch over pod, H over data
+DIST_LM_MESH = (4, 1)                             # (data, model)
+DIST_RESTORE_MESH = (4, 1)
+DIST_STEPS = 3
+DIST_DX_IMAGES = 2            # one image a pod block
+DIST_REDUCE_REPS = 3
+GRAD_RTOL = 1e-5              # reduced gradients vs the unsharded step
+# bf16: the mesh's step vs the whole-batch step, as a multiple of the gap
+# between the whole-batch step and its rows run as the ranks' blocks in
+# one process (bf16 rounding, no mesh)
+BF16_GAP_FACTOR = 2.0
+COMPRESS_RTOL = 5e-2          # the int8 mean vs the plain mean
+DIST_DEADLINE_S = 600
+
+
+def slab_times(slabs, dot) -> dict:
+    """Kernel 1 over the recorded slab launches ``(x, w_q, stride,
+    padding, cfg)`` of one forward: ms (CUDA events), plain_ms and the
+    bound, from the slabs' own shapes."""
+    bound = ops = 0.0
+    for xx, w_q, stride, _, _ in slabs:
+        k, _, c_in, c_out = w_q.shape
+        m = xx.shape[0] * (xx.shape[1] - k + 1) * (xx.shape[2] - k + 1)
+        b, _ = trunk_bound_ms(m, k * k * c_in, c_out, xx.numel())
+        bound += b
+        ops += 2.0 * m * k * k * c_in * c_out / PEAK_INT8_OPS * 1e3
+    return {"ms": time_ms(lambda: [dot(xx, w_q, st, pd, c)
+                                   for xx, w_q, st, pd, c in slabs], 5),
+            "plain_ms": time_ms(lambda: [plain_trunk(xx, w_q, c, st, pd)
+                                         for xx, w_q, st, pd, c in slabs],
+                                2),
+            "bound_ms": bound, "bytes_ms": bound if bound > ops else 0.0,
+            "bound_by": "bytes" if bound > ops else "operations"}
+
+
+def check_slabs(slabs, dot) -> list:
+    """Kernel 1 at every distinct slab geometry ``torch.equal`` to its
+    plain version; returns the geometries."""
+    geoms = {}
+    for xx, w_q, stride, padding, c in slabs:
+        geoms.setdefault((tuple(xx.shape), tuple(w_q.shape), stride,
+                          padding), (xx, w_q, stride, padding, c))
+    for (xs, ws, stride, padding), (xx, w_q, _, _, c) in geoms.items():
+        check(padding == "VALID", f"slab {xs} launched {padding}")
+        check(torch.equal(dot(xx, w_q, stride, padding, c),
+                          plain_trunk(xx, w_q, c, stride, padding)),
+              f"kernel 1 at slab {xs} x {ws} != its plain version")
+    return sorted(geoms)
+
+
+def digests(tree) -> list:
+    import hashlib
+
+    from repro_torch import bridge
+    return [hashlib.sha256(t.detach().float().cpu().numpy().tobytes())
+            .hexdigest() for t in bridge.flatten(tree).values()]
+
+
+def worst_leaf(got, want) -> tuple[float, str]:
+    """The leaf of ``got`` farthest from ``want``'s, as (max |diff| over
+    the leaf's absmax, name)."""
+    from repro_torch import bridge
+    ref = bridge.flatten(want)
+    return max(((got_l.float() - ref[k].float()).abs().max().item()
+                / max(ref[k].float().abs().max().item(), 1e-30), k)
+               for k, got_l in bridge.flatten(got).items())
+
+
+def agreed(what, value, world: int):
+    """``value`` (picklable) all-gathered; checked equal on every rank."""
+    import torch.distributed as dist
+    seen = [None] * world
+    dist.all_gather_object(seen, value)
+    check(all(s == seen[0] for s in seen), f"{what} differs across ranks")
+
+
+def timed_host_ms(fn, reps: int) -> list:
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def dist_cnn_rank(rank: int, world: int, size: int, res: dict):
+    """Phase 31(a) and (c) on one rank: DarkNet-19 branch steps on
+    DIST_MESH, then elastic restore of their state onto
+    DIST_RESTORE_MESH."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch import bridge, deploy, engine, optim
+    from repro_torch import device as device_lib
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import rebranch, rom
+    from repro_torch.core.rebranch import trunk_conv_ste_bwd
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.engine import sharded as sharded_engine
+    from repro_torch.kernels import rebranch_conv as rc
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(name="darknet19", input_size=size)
+    plain = deploy.compile_model(cfg, engine="pallas")
+    params = with_cores(plain.init(seed=0), torch.Generator().manual_seed(2))
+    fp0 = rom.rom_fingerprint(params)
+    mesh = mesh_lib.make_mesh(*DIST_MESH, backend="gloo")
+    model = deploy.compile_model(cfg, engine="pallas_sharded", mesh=mesh)
+    dev = device_lib.resolve()
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn((BATCH, size, size, 3), generator=gen).to(dev)
+    y = torch.randn((BATCH, size // 32, size // 32, cfg.head_anchors,
+                     5 + cfg.head_classes), generator=gen).to(dev)
+    batch = {"x": x, "y": y}
+    loss_of = lambda m: (lambda p, b: ((m.forward(p, b["x"]) - b["y"]) ** 2)
+                         .mean())
+    opt_cfg = optim.AdamWConfig(lr=1e-3)
+    step = steps.BranchStep(loss_of(model), opt_cfg)
+    trainable, frozen = rebranch.partition(params)
+    opt = optim.init(trainable)
+    sites = sum(1 for s in cnn._conv_sites(cfg))
+    n, r = mesh.shape["data"], mesh.coordinate("data")
+    per_forward = sum(b > a for _, _, _, _, _, hw, _ in cnn._conv_sites(cfg)
+                      for a, b in [shd.h_layout(hw, n)[r]])
+    out = res["cnn"] = {"sites": sites, "per_forward": per_forward,
+                        "step_ms": [], "launches": 0}
+    dot, slabs = rc.trunk_conv_dot, []
+
+    def recording_dot(xx, w_q, stride=1, padding="SAME", cfg=rc.IDEAL,
+                      plan=None):
+        slabs.append((xx, w_q, stride, padding, cfg))
+        return dot(xx, w_q, stride, padding, cfg, plan)
+
+    for s in range(DIST_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        sharded_engine.fallbacks = 0
+        shd.reset_traffic()
+        if s == 0:
+            rc.trunk_conv_dot = recording_dot
+        t0 = time.perf_counter()
+        try:
+            with shd.use_mesh(mesh):
+                loss, grads = step.grads(trainable, frozen, batch)
+        finally:
+            rc.trunk_conv_dot = dot
+        new_t, new_opt, _ = optim.update(grads, opt, trainable, opt_cfg)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        counts = read_launches()
+        check(counts == {"trunk_conv": per_forward, "cim_matmul": 0,
+                         "rebranch_matmul": 0},
+              f"step {s}: {counts}, not {per_forward} kernel-1 launches "
+              f"(one per ROM conv of the forward, none in the backward)")
+        check(sharded_engine.fallbacks == 0,
+              f"step {s}: {sharded_engine.fallbacks} gathered layers")
+        check(bool(torch.isfinite(loss)), f"step {s}: loss {loss}")
+        out["launches"] += counts["trunk_conv"]
+        agreed(f"step {s}'s reduced gradients", digests(grads), world)
+        if s == 0:
+            out["traffic"] = dict(shd.bytes_sent)
+            out["loss0"] = float(loss)
+            first = (trainable, grads)
+        trainable, opt = new_t, new_opt
+        out.setdefault("loss", []).append(float(loss))
+    agreed("the trainable and opt state after the steps",
+           (digests(trainable), digests(opt)), world)
+    out["geometries"] = check_slabs(slabs, dot)
+    # all-reduce ms: the reduction of the reduced gradients again
+    out["reduce_ms"] = timed_host_ms(
+        lambda: steps.reduce_grads(loss, grads, mesh), DIST_REDUCE_REPS)
+    out["grad_bytes"] = sum(4 * g.numel()
+                            for g in bridge.flatten(grads).values())
+
+    # the unsharded 'pallas' step on the whole batch, on rank 0
+    dist.barrier()
+    if rank == 0:
+        reset_launches()
+        w_loss, w_grads = steps.value_and_grad(
+            lambda t: loss_of(plain)(rebranch.combine(t, frozen), batch),
+            first[0])
+        out["whole_loss"] = float(w_loss)
+        out["whole_launches"] = read_launches()["trunk_conv"]
+        out["grad_rel"] = worst_leaf(first[1], w_grads)
+        check(out["grad_rel"][0] <= GRAD_RTOL,
+              f"reduced gradient {out['grad_rel'][1]} is "
+              f"{out['grad_rel'][0]:.3e} of its absmax from the unsharded "
+              f"step's")
+        out["kernel"] = slab_times(slabs[:per_forward], dot)
+        del w_grads
+    dist.barrier()
+    del slabs
+
+    # each site's sharded STE dx against the unsharded dx
+    calls, apply_conv = [], cnn.apply_conv
+
+    def recording(p, xx, spec, stride=1, epilogue=None):
+        calls.append((p, xx, spec, stride))
+        return apply_conv(p, xx, spec, stride, epilogue)
+
+    cnn.apply_conv = recording
+    try:
+        with torch.no_grad():
+            plain.forward(params, x[:DIST_DX_IMAGES])
+    finally:
+        cnn.apply_conv = apply_conv
+    worst, sharded = 0.0, engine.get("pallas_sharded")
+    for i, (p, xin, spec, stride) in enumerate(calls):
+        if not spec.enabled:
+            continue
+        w_q, w_s = p["rom"]["w_q"], p["rom"]["w_scale"]
+        with torch.no_grad():
+            yshape = rc.trunk_conv(xin, w_q, w_s, stride=stride).shape
+        g = torch.randn(yshape, generator=torch.Generator().manual_seed(
+            i)).to(xin.device)
+        want = trunk_conv_ste_bwd(stride, "SAME", xin.shape, w_q, w_s, g)
+        with shd.use_mesh(mesh):
+            xl = shd.shard(xin, "cnn_batch", "cnn_h").requires_grad_()
+            yl = sharded.conv(spec.cim, xl, w_q, w_s, stride=stride)
+            dx, = torch.autograd.grad(yl, xl, shd.shard(g, "cnn_batch",
+                                                          "cnn_h"))
+            dx = shd.gather_batch(shd.gather_h(dx))
+        worst = max(worst, ((dx - want).abs().max()
+                            / want.abs().max()).item())
+    check(worst <= DX_RTOL, f"a sharded STE dx is {worst:.3e} of its absmax "
+          f"from the unsharded dx")
+    out["dx_worst"] = worst
+    check(rom.rom_fingerprint(params) == fp0, "the ROM fingerprint moved")
+
+    # (c) elastic restore: save from DIST_MESH (rank 0 writes), restore on
+    # DIST_RESTORE_MESH with shardings=
+    ck = os.path.join(ROOT, "build", "phase31_ckpt")
+    if rank == 0:
+        shutil.rmtree(ck, ignore_errors=True)
+    dist.barrier()
+    t0 = time.perf_counter()
+    ckpt.save(ck, DIST_STEPS, trainable, opt, params)
+    out["save_ms"] = (time.perf_counter() - t0) * 1e3
+    mesh2 = mesh_lib.make_mesh(DIST_RESTORE_MESH, backend="gloo")
+    t_sh, _, o_sh, _ = steps.model_state_shardings(cfg, mesh2, plain)
+    t0 = time.perf_counter()
+    at, rt, ro, _ = ckpt.restore(ck, trainable, opt, params,
+                                 shardings=(t_sh, o_sh))
+    out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    check(at == DIST_STEPS and digests(rt) == digests(trainable)
+          and digests(ro) == digests(opt),
+          "the elastic restore is not bitwise the saved state")
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ck, ignore_errors=True)
+
+
+def dist_lm_rank(rank: int, world: int, res: dict):
+    """Phase 31(b) on one rank: Gemma-2B at full width cut to
+    TRAIN_LAYERS with f32 activations, data-parallel over DIST_LM_MESH,
+    one step plain and one compressed."""
+    import torch.distributed as dist
+    from repro_torch import configs, optim
+    from repro_torch import device as device_lib
+    from repro_torch.core import rebranch
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.optim import compress
+    # f32 activations, held to 1e-5 of the whole-batch step; bf16, where a
+    # rank's block and the whole batch round apart, is held to a
+    # one-process witness in dist_lm_bf16_rank
+    cfg = dataclasses.replace(configs.get("gemma_2b"),
+                              num_layers=TRAIN_LAYERS, dtype="float32")
+    model, _ = lm_train_setup(cfg)
+    params = model.init(seed=0)
+    trainable, frozen = rebranch.partition(params)
+    opt = optim.init(trainable)
+    mesh = mesh_lib.make_mesh(DIST_LM_MESH, backend="gloo")
+    dcfg = synthetic.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    whole = synthetic.markov_batch(dcfg, 0, device=device_lib.resolve())
+    local = steps.local_batch(cfg, mesh, whole, TRAIN_BATCH)
+    make = lambda **kw: steps.make_train_step(
+        cfg, optim.AdamWConfig(lr=TRAIN_LR), loss_chunks=TRAIN_CHUNKS,
+        model=model, **kw)
+    out = res["lm"] = {"rows": int(local["tokens"].shape[0])}
+    dist.barrier()
+    if rank == 0:                    # the single-rank step, whole batch
+        reset_launches()
+        w_loss, w_grads = make().grads(trainable, frozen, whole)
+        torch.cuda.synchronize()
+        out["whole_launches"] = read_launches()["cim_matmul"]
+        out["whole_loss"] = float(w_loss)
+    dist.barrier()
+    calls, kernel = [], cm.cim_matmul
+
+    def recording(x_q, w_q, cfg=cm.IDEAL, plan=None):
+        calls.append((x_q, w_q, cfg))
+        return kernel(x_q, w_q, cfg, plan)
+
+    reduced = {}
+    for compressed in (False, True):
+        step = make(compress=compressed)
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        compress.wire_bytes.clear()
+        cm.cim_matmul = recording
+        t0 = time.perf_counter()
+        try:
+            with shd.use_mesh(mesh):
+                loss, grads = step.grads(trainable, frozen, local)
+        finally:
+            cm.cim_matmul = kernel
+        new_t, new_opt, _ = optim.update(grads, opt, trainable,
+                                         step.opt_cfg)
+        torch.cuda.synchronize()
+        key = "int8" if compressed else "plain"
+        e = out[key] = {"step_ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": read_launches(),
+                        "wire": dict(compress.wire_bytes),
+                        "loss": float(loss)}
+        agreed(f"the {key} step's gradients and state",
+               (digests(grads), digests(new_t), digests(new_opt)), world)
+        reduced[key] = grads
+        if compressed:
+            err = compress.init_error_state(grads)
+            e["reduce_ms"] = timed_host_ms(
+                lambda: compress.tree_all_reduce_int8(grads, err, mesh),
+                DIST_REDUCE_REPS)
+        else:
+            e["reduce_ms"] = timed_host_ms(
+                lambda: steps.reduce_grads(loss, grads, mesh),
+                DIST_REDUCE_REPS)
+    m_rows = {x_q.shape[0] for x_q, _, _ in calls}
+    check(m_rows == {TRAIN_BATCH // DIST_LM_MESH[0] * TRAIN_SEQ},
+          f"kernel 4 ran at M = {m_rows} on a rank")
+    for x_q, w_q, c in calls:
+        check(torch.equal(kernel(x_q, w_q, c), cm.cim_matmul_plain(x_q, w_q,
+                                                                   c)),
+              f"kernel 4 at M = {x_q.shape[0]}, {tuple(w_q.shape)} != its "
+              f"plain version")
+    dist.barrier()
+    if rank == 0:                # timed with the other ranks idle
+        out["m128"] = pass_times_m(calls, kernel, cm)
+    dist.barrier()
+    del calls
+    rel, name = worst_leaf(reduced["int8"], reduced["plain"])
+    out["int8_rel"] = (rel, name)
+    check(rel <= COMPRESS_RTOL, f"the int8 mean of {name} is {rel:.3e} of "
+          f"its absmax from the plain mean")
+    if rank == 0:
+        out["grad_rel"] = worst_leaf(reduced["plain"], w_grads)
+        check(out["grad_rel"][0] <= GRAD_RTOL,
+              f"reduced gradient {out['grad_rel'][1]} is "
+              f"{out['grad_rel'][0]:.3e} of its absmax from the whole-batch "
+              f"step's")
+        check(abs(out["plain"]["loss"] - out["whole_loss"])
+              <= GRAD_RTOL * abs(out["whole_loss"]),
+              f"loss {out['plain']['loss']} vs whole {out['whole_loss']}")
+    launches = [None] * world
+    dist.all_gather_object(launches, out["plain"]["launches"])
+    whole_n = [None] * world
+    dist.all_gather_object(whole_n, out.get("whole_launches"))
+    for c in launches + [out["int8"]["launches"]]:
+        check(c == {"trunk_conv": 0, "cim_matmul": whole_n[0],
+                    "rebranch_matmul": 0},
+              f"a rank's step launched {c}, the single-rank step "
+              f"{whole_n[0]} kernel-4")
+
+
+def dist_lm_bf16_rank(rank: int, world: int, res: dict):
+    """Phase 31(b) at the configuration's bf16 activations: one
+    data-parallel step over DIST_LM_MESH, held on rank 0 to a witness
+    computed in one process with no mesh (the ranks' row blocks of the
+    whole batch run one after another and averaged in rank order, as the
+    all-reduce sums them).  The witness's gap to the whole-batch step is
+    bf16's rounding alone; the mesh's step must lie within GRAD_RTOL of
+    the witness and within BF16_GAP_FACTOR times that gap of the
+    whole-batch step."""
+    import torch.distributed as dist
+    from repro_torch import bridge, configs, optim
+    from repro_torch import device as device_lib
+    from repro_torch.core import rebranch
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(configs.get("gemma_2b"),
+                              num_layers=TRAIN_LAYERS)
+    check(cfg.dtype == "bfloat16", f"Gemma-2B's dtype is {cfg.dtype}")
+    model, _ = lm_train_setup(cfg)
+    trainable, frozen = rebranch.partition(model.init(seed=0))
+    mesh = mesh_lib.make_mesh(DIST_LM_MESH, backend="gloo")
+    dcfg = synthetic.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    whole = synthetic.markov_batch(dcfg, 0, device=device_lib.resolve())
+    local = steps.local_batch(cfg, mesh, whole, TRAIN_BATCH)
+    n, rows = DIST_LM_MESH[0], TRAIN_BATCH // DIST_LM_MESH[0]
+    block = lambda r: {k: v[r * rows:(r + 1) * rows] for k, v in
+                       whole.items()}
+    check(all(torch.equal(v, block(rank)[k]) for k, v in local.items()),
+          f"rank {rank}'s batch block is not rows {rank * rows}.."
+          f"{(rank + 1) * rows - 1} of the whole batch")
+    step = steps.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR),
+                                 loss_chunks=TRAIN_CHUNKS, model=model)
+    out = res["lm_bf16"] = {}
+    dist.barrier()
+    if rank == 0:
+        reset_launches()
+        w_loss, w_grads = step.grads(trainable, frozen, whole)
+        torch.cuda.synchronize()
+        out["whole_launches"] = read_launches()["cim_matmul"]
+        parts = [bridge.flatten(step.grads(trainable, frozen, block(r))[1])
+                 for r in range(n)]
+        witness = {}
+        for k, g in parts[0].items():
+            acc = g.float()
+            for p in parts[1:]:
+                acc = acc + p[k].float()
+            witness[k] = (acc / n).to(g.dtype)
+        witness = bridge.map_named(w_grads, lambda k, _: witness[k])
+        out["whole_loss"] = float(w_loss)
+        out["witness_gap"] = worst_leaf(witness, w_grads)
+        del parts
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with shd.use_mesh(mesh):
+        loss, grads = step.grads(trainable, frozen, local)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = read_launches()
+    out["loss"] = float(loss)
+    agreed("the bf16 step's reduced gradients", digests(grads), world)
+    whole_n = [None] * world
+    dist.all_gather_object(whole_n, out.get("whole_launches"))
+    check(out["launches"] == {"trunk_conv": 0, "cim_matmul": whole_n[0],
+                              "rebranch_matmul": 0},
+          f"rank {rank}'s bf16 step launched {out['launches']}, the "
+          f"single-rank step {whole_n[0]} kernel-4")
+    if rank == 0:
+        out["vs_witness"] = worst_leaf(grads, witness)
+        out["vs_whole"] = worst_leaf(grads, w_grads)
+        check(out["vs_witness"][0] <= GRAD_RTOL,
+              f"bf16: reduced gradient {out['vs_witness'][1]} is "
+              f"{out['vs_witness'][0]:.3e} of its absmax from the "
+              f"one-process witness")
+        limit = BF16_GAP_FACTOR * out["witness_gap"][0]
+        check(out["vs_whole"][0] <= limit,
+              f"bf16: reduced gradient {out['vs_whole'][1]} is "
+              f"{out['vs_whole'][0]:.3e} of its absmax from the whole-batch "
+              f"step's, over {limit:.3e} ({BF16_GAP_FACTOR} x the "
+              f"witness's gap)")
+
+
+def pass_times_m(calls, kernel, cm) -> dict:
+    """Kernel 4 over one step's recorded calls (M = 128 a rank): ms, the
+    plain version's, ``torch._int_mm``'s and the bound."""
+    bound, by = 0.0, {"bytes": 0.0, "operations": 0.0}
+    for x_q, w_q, _ in calls:
+        b, kind = lm_bound_ms(x_q.shape[0], x_q.shape[1], w_q.shape[1])
+        bound += b
+        by[kind] += b
+    mm = [int_mm_operands(x_q, w_q) for x_q, w_q, _ in calls]
+    return {"ms": time_ms(lambda: [kernel(x, w, c) for x, w, c in calls], 5),
+            "plain_ms": time_ms(lambda: [cm.cim_matmul_plain(x, w, c)
+                                         for x, w, c in calls], 2),
+            "library_ms": time_ms(lambda: [torch._int_mm(a, b)
+                                           for a, b in mm], 5),
+            "bound_ms": bound, "bound_by": max(by, key=by.get)}
+
+
+def phase_dist_train_rank(rank: int, world: int, size: int) -> dict:
+    """Phase 31, one spawned rank."""
+    from repro_torch import device as device_lib
+    from repro_torch.kernels import _build
+    for name in ("trunk_conv", "cim_matmul"):
+        check(_build.target(name).exists(),
+              f"{name} is not built: the parent builds it before the ranks")
+    device_lib.resolve()
+    res = {}
+    t0 = time.perf_counter()
+    dist_cnn_rank(rank, world, size, res)
+    res["cnn_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_lm_rank(rank, world, res)
+    torch.cuda.empty_cache()
+    dist_lm_bf16_rank(rank, world, res)
+    res["lm_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_dist_train(smi: str) -> dict:
+    """31. Branch training over a 4-rank gloo mesh on the one card."""
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    print(f"phase 31 on {smi}: {DIST_RANKS} gloo ranks on one card; (a) "
+          f"DarkNet-19/{SIZE} batch {BATCH}, pallas_sharded, mesh "
+          f"{DIST_MESH}, {DIST_STEPS} branch steps; (b) Gemma-2B at full "
+          f"width cut to {TRAIN_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens over {DIST_LM_MESH}, f32 activations a step plain and one "
+          f"int8, then bf16 a step plain; (c) "
+          f"elastic restore onto {DIST_RESTORE_MESH}")
+    ranks = mesh_lib.spawn(phase_dist_train_rank, DIST_RANKS,
+                           backend="gloo", args=(SIZE,),
+                           deadline_s=DIST_DEADLINE_S)
+    c = [r["cnn"] for r in ranks]
+    c0 = c[0]
+    print(f"(a) {c0['sites']} ROM convs; kernel-1 launches per rank per "
+          f"step {[x['per_forward'] for x in c]} (none in the backward), "
+          f"{[x['launches'] for x in c]} over {DIST_STEPS} steps; 0 gathered; "
+          f"{len(c0['geometries'])} slab geometries (rank 0) torch.equal "
+          f"to the plain version; reduced gradients bitwise equal on every "
+          f"rank, the worst leaf {c0['grad_rel'][0]:.3e} of its absmax "
+          f"from the unsharded step on the whole batch ({c0['grad_rel'][1]});"
+          f" loss {c0['loss0']:.6f} vs unsharded {c0['whole_loss']:.6f}; "
+          f"losses {c0['loss']}; STE dx worst {max(x['dx_worst'] for x in c):.3e}"
+          f" of its absmax; ROM fingerprint unmoved")
+    print(f"  traffic of step 0 per rank (bytes by kind): "
+          + "; ".join(str(x["traffic"]) for x in c))
+    print(f"  step host ms per rank: " + "; ".join(
+        ", ".join(f"{t:.2f}" for t in x["step_ms"]) for x in c)
+          + f"; all-reduce of {c0['grad_bytes']} gradient bytes, ms per "
+          f"rank: " + "; ".join(", ".join(f"{t:.2f}" for t in x["reduce_ms"])
+                               for x in c) + f" [{smi}]")
+    k = c0["kernel"]
+    print(f"  kernel 1, rank 0's {c0['per_forward']} training slab launches "
+          f"of a forward (the other ranks idle): {k['ms']:.3f} ms, plain "
+          f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms [{smi}]")
+    print("  slab geometries: " + " ".join(f"{xs}x{ws}" for xs, ws, _, _
+                                            in c0["geometries"]))
+    print(f"(c) elastic restore bitwise on every rank; save ms "
+          f"{[round(x['save_ms'], 1) for x in c]}, restore ms "
+          f"{[round(x['restore_ms'], 1) for x in c]}")
+    lm = [r["lm"] for r in ranks]
+    l0 = lm[0]
+    print(f"(b) {l0['rows']} rows a rank; kernel-4 launches per rank a step "
+          f"{[x['plain']['launches']['cim_matmul'] for x in lm]} plain, "
+          f"{[x['int8']['launches']['cim_matmul'] for x in lm]} int8, the "
+          f"single-rank step {l0['whole_launches']}; every call at M = "
+          f"{TRAIN_BATCH // DIST_LM_MESH[0] * TRAIN_SEQ} torch.equal to the "
+          f"plain version; loss {l0['plain']['loss']:.6f} vs whole "
+          f"{l0['whole_loss']:.6f}; worst gradient leaf "
+          f"{l0['grad_rel'][0]:.3e} of its absmax ({l0['grad_rel'][1]}); "
+          f"int8 mean {l0['int8_rel'][0]:.3e} of its absmax from the plain "
+          f"({l0['int8_rel'][1]})")
+    for key in ("plain", "int8"):
+        print(f"  {key}: wire bytes per rank a step {l0[key]['wire']}; step "
+              f"host ms per rank "
+              f"{[round(x[key]['step_ms'], 2) for x in lm]}; all-reduce ms "
+              f"per rank " + "; ".join(
+                  ", ".join(f"{t:.2f}" for t in x[key]["reduce_ms"])
+                  for x in lm) + f" [{smi}]")
+    m = l0["m128"]
+    print(f"  kernel 4, rank 0's {l0['plain']['launches']['cim_matmul']} "
+          f"calls of a step at M = 128 (the other ranks idle): "
+          f"{m['ms']:.3f} ms, plain {m['plain_ms']:.3f}, torch._int_mm "
+          f"{m['library_ms']:.3f}, bound {m['bound_ms']:.3f} [{smi}]")
+    b = [r["lm_bf16"] for r in ranks]
+    b0 = b[0]
+    print(f"(b) bf16 activations: kernel-4 launches per rank "
+          f"{[x['launches']['cim_matmul'] for x in b]}, the single-rank step "
+          f"{b0['whole_launches']}; loss {b0['loss']:.6f} vs whole "
+          f"{b0['whole_loss']:.6f}; the one-process witness (the ranks' "
+          f"blocks run in turn, averaged) {b0['witness_gap'][0]:.3e} of its "
+          f"absmax from the whole batch ({b0['witness_gap'][1]}); the "
+          f"mesh's reduced gradients {b0['vs_witness'][0]:.3e} from the "
+          f"witness ({b0['vs_witness'][1]}), {b0['vs_whole'][0]:.3e} from "
+          f"the whole batch ({b0['vs_whole'][1]}; limit "
+          f"{BF16_GAP_FACTOR} x the witness's gap); step host ms per rank "
+          f"{[round(x['step_ms'], 2) for x in b]} [{smi}]")
+    print(f"phase 31 {time.perf_counter() - t0:.1f} s (rank 0: (a)+(c) "
+          f"{ranks[0]['cnn_s']:.1f} s, (b) {ranks[0]['lm_s']:.1f} s)")
+    return {"trunk_conv": {"launches": [x["launches"] for x in c],
+                           "kernel": k},
+            "cim_matmul": {"launches": [
+                x["plain"]["launches"]["cim_matmul"]
+                + x["int8"]["launches"]["cim_matmul"]
+                + y["launches"]["cim_matmul"] for x, y in zip(lm, b)],
+                "kernel": m}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5430,6 +6056,7 @@ def main() -> int:
     phase_tune(dev, smi)
     phase_tuned_serve(smi)
     sharded = phase_sharded(smi)
+    dist_train = phase_dist_train(smi)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -5490,6 +6117,16 @@ def main() -> int:
             # ms, plain_ms, bound_ms (and the unsharded 20 launches'
             # unsharded_ms), timed as ms is
             out["sharded"] = sharded["kernel"]
+        if name in dist_train:
+            # phase 31: launches per rank over the multi-rank training
+            # (kernel 1: DarkNet-19's 3 sharded steps; kernel 4:
+            # Gemma-2B's f32 plain and int8 steps and its bf16 step), and
+            # over one step's launches on rank 0, the other ranks idle
+            # (kernel 1: the training slabs of a forward; kernel 4: 21
+            # calls at M = 128, with torch._int_mm's library_ms), timed as
+            # ms is
+            out["dist_train_launches"] = dist_train[name]["launches"]
+            out["dist_train"] = dist_train[name]["kernel"]
         if name == "cim_matmul":
             # phase 27: launches over each new family's 10 train steps at
             # the 2-layer cut, and per step (checked: the block linears

@@ -14,6 +14,16 @@
   bits (dtype ``V2``, as numpy writes the JAX package's bfloat16 arrays)
   and restored by the template's dtype.
 * Restored leaves land on ``device`` (default: the CUDA card).
+* Elastic restore: ``restore(shardings=(t_shard, o_shard))`` (trees of
+  ``sharding.NamedSharding``, e.g. ``launch.steps.model_state_shardings``'
+  on another mesh than the one that saved) gives each rank its block of
+  every leaf, cut from the whole array in the ``.npz`` as the reference's
+  ``device_put`` places it.
+* Inside a ``torch.distributed`` world :func:`save` writes from rank 0
+  only, synchronously, and every rank waits at a barrier until the
+  checkpoint is complete (the reference is single-controller).  Rank 0's
+  leaves must be whole: under a data-parallel mesh, the one the train
+  step runs on, every rank holds the whole trainable tree.
 """
 
 from __future__ import annotations
@@ -26,10 +36,12 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import bridge
 from repro_torch import device as device_lib
 from repro_torch.core import rom
+from repro_torch.distributed import sharding as shd
 from repro_torch.scenario import branch as branch_lib
 
 
@@ -64,13 +76,6 @@ def _write_atomic(path: str, arrays: dict, meta_name: str, meta: dict):
     os.rename(tmp, path)
 
 
-def _check_shardings(shardings):
-    if shardings is not None:
-        raise NotImplementedError(
-            "shardings= is not ported yet (multi-device restore, ROADMAP "
-            "Queue 1 item 5); pass shardings=None")
-
-
 def save(ckpt_dir: str, step: int, trainable, opt_state, params_full,
          *, extra: dict | None = None, keep: int = 3,
          async_: bool = False) -> threading.Thread | None:
@@ -79,7 +84,23 @@ def save(ckpt_dir: str, step: int, trainable, opt_state, params_full,
     The host snapshot of the SRAM state is taken on the caller's thread.
     The ROM fingerprint is taken with the write, on the IO thread when
     async: the ROM is immutable, and hashing it is most of a save's cost
-    at full width (Gemma-2B's 17.7 GB ROM)."""
+    at full width (Gemma-2B's 17.7 GB ROM).
+
+    Inside a world only rank 0 writes, synchronously (``async_`` is not
+    taken), and every rank returns after a barrier, so the checkpoint is
+    complete on disk wherever ``save`` has returned."""
+    if dist.is_available() and dist.is_initialized():
+        if dist.get_rank() == 0:
+            _save(ckpt_dir, step, trainable, opt_state, params_full, extra,
+                  keep, async_=False)
+        dist.barrier()
+        return None
+    return _save(ckpt_dir, step, trainable, opt_state, params_full, extra,
+                 keep, async_)
+
+
+def _save(ckpt_dir, step, trainable, opt_state, params_full, extra, keep,
+          async_):
     extra = extra or {}
     arrays = _arrays("t", trainable)
     arrays.update(_arrays("o", opt_state))
@@ -149,12 +170,22 @@ def _leaf(arr: np.ndarray, like, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def _rebuild(data, template, prefix: str, device, *, what: str):
-    """Template tree + stored arrays -> restored tree (structure-checked)."""
+def _rebuild(data, template, prefix: str, device, *, what: str,
+             shard_tree=None):
+    """Template tree + stored arrays -> restored tree (structure-checked);
+    with ``shard_tree`` (``NamedSharding`` leaves named as the template's)
+    each leaf is this rank's block of the stored array."""
     _check_structure(data, bridge.flatten(template), prefix, what=what)
-    return bridge.map_named(
-        template, lambda name, like: _leaf(data[f"{prefix}/{name}"], like,
-                                           device))
+    shards = bridge.flatten(shard_tree) if shard_tree is not None else {}
+
+    def one(name, like):
+        arr = data[f"{prefix}/{name}"]
+        if name in shards:
+            arr = arr[tuple(slice(lo, hi) for lo, hi in
+                            shd.block_bounds(arr.shape, shards[name]))]
+        return _leaf(arr, like, device)
+
+    return bridge.map_named(template, one)
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -183,9 +214,14 @@ def restore(ckpt_dir: str, trainable_template, opt_template, params_full,
             *, step: int | None = None, shardings=None, device=None):
     """Load the latest (or given) step; refuses a ROM-fingerprint mismatch.
 
+    ``shardings=(t_shard, o_shard)`` (elastic restore): trees of
+    ``sharding.NamedSharding`` mirroring the trainable and opt templates;
+    each restored leaf is this rank's block of the saved one on the
+    sharding's mesh (a leaf without a sharding comes back whole).
+
     Returns (step, trainable, opt_state, extra), leaves on ``device``.
     """
-    _check_shardings(shardings)
+    t_shard, o_shard = shardings if shardings is not None else (None, None)
     steps = latest_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -202,9 +238,9 @@ def restore(ckpt_dir: str, trainable_template, opt_template, params_full,
     dev = device_lib.resolve(device)
     with np.load(os.path.join(path, "state.npz")) as data:
         trainable = _rebuild(data, trainable_template, "t", dev,
-                             what="restore(trainable)")
+                             what="restore(trainable)", shard_tree=t_shard)
         opt_state = _rebuild(data, opt_template, "o", dev,
-                             what="restore(opt_state)")
+                             what="restore(opt_state)", shard_tree=o_shard)
     return meta["step"], trainable, opt_state, meta.get("extra", {})
 
 

@@ -110,6 +110,26 @@ def trunk_matmul(cfg, x, w_q, w_scale):
     return _TrunkMatmul.apply(x, w_q, w_scale, cfg)
 
 
+class _ZerosFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, shape):
+        ctx.src = (src.shape, src.dtype, src.device)
+        return src.new_zeros(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.src
+        return torch.zeros(shape, dtype=dtype, device=device), None
+
+
+def zeros_from(src: torch.Tensor, shape) -> torch.Tensor:
+    """Zeros of ``shape`` that stand in the autograd graph after ``src``
+    (zero gradient): an empty result that still leads back to its input,
+    so that a rank of a mesh with no rows to compute reaches the exchanges
+    before it in its backward, as the other ranks do."""
+    return _ZerosFrom.apply(src, tuple(shape))
+
+
 def conv_nhwc(x, w, stride: int = 1, padding: str = "SAME"):
     """The port's one NHWC/HWIO conv: explicit XLA-style pads (the odd
     SAME pad at the bottom/right), then an unpadded ``F.conv2d``."""
@@ -117,7 +137,7 @@ def conv_nhwc(x, w, stride: int = 1, padding: str = "SAME"):
     (ph0, ph1), oh = cim_lib.conv_pads(x.shape[1], kh, stride, padding)
     (pw0, pw1), ow = cim_lib.conv_pads(x.shape[2], kw, stride, padding)
     if x.shape[0] * oh * ow == 0:           # F.conv2d rejects empty maps
-        return x.new_zeros((x.shape[0], oh, ow, w.shape[3]))
+        return zeros_from(x, (x.shape[0], oh, ow, w.shape[3]))
     xp = F.pad(x, (0, 0, pw0, pw1, ph0, ph1)).permute(0, 3, 1, 2)
     y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride)
     return y.permute(0, 2, 3, 1)

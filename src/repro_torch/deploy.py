@@ -111,12 +111,15 @@ class CompiledModel:
         """CNNs: head output for an NHWC image batch.  LMs: logits for a
         ``{"tokens": [B, S]}`` batch.  On the params' device.
 
-        Under a mesh every rank passes the whole batch, keeps its rows of
-        the H layout (``sharding.shard``) and returns the whole output (the
-        heads gather H), as the reference returns one global array."""
+        Under a mesh every rank passes the whole batch, keeps its block of
+        it (``sharding.shard``: its ``pod`` block of the images, its
+        ``data`` slab of H) and returns the whole output, gathered over
+        both (the heads gather H, then the batch is gathered over
+        ``pod``), as the reference returns one global array.  The gathers
+        are differentiable, so a loss on the output trains the branches."""
         if self._is_cnn:
             batch = shd.shard(batch, "cnn_batch", "cnn_h")
-            return self._apply(params, batch, self.cfg)
+            return shd.gather_batch(self._apply(params, batch, self.cfg))
         return api.forward(params, batch, self.cfg)
 
     @_scoped
@@ -277,9 +280,10 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
         (``tune.disabled()`` around every call).  No plan moves a bit.
     mesh: a ``launch.mesh.Mesh`` the CNN is deployed onto: every call runs
         under ``sharding.use_mesh(mesh)``, NHWC activations sharded over H
-        on the axis of the ``"cnn_h"`` rule.  Every ROM site's engine must
-        run its conv sharded (``'conv' in capabilities.sharded_ops``:
-        'pallas_sharded').  LM configs raise: their tensor-parallel
+        on the axis of the ``"cnn_h"`` rule and the image batch over the
+        axis of the ``"cnn_batch"`` rule (``pod``, where the mesh has
+        one).  Every ROM site's engine must run its conv sharded
+        (``'conv' in capabilities.sharded_ops``: 'pallas_sharded').  LM configs raise: their tensor-parallel
         serving is a later slice.
     """
     if not isinstance(cfg, (cnn.CNNConfig, ArchConfig)):

@@ -1,15 +1,19 @@
 """Logical-axis sharding rules (port of ``repro.distributed.sharding``),
-and the H layout of a sharded CNN activation.
+the layout of a sharded CNN activation, and parameter shardings.
 
 The rules are the reference's letter for letter: models name *logical*
 axes, a context-scoped rule set maps them onto mesh axes, and
 ``param_specs`` derives a PartitionSpec for every parameter from its tree
 path.  These are pure metadata here and resolve on any mesh, an
 :class:`~repro_torch.launch.mesh.AbstractMesh` of 16x16 included.
+``param_shardings`` pairs each spec with its mesh (:class:`NamedSharding`,
+a frozen record), and :func:`local_block` cuts a rank's block of a whole
+tensor under one, in GSPMD's uneven layout per dimension.
 
-What runs is the CNN serving layout, the reference's
-``shard(x, "cnn_batch", "cnn_h")``: an NHWC activation split over H on the
-mesh axis the ``"cnn_h"`` rule names, as GSPMD splits an uneven
+What runs is the CNN layout, the reference's ``shard(x, "cnn_batch",
+"cnn_h")``: an NHWC activation split over its batch on the axis the
+``"cnn_batch"`` rule names (``pod``) and over H on the axis the
+``"cnn_h"`` rule names (``data``), each as GSPMD splits an uneven
 dimension: rank r of n holds rows ``[r*c, min((r+1)*c, H))`` with
 ``c = ceil(H/n)`` (a rank may hold none).  Each rank holds its slab as a
 plain tensor; :func:`global_h` recovers H from the slabs' heights (one
@@ -20,10 +24,17 @@ all go through it, and it counts what it sends (``rows_sent``,
 through host buffers (gloo sends no CUDA tensor); that follows from the
 mesh's backend, not from a failed attempt.
 
-Logical axes outside the CNN layout (every LM axis, and an image batch
-over ``pod``) are not executed yet: :func:`shard` raises naming the slice
-that ports them.  ``param_shardings`` waits for the multi-device training
-slice, its first caller.
+:func:`move_rows` is differentiable: its adjoint sends each row's
+gradient back to the rank that owns the row and adds it there, so the
+``"gather"`` kind's adjoint is a reduce-scatter that sums, and a halo's
+adds the halo rows' gradient into their owners' (rows of the zero
+padding are dropped).  Every rank's backward runs the same exchanges in
+the same order, because every rank builds the same graph: a rank with
+no rows still runs each op on empty tensors
+(``core.rebranch.zeros_from`` keeps an empty result in the graph).
+
+The LM logical axes are not executed yet: :func:`shard` raises naming the
+slice that ports them.
 """
 
 from __future__ import annotations
@@ -31,16 +42,16 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import dataclasses
 import math
 import re
+from typing import Any
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import bridge
 
-TRAIN_SLICE = ("the multi-device training slice (ROADMAP Queue 1 item "
-               "5(b))")
 LM_SLICE = "the LM tensor-parallel slice (ROADMAP Queue 1 item 5(c))"
 
 # logical axis -> tuple of mesh axis names (tried in order, first that
@@ -73,7 +84,8 @@ _rules: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_rules", default=DEFAULT_RULES)
 
 # rows and bytes this process sent through move_rows, by kind ('halo',
-# 'relayout', 'gather'), since the last reset_traffic()
+# 'relayout', 'gather'; their adjoints as 'halo_adjoint' and so on), since
+# the last reset_traffic()
 rows_sent: collections.Counter = collections.Counter()
 bytes_sent: collections.Counter = collections.Counter()
 
@@ -113,11 +125,13 @@ def mesh_axis_for(logical: str, mesh=None) -> str | None:
 
 class PartitionSpec(tuple):
     """Per dimension: None (replicated), a mesh axis name, or a tuple of
-    names; trailing Nones dropped (``jax.sharding.PartitionSpec``'s
-    layout)."""
+    names, a tuple of one name read as that name
+    (``jax.sharding.PartitionSpec``'s layout)."""
 
     def __new__(cls, *parts):
-        return super().__new__(cls, parts)
+        return super().__new__(cls, tuple(
+            p[0] if isinstance(p, tuple) and len(p) == 1 else p
+            for p in parts))
 
     def __repr__(self):
         return f"P{tuple.__repr__(self)}"
@@ -163,18 +177,10 @@ def h_layout(h: int, n: int) -> list[tuple[int, int]]:
     return [(min(r * c, h), min((r + 1) * c, h)) for r in range(n)]
 
 
-def h_axis(mesh=None):
-    """``(mesh, axis)`` when NHWC activations shard over H (the ``"cnn_h"``
-    rule names an axis of size > 1), else None."""
-    mesh = mesh or current_mesh()
-    if mesh is None:
-        return None
-    if mesh_axis_for("cnn_batch", mesh) is not None:
-        raise NotImplementedError(
-            f"an image batch sharded over "
-            f"{mesh_axis_for('cnn_batch', mesh)!r} is not executed by the "
-            f"port yet: it comes with {TRAIN_SLICE}")
-    axis = mesh_axis_for("cnn_h", mesh)
+def _axis_with_groups(logical: str, mesh):
+    """``(mesh, axis)`` when the ``logical`` rule names an axis of size > 1
+    of ``mesh`` (which must then have process groups), else None."""
+    axis = mesh_axis_for(logical, mesh)
     if axis is None:
         return None
     if not hasattr(mesh, "group"):
@@ -183,73 +189,117 @@ def h_axis(mesh=None):
     return mesh, axis
 
 
-def _collective_device(mesh, x: torch.Tensor) -> torch.device:
-    """Where a collective of ``mesh``'s backend takes its tensors."""
-    return x.device if mesh.backend == "nccl" else torch.device("cpu")
+def h_axis(mesh=None):
+    """``(mesh, axis)`` when NHWC activations shard over H (the ``"cnn_h"``
+    rule names an axis of size > 1), else None."""
+    mesh = mesh or current_mesh()
+    return None if mesh is None else _axis_with_groups("cnn_h", mesh)
 
 
-def global_h(x: torch.Tensor, mesh, axis: str) -> int:
-    """H of the activation whose slab this rank holds (an all-gather of
-    the slabs' heights, checked against the H layout)."""
-    n = mesh.shape[axis]
-    mine = torch.tensor([x.shape[1]], dtype=torch.int64,
-                        device=_collective_device(mesh, x))
-    heights = [torch.empty_like(mine) for _ in range(n)]
-    dist.all_gather(heights, mine, group=mesh.group(axis))
-    heights = [int(t.item()) for t in heights]
-    h = sum(heights)
-    if heights != [b - a for a, b in h_layout(h, n)]:
-        raise RuntimeError(f"slab heights {heights} over {n} ranks are not "
-                           f"the H layout of {h} rows")
+def batch_axis(mesh=None):
+    """``(mesh, axis)`` when an image batch shards over its own axis (the
+    ``"cnn_batch"`` rule, ``pod``, names an axis of size > 1), else None."""
+    mesh = mesh or current_mesh()
+    return None if mesh is None else _axis_with_groups("cnn_batch", mesh)
+
+
+def _collective_device(group, x: torch.Tensor) -> torch.device:
+    """Where a collective on ``group`` takes its tensors: the tensor's own
+    device over NCCL, host buffers over gloo."""
+    return x.device if dist.get_backend(group) == "nccl" else torch.device(
+        "cpu")
+
+
+def global_h(x: torch.Tensor, mesh, axis: str, dim: int = 1) -> int:
+    """H (or, with ``dim=0``, the batch) of the activation whose slab this
+    rank holds: an all-gather of the slabs' sizes along ``dim``, checked
+    against the uneven layout."""
+    n, group = mesh.shape[axis], mesh.group(axis)
+    mine = torch.tensor([x.shape[dim]], dtype=torch.int64,
+                        device=_collective_device(group, x))
+    sizes = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(sizes, mine, group=group)
+    sizes = [int(t.item()) for t in sizes]
+    h = sum(sizes)
+    if sizes != [b - a for a, b in h_layout(h, n)]:
+        raise RuntimeError(f"slab sizes {sizes} over {n} ranks are not "
+                           f"the layout of {h} rows")
     return h
 
 
-def move_rows(x: torch.Tensor, have: list, want: list, mesh, axis: str,
-              kind: str) -> torch.Tensor:
-    """Rows ``want[r]`` (global ``(lo, hi)``) of the activation for this
-    rank r, which holds rows ``have[r]`` as ``x``; ``have`` and ``want``
-    are the same lists on every rank.  Rows outside every ``have`` (the
-    conv's zero padding, outside ``[0, H)``) are zeros.  Only the rows that
-    change owner cross between ranks, one message per pair at most."""
-    if list(want) == list(have):
-        return x
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            f"rows sent between ranks carry no gradient back yet: the "
-            f"adjoint of the exchange comes with {TRAIN_SLICE}")
+def _exchange(x: torch.Tensor, have: list, want: list, mesh, axis: str,
+              kind: str, dim: int, add: bool) -> torch.Tensor:
+    """Rows ``want[r]`` along ``dim`` for this rank r, which holds rows
+    ``have[r]`` as ``x``; each row is the sum of every rank's copy of it
+    (``add``, in rank order) or the one copy (the ``have`` are disjoint).
+    Rows nobody holds are zeros."""
     n, r = mesh.shape[axis], mesh.coordinate(axis)
     group = mesh.group(axis)
-    host = mesh.backend == "gloo" and x.device.type != "cpu"
+    host = _collective_device(group, x).type != x.device.type
     lo, hi = want[r]
     a0, a1 = have[r]
-    out = x.new_zeros((x.shape[0], hi - lo, *x.shape[2:]))
-    ops, recvs = [], []
+    shape = list(x.shape)
+    shape[dim] = hi - lo
+    out = x.new_zeros(shape)
+    ops, parts = [], []
     for q in range(n):
         s0, s1 = max(a0, want[q][0]), min(a1, want[q][1])
         if q == r:
             if s1 > s0:
-                out[:, s0 - lo:s1 - lo] = x[:, s0 - a0:s1 - a0]
+                parts.append((s0, x.narrow(dim, s0 - a0, s1 - s0)))
             continue
         peer = dist.get_global_rank(group, q)
         if s1 > s0:                       # my rows that q wants
-            piece = x[:, s0 - a0:s1 - a0].contiguous()
+            piece = x.narrow(dim, s0 - a0, s1 - s0).contiguous()
             piece = piece.cpu() if host else piece
             ops.append(dist.P2POp(dist.isend, piece, peer, group=group))
             rows_sent[kind] += s1 - s0
             bytes_sent[kind] += piece.numel() * piece.element_size()
         t0, t1 = max(have[q][0], lo), min(have[q][1], hi)
         if t1 > t0:                       # q's rows that I want
-            buf = torch.empty((x.shape[0], t1 - t0, *x.shape[2:]),
-                              dtype=x.dtype,
+            shape[dim] = t1 - t0
+            buf = torch.empty(shape, dtype=x.dtype,
                               device="cpu" if host else x.device)
             ops.append(dist.P2POp(dist.irecv, buf, peer, group=group))
-            recvs.append((t0, buf))
+            parts.append((t0, buf))
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    for t0, buf in recvs:
-        out[:, t0 - lo:t0 - lo + buf.shape[1]] = buf.to(x.device)
+    for t0, piece in parts:
+        dst = out.narrow(dim, t0 - lo, piece.shape[dim])
+        if add:
+            dst.add_(piece.to(x.device))
+        else:
+            dst.copy_(piece)
     return out
+
+
+class _MoveRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, have, want, mesh, axis, kind, dim):
+        ctx.geom = (have, want, mesh, axis, kind, dim)
+        return _exchange(x, have, want, mesh, axis, kind, dim, add=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        have, want, mesh, axis, kind, dim = ctx.geom
+        dx = _exchange(g.contiguous(), want, have, mesh, axis,
+                       f"{kind}_adjoint", dim, add=True)
+        return dx, None, None, None, None, None, None
+
+
+def move_rows(x: torch.Tensor, have: list, want: list, mesh, axis: str,
+              kind: str, dim: int = 1) -> torch.Tensor:
+    """Rows ``want[r]`` (global ``(lo, hi)`` along ``dim``, H by default)
+    of the activation for this rank r, which holds rows ``have[r]`` as
+    ``x``; ``have`` and ``want`` are the same lists on every rank.  Rows
+    outside every ``have`` (the conv's zero padding, outside ``[0, H)``)
+    are zeros.  Only the rows that change owner cross between ranks, one
+    message per pair at most.  Differentiable: the adjoint returns each
+    row's gradient to its owner, summed over the ranks that read it."""
+    if list(want) == list(have):
+        return x
+    return _MoveRows.apply(x, list(have), list(want), mesh, axis, kind, dim)
 
 
 def reset_traffic():
@@ -259,9 +309,10 @@ def reset_traffic():
 
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
-    """This rank's slab of a whole (replicated) NHWC activation, for
-    ``shard(x, "cnn_batch", "cnn_h")``.  Without a mesh, on a 1-rank mesh
-    or on a size-1 axis it returns ``x`` untouched."""
+    """This rank's block of a whole (replicated) NHWC activation, for
+    ``shard(x, "cnn_batch", "cnn_h")``: its ``pod`` block of the batch and
+    its ``data`` slab of H.  Without a mesh, on a 1-rank mesh or on
+    size-1 axes it returns ``x`` untouched."""
     mesh = current_mesh()
     if mesh is None or mesh.size == 1:
         return x
@@ -270,26 +321,53 @@ def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
             raise NotImplementedError(
                 f"shard over logical axis {ax!r} is not executed by the "
                 f"port yet: the LM axes come with {LM_SLICE}")
-    at = h_axis(mesh)
-    if at is None or "cnn_h" not in axes:
-        return x
-    if axes.index("cnn_h") != 1:
-        raise ValueError(f"the H layout shards dim 1 of an NHWC activation; "
-                         f"got logical axes {axes}")
-    mesh, axis = at
-    lo, hi = h_layout(x.shape[1], mesh.shape[axis])[mesh.coordinate(axis)]
-    return x[:, lo:hi].contiguous()
+    for logical, dim, at in (("cnn_batch", 0, batch_axis(mesh)),
+                             ("cnn_h", 1, h_axis(mesh))):
+        if at is None or logical not in axes:
+            continue
+        if axes.index(logical) != dim:
+            raise ValueError(f"{logical!r} shards dim {dim} of an NHWC "
+                             f"activation; got logical axes {axes}")
+        m, axis = at
+        lo, hi = h_layout(x.shape[dim], m.shape[axis])[m.coordinate(axis)]
+        x = x.narrow(dim, lo, hi - lo)
+    return x.contiguous()
 
 
 def gather_h(x: torch.Tensor) -> torch.Tensor:
-    """The whole activation on every rank from the slabs of the H layout
-    (``x`` itself when nothing is sharded)."""
+    """The whole activation's H on every rank from the slabs of the H
+    layout (``x`` itself when nothing is sharded)."""
     at = h_axis()
     if at is None:
         return x
     mesh, axis = at
     h, n = global_h(x, mesh, axis), mesh.shape[axis]
     return move_rows(x, h_layout(h, n), [(0, h)] * n, mesh, axis, "gather")
+
+
+def gather_batch(x: torch.Tensor) -> torch.Tensor:
+    """The whole batch (dim 0) on every rank from the blocks of the batch
+    layout over the ``"cnn_batch"`` axis (``x`` itself when the batch is
+    not sharded)."""
+    at = batch_axis()
+    if at is None:
+        return x
+    mesh, axis = at
+    b, n = global_h(x, mesh, axis, dim=0), mesh.shape[axis]
+    return move_rows(x, h_layout(b, n), [(0, b)] * n, mesh, axis, "gather",
+                     dim=0)
+
+
+def mesh_group(mesh):
+    """The process group of all of ``mesh``'s ranks: the one axis of size
+    > 1, else the world (a mesh spans the whole world)."""
+    axes = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    if len(axes) == 1:
+        return mesh.group(axes[0])
+    if mesh.size != dist.get_world_size():
+        raise ValueError(f"{mesh!r} does not span the world of "
+                         f"{dist.get_world_size()} ranks")
+    return dist.group.WORLD
 
 
 # ---------------------------------------------------------------------------
@@ -396,17 +474,54 @@ def param_specs(params, mesh=None):
     """Tree of PartitionSpec matching ``params`` (leaves named as
     ``jax.tree_util.keystr`` names them)."""
     mesh = mesh or current_mesh()
+    return bridge.map_named(params, lambda path, leaf: _spec_of(path, leaf,
+                                                                 mesh))
 
-    def one(path, leaf):
-        if mesh is None:
-            return P()
-        return _size_check(_spec_for_param(path, leaf, mesh),
-                           tuple(leaf.shape), mesh)
 
-    return bridge.map_named(params, one)
+def _spec_of(path: str, leaf, mesh) -> PartitionSpec:
+    if mesh is None:
+        return P()
+    return _size_check(_spec_for_param(path, leaf, mesh), tuple(leaf.shape),
+                       mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``'s counterpart): per
+    dimension of a leaf, the mesh axes its blocks are spread over."""
+    mesh: Any
+    spec: PartitionSpec
 
 
 def param_shardings(params, mesh):
-    raise NotImplementedError(
-        f"param_shardings places parameters on a sharded mesh; it comes "
-        f"with {TRAIN_SLICE}, its first caller")
+    """Tree of :class:`NamedSharding` matching ``params``."""
+    return bridge.map_named(params, lambda path, leaf: NamedSharding(
+        mesh, _spec_of(path, leaf, mesh)))
+
+
+def block_bounds(shape, sharding: NamedSharding) -> list[tuple[int, int]]:
+    """This rank's ``(lo, hi)`` per dimension of a leaf of ``shape`` under
+    ``sharding``: a dimension over axes ``(a, b)`` is split
+    ``size_a * size_b`` ways in GSPMD's uneven layout (:func:`h_layout`),
+    block ``coord_a * size_b + coord_b``."""
+    mesh, spec = sharding.mesh, tuple(sharding.spec)
+    out = []
+    for d, size in enumerate(shape):
+        part = spec[d] if d < len(spec) else None
+        if part is None:
+            out.append((0, size))
+            continue
+        names = part if isinstance(part, tuple) else (part,)
+        n, c = 1, 0
+        for a in names:
+            n, c = n * mesh.shape[a], c * mesh.shape[a] + mesh.coordinate(a)
+        out.append(h_layout(size, n)[c])
+    return out
+
+
+def local_block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``sharding``."""
+    for d, (lo, hi) in enumerate(block_bounds(x.shape, sharding)):
+        if hi - lo != x.shape[d]:
+            x = x.narrow(d, lo, hi - lo)
+    return x.contiguous()

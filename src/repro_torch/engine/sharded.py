@@ -13,8 +13,11 @@ delegates to 'pallas' when no mesh is bound or the ``"cnn_h"`` axis has
 size 1.  When the halo would span more than one neighbour (H too small for
 the mesh) the layer is gathered on every rank, run whole through kernel 1
 and re-split: correct, not sharded; it warns once per geometry and adds
-one to :data:`fallbacks`.  ``grads=False`` until the sharded STE backward
-is ported (``halo_conv.sharded_trunk_conv`` raises in backward).
+one to :data:`fallbacks`.  ``grads=True``: the sharded trunk's backward
+is the STE on each rank's extended slab, and the halo exchange's adjoint
+returns the halo rows' gradient to their owners (a gathered layer's
+gather sums its gradient back), so branch training runs on the H layout.
+There are no ``fused_ops``: training takes the trunk + branch route.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ class ShardedPallasEngine(base.TrunkEngine):
     name = "pallas_sharded"
     capabilities = base.EngineCapabilities(
         fidelity_modes=("ideal", "per_subarray", "bitserial"),
-        grads=False, devices=("cpu", "cuda"), epilogue=True,
+        grads=True, devices=("cpu", "cuda"), epilogue=True,
         sharded_ops=("conv",), tune=True)
 
     def matmul(self, cfg, x, w_q, w_scale):

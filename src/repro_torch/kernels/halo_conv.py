@@ -34,19 +34,25 @@ GEMMs on local shapes and matches its unsharded twin to rounding.
 :func:`plan_halo` is the reference's feasibility rule: None when a halo
 would span more than one neighbour's rows; the engine then gathers the
 layer (:func:`gathered`), runs it whole and re-splits.
+
+Training runs through the same functions: the trunk's backward is the
+STE of the unsharded trunk on the extended slab (dx only), the plain
+convs' is autograd's, and the exchange's adjoint (``move_rows``) returns
+each halo row's gradient to its owner.  The fused ReBranch conv stays
+forward-only, as the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import torch
 import torch.nn.functional as F
 
 from repro_torch.core import cim as cim_lib
 from repro_torch.core.cim import conv_pads
-from repro_torch.core.rebranch import conv_nhwc
+from repro_torch.core.rebranch import conv_nhwc, zeros_from
 from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rebranch_conv as rc
 
 
@@ -129,7 +135,8 @@ def _prepare(h: int, kh: int, stride: int, padding: str, n: int):
 def _sharded(fn, x, kh: int, kw: int, c_out: int, stride: int, padding: str,
              mesh, axis: str, h: int | None):
     """``fn`` (a conv with ``padding="VALID"``) on this rank's extended
-    slab: its output rows of the H layout of ``conv(x_global)``."""
+    slab: its output rows of the H layout of ``conv(x_global)``.
+    Differentiable where ``fn`` is: the exchange has its adjoint."""
     n, r = mesh.shape[axis], mesh.coordinate(axis)
     (pw0, pw1), ow = conv_pads(x.shape[2], kw, stride, padding)
     if no_halo(kh, kw, stride):
@@ -145,7 +152,7 @@ def _sharded(fn, x, kh: int, kw: int, c_out: int, stride: int, padding: str,
         xe = shd.move_rows(x, shd.h_layout(h, n), need, mesh, axis, "halo")
         rows = out[r][1] - out[r][0]
     if rows == 0:
-        return x.new_zeros((x.shape[0], 0, ow, c_out))
+        return zeros_from(xe, (x.shape[0], 0, ow, c_out))
     if pw0 or pw1:
         xe = F.pad(xe, (0, 0, pw0, pw1))
     return fn(xe)
@@ -164,7 +171,8 @@ def halo_h(x, kh: int, kw: int, stride: int, padding: str, mesh,
 def gathered(fn, x, mesh, axis: str, h: int):
     """``fn`` (a SAME conv) on the whole activation, gathered on every
     rank, then this rank's rows of the output's H layout: the fallback
-    when :func:`plan_halo` is None."""
+    when :func:`plan_halo` is None.  Differentiable where ``fn`` is: the
+    gather's adjoint sums each rank's gradient of the whole input."""
     n = mesh.shape[axis]
     full = shd.move_rows(x, shd.h_layout(h, n), [(0, h)] * n, mesh, axis,
                          "gather")
@@ -174,34 +182,26 @@ def gathered(fn, x, mesh, axis: str, h: int):
 
 
 # ---------------------------------------------------------------------------
-# trunk conv (the 'pallas_sharded' engine's conv path)
+# trunk conv (the 'pallas_sharded' engine's conv path) and its STE backward
 # ---------------------------------------------------------------------------
-
-class _ShardedTrunkConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w_q, w_scale, cfg, stride, padding, mesh, axis, h):
-        kh, kw, _, c_out = w_q.shape
-        return _sharded(
-            lambda xe: rc.trunk_conv(xe, w_q, w_scale, cfg, stride=stride,
-                                     padding="VALID"),
-            x, kh, kw, c_out, stride, padding, mesh, axis, h)
-
-    @staticmethod
-    def backward(ctx, g):
-        raise NotImplementedError(
-            f"the sharded trunk conv's STE backward (and the halo "
-            f"exchange's adjoint) come with {shd.TRAIN_SLICE}")
-
 
 def sharded_trunk_conv(cfg: cim_lib.CiMConfig, stride: int, padding: str,
                        mesh, axis: str, x, w_q, w_scale, *,
                        h: int | None = None):
     """H-sharded frozen-trunk convolution of this rank's slab ``x``
     (global height ``h``, gathered when None), bit-identical on its rows
-    to the unsharded ``trunk_conv``.  Forward only for now.  Raises when
-    :func:`plan_halo` is infeasible (the engine checks first)."""
-    return _ShardedTrunkConv.apply(x, w_q, w_scale, cfg, stride, padding,
-                                   mesh, axis, h)
+    to the unsharded ``trunk_conv``.  Raises when :func:`plan_halo` is
+    infeasible (the engine checks first).
+
+    Its backward is the reference's STE (dx only: the ROM cannot be
+    written): the unsharded ``trunk_conv_ste_bwd`` with VALID padding on
+    the rank's extended slab, then the exchange's adjoint returns the halo
+    rows' gradient to their owners and adds it there; rows of the zero
+    padding, outside ``[0, H)``, are dropped."""
+    kh, kw, _, c_out = w_q.shape
+    return _sharded(
+        lambda xe: kops.trunk_conv(cfg, stride, "VALID", xe, w_q, w_scale),
+        x, kh, kw, c_out, stride, padding, mesh, axis, h)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +240,8 @@ def sharded_conv_nhwc(x, w, stride: int = 1, padding: str = "SAME"):
     """``conv_nhwc`` of an activation in the H layout under the bound
     mesh, through the same exchange (the reference gets this from GSPMD);
     ``conv_nhwc`` itself without one.  A layer whose halo does not fit is
-    gathered, run whole and re-split."""
+    gathered, run whole and re-split.  Differentiable in ``x`` and ``w``
+    (the branch's KxK core trains through it)."""
     at = shd.h_axis()
     kh, kw, _, c_out = w.shape
     if at is None:

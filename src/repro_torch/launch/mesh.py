@@ -157,6 +157,8 @@ def _rank_main(fn, rank: int, world_size: int, backend: str, root: str,
                init_method=f"file://{os.path.join(root, 'init')}")
     try:
         result = fn(rank, world_size, *args)
+        # no rank tears its group down while another still connects
+        dist.barrier()
     finally:
         dist.destroy_process_group()
     with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:

@@ -1,24 +1,40 @@
 """Step builders for training and serving (port of
-``repro.launch.steps``, single device):
+``repro.launch.steps``):
 
   train_step   : fwd + bwd (branch-only grads) + AdamW + metrics
   prefill_step : full-sequence forward writing a fresh KV cache
   serve_step   : one decode token against the cache
 
 ``input_specs`` gives each step's inputs as meta-device tensors (shapes
-and dtypes, no allocation).  The multi-device half of the reference
-(batch and cache shardings, model-state shardings) waits for ROADMAP
-Queue 1 item 5.
+and dtypes, no allocation).  The sharding half is the reference's
+(``batch_pspec`` / ``batch_shardings``, ``cache_pspecs`` /
+``cache_shardings``, ``model_state_shardings``), as the port's
+``sharding.NamedSharding`` records.
+
+Under a bound mesh of more than one rank a train step is data-parallel:
+each rank computes the loss on what it holds (an LM rank its block of
+the batch; a CNN rank the whole output, gathered from every rank's
+slab), and every trainable gradient is all-reduced as a mean over the
+ranks before AdamW, so the update is the same on every rank.  Tensor
+parallelism (a ``model`` axis over 1) is not executed yet.
 """
 
 from __future__ import annotations
 
+import math
+import re
+
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch import bridge, deploy, optim
 from repro_torch.core import rebranch
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ArchConfig
+from repro_torch.optim import compress as compress_lib
+
+P = shd.PartitionSpec
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +66,107 @@ def input_specs(cfg: ArchConfig, seq_len: int, global_batch: int,
                if cfg.num_codebooks else (global_batch, 1))
         return {"tokens": _spec(one, i32)}
     raise ValueError(kind)
+
+
+def batch_pspec(cfg: ArchConfig, mesh, global_batch: int):
+    """The batch dim's spec part for token-like inputs: over pod+data, or
+    replicated (None) for a batch smaller than those axes."""
+    axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+    total = math.prod(mesh.shape[a] for a in axes)
+    if global_batch >= total:
+        return tuple(axes) if len(axes) > 1 else axes[0]
+    return None
+
+
+def batch_shardings(cfg: ArchConfig, mesh, specs: dict, global_batch: int):
+    """A :class:`~repro_torch.distributed.sharding.NamedSharding` per input
+    of ``specs``: the batch dim by :func:`batch_pspec`, the rest whole."""
+    b = batch_pspec(cfg, mesh, global_batch)
+
+    def one(s):
+        if s.dim() >= 2:
+            return shd.NamedSharding(mesh, P(b, *([None] * (s.dim() - 1))))
+        return shd.NamedSharding(mesh, P())
+    return {k: one(v) for k, v in specs.items()}
+
+
+def local_batch(cfg: ArchConfig, mesh, batch: dict, global_batch: int):
+    """This rank's block of every input of a whole ``batch``."""
+    sh = batch_shardings(cfg, mesh, batch, global_batch)
+    return {k: shd.local_block(v, sh[k]) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# cache specs + shardings
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg: ArchConfig, global_batch: int, max_len: int):
+    """The cache tree of a ``global_batch`` x ``max_len`` decode as meta
+    tensors (no allocation)."""
+    model = deploy.compile_model(cfg)
+    return model.init_cache(global_batch, max_len, device="meta")
+
+
+_LAYER_LIST = re.compile(r"\['layers'\]\[\d+\]")
+
+
+def cache_pspecs(cfg: ArchConfig, mesh, cache_tree):
+    """Path+shape-aware PartitionSpecs for KV/SSM caches (the
+    reference's rules, leaf names as ``bridge.flatten`` gives them)."""
+    return bridge.map_named(cache_tree,
+                            lambda p, leaf: _cache_spec(p, leaf, mesh))
+
+
+def cache_shardings(cfg: ArchConfig, mesh, cache_tree):
+    return bridge.map_named(cache_tree, lambda p, leaf: shd.NamedSharding(
+        mesh, _cache_spec(p, leaf, mesh)))
+
+
+def _cache_spec(p: str, leaf, mesh):
+    baxes = [a for a in ("pod", "data") if a in mesh.axis_names]
+    b_total = math.prod(mesh.shape[a] for a in baxes)
+    m_size = mesh.shape.get("model", 1)
+    # scan-over-layers archs stack caches with a leading L dim
+    stacked = "['layers']" in p and not _LAYER_LIST.search(p)
+    shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
+    nd = len(shape)
+    pre = (None,) if stacked else ()
+    if ("'k'" in p or "'v'" in p) and nd == 4:
+        bsz, s, kv, _ = shape
+        bspec = tuple(baxes) if bsz >= b_total else None
+        if bspec is None:
+            # batch-1 long-context: shard the sequence instead
+            return P(*pre, None,
+                     tuple(mesh.axis_names) if s % mesh.size == 0 else None,
+                     None, None)
+        if kv % m_size == 0:
+            return P(*pre, bspec, None, "model", None)
+        if s % m_size == 0:
+            # kv heads do not divide the model axis: shard the cache
+            # sequence (flash-decoding style)
+            return P(*pre, bspec, "model", None, None)
+        return P(*pre, bspec, None, None, None)
+    if "'h'" in p and nd == 3:                 # [B, d_inner, N]
+        bspec = tuple(baxes) if shape[0] >= b_total else None
+        return P(*pre, bspec,
+                 "model" if shape[1] % m_size == 0 else None, None)
+    if "'conv'" in p and nd == 3:              # [B, K-1, d_inner]
+        bspec = tuple(baxes) if shape[0] >= b_total else None
+        return P(*pre, bspec, None,
+                 "model" if shape[2] % m_size == 0 else None)
+    return P()
+
+
+def model_state_shardings(cfg, mesh, model=None):
+    """(trainable, frozen, opt) shardings and the parameter shapes (meta
+    tensors), without allocating parameters; ``None`` where the other
+    side of the ROM/SRAM split holds a leaf.  LM and CNN configs."""
+    model = model or deploy.compile_model(cfg)
+    shapes = bridge.abstract(lambda: model.init(seed=0, device="cpu"))
+    with shd.use_mesh(mesh):
+        t_sh, f_sh = rebranch.partition(shd.param_shardings(shapes, mesh))
+    opt_sh = {"step": shd.NamedSharding(mesh, P()), "m": t_sh, "v": t_sh}
+    return t_sh, f_sh, opt_sh, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -117,34 +234,111 @@ def value_and_grad(loss_fn, trainable):
         else grads[k])
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: optim.AdamWConfig | None = None,
-                    lr_fn=None, loss_chunks: int = 8, model=None):
-    """``train_step(trainable, frozen, opt_state, batch) -> (new_trainable,
-    new_opt_state, {"loss", "grad_norm", "lr"})``: the gradient of the
-    chunked readout loss over the trainable (SRAM) tree only, then one
-    AdamW step at ``lr_fn(step)`` (or ``opt_cfg.lr``).  The frozen (ROM)
-    tree is read, never written: the trunk ops' straight-through backward
-    gives no gradient for it."""
-    opt_cfg = opt_cfg or optim.AdamWConfig()
-    model = model or deploy.compile_model(cfg)
+def train_mesh():
+    """The bound mesh a train step reduces over, or None when there is
+    none or it has one rank.  A ``model`` axis over 1 raises:
+    tensor-parallel training is not executed yet."""
+    mesh = shd.current_mesh()
+    if mesh is None or mesh.size == 1:
+        return None
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a train step over {mesh!r} would shard tensors over its "
+            f"'model' axis; that comes with {shd.LM_SLICE}")
+    return mesh
 
-    def train_step(trainable, frozen, opt_state, batch):
-        def loss_fn(t):
-            params = rebranch.combine(t, frozen)
-            feats = model.features(params, batch)
-            return chunked_readout_loss(params, feats, batch["labels"],
-                                        cfg, loss_chunks, model=model)
 
-        loss, grads = value_and_grad(loss_fn, trainable)
-        lr = lr_fn(opt_state["step"]) if lr_fn else opt_cfg.lr
+def reduce_grads(loss, grads, mesh):
+    """(loss, grads) as means over the ranks of ``mesh``: every leaf and
+    the loss packed into one f32 buffer, one all-reduce (SUM) on the
+    mesh's group (host buffers over gloo), divided by the rank count."""
+    named = bridge.flatten(grads)
+    group = shd.mesh_group(mesh)
+    flat = torch.cat([loss.reshape(1).float()]
+                     + [g.reshape(-1).float() for g in named.values()])
+    host = dist.get_backend(group) != "nccl" and flat.device.type != "cpu"
+    buf = flat.cpu() if host else flat
+    dist.all_reduce(buf, group=group)
+    compress_lib.wire_bytes["f32"] += buf.numel() * 4
+    flat = buf.to(flat.device) / dist.get_world_size(group)
+    out, at = {}, 1
+    for k, g in named.items():
+        out[k] = flat[at:at + g.numel()].reshape(g.shape).to(g.dtype)
+        at += g.numel()
+    return (flat[0].to(loss.dtype),
+            bridge.map_named(grads, lambda k, _: out[k]))
+
+
+class BranchStep:
+    """``step(trainable, frozen, opt_state, batch) -> (new_trainable,
+    new_opt_state, {"loss", "grad_norm", "lr"})``: the gradient of
+    ``loss_fn(params, batch)`` over the trainable (SRAM) tree only, then
+    one AdamW step at ``lr_fn(step)`` (or ``opt_cfg.lr``).  The frozen
+    (ROM) tree is read, never written: the trunk ops' straight-through
+    backward gives no gradient for it.
+
+    Called under a bound mesh of more than one rank
+    (``sharding.use_mesh``), :meth:`grads` all-reduces the loss and every
+    gradient as a mean over the ranks before AdamW, so ``grad_norm``,
+    clipping and the update see the same tensors on every rank.  With
+    ``compress=True`` the gradients go through the error-feedback int8
+    all-reduce (``optim.compress``); its error state lives in this object,
+    one per rank, and is not checkpointed (a restored run starts it at
+    zero).  Without a mesh there is nothing to reduce, so ``compress``
+    changes nothing."""
+
+    def __init__(self, loss_fn, opt_cfg: optim.AdamWConfig | None = None,
+                 lr_fn=None, *, compress: bool = False):
+        self.loss_fn = loss_fn
+        self.opt_cfg = opt_cfg or optim.AdamWConfig()
+        self.lr_fn = lr_fn
+        self.compress = compress
+        self.err = None
+
+    def grads(self, trainable, frozen, batch):
+        """(loss, grads), reduced over the mesh's ranks when there is
+        one."""
+        loss, grads = value_and_grad(
+            lambda t: self.loss_fn(rebranch.combine(t, frozen), batch),
+            trainable)
+        mesh = train_mesh()
+        if mesh is None:
+            return loss, grads
+        if not self.compress:
+            return reduce_grads(loss, grads, mesh)
+        if self.err is None:
+            self.err = compress_lib.init_error_state(grads)
+        grads, self.err = compress_lib.tree_all_reduce_int8(grads, self.err,
+                                                            mesh)
+        loss, _ = reduce_grads(loss, {}, mesh)
+        return loss, grads
+
+    def __call__(self, trainable, frozen, opt_state, batch):
+        loss, grads = self.grads(trainable, frozen, batch)
+        lr = self.lr_fn(opt_state["step"]) if self.lr_fn else self.opt_cfg.lr
         new_t, new_opt, m = optim.update(grads, opt_state, trainable,
-                                         opt_cfg, lr=lr)
+                                         self.opt_cfg, lr=lr)
         metrics = {"loss": loss, "grad_norm": m["grad_norm"],
                    "lr": torch.as_tensor(lr, dtype=torch.float32,
                                          device=loss.device)}
         return new_t, new_opt, metrics
 
-    return train_step
+
+def make_train_step(cfg: ArchConfig, opt_cfg: optim.AdamWConfig | None = None,
+                    lr_fn=None, loss_chunks: int = 8, model=None, *,
+                    compress: bool = False) -> BranchStep:
+    """The LM train step: a :class:`BranchStep` on the chunked readout
+    loss of ``model.features``.  Under a mesh each rank passes its block
+    of the batch (:func:`local_batch`); the loss is the mean over ranks of
+    each rank's mean, the global mean when the blocks are equal."""
+    model = model or deploy.compile_model(cfg)
+
+    def loss_fn(params, batch):
+        feats = model.features(params, batch)
+        return chunked_readout_loss(params, feats, batch["labels"], cfg,
+                                    loss_chunks, model=model)
+
+    return BranchStep(loss_fn, opt_cfg, lr_fn, compress=compress)
 
 
 def make_prefill_step(cfg: ArchConfig, global_batch: int, seq_len: int,

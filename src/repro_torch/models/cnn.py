@@ -16,12 +16,15 @@ on every device.
 
 Under a mesh (``distributed.sharding.use_mesh``, bound by
 ``deploy.compile_model(mesh=)``) activations are this rank's slab of the H
-layout.  The rows move only where GSPMD moved them for the reference: the
-trunk conv in its engine ('pallas_sharded'), the branch's KxK core and
-SRAM convs in ``halo_conv.sharded_conv_nhwc``, a pool whose 2x2 windows
-straddle a cut, and the heads (VGG-8's flatten, ResNet-18's mean, the YOLO
+layout (of its block of the batch, where the mesh has a ``pod`` axis;
+``deploy`` gathers the batch after the head).  The rows move only where
+GSPMD moved them for the reference: the trunk conv in its engine
+('pallas_sharded'), the branch's KxK core and SRAM convs in
+``halo_conv.sharded_conv_nhwc``, a pool whose 2x2 windows straddle a
+cut, and the heads (VGG-8's flatten, ResNet-18's mean, the YOLO
 predictor's output), which gather H so that every rank returns the whole
-output.  Without a mesh every line runs as on one device.
+output.  Every move is differentiable, so the branches train on the
+layout.  Without a mesh every line runs as on one device.
 """
 
 from __future__ import annotations
@@ -193,7 +196,7 @@ def apply_vgg8(params, x, cfg: CNNConfig):
             x = F.relu(_bn_apply(bn, apply_conv(conv, x, spec)))
         if i % 2 == 1:
             x = _pool(x)
-    x = shd.gather_h(x).reshape(x.shape[0], -1)
+    x = shd.gather_h(x).flatten(1)
     return x @ params["fc"]["sram"]["w"] + params["fc"]["sram"]["b"]
 
 

@@ -1,5 +1,6 @@
-"""Rank functions of the spawned gloo worlds of ``test_torch_sharding.py``
-and ``test_torch_halo_conv.py``, and the inputs both sides share.
+"""Rank functions of the spawned gloo worlds of ``test_torch_sharding.py``,
+``test_torch_halo_conv.py`` and ``test_torch_dist_train.py``, and the
+inputs both sides share.
 
 The ranks import no JAX: they rebuild the same numpy inputs from seeds,
 run the port on the CPU (plain kernel versions) over 4 ranks, and return
@@ -10,6 +11,7 @@ H), so the tests also see that all ranks agree.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -153,21 +155,25 @@ def halo_world(rank: int, world: int) -> dict:
         got = _sharded_conv(mesh, ideal, x, w_q, w_scale, s)
         want = pallas.conv(ideal, x, w_q, w_scale, stride=s)
         out["geoms"][ci, co, k, h, s] = bool(torch.equal(got, want))
+    # the trunk's STE backward and a plain conv's, through the exchange's
+    # adjoint, against the unsharded ones
+    from repro_torch.core.rebranch import trunk_conv_ste_bwd
     x, w_q, w_scale = _t(*conv_case(7, 3, 20, 12, 16)[:3])
+    w = w_q.float() * w_scale
     with shd.use_mesh(mesh):
         xl = shd.shard(x, "cnn_batch", "cnn_h").requires_grad_()
         y = halo_conv.sharded_trunk_conv(ideal, 1, "SAME", mesh, "data", xl,
                                          w_q, w_scale)
-        try:
-            y.sum().backward()
-            out["backward"] = None
-        except NotImplementedError as e:
-            out["backward"] = str(e)
-        try:                    # a plain conv under autograd: no adjoint
-            halo_conv.sharded_conv_nhwc(xl, w_q.float() * w_scale)
-            out["exchange_grad"] = None
-        except NotImplementedError as e:
-            out["exchange_grad"] = str(e)
+        y.sum().backward()
+        out["backward"] = (shd.gather_h(xl.grad).numpy(), trunk_conv_ste_bwd(
+            1, "SAME", x.shape, w_q, w_scale, torch.ones(y.shape[0], 16, 8,
+                                                         12)).numpy())
+        xl = shd.shard(x, "cnn_batch", "cnn_h").requires_grad_()
+        halo_conv.sharded_conv_nhwc(xl, w).sum().backward()
+        xw = x.clone().requires_grad_()
+        conv_nhwc(xw, w).sum().backward()
+        out["exchange_grad"] = (shd.gather_h(xl.grad).numpy(),
+                                xw.grad.numpy())
     out["traffic"] = dict(shd.bytes_sent)
     return out
 
@@ -222,3 +228,224 @@ def sharding_world(rank: int, world: int) -> dict:
                     y.numpy(), sharded_engine.fallbacks, msgs, repr(model))
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dist_train.py: branch training over a mesh
+# ---------------------------------------------------------------------------
+
+STE_MESHES = ((2, 2), (4, 1))              # (data, model); H over data
+# the reference's sweep, and maps whose halo does not fit 2 or 4 ways
+# (the engine gathers them)
+STE_CASES = SWEEP + [(3, 1, 1), (3, 1, 3), (3, 2, 1)]
+TRAIN_MESH = ((2, 2, 1), ("pod", "data", "model"))
+# (model, every conv dense): VGG-8's head follows a gather; five of
+# DarkNet-19's trunk convs at 32 px are gathered over 2
+TRAIN_CASES = [("vgg8", True), ("vgg8", False), ("darknet19", False)]
+TRAIN_BATCH = 3                            # over pod 2: blocks of 2 and 1
+LM_BATCH, LM_SEQ = 8, 16                   # over data 4: 2 rows a rank
+COMPRESS_SHAPE = (8, 64)
+RESTORE_MESH = (2, 2)                      # (data, model): blocks over model
+
+
+def ste_case(k: int, s: int, h: int):
+    """(x, w_q, w_scale, g): a conv of ``conv_case`` and a seeded
+    cotangent of its SAME output."""
+    x, w_q, w_scale = conv_case(5000 + 10 * k + h + s, k, 20, 12, h)[:3]
+    oh, ow = -(-h // s), -(-x.shape[2] // s)
+    g = np.random.default_rng(k + h + s).normal(
+        size=(x.shape[0], oh, ow, 12)).astype(np.float32)
+    return x, w_q, w_scale, g
+
+
+def train_cnn_case(name: str, dense: bool = False):
+    """(numpy params, images [3, S, S, 3], a seeded target of the head's
+    output shape): the ReBranch model with live cores, or ``dense`` (every
+    conv a trainable SRAM conv)."""
+    if dense:
+        from repro_torch import bridge, deploy
+        params = bridge.to_numpy(deploy.compile_model(
+            _cnn_cfg(name, True)).init(3, device="cpu"))
+    else:
+        params, _ = cnn_case(name)
+    cfg = _cnn_cfg(name)
+    size = cfg.input_size
+    rng = np.random.default_rng(40 + len(name))
+    x = rng.normal(size=(TRAIN_BATCH, size, size, 3)).astype(np.float32)
+    head = ((cfg.num_classes,) if name == "vgg8" else
+            (size // 32, size // 32, cfg.head_anchors, 5 + cfg.head_classes))
+    y = rng.normal(size=(TRAIN_BATCH, *head)).astype(np.float32)
+    return params, x, y
+
+
+def _tree(params):
+    from repro_torch import bridge
+    return bridge.to_torch(params, "cpu")
+
+
+def regression_loss(model):
+    """Mean squared error of ``model.forward`` against ``batch["y"]``."""
+    return lambda p, b: ((model.forward(p, b["x"]) - b["y"]) ** 2).mean()
+
+
+def compress_grads():
+    """Each of the 4 ranks' N(0, 1e-3) gradient of COMPRESS_SHAPE."""
+    return [(np.random.default_rng(60 + r).normal(size=COMPRESS_SHAPE)
+             * 1e-3).astype(np.float32) for r in range(4)]
+
+
+def _digest(tree) -> dict:
+    import hashlib
+
+    from repro_torch import bridge
+    return {k: hashlib.sha256(v.detach().contiguous().numpy().tobytes())
+            .hexdigest() for k, v in bridge.flatten(tree).items()}
+
+
+def _numpy(tree) -> dict:
+    from repro_torch import bridge
+    return {k: v.detach().numpy().copy()
+            for k, v in bridge.flatten(tree).items()}
+
+
+def train_world(rank: int, world: int, lm_path: str, ckpt_dir: str,
+                cli_dir: str) -> dict:
+    """The sharded STE, the sharded CNN step, the data-parallel LM step
+    (plain and compressed), the int8 all-reduce, elastic restore and the
+    train CLI inside the world.  The LM parameters come from ``lm_path``
+    (``torch.save`` of the tree: a numpy tree in the spawn arguments costs
+    the ranks seconds to start)."""
+    import torch.distributed as dist
+    from repro_torch import configs, deploy, engine, optim
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import cim, rebranch
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.engine import sharded as sharded_engine
+    from repro_torch.kernels import halo_conv
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_cli
+    warnings.simplefilter("ignore")       # the engine's fallback warnings
+    from repro_torch.optim import compress
+    out = {"rank": rank}
+    ideal = cim.CiMConfig(mode="ideal")
+
+    # the sharded trunk's STE dx and the plain sharded conv's dx and dw
+    out["ste"] = {}
+    for shape in STE_MESHES:
+        mesh = mesh_lib.make_mesh(shape, backend="gloo")
+        for k, s, h in STE_CASES:
+            x, w_q, w_scale, g = _t(*ste_case(k, s, h))
+            with shd.use_mesh(mesh):
+                gl = shd.shard(g, "cnn_batch", "cnn_h")
+                xl = shd.shard(x, "cnn_batch", "cnn_h").requires_grad_()
+                y = engine.get("pallas_sharded").conv(ideal, xl, w_q,
+                                                      w_scale, stride=s)
+                dx, = torch.autograd.grad(y, xl, gl)
+                trunk_dx = shd.gather_h(dx)
+                xl = shd.shard(x, "cnn_batch", "cnn_h").requires_grad_()
+                w = (w_q.float() * w_scale).requires_grad_()
+                y = halo_conv.sharded_conv_nhwc(xl, w, s)
+                # a rank with no output rows gives w no gradient
+                dx, dw = torch.autograd.grad(y, (xl, w), gl,
+                                             allow_unused=True)
+                dw = torch.zeros_like(w) if dw is None else dw.contiguous()
+                dist.all_reduce(dw, group=mesh.group("data"))
+                out["ste"][shape, k, s, h] = (
+                    trunk_dx.numpy(), shd.gather_h(dx).numpy(), dw.numpy())
+
+    # one CNN branch step on (pod 2, data 2, model 1), with the branches
+    # (STE through the trunk) and dense (every conv trainable, no
+    # quantiser)
+    mesh = mesh_lib.make_mesh(*TRAIN_MESH, backend="gloo")
+    out["cnn"] = {}
+    for name, dense in TRAIN_CASES:
+        params, x, y = train_cnn_case(name, dense)
+        model = deploy.compile_model(_cnn_cfg(name, dense),
+                                     engine="pallas_sharded", mesh=mesh)
+        trainable, frozen = rebranch.partition(_tree(params))
+        opt = optim.init(trainable)
+        step = steps.BranchStep(regression_loss(model),
+                                optim.AdamWConfig(lr=1e-3))
+        batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+        sharded_engine.fallbacks = 0
+        shd.reset_traffic()
+        with shd.use_mesh(mesh):
+            loss, grads = step.grads(trainable, frozen, batch)
+        fallbacks = sharded_engine.fallbacks
+        new_t, new_opt, _ = optim.update(grads, opt, trainable,
+                                         step.opt_cfg)
+        out["cnn"][name, dense] = {
+            "loss": float(loss), "fallbacks": fallbacks,
+            "grads": _numpy(grads) if rank == 0 else None,
+            "digests": (_digest(grads), _digest(new_t), _digest(new_opt)),
+            "traffic": dict(shd.bytes_sent)}
+
+    # the data-parallel LM step over (4, 1), plain and compressed
+    cfg = configs.get_smoke("gemma_2b")
+    mesh = mesh_lib.make_mesh((4, 1), backend="gloo")
+    model = deploy.compile_model(cfg, engine="pallas")
+    params = torch.load(lm_path)
+    trainable, frozen = rebranch.partition(params)
+    opt = optim.init(trainable)
+    dcfg = synthetic.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                seq_len=LM_SEQ, global_batch=LM_BATCH)
+    whole = synthetic.markov_batch(dcfg, 0, device="cpu")
+    batch = steps.local_batch(cfg, mesh, whole, LM_BATCH)
+    out["lm"] = {"rows": batch["tokens"][:, 0].tolist()}
+    with shd.use_mesh(mesh):
+        for compressed in (False, True):
+            step = steps.make_train_step(cfg, optim.AdamWConfig(lr=1e-3),
+                                         loss_chunks=2, model=model,
+                                         compress=compressed)
+            compress.wire_bytes.clear()
+            loss, grads = step.grads(trainable, frozen, batch)
+            wire = dict(compress.wire_bytes)
+            new_t, new_opt, metrics = step(trainable, frozen, opt, batch)
+            out["lm"][compressed] = {
+                "loss": float(loss), "step_loss": float(metrics["loss"]),
+                "grads": _numpy(grads) if rank == 0 else None,
+                "digests": (_digest(grads), _digest(new_t),
+                            _digest(new_opt)),
+                "wire": wire}
+
+    # the int8 all-reduce of one tensor
+    g = torch.from_numpy(compress_grads()[rank])
+    red, err = compress.all_reduce_int8(g, torch.zeros_like(g), mesh, "data")
+    out["compress"] = (red.numpy(), err.numpy())
+
+    # elastic restore of a single-process save onto (data 2, model 2)
+    mesh = mesh_lib.make_mesh(RESTORE_MESH, backend="gloo")
+    t_sh, _, o_sh, _ = steps.model_state_shardings(cfg, mesh, model)
+    tmpl_t, _ = rebranch.partition(params)
+    at, t, o, _ = ckpt.restore(ckpt_dir, tmpl_t, optim.init(tmpl_t), params,
+                               shardings=(t_sh, o_sh), device="cpu")
+    from repro_torch import bridge
+    out["restore"] = {
+        "step": at, "t": _numpy(t), "o": _numpy(o),
+        "bounds": {k: shd.block_bounds(tuple(v.shape), sh)
+                   for k, v, sh in [
+                       (k, v, bridge.flatten(t_sh)[k])
+                       for k, v in bridge.flatten(tmpl_t).items()]},
+        "coord": {a: mesh.coordinate(a) for a in mesh.axis_names}}
+
+    # the train CLI inside the world: --compress, rank 0's checkpoints,
+    # --resume on every rank
+    args = ["--arch", "gemma_2b", "--smoke", "--steps", "2", "--batch", "4",
+            "--seq", "16", "--warmup", "1", "--ckpt-dir", cli_dir,
+            "--ckpt-every", "1", "--log-every", "1", "--compress"]
+    first = train_cli.main(args, device="cpu")
+    args[4] = "3"
+    more = train_cli.main(args + ["--resume"], device="cpu")
+    out["cli"] = (first, more, ckpt.latest_steps(cli_dir))
+    return out
+
+
+def _cnn_cfg(name: str, dense: bool = False):
+    from repro_torch.core.rebranch import ReBranchSpec
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(name=name, input_size=cnn_size(name))
+    if dense:
+        cfg = dataclasses.replace(cfg, rebranch=ReBranchSpec(enabled=False))
+    return cfg

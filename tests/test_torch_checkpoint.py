@@ -195,9 +195,15 @@ def test_geometry_mismatch_and_shardings(lm_state, tmp_path):
     extra = dict(tt, extra_leaf={"sram": torch.zeros(2)})
     with pytest.raises(ValueError, match="does not match the template"):
         ckpt.restore(str(tmp_path), extra, to, tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="shardings"):
-        ckpt.restore(str(tmp_path), tt, to, tp, shardings=(None, None),
-                     device="cpu")
+    # shardings= is elastic restore now: without a sharding per leaf every
+    # leaf comes back whole (test_torch_dist_train.py cuts blocks on a
+    # mesh of ranks)
+    step, rt, ro, _ = ckpt.restore(str(tmp_path), tt, to, tp,
+                                   shardings=(None, None), device="cpu")
+    assert step == 1
+    for a, b in ((rt, tt), (ro, to)):
+        for k, v in bridge.flatten(b).items():
+            assert torch.equal(bridge.flatten(a)[k], v), k
 
 
 # ---------------------------------------------------------------------------

@@ -384,20 +384,26 @@ def test_deploy_geometry_errors(gemma):
 
 
 def test_unported_families_and_branches_raise(tmp_path):
-    """What still raises names ROADMAP: the checkpoints' ``shardings=``
-    (elastic restore) and the train CLI's ``--compress``, both waiting
-    for the multi-device item.  The vlm (M-RoPE) and audio (codebooks)
+    """The multi-device item has come: the checkpoints' ``shardings=``
+    (elastic restore) reads the checkpoint (here: none yet, so it says
+    so), and the train CLI's ``--compress`` trains (one process: nothing
+    to all-reduce).  What still raises names ROADMAP: an LM on a mesh
+    (tensor-parallel, item 5(c)).  The vlm (M-RoPE) and audio (codebooks)
     branches are ported: configs using them now build."""
     from repro_torch.checkpoint import manager as tckpt
     from repro_torch.launch import train as ttrain
+    from repro_torch.launch import mesh as tmesh
     tcfg = tconfigs.get_smoke("gemma_2b")
     tm = tdeploy.compile_model(tcfg)
     tp = tm.init(seed=0, device="cpu")
     t, _ = trebranch.partition(tp)
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        tckpt.restore(str(tmp_path), t, {}, tp, shardings=(None, None))
+    losses = ttrain.main(["--smoke", "--compress", "--steps", "2", "--batch",
+                          "2", "--seq", "8"], device="cpu")
+    assert len(losses) == 2 and np.isfinite(losses).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tckpt.restore(str(tmp_path), t, {}, tp, shardings=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["--smoke", "--compress"], device="cpu")
+        tdeploy.compile_model(tcfg, mesh=tmesh.AbstractMesh((2, 2)))
     for kw in (dict(mrope=True), dict(num_codebooks=2)):
         cfg = dataclasses.replace(tcfg, **kw)
         params = tdeploy.compile_model(cfg).init(seed=0, device="cpu")

@@ -165,12 +165,18 @@ def test_what_this_slice_does_not_execute_raises():
             tshd.shard(x, "batch", "seq")
         with pytest.raises(TypeError, match="no process groups"):
             tshd.shard(x, "cnn_batch", "cnn_h")
-    with tshd.use_mesh(mesh_lib.AbstractMesh((2, 2, 1),
-                                             ("pod", "data", "model"))):
-        with pytest.raises(NotImplementedError, match="multi-device train"):
+    # an image batch over pod is executed now: it needs a mesh of ranks
+    # (test_torch_dist_train.py), and param_shardings pairs specs with
+    # their mesh
+    pod = mesh_lib.AbstractMesh((2, 1, 1), ("pod", "data", "model"))
+    with tshd.use_mesh(pod):
+        assert tshd.h_axis() is None
+        with pytest.raises(TypeError, match="no process groups"):
             tshd.shard(x, "cnn_batch", "cnn_h")
-    with pytest.raises(NotImplementedError, match="multi-device training"):
-        tshd.param_shardings({}, mesh_lib.AbstractMesh((2, 2)))
+    mesh = mesh_lib.AbstractMesh((2, 2))
+    sh = tshd.param_shardings({"w": {"sram": {"core": torch.zeros(3, 3)}}},
+                              mesh)
+    assert sh["w"]["sram"]["core"] == tshd.NamedSharding(mesh, tshd.P())
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +187,8 @@ def test_engine_registered_with_its_capabilities():
     eng = tengine.get("pallas_sharded")
     caps = eng.capabilities
     assert caps.sharded_ops == ("conv",) and caps.epilogue and caps.tune
-    assert not caps.grads and caps.devices == ("cpu", "cuda")
+    assert caps.grads and caps.devices == ("cpu", "cuda")
+    assert caps.fused_ops == ()
     assert caps.fidelity_modes == tengine.get("pallas").capabilities \
         .fidelity_modes
 
