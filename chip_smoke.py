@@ -26,7 +26,7 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    requests of 8, 8 and 5 images.  The launch count must rise by exactly
    20 per served chunk (one per conv site), the outputs must be finite,
    and the 5-image request's rows must equal, bit for bit, the same images
-   served in a full chunk.  Then a sustained window: three runs of one
+   served in a full chunk.  Then a sustained window: two runs of one
    request of 32 full chunks each (256 images), images/s as all images
    over the whole request, with the spread across the runs.
 4. CPU reference: one image through the served model on the card, every
@@ -74,8 +74,8 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    must give the same tokens and the same first-decode-step logits, bit
    for bit (the batch-variant GEMMs and reductions run on 16-row slices,
    ``repro_torch/core/rows.py``); so must three requests of a 24-row
-   pool, whose slots lie in both slices.  Then a sustained window: three runs of 16
-   requests x 64 new tokens, tokens/s with the spread, and one decode step
+   pool, whose slots lie in both slices.  Then a sustained window: two runs of 16
+   requests x 32 new tokens, tokens/s with the spread, and one decode step
    split into the kernel, its epilogue, the readout and the rest
    (attention, norms, embedding).
 7. The ``pallas`` engine: the same parameters through ``gemma-2b-pallas``
@@ -201,14 +201,14 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    Prints the time to first token of the 200-token prompt and the decode
    step (and the whole tick) on chunk ticks against plain ticks.
 19. Speculative decode at full width: the same cell at ``spec_k=4``, 8
-   requests x 32 new tokens, under the branch drafter (the SRAM branch
+   requests x 16 new tokens, under the branch drafter (the SRAM branch
    with every ROM trunk skipped) and under two oracle ``draft_source``s
    that propose the plain greedy continuation with probability 0.6 and
    0.95 per position, with spec off beside.  Every request's tokens equal
    its plain greedy solo decode, bit for bit; each verify round and each
    prefill chunk launches kernel 3 126 times and nothing else, each draft
    prefill and draft step launches no kernel at all; no block is granted
-   or reserved after a run.  Tokens/s over two runs with the spread,
+   or reserved after a run.  Tokens/s over one timed run,
    acceptance rate, verify rounds against plain decode steps, a round
    split into its draft steps and its verify, and what the draft step
    reads (C and U in f32).  Then one mid-stream ``swap_scenario`` under
@@ -230,33 +230,34 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    tallest M and each M is held to their first M rows (a plain row sums
    exact integers over its own row; checked at M = 8).  ``ms``, ``device_ms``, the plain version's time
    and the bound per geometry at M = 8.
-21. Hymba-1.5B at full width, its depth cut to 16 of 32 layers (the
-   script's time limit; layers 0 and 15 keep global attention, the rest a
+21. Hymba-1.5B at full width, its depth cut to 8 of 32 layers (the
+   script's time limit; layer 0 keeps global attention, the rest a
    sliding window): ``hymba-1.5b`` (all-ROM, ``pallas_fused``), seeded
    parameters drawn on the card with non-zero cores, ``serve.load(...,
    n_slots=8, max_len=256)`` (the dense ``SlotPool``: SWA rings and SSM
    state do not page; whole-prompt prefill).  Five requests x 32 tokens:
-   kernel 3 launches 177 times (11 ROM linears x 16 layers + the readout)
+   kernel 3 launches 89 times (11 ROM linears x 8 layers + the readout)
    per prefill and per decode
    step, tokens lie in the vocabulary, two requests equal their solo runs
    (tokens and first decode step logits, bit for bit).  A sustained window
-   of three runs x 16 requests x 64 tokens; one decode step split into
+   of two runs x 16 requests x 32 tokens; one decode step split into
    kernel 3, its epilogue, the SSM recurrence, the attention and the rest;
    layer 0's 11 linears, SSM decode step and attention replayed on the
    CPU (trunks ``torch.equal``, outputs within one bf16 ulp of their
    absmax).  Then ``hymba-1.5b-pallas``: two requests x 8 tokens, 177
    kernel-4 launches per prefill and per decode step.
-22. Granite-MoE-3B at full width, its depth cut to 16 of 32 layers (the
-   script's time limit): paged pool, 32-token chunks, 8 rows: five
-   requests x 32 tokens, kernel 3 launches 64 times (4 attention linears
-   x 16 layers; the stacked experts are plain PyTorch and the
+22. Granite-MoE-3B at full width, its depth cut to 8 of 32 layers (the
+   script's time limit; 16 until phase 32 came): paged pool, 32-token
+   chunks, 8 rows: five requests x 32 tokens, kernel 3 launches 32 times
+   (4 attention linears x 8 layers; the stacked experts are plain
+   PyTorch and the
    readout is the tied table) per chunk and per decode step; the dropped
    (token, expert) choices per tick; layer 0's MoE block at one decode
    step replayed on the CPU with the same input (the assignments equal
    except at near-ties of the k-th and (k+1)-th router probabilities, 1e-5,
    whose count is printed; the output within one bf16 ulp of its absmax);
    one decode step split as phase 21's, with the MoE blocks as a part;
-   a sustained window of three runs x 16 requests x 64 tokens, as phase
+   a sustained window of two runs x 16 requests x 32 tokens, as phase
    21's.  Batched == solo is not a gate: the rows of a step compete for
    expert capacity in the reference's dispatch.
 23. Falcon-Mamba-7B at full width: 4 dense slots, 4 requests x 16 tokens,
@@ -267,16 +268,16 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    linear (K, N) of the FULL ``qwen2_vl_2b`` (1536 -> 1536, 256, 8960;
    8960 -> 1536) and ``musicgen_large`` (2048 -> 8192; 8192 -> 2048)
    configs (Gemma-2B's, phase 5, left out), at M = 1, 8, 16, 32 and 128.
-25. Qwen2-VL-2B at full width, its depth cut to 14 of 28 layers (the
+25. Qwen2-VL-2B at full width, its depth cut to 7 of 28 layers (the
    script's time limit, as phases 21-22): ``qwen2-vl-2b``
    (all-ROM, ``pallas_fused``; M-RoPE, q/k/v biases, the tied 151936-row
    readout a plain bf16 GEMM), seeded parameters with non-zero cores,
    ``serve.load(..., n_slots=8, max_len=256)`` (paged, 32-token chunks).
-   Five requests x 32 tokens: 98 kernel-3 launches (7 x 14 layers) per
+   Five requests x 32 tokens: 49 kernel-3 launches (7 x 7 layers) per
    chunk and per decode step; three requests equal their whole-prompt solo
    runs (two of them admitted in chunks), tokens and first decode step
-   logits bit for bit; a sustained window of three runs x 16 requests x
-   64 tokens; one decode step split as phase 21's; layer 0's 7 linears and
+   logits bit for bit; a sustained window of two runs x 16 requests x
+   32 tokens; one decode step split as phase 21's; layer 0's 7 linears and
    attention replayed on the CPU (trunks ``torch.equal``, outputs within
    one bf16 ulp).  ``spec_k=4`` (the branch drafter): four requests equal
    plain greedy solo decode, 98 launches per chunk and per verify round,
@@ -289,7 +290,7 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
 26. MusicGen-large at full width (4 codebooks): ``launch/steps.py``'s
    ``make_prefill_step`` / ``make_serve_step`` under ``pallas_fused`` (the
    reference's ``LMServer`` cannot serve [B, 1, Q] tokens; the port's
-   refuses the config): 8 rows of 32-token prompts, 64 greedy steps, 289
+   refuses the config): 8 rows of 32-token prompts, 32 greedy steps, 289
    kernel-3 launches (6 x 48 layers + the codebook head) per prefill and
    per step; rows 0 and 5 equal their solo runs (prefill and first step
    logits, all tokens) bit for bit; the 289 kernel-3 calls of a batched
@@ -387,6 +388,36 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    step and all-reduce host ms, and kernel 1's and kernel 4's launches of
    one step timed on rank 0 with the other ranks idle.
 
+32. Dense LMs served tensor-parallel over 4 gloo ranks spawned on the
+   card (``compile_model(cfg, mesh=)``, ``shard_params``,
+   ``make_prefill_step``, ``make_serve_step``).  (a) Kernels 3 and 4 at
+   every per-rank geometry of the phase (column sites' N columns,
+   row-parallel sites' whole k-blocks, 17 geometries) ``torch.equal`` to
+   their plain versions in all three modes at decode M (f32 and bf16 x)
+   and prefill M.  (b) Full-width Gemma-2B (9 of 18 layers, bf16) on (data 1,
+   model 4) and (2, 2) under ``pallas_fused``, and under ``pallas`` on
+   (1, 4); Yi-34B at its published widths cut to 2 layers on (1, 4): 8
+   prompts of 64, ``max_len`` 256, a prefill and 16 serve steps (4 for
+   ``pallas`` and Yi), each fed the unsharded steps' token.  The
+   unsharded steps run first in this process; each rank then builds the
+   whole tree in turn, keeps its blocks and layer 0's whole ROM leaves.
+   Held: one launch per linear whose block a rank holds, per step and
+   prefill; every rank's logits and tokens bitwise equal; layer 0's
+   row-parallel reduced trunks bitwise the rank-order sums of the plain
+   version over ``k_layout``'s ranges and its column trunks bitwise the
+   unsharded columns; a row decoded at batch 8 bitwise the same row at
+   batch 1 (2 on two data ranks); every kernel call of a served step
+   ``torch.equal`` to its plain version.  Full Gemma-2B with random
+   weights is chaotic at the ulp level, so the whole model is held to a
+   one-process witness, the unsharded steps with every trunk nudged by
+   ~1 f32 ulp (``nudged_kernels``): logits within max(5e-2, 2 x the
+   witness's distance) of the absmax, and tokens in >= 99% of the (row,
+   step) pairs whose top two unsharded logits lie over twice the
+   measured logit distance apart, the overall agreement printed beside
+   the witness's.  Printed: bytes sent by kind, per-rank prefill and
+   step host ms, rank 0's kernel calls of a step timed with the other
+   ranks idle, the peak device memory per rank.
+
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
 exits non-zero without one, and prints as its last line
@@ -417,8 +448,12 @@ sharded forward and two requests; ``trunk_conv`` and ``cim_matmul`` carry
 ``dist_train_launches``, each rank's launches in phase 31, and
 ``dist_train``, rank 0's launches of one step timed with the other
 ranks idle (``ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
-``library_ms``).  Phases 18-27
-run after the training phases, 28-31 last.
+``library_ms``); ``rebranch_matmul`` and ``cim_matmul`` carry
+``tp_serve``, per phase-32 run each rank's launches per step and rank
+0's calls of one decode step timed with the other ranks idle (``ms``,
+``device_ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
+``library_ms``).  Phases 18-27 run after the training phases, 28-32
+last.
 """
 
 from __future__ import annotations
@@ -445,7 +480,7 @@ PEAK_F32_OPS = 67e12
 
 SIZE, BATCH, SLOTS = 416, 8, 8
 REQUESTS = (8, 8, 5)
-SUSTAINED_CHUNKS, SUSTAINED_RUNS = 32, 3
+SUSTAINED_CHUNKS, SUSTAINED_RUNS = 32, 2   # 2 runs: the script's time limit
 FUSED_RTOL = 1e-5        # phase 2, of the fused output's absmax
 LAYER_RTOL = 1e-5        # phase 4, of each layer output's absmax
 
@@ -460,7 +495,7 @@ L2_BYTES = 50 << 20      # H100 L2; timed weights cycle through 2.5x this
 LM_SLOTS, LM_MAX_LEN = 8, 256
 LM_WIDE_SLOTS, LM_WIDE_NEW = 24, 4   # phase 6's pool past the row bucket
 LM_PROMPTS, LM_NEW = (12, 40, 7, 100, 25), 32
-SUSTAINED_REQS, SUSTAINED_NEW = 16, 64
+SUSTAINED_REQS, SUSTAINED_NEW = 16, 32   # 32 new: the script's time limit
 SUSTAINED_PROMPTS = (16, 128)     # prompt lengths drawn uniformly in range
 PALLAS_PROMPTS, PALLAS_NEW = (10, 30, 60, 90), 16
 
@@ -3086,9 +3121,9 @@ CHUNK_NEW = 32
 STAGGER = 3                # phase 18's A/B: a request arrives every 3 ticks
 SPEC_K = 4
 SPEC_PROMPTS = (12, 40, 7, 100, 25, 60, 9, 33)   # 8 requests
-SPEC_NEW = 32
+SPEC_NEW = 16               # the script's time limit
 SPEC_ALPHAS = (0.6, 0.95)  # the oracle drafter's per-position hit rate
-SPEC_RUNS = 2              # timed runs per drafter (the script's time limit)
+SPEC_RUNS = 1              # timed runs per drafter (the script's time limit)
 SPEC_SWAP_NEW = 16
 
 
@@ -3532,12 +3567,12 @@ BF16_ROWS = 16                 # phase 20: bf16 x is read as it is up to here
 MOE_CHUNK_ROWS = 32            # phase 20: the MoE configs' prefill chunks
 FAMILY_MAX_LEN = 256
 HYMBA_SLOTS = 8
-HYMBA_LAYERS = 16        # phase 21's depth cut (of 32), for the time limit
+HYMBA_LAYERS = 8         # phase 21's depth cut (of 32), for the time limit
 HYMBA_PROMPTS, HYMBA_NEW = (12, 40, 7, 100, 25), 32
-HYMBA_SUSTAINED_REQS, HYMBA_SUSTAINED_NEW = 16, 64
+HYMBA_SUSTAINED_REQS, HYMBA_SUSTAINED_NEW = 16, 32
 HYMBA_PALLAS_PROMPTS, HYMBA_PALLAS_NEW = (10, 30), 8
 GRANITE_SLOTS = 8
-GRANITE_LAYERS = 16      # phase 22's depth cut (of 32), for the time limit
+GRANITE_LAYERS = 8       # phase 22's depth cut (of 32), for the time limit
 GRANITE_PROMPTS, GRANITE_NEW = (12, 40, 7, 100, 25), 32
 FALCON_SLOTS = 4
 FALCON_PROMPTS, FALCON_NEW = (12, 40, 7, 30), 16
@@ -3754,8 +3789,9 @@ def check_solo(model, params, reqs, prompts, first, n_new: int, which):
 
 
 def sustained_window(srv, vocab: int, n_req: int, n_new: int, seed: int):
-    """Three runs of ``n_req`` requests x ``n_new`` tokens (prompts drawn
-    in SUSTAINED_PROMPTS): tokens/s per run and the spread."""
+    """``SUSTAINED_RUNS`` runs of ``n_req`` requests x ``n_new`` tokens
+    (prompts drawn in SUSTAINED_PROMPTS): tokens/s per run and the
+    spread."""
     rng = np.random.default_rng(seed)
     rates = []
     for run in range(SUSTAINED_RUNS):
@@ -4308,14 +4344,14 @@ def phase_falcon(smi: str) -> dict:
 VLM_ARCH, AUDIO_ARCH = "qwen2_vl_2b", "musicgen_large"
 VLM_AUDIO_ROWS = (1, 8, 16, 32, 128)      # phase 24
 QWEN_SLOTS = 8
-QWEN_LAYERS = 14         # phase 25's depth cut (of 28), for the time limit
+QWEN_LAYERS = 7          # phase 25's depth cut (of 28), for the time limit
 QWEN_PROMPTS, QWEN_NEW = (12, 40, 7, 100, 25), 32
 QWEN_SPEC_PROMPTS, QWEN_SPEC_NEW = (12, 40, 7, 33), 16
 QWEN_PALLAS_PROMPTS, QWEN_PALLAS_NEW = (10, 30), 8
 QWEN_GRID = (2, 3, 4)        # phase 25's embeds prefill: t x h x w (S = 24)
 EMBEDS_CUT = 2               # phase 25: the card-vs-CPU embeds prefill's depth
 LOGITS_RTOL = 5e-2           # whole LM forwards, card vs CPU, of the absmax
-MUSICGEN_ROWS, MUSICGEN_PROMPT, MUSICGEN_NEW = 8, 32, 64
+MUSICGEN_ROWS, MUSICGEN_PROMPT, MUSICGEN_NEW = 8, 32, 32   # the time limit
 MUSICGEN_MAX_LEN = 128
 FAMILY_TRAIN_ARCHS = ("granite_moe_3b", "hymba_1_5b", "falcon_mamba_7b",
                       VLM_ARCH, AUDIO_ARCH)
@@ -4437,7 +4473,7 @@ def qwen_embeds_prefill(model, params, per_pass: int, smi: str):
 def phase_qwen(smi: str) -> dict:
     """Phase 25, the slice's main path: full-width Qwen2-VL-2B cut to
     QWEN_LAYERS layers through ``LMServer`` under ``pallas_fused`` (kernel
-    3 behind its 98 ROM linears; the tied readout a bf16 GEMM), then under
+    3 behind its 49 ROM linears; the tied readout a bf16 GEMM), then under
     ``pallas`` (kernel 4)."""
     from repro_torch.serve import server
     from repro_torch.serve.pool import PagedPool
@@ -5390,7 +5426,7 @@ GRAD_RTOL = 1e-5              # reduced gradients vs the unsharded step
 # one process (bf16 rounding, no mesh)
 BF16_GAP_FACTOR = 2.0
 COMPRESS_RTOL = 5e-2          # the int8 mean vs the plain mean
-DIST_DEADLINE_S = 600
+DIST_DEADLINE_S = 300
 
 
 def slab_times(slabs, dot) -> dict:
@@ -5965,6 +6001,659 @@ def phase_dist_train(smi: str) -> dict:
                 "kernel": m}}
 
 
+# ---------------------------------------------------------------------------
+# phase 32: LM tensor-parallel serving over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 4
+TP_MESHES = ((1, 4), (2, 2))        # (data, model)
+TP_LAYERS = 9                       # Gemma-2B's depth cut (of 18), for the
+                                    # script's time limit
+TP_YI_LAYERS = 2                    # Yi-34B at its published widths, cut
+TP_BATCH, TP_PROMPT, TP_MAX_LEN = 8, 64, 256
+TP_NEW, TP_PALLAS_NEW, TP_YI_NEW = 16, 4, 4
+TP_CORE_SEED = 32
+TP_LOGITS_RTOL = 5e-2               # whole models: of the unsharded absmax
+TP_AGREE = 0.99                     # tokens: the reference's own threshold
+# Gemma-2B at full width is chaotic at the ulp level, with f32
+# activations too (an ulp before a per-row int8 quantiser moves a code,
+# and the layers carry it), so whole models are held to a one-process
+# witness: the unsharded steps with every trunk nudged by ~1 f32 ulp
+TP_WITNESS_FACTOR = 2.0             # logits: within max(5e-2, 2 x witness)
+TP_MARGIN = 2.0                     # tokens: >= 99% of the (row, step) pairs
+                                    # whose top-2 gap exceeds this many times
+                                    # the logits' measured distance
+TP_ROW_STRIDE = 8                   # ADC modes at prefill M: every 8th row
+TP_DEADLINE_S = 400
+# the column-parallel (_WIDE_OUT) and row-parallel (_WIDE_IN) linears of
+# a dense block, in the order a block runs them
+TP_SITES = (("attn", "q", "col"), ("attn", "k", "col"), ("attn", "v", "col"),
+            ("attn", "o", "row"), ("mlp", "gate", "col"),
+            ("mlp", "up", "col"), ("mlp", "down", "row"))
+
+
+def tp_config(arch: str):
+    """The FULL config of ``arch`` at phase 32's depth."""
+    from repro_torch import configs
+    return dataclasses.replace(
+        configs.get(arch),
+        num_layers=TP_LAYERS if arch == "gemma_2b" else TP_YI_LAYERS)
+
+
+def tp_dims(cfg, site: str) -> tuple[int, int]:
+    d, ff = cfg.d_model, cfg.d_ff
+    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    return {"q": (d, hd), "k": (d, kvd), "v": (d, kvd), "o": (hd, d),
+            "gate": (d, ff), "up": (d, ff), "down": (ff, d),
+            "lm_head": (d, cfg.vocab_size)}[site]
+
+
+def tp_geometries() -> dict:
+    """{(K, N): (decode M, prefill M or 0, owners)}: every per-rank
+    geometry kernels 3 and 4 take on phase 32's path (the columns of
+    column-parallel sites, the k-blocks of row-parallel ones; Yi's
+    lm_head runs at the last position only)."""
+    from repro_torch.distributed import sharding as shd
+    out = {}
+    for arch, meshes in (("gemma_2b", TP_MESHES), ("yi_34b", ((1, 4),))):
+        cfg = tp_config(arch)
+        sites = [(s, r) for _, s, r in TP_SITES]
+        if not cfg.tie_embeddings:
+            sites.append(("lm_head", "col"))
+        for n_data, n in meshes:
+            dec = TP_BATCH // n_data
+            for site, role in sites:
+                k, nn = tp_dims(cfg, site)
+                pre = 0 if site == "lm_head" else dec * TP_PROMPT
+                if role == "col":
+                    geoms = {(k, hi - lo) for lo, hi in shd.h_layout(nn, n)}
+                else:
+                    geoms = {(hi - lo, nn) for lo, hi in shd.k_layout(k, n)
+                             if hi > lo}
+                for g in geoms:
+                    m0, p0, who = out.get(g, (dec, pre, []))
+                    out[g] = (max(m0, dec), max(p0, pre),
+                              who + [f"{arch}:{site}@{n_data}x{n}"])
+    return out
+
+
+def phase_tp_kernels(dev) -> int:
+    """32(a): kernels 3 and 4 at every per-rank geometry of the phase, in
+    all three CiM modes, at decode M (f32 and bf16 x; kernel 3 reads bf16
+    as it is there) and prefill M (f32), ``torch.equal`` to their plain
+    versions: every row in ideal mode, the decode rows and every
+    TP_ROW_STRIDE-th prefill row in the ADC modes (a plain row is exact
+    sums over that row alone).  x holds bfloat16 values, so one plain
+    call serves both dtypes."""
+    from repro_torch.core import cim as cim_lib
+    from repro_torch.core import quant
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_matmul as rm
+    t0 = time.perf_counter()
+    geoms = tp_geometries()
+    gen = torch.Generator(device=dev).manual_seed(32)
+    print(f"phase 32(a): kernels 3 and 4 at {len(geoms)} per-rank "
+          f"geometries: K N Cd decode_M prefill_M owners")
+    for (k, n), (dec, pre, who) in sorted(geoms.items()):
+        cdim = k // 4
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        c = torch.randn((k, cdim), generator=gen, device=dev) / k ** .5
+        xs = {m: torch.randn((m, k), generator=gen, device=dev).bfloat16()
+              .float() for m in (dec, pre) if m}
+        for mode in ("ideal",) + ADC_MODES:
+            cfg = cim_lib.CiMConfig(mode=mode)
+            # every row in ideal mode; in the ADC modes the decode rows and
+            # every TP_ROW_STRIDE-th prefill row, held to one plain call
+            picks = {m: slice(None) if mode == "ideal" or m == dec
+                     else slice(0, m, TP_ROW_STRIDE) for m in xs}
+            rows = torch.cat([x[picks[m]] for m, x in xs.items()])
+            p_trunk, p_t1 = rm.rebranch_matmul_plain(rows, w, c, cfg)
+            p4 = cm.cim_matmul_plain(quant.quantize_activations(rows)[0], w,
+                                     cfg)
+            at = 0
+            for m, x in xs.items():
+                pick = picks[m]
+                got_rows = x[pick].shape[0]
+                want = slice(at, at + got_rows)
+                at += got_rows
+                for xx in ([x, x.bfloat16()] if m == dec else [x]):
+                    trunk, t1 = rm.rebranch_trunk_sketch(xx, w, c, cfg)
+                    what = f"({k}x{n}, M={m}, {mode}, x {xx.dtype})"
+                    check(torch.equal(trunk[pick], p_trunk[want]),
+                          f"kernel 3 trunk != plain {what}")
+                    rel = ((t1[pick] - p_t1[want]).abs().max()
+                           / p_t1[want].abs().max()).item()
+                    check(rel <= SKETCH_RTOL, f"kernel 3 sketch off by "
+                          f"{rel:.2e} of its absmax {what}")
+                x_q = quant.quantize_activations(x)[0]
+                check(torch.equal(cm.cim_matmul(x_q, w, cfg)[pick],
+                                  p4[want]),
+                      f"kernel 4 != plain ({k}x{n}, M={m}, {mode})")
+        print(f"  {k} {n} {cdim} {dec} {pre} {','.join(who)}: equal in "
+              f"{', '.join(('ideal',) + ADC_MODES)}", flush=True)
+        del w, c, xs
+    torch.cuda.empty_cache()
+    print(f"phase 32(a): {len(geoms)} geometries in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return len(geoms)
+
+
+def tp_expected_launches(cfg, mesh) -> int:
+    """Kernel launches a rank makes per prefill or decode step: one per
+    linear whose block it holds (a rank without a k-block of a
+    row-parallel site launches nothing there), the readout once."""
+    from repro_torch.distributed import sharding as shd
+    n, r = mesh.shape["model"], mesh.coordinate("model")
+    per_layer = 0
+    for _, site, role in TP_SITES:
+        k, nn = tp_dims(cfg, site)
+        lo, hi = (shd.h_layout(nn, n) if role == "col"
+                  else shd.k_layout(k, n))[r]
+        per_layer += hi > lo
+    return per_layer * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+
+
+def tp_model(arch: str, engine: str, mesh=None):
+    from repro_torch import deploy
+    return deploy.compile_model(tp_config(arch), engine=engine, mesh=mesh)
+
+
+def tp_params(model):
+    """The seeded tree the parent's oracle and every rank build."""
+    return with_cores(model.init(seed=0),
+                      torch.Generator().manual_seed(TP_CORE_SEED))
+
+
+def top2_margin(logits) -> torch.Tensor:
+    """The gap between each row's two largest logits, [B, 1]."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu()
+
+
+@contextlib.contextmanager
+def nudged_kernels(dev):
+    """Kernels 3 and 4 with every trunk they return moved by ~1 f32 ulp
+    (a seeded relative 2**-23 N(0, 1)), before any scale or cast: what a
+    reassociated f32 sum does to it."""
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_matmul as rm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    k3, k4 = rm.rebranch_trunk_sketch, cm.cim_matmul
+
+    def nudge(t):
+        return t * (1 + 2 ** -23 * torch.randn(t.shape, generator=gen,
+                                               device=t.device))
+
+    def sketch(x, w_q, c, cfg=rm.IDEAL, plan=None):
+        trunk, t1 = k3(x, w_q, c, cfg, plan)
+        return nudge(trunk), t1
+
+    rm.rebranch_trunk_sketch = sketch
+    cm.cim_matmul = lambda x_q, w_q, cfg=cm.IDEAL, plan=None: nudge(
+        k4(x_q, w_q, cfg, plan))
+    try:
+        yield
+    finally:
+        rm.rebranch_trunk_sketch, cm.cim_matmul = k3, k4
+
+
+def tp_oracle_run(arch: str, engine: str, params, new: int,
+                  feed=None) -> dict:
+    """The port's unsharded prefill step and ``new`` greedy decode steps
+    (``make_serve_step``'s argmax of ``decode_step``'s logits), on the
+    card: the logits of the prefill and the first step, the tokens, and
+    each (row, step)'s gap between its two largest logits."""
+    from repro_torch.launch import steps
+    cfg, model = tp_config(arch), tp_model(arch, engine)
+    prompts = torch.from_numpy(np.random.default_rng(32).integers(
+        0, cfg.vocab_size, (TP_BATCH, TP_PROMPT)).astype(np.int32))
+    dev = params["ln_f"]["sram"]["scale"].device
+    reset_launches()
+    logits, cache = steps.make_prefill_step(
+        cfg, TP_BATCH, TP_MAX_LEN, model=model)(params,
+                                                {"tokens": prompts.to(dev)})
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    toks, margins, first = [tok], [top2_margin(logits)], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(new):
+            if feed is not None:        # the given token, not the argmax
+                tok = feed[:, i:i + 1].to(dev)
+            step, cache = model.decode_step(params, tok, cache)
+            first = step.float().cpu() if first is None else first
+            tok = torch.argmax(step, dim=-1).to(torch.int32)
+            toks.append(tok)
+            margins.append(top2_margin(step))
+    torch.cuda.synchronize()
+    return {"prompts": prompts, "logits": logits.float().cpu(),
+            "first": first, "launches": read_launches(),
+            "tokens": torch.cat(toks, 1).cpu(),
+            "margins": torch.cat(margins, 1),
+            "step_ms": (time.perf_counter() - t0) * 1e3 / new}
+
+
+def tp_layer0(tree, block: str, site: str) -> dict:
+    """Layer 0's leaves of one linear of a stacked tree."""
+    return {part: {k: v[0] for k, v in leaves.items()}
+            for part, leaves in tree["layers"][block][site].items()}
+
+
+def tp_build(model, rank: int, world: int, probes: bool = True):
+    """This rank's blocks of the seeded tree: the ranks build the whole
+    tree on the card in turn, behind barriers, each keeping its blocks
+    (and layer 0's whole ROM leaves of every linear, for the site
+    checks); never two whole trees at once."""
+    import torch.distributed as dist
+    local = probe = None
+    for turn in range(world):
+        if turn == rank:
+            t0 = time.perf_counter()
+            whole = tp_params(model)
+            if probes:
+                probe = {site: {k: v.clone() for k, v in
+                                tp_layer0(whole, block, site)["rom"].items()}
+                         for block, site, _ in TP_SITES}
+            local = model.shard_params(whole)
+            del whole
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            build_s = time.perf_counter() - t0
+        dist.barrier()
+    return local, probe, build_s
+
+
+def tp_site_checks(model, cfg, local, probe, cache, tok, smi: str) -> dict:
+    """One decode step (on a copy of the cache) with layer 0's calls
+    recorded: each row-parallel site's reduced trunk bitwise the
+    rank-order sum of the plain version over ``k_layout``'s ranges (on
+    the whole input, gathered, and layer 0's whole W and C), each
+    column-parallel site's kernel-3 trunk bitwise the kernel's on the
+    whole W, on the rank's columns."""
+    from repro_torch.core import rebranch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import rebranch_matmul as rm
+    mesh = model.mesh
+    rows, sketches = [], []
+    real_parts, real_sketch = rebranch.row_parallel_parts, \
+        rm.rebranch_trunk_sketch
+
+    def parts(params, x, spec, tp):
+        out = real_parts(params, x, spec, tp)
+        if len(rows) < 2:
+            rows.append((x, tp, out))
+        return out
+
+    ptrs = {tp_layer0(local, block, site)["rom"]["w_q"].data_ptr(): site
+            for block, site, role in TP_SITES if role == "col"}
+
+    def sketch(x, w, c, cfg_=rm.IDEAL, plan=None):
+        out = real_sketch(x, w, c, cfg_, plan)
+        if w.data_ptr() in ptrs:
+            sketches.append((ptrs.pop(w.data_ptr()), x, w, c, out))
+        return out
+
+    rebranch.row_parallel_parts, rm.rebranch_trunk_sketch = parts, sketch
+    try:
+        model.decode_step(local, tok, {"layers": {
+            k: v.clone() for k, v in cache["layers"].items()}})
+    finally:
+        rebranch.row_parallel_parts = real_parts
+        rm.rebranch_trunk_sketch = real_sketch
+    check(len(rows) == 2 and not ptrs, "layer 0's calls recorded")
+    moved = {}
+    for (x, tp, got), site in zip(rows, ("o", "down")):
+        with shd.use_mesh(mesh):
+            reduced = shd.rank_sum(shd.gather_parts(got["trunk"], mesh,
+                                                    "model", "check"))
+            xw = shd.gather_cols(x, tp.d_in, mesh, "model", kind="check")
+        x2 = xw.reshape(-1, tp.d_in)
+        w, c = probe[site]["w_q"], probe[site]["C"]
+        want = shd.rank_sum([
+            rm.rebranch_matmul_plain(x2[:, k0:k1], w[k0:k1], c[k0:k1])[0]
+            if k1 > k0 else torch.zeros_like(reduced)
+            for k0, k1 in tp.k_ranges])
+        check(torch.equal(reduced, want), f"{cfg.name} {site}: the reduced "
+              f"trunk != the rank-order sum of its plain version over "
+              f"k_layout {tp.k_ranges}")
+        moved[site] = [hi - lo for lo, hi in tp.k_ranges]
+    cols = 0
+    for site, x, w, c, (trunk, _) in sketches:
+        with shd.use_mesh(mesh):
+            tp = shd.linear_tp(site, *tp_dims(cfg, site))
+        lo, hi = tp.cols
+        whole = rm.rebranch_trunk_sketch(x, probe[site]["w_q"], c)[0]
+        check(torch.equal(trunk, whole[:, lo:hi]),
+              f"{cfg.name} {site}: kernel-3 trunk columns {lo}:{hi} != the "
+              f"unsharded site's")
+        cols += 1
+    return {"row_blocks": moved, "col_sites": cols}
+
+
+def tp_batch_check(model, local, cache, tok, mesh_shape) -> int:
+    """Two decode steps from the batch-8 cache against the same steps of
+    a small batch made of each data rank's first row (batch 1 on one data
+    rank; 2 on two: rows 0 and 4): that row's logits bitwise."""
+    from repro_torch.distributed import sharding as shd
+    n_data = mesh_shape[0]
+    small = 1 if n_data == 1 else n_data
+    first_rows = [shd.h_layout(TP_BATCH, n_data)[d][0]
+                  for d in range(n_data)]
+    big = {"layers": {k: v.clone() for k, v in cache["layers"].items()}}
+    sm = model.init_cache(small, TP_MAX_LEN)
+    for leaf in ("k", "v"):
+        sm["layers"][leaf].copy_(big["layers"][leaf][:, :1])
+    sm["layers"]["length"].copy_(big["layers"]["length"][:, first_rows])
+    lo, hi = shd.batch_block(TP_BATCH, model.mesh)
+    for i in range(2):
+        lb, big = model.decode_step(local, tok[lo:hi], big)
+        ls, sm = model.decode_step(local, tok[lo:lo + 1], sm)
+        check(torch.equal(lb[:1], ls), f"step {i}: a row decoded at batch "
+              f"{TP_BATCH} != the same row at batch {small}")
+    return small
+
+
+def tp_serve(arch: str, engine: str, mesh, local, probe, oracle: dict,
+             new: int, rank: int, world: int, smi: str,
+             sites: bool = True) -> dict:
+    """The sharded prefill step and ``new`` serve steps (each fed the
+    oracle's token, so every step's prediction is compared), checked
+    against the oracle and across ranks, with the kernel calls of one
+    decode step recorded (and timed on rank 0 with the others idle)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_matmul as rm
+    from repro_torch.launch import steps
+    cfg, model = tp_config(arch), tp_model(arch, engine, mesh)
+    dev = local["ln_f"]["sram"]["scale"].device
+    prompts = oracle["prompts"].to(dev)
+    want_toks = oracle["tokens"].to(dev)
+    out = {"engine": engine, "mesh": tuple(mesh.shape.values()),
+           "model": arch.replace("_", "-")}
+    prefill = steps.make_prefill_step(cfg, TP_BATCH, TP_MAX_LEN, model=model)
+    serve = steps.make_serve_step(cfg, model=model)
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_launches()
+    shd.reset_traffic()
+    t0 = time.perf_counter()
+    logits, cache = prefill(local, {"tokens": prompts})
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_launches"] = read_launches()
+    out["prefill_bytes"] = dict(shd.bytes_sent)
+    check(tuple(logits.shape) == (TP_BATCH, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    ref = oracle["logits"].to(dev)
+    noise = (logits.float() - ref).abs().max().item()
+    out["logits_rel"] = noise / ref.abs().max().item()
+    wit = oracle["witness"]
+    limit = max(TP_LOGITS_RTOL, TP_WITNESS_FACTOR * wit["logits_rel"])
+    check(out["logits_rel"] <= limit, f"{arch} {engine} prefill logits "
+          f"{out['logits_rel']:.3e} of the unsharded absmax (limit "
+          f"{limit:.3e})")
+    lo, hi = shd.batch_block(TP_BATCH, mesh)
+    first, _ = model.decode_step(local, want_toks[lo:hi, :1], {"layers": {
+        k: v.clone() for k, v in cache["layers"].items()}})
+    ref = oracle["first"].to(dev)[lo:hi]
+    step_noise = (first.float() - ref).abs().max().item()
+    out["first_rel"] = step_noise / ref.abs().max().item()
+    limit = max(TP_LOGITS_RTOL, TP_WITNESS_FACTOR * wit["first_rel"])
+    check(out["first_rel"] <= limit, f"{arch} {engine} first decode logits "
+          f"{out['first_rel']:.3e} of the unsharded absmax (limit "
+          f"{limit:.3e})")
+    out["noise"] = max(noise, step_noise)
+    got, step_ms, per_step = [torch.argmax(logits, -1).to(torch.int32)], \
+        [], []
+    calls = []
+    kernel = rm.rebranch_trunk_sketch if engine == "pallas_fused" \
+        else cm.cim_matmul
+    shd.reset_traffic()
+    def recording(*a, **kw):
+        calls.append(a[:3] if engine == "pallas_fused" else a[:2])
+        return kernel(*a, **kw)
+
+    module = rm if engine == "pallas_fused" else cm
+    name = kernel.__name__
+    for i in range(new):
+        tok = want_toks[:, i:i + 1]
+        if i == 1:                      # record step 1's kernel calls
+            setattr(module, name, recording)
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            nxt, cache = serve(local, {"tokens": tok}, cache)
+            torch.cuda.synchronize()
+        finally:
+            setattr(module, name, kernel)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(read_launches())
+        got.append(nxt)
+    out["step_bytes"] = {k: v / new for k, v in shd.bytes_sent.items()}
+    want = {"trunk_conv": 0, "cim_matmul": 0, "rebranch_matmul": 0,
+            module.__name__.rsplit(".", 1)[-1]:
+            tp_expected_launches(cfg, mesh)}
+    check(all(p == want for p in per_step + [out["prefill_launches"]]),
+          f"{arch} {engine}: launches per step {per_step}, prefill "
+          f"{out['prefill_launches']}, want {want} each")
+    check(logits.is_cuda == (dev.type == "cuda"), "logits left the card")
+    got = torch.cat(got, 1)
+    same = (got == want_toks[:, :new + 1]).cpu()
+    out["agree"] = float(same.float().mean())
+    # the (row, step) pairs whose top two unsharded logits lie further
+    # apart than twice the logits' measured distance from the unsharded
+    # step's: there, no rounding of that size moves the argmax
+    clear = oracle["margins"][:, :new + 1] > TP_MARGIN * out["noise"]
+    out["clear"] = (int(clear.sum()), int(clear.numel()))
+    out["agree_clear"] = float(same[clear].float().mean())
+    out["witness"] = wit
+    check(out["agree_clear"] >= TP_AGREE,
+          f"{arch} {engine} ({cfg.dtype}) tokens agree with the unsharded "
+          f"steps in {out['agree']:.4f} of (row, step) pairs (the witness "
+          f"{wit['agree']:.4f}), {out['agree_clear']:.4f} of the "
+          f"{out['clear'][0]} whose top two logits lie over {TP_MARGIN} x "
+          f"{out['noise']:.3e} apart")
+    agreed(f"{arch} {engine} logits and tokens",
+           (digests({"l": logits}), got.cpu().tolist()), world)
+    out["step_ms"], out["launches"] = step_ms, per_step
+    out["launches_per_step"] = {
+        k: sorted({p[k] for p in per_step}) for k in per_step[0]}
+    for c in calls:                      # every call of a served step
+        if engine == "pallas_fused":
+            trunk, t1 = kernel(*c)
+            p_trunk, p_t1 = rm.rebranch_matmul_plain(*c)
+            check(torch.equal(trunk, p_trunk), f"kernel 3 at "
+                  f"{tuple(c[0].shape)} x {tuple(c[1].shape)} != plain")
+        else:
+            check(torch.equal(kernel(*c), cm.cim_matmul_plain(*c)),
+                  f"kernel 4 at {tuple(c[0].shape)} x {tuple(c[1].shape)} "
+                  f"!= plain")
+    out["geoms"] = sorted({(tuple(c[0].shape), tuple(c[1].shape))
+                           for c in calls})
+    dist.barrier()
+    if rank == 0:                        # timed with the other ranks idle
+        out["pass"] = pass_times(kernel, rm.rebranch_matmul_plain
+                                 if engine == "pallas_fused"
+                                 else cm.cim_matmul_plain, calls,
+                                 engine == "pallas_fused")
+    dist.barrier()
+    del calls
+    if sites:
+        out["sites"] = tp_site_checks(model, cfg, local, probe, cache,
+                                      want_toks[lo:hi, new:new + 1], smi)
+        out["batch"] = tp_batch_check(model, local, cache,
+                                      want_toks[:, new:new + 1],
+                                      tuple(mesh.shape.values()))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def phase_tp_rank(rank: int, world: int, path: str, smi: str) -> dict:
+    """Phase 32, one spawned rank."""
+    from repro_torch import device as device_lib
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    for name in ("cim_matmul", "rebranch_matmul"):
+        check(_build.target(name).exists(),
+              f"{name} is not built: the parent builds it before the ranks")
+    device_lib.resolve()
+    torch.cuda.reset_peak_memory_stats()
+    oracle = torch.load(path)
+    meshes = {s: mesh_lib.make_lm_mesh(*s, backend="gloo")
+              for s in TP_MESHES}
+    res = {"runs": [], "build_s": []}
+    t0 = time.perf_counter()
+    for shape in TP_MESHES:
+        mesh = meshes[shape]
+        model = tp_model("gemma_2b", "pallas_fused", mesh)
+        local, probe, build_s = tp_build(model, rank, world)
+        res["build_s"].append(build_s)
+        res["runs"].append(tp_serve("gemma_2b", "pallas_fused", mesh, local,
+                                    probe, oracle["gemma_2b"], TP_NEW, rank,
+                                    world, smi))
+        if shape == (1, 4):             # kernel 4 on the same blocks
+            res["runs"].append(tp_serve(
+                "gemma_2b", "pallas", mesh, local, probe,
+                oracle["gemma_2b_pallas"], TP_PALLAS_NEW, rank, world, smi,
+                sites=False))
+        del local, probe
+        torch.cuda.empty_cache()
+    res["gemma_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = meshes[(1, 4)]
+    local, probe, build_s = tp_build(tp_model("yi_34b", "pallas_fused", mesh),
+                                     rank, world)
+    res["build_s"].append(build_s)
+    res["runs"].append(tp_serve("yi_34b", "pallas_fused", mesh, local, probe,
+                                oracle["yi_34b"], TP_YI_NEW, rank, world,
+                                smi))
+    del local, probe
+    torch.cuda.empty_cache()
+    res["yi_s"] = time.perf_counter() - t0
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def phase_tp(dev, smi: str) -> dict:
+    """32. Dense LMs served tensor-parallel over 4 gloo ranks on the one
+    card: Gemma-2B at full width on (data 1, model 4) and (2, 2), Yi-34B
+    at its widths cut to 2 layers on (1, 4), held to the port's unsharded
+    steps run first in this process."""
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    n_geoms = phase_tp_kernels(dev)
+    print(f"phase 32 on {smi}: {TP_RANKS} gloo ranks on one card; "
+          f"Gemma-2B ({TP_LAYERS} layers, full width, bf16) on meshes "
+          f"{TP_MESHES}, Yi-34B (widths published, {TP_YI_LAYERS} layers) "
+          f"on (1, 4); {TP_BATCH} prompts of {TP_PROMPT}, max_len "
+          f"{TP_MAX_LEN}; the ranks time-share the card, so the host "
+          f"times are no scaling figure")
+    oracle = {}
+    for arch, engine, new, key in (
+            ("gemma_2b", "pallas_fused", TP_NEW, "gemma_2b"),
+            ("gemma_2b", "pallas", TP_PALLAS_NEW, "gemma_2b_pallas"),
+            ("yi_34b", "pallas_fused", TP_YI_NEW, "yi_34b")):
+        if arch not in oracle.get("_built", ()):
+            oracle.pop("_params", None)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            oracle["_params"] = tp_params(tp_model(arch, engine))
+            oracle["_built"] = (arch,)
+            print(f"  {arch}: the whole tree drawn on the card in "
+                  f"{time.perf_counter() - t0:.1f} s, "
+                  f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+        oracle[key] = tp_oracle_run(arch, engine, oracle["_params"], new)
+        print(f"  unsharded {arch} {engine}: decode step "
+              f"{oracle[key]['step_ms']:.2f} ms (host clock), launches "
+              f"{oracle[key]['launches']}", flush=True)
+        # the witness: the same steps, fed the same tokens, with every
+        # trunk nudged by ~1 f32 ulp (the model's own sensitivity to a
+        # reassociated sum)
+        with nudged_kernels(dev):
+            w = tp_oracle_run(arch, engine, oracle["_params"], new,
+                              feed=oracle[key]["tokens"])
+        ref = oracle[key]
+        oracle[key]["witness"] = {
+            "logits_rel": ((w["logits"] - ref["logits"]).abs().max()
+                           / ref["logits"].abs().max()).item(),
+            "first_rel": ((w["first"] - ref["first"]).abs().max()
+                          / ref["first"].abs().max()).item(),
+            "agree": float((w["tokens"] == ref["tokens"]).float().mean())}
+        print(f"  witness {arch} {engine}: the unsharded steps with every "
+              f"trunk nudged by ~1 f32 ulp: prefill and first-step logits "
+              f"{ref['witness']['logits_rel']:.3e}, "
+              f"{ref['witness']['first_rel']:.3e} of the absmax away, tokens "
+              f"agree in {ref['witness']['agree']:.4f} of (row, step) pairs",
+              flush=True)
+    del oracle["_params"], oracle["_built"]
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "tp_oracle.pt")
+    torch.save(oracle, path)
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(phase_tp_rank, TP_RANKS, backend="gloo",
+                           args=(path, smi), deadline_s=TP_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    tp = {}
+    for i, run in enumerate(ranks[0]["runs"]):
+        runs = [r["runs"][i] for r in ranks]
+        key = (f"{run['model']}-{run['engine']}-"
+               f"{run['mesh'][0]}x{run['mesh'][1]}")
+        lp = [x["launches_per_step"] for x in runs]
+        wit = run["witness"]
+        print(f"(32) {key}: prefill logits {run['logits_rel']:.3e} and "
+              f"first decode logits {run['first_rel']:.3e} of the unsharded "
+              f"absmax (witness {wit['logits_rel']:.3e}, "
+              f"{wit['first_rel']:.3e}); tokens agree in {run['agree']:.4f} "
+              f"of (row, step) pairs (witness {wit['agree']:.4f}), "
+              f"{run['agree_clear']:.4f} of the {run['clear'][0]} of "
+              f"{run['clear'][1]} whose top two unsharded logits lie over "
+              f"{TP_MARGIN} x {run['noise']:.3e} apart; logits and tokens "
+              f"bitwise equal on every rank; kernel launches per rank per "
+              f"step {lp}, prefill {[x['prefill_launches'] for x in runs]}",
+              flush=True)
+        print(f"  host ms per rank: prefill "
+              f"{[round(x['prefill_ms'], 1) for x in runs]}; decode step "
+              + "; ".join(f"{np.median(x['step_ms']):.1f}" for x in runs)
+              + f" (median of {len(run['step_ms'])}) [{smi}]")
+        sums = [{k: sum(x[what].get(k, 0) for x in runs)
+                 for k in sorted({k for x in runs for k in x[what]})}
+                for what in ("prefill_bytes", "step_bytes")]
+        print(f"  bytes sent over the {len(runs)} ranks by kind: a prefill "
+              f"{sums[0]}, a decode step {sums[1]}")
+        if "sites" in run:
+            print(f"  layer 0: row-parallel reduced trunks bitwise the "
+                  f"rank-order sums of the plain version over k_layout "
+                  f"(blocks a rank: {run['sites']['row_blocks']}), "
+                  f"{run['sites']['col_sites']} column-parallel trunks "
+                  f"bitwise the unsharded columns; a row decoded at batch "
+                  f"{TP_BATCH} bitwise the same at batch {run['batch']}")
+        t = run["pass"]
+        lib = (f", torch._int_mm {t['library_ms']:.3f}"
+               if "library_ms" in t else "")
+        print(f"  rank 0's {t['launches']} calls of a decode step (M = "
+              f"{t['rows']}), the others idle: {t['ms']:.3f} ms (graph "
+              f"{t['device_ms']:.3f}), plain {t['plain_ms']:.3f}, bound "
+              f"{t['bound_ms']:.3f} ({t['bound_by']}){lib}; per-rank "
+              f"geometries {run['geoms']} [{smi}]")
+        tp[key] = {"launches_per_step": lp, "pass": t}
+    print(f"  builds in turn per rank (s): "
+          f"{[[round(b, 1) for b in r['build_s']] for r in ranks]}; peak "
+          f"device memory per rank {[round(r['peak_gib'], 2) for r in ranks]}"
+          f" GiB (sum {sum(r['peak_gib'] for r in ranks):.2f})")
+    print(f"phase 32 {time.perf_counter() - t_phase:.1f} s ({n_geoms} "
+          f"kernel geometries; ranks {spawn_s:.1f} s: Gemma "
+          f"{ranks[0]['gemma_s']:.1f} s, Yi {ranks[0]['yi_s']:.1f} s)")
+    return tp
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5974,6 +6663,15 @@ def main() -> int:
     from repro_torch.models import cnn
 
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(phases: str):
+        # wall seconds per phase (or group), flushed as it ends, so a run
+        # cut at the time limit still shows how far it got
+        now = time.perf_counter()
+        print(f"lap phase {phases}: {now - t_lap[0]:.1f} s (script "
+              f"{now - t_start:.1f} s)", flush=True)
+        t_lap[0] = now
     dev = device_lib.resolve()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5985,42 +6683,61 @@ def main() -> int:
     cfg = cnn.CNNConfig(name="darknet19", input_size=SIZE)
 
     phase_build()
+    lap("build")
     tot = phase_kernels(dev, cfg)
+    lap("2")
     model, params, images, launches = phase_serve(cfg)
+    lap("3")
     phase_cpu(model, params, images[:1])
+    lap("4")
     torch.cuda.empty_cache()
 
     lm = phase_lm_kernels(dev)
+    lap("5")
     lm_model, lm_params, lm_srv, lm_launches = phase_lm_serve()
+    lap("6")
     pallas_launches = phase_lm_pallas(lm_params)
+    lap("7")
     phase_lm_cpu(lm_model, lm_params, lm_srv)
+    lap("8")
     del lm_model, lm_params, lm_srv
     torch.cuda.empty_cache()
 
     adc = phase_adc_kernels(dev, cfg)
+    lap("9")
     adc_launches = phase_adc_serve(cfg, model, params, images)
+    lap("10")
     adc_launches.update(phase_lm_adc())
+    lap("11")
     torch.cuda.empty_cache()
 
     phase_tapeout(cfg, dev, smi)
+    lap("12")
     swap_launches = {"trunk_conv": phase_cnn_swap(model, params, images, smi),
                      "rebranch_matmul": phase_lm_swap(smi)}
+    lap("13-14")
     del model, params, images
     torch.cuda.empty_cache()
 
     train = phase_train_kernels(dev, smi)
+    lap("15")
     train_launches = {
         "cim_matmul": phase_lm_train(smi, train["cim_matmul"]["ms"]),
         "trunk_conv": phase_cnn_train(dev, smi)}
+    lap("16-17")
     torch.cuda.empty_cache()
 
     serve_launches = {"chunk_launches": phase_chunked_prefill(smi),
                       "spec_launches": phase_spec_decode(smi)}
+    lap("18-19")
     torch.cuda.empty_cache()
 
     phase_family_kernels(dev)
+    lap("20")
     hymba = phase_hymba(smi)
+    lap("21")
     granite, falcon = phase_granite(smi), phase_falcon(smi)
+    lap("22-23")
     family_launches = {
         "rebranch_matmul": {"hymba-1.5b": hymba["launches"],
                             "granite-moe-3b": granite["launches"],
@@ -6035,9 +6752,13 @@ def main() -> int:
 
     phase_family_kernels(dev, 24, (VLM_ARCH, AUDIO_ARCH), VLM_AUDIO_ROWS,
                          skip=set(LM_GEOMS))
+    lap("24")
     qwen = phase_qwen(smi)
+    lap("25")
     musicgen = phase_musicgen(smi)
+    lap("26")
     family_train = phase_family_train(dev, smi)
+    lap("27")
     family_launches["rebranch_matmul"].update({
         "qwen2-vl-2b": qwen["launches"],
         "qwen2-vl-2b-spec": qwen["spec_launches"],
@@ -6054,9 +6775,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_tune(dev, smi)
+    lap("28")
     phase_tuned_serve(smi)
+    lap("29")
     sharded = phase_sharded(smi)
+    lap("30")
     dist_train = phase_dist_train(smi)
+    lap("31")
+    tp_serve = phase_tp(dev, smi)
+    lap("32")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -6127,6 +6854,15 @@ def main() -> int:
             # ms is
             out["dist_train_launches"] = dist_train[name]["launches"]
             out["dist_train"] = dist_train[name]["kernel"]
+        if name in ("rebranch_matmul", "cim_matmul"):
+            # phase 32: per tensor-parallel run (model, engine, mesh), each
+            # rank's launches per decode step, and rank 0's calls of one
+            # decode step timed with the other ranks idle (``ms``,
+            # ``device_ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
+            # ``library_ms``, torch._int_mm with W column-major)
+            out["tp_serve"] = {
+                k: v for k, v in tp_serve.items()
+                if k.endswith("-pallas-1x4") == (name == "cim_matmul")}
         if name == "cim_matmul":
             # phase 27: launches over each new family's 10 train steps at
             # the 2-layer cut, and per step (checked: the block linears

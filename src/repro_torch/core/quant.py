@@ -42,7 +42,12 @@ def quantize_weights(w: torch.Tensor, axis=0):
 
 def quantize_activations(x: torch.Tensor):
     """Dynamic symmetric per-row (last axis) int8 quantisation."""
-    absmax = x.abs().amax(dim=-1, keepdim=True)
+    return quantize_activations_at(x, x.abs().amax(dim=-1, keepdim=True))
+
+
+def quantize_activations_at(x: torch.Tensor, absmax: torch.Tensor):
+    """:func:`quantize_activations` of ``x`` at a given per-row ``absmax``
+    (a row-parallel site quantises its columns at the whole row's)."""
     scale = absmax.clamp_min(1e-8) / _const(INT8_MAX, absmax)
     x_q = torch.clamp(torch.round(x / scale), -INT8_MAX, INT8_MAX)
     return x_q.to(torch.int8), scale

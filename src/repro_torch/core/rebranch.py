@@ -240,14 +240,40 @@ def _bias(y, sram):
     return y if b is None else y + b.to(y.dtype)
 
 
-def apply_linear(params, x, spec: ReBranchSpec):
+def apply_linear(params, x, spec: ReBranchSpec, tp=None, sp=None):
     """Apply a ReBranch linear layer (or a plain linear if disabled).
 
     Routes as the JAX package does: ``trunk_skip`` runs the branch alone;
     an engine with a fused matmul computes trunk and sketch in one pass;
     otherwise the engine's trunk matmul plus the reassociated branch
     ``(x @ C) @ (core @ U)``.
+
+    ``tp`` (``sharding.linear_tp``) runs the site over the model axis on
+    the rank's block of its parameters (``CompiledModel.shard_params``):
+    a column-parallel site on the whole x, giving the rank's output
+    columns (its trunk the unsharded site's columns bit for bit), a
+    row-parallel one by :func:`row_parallel_parts`, giving the whole
+    output (or, with ``sp``, the seq_sp layout of every model rank,
+    this rank's sequence chunk of it).
     """
+    if tp is not None and tp.role == "row":
+        return _row_parallel(params, x, spec, tp, sp)
+    if tp is not None:
+        sram = params["sram"]
+        b = sram.get("b")
+        lo, hi = tp.cols
+        if b is not None and b.shape[-1] != hi - lo:   # biases stay whole
+            params = {**params, "sram": {**sram, "b": b[..., lo:hi]}}
+    y = _apply_local(params, x, spec)
+    if sp is not None:            # a site kept whole, into the seq_sp layout
+        from repro_torch.distributed import sharding as shd
+        mesh, axis = shd.model_axis()
+        lo, hi = sp[mesh.coordinate(axis)]
+        y = y.narrow(1, lo, hi - lo)
+    return y
+
+
+def _apply_local(params, x, spec: ReBranchSpec):
     if not spec.enabled:
         return _bias(x @ params["sram"]["w"].to(x.dtype), params["sram"])
 
@@ -276,6 +302,119 @@ def apply_linear(params, x, spec: ReBranchSpec):
         x2 = x.reshape(-1, x.shape[-1])
         y = y + rows.rowwise(lambda a: (a @ c) @ cu, x2).reshape(y.shape)
     return _bias(y, sram)
+
+
+def row_parallel_parts(params, x, spec: ReBranchSpec, tp):
+    """This rank's part of a row-parallel site, before any reduction: x
+    (in the even layout of its K columns, ``tp.x_layout``) moved to the
+    rank's whole k-blocks (``tp.k_ranges``: only the straddling columns
+    cross), then, on x [M, k] flattened:
+
+    * ``"trunk"``: f32 [M, N].  A fused engine: its kernel's trunk (the
+      per-(row, k-block) scales applied, ``w_scale`` not).  Otherwise the
+      CiM dot of x quantised at its whole row's absmax (an exact max over
+      the ranks), before any scale; ``"scale"`` is that row scale.  A
+      plain (SRAM) site: ``x @ w`` in f32.  None under ``trunk_skip``.
+    * ``"t1"``: f32 [M, Cd], the sketch ``x @ C`` of the rank's rows of C
+      (the fused kernel's, or bucketed rows), when the branch is live.
+
+    A rank with no k-block computes zeros and launches nothing."""
+    from repro_torch.distributed import sharding as shd
+    x = shd.move_rows(x, list(tp.x_layout), list(tp.k_ranges), tp.mesh,
+                      tp.axis, "relayout", dim=-1)
+    x2 = x.reshape(math.prod(x.shape[:-1]), x.shape[-1]).contiguous()
+    m, k = x2.shape
+    sram = params["sram"]
+    rom = params.get("rom", {})
+    live = spec.enabled and spec.branch_enabled and "core" in sram
+    out = {"trunk": None, "t1": None, "scale": None}
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if not spec.enabled:
+        out["trunk"] = (x2.float() @ sram["w"].float() if k else
+                        torch.zeros((m, tp.d_out), **f32))
+        return out
+    if not spec.trunk_skip:
+        from repro_torch import engine as engine_lib
+        eng = engine_lib.resolve(spec)
+        if live and "matmul" in eng.capabilities.fused_ops:
+            if k:
+                out["trunk"], out["t1"] = eng.fused_partial(
+                    spec.cim, x2, rom["w_q"], rom["C"])
+            else:
+                out["trunk"] = torch.zeros((m, tp.d_out), **f32)
+                out["t1"] = torch.zeros((m, rom["C"].shape[1]), **f32)
+        else:
+            absmax = (x2.abs().amax(dim=-1, keepdim=True) if k else
+                      x2.new_zeros((m, 1)))
+            absmax = shd.rank_max(absmax, tp.mesh, tp.axis)
+            x_q, out["scale"] = quant.quantize_activations_at(x2, absmax)
+            out["trunk"] = (eng.matmul_partial(spec.cim, x_q, rom["w_q"])
+                            if k else torch.zeros((m, tp.d_out), **f32))
+    if live and out["t1"] is None:
+        cf = rom["C"].float()
+        out["t1"] = (rows.rowwise(lambda a: a.float() @ cf, x2) if k else
+                     torch.zeros((m, cf.shape[1]), **f32))
+    return out
+
+
+def _row_parallel(params, x, spec: ReBranchSpec, tp, sp):
+    """A row-parallel site: :func:`row_parallel_parts`, one gather of the
+    ranks' f32 [trunk | t1] added in rank order (the trunk on the rows
+    this rank keeps: all, or its ``sp`` sequence chunk), the branch by
+    the reference's rule (C and core split on the contracting side:
+    ``z = t1 @ core`` is a second rank-order sum of the ranks' rows of
+    core, then ``z @ U``), and ``w_scale`` and the bias once, after the
+    reductions, as the unsharded site applies them."""
+    from repro_torch.distributed import sharding as shd
+    mesh, axis, r, n = tp.mesh, tp.axis, tp.coord, tp.n
+    lead = list(x.shape[:-1])
+    parts = row_parallel_parts(params, x, spec, tp)
+    trunk, t1, scale = parts["trunk"], parts["t1"], parts["scale"]
+    sram = params["sram"]
+
+    def keep(t):                  # [M, c] -> the rows this rank keeps
+        if sp is None:
+            return t
+        lo, hi = sp[r]
+        return (t.reshape(*lead, t.shape[-1]).narrow(1, lo, hi - lo)
+                .reshape(-1, t.shape[-1]))
+
+    out_lead = list(lead)
+    if sp is not None:
+        out_lead[1] = sp[r][1] - sp[r][0]
+    pieces = [t for t in (trunk, t1) if t is not None]
+    gathered = shd.gather_parts(torch.cat(pieces, dim=-1), mesh, axis,
+                                "reduce")
+    n_out = tp.d_out
+    if trunk is not None:
+        trunk = shd.rank_sum([keep(g[:, :n_out]) for g in gathered])
+    if t1 is not None:
+        t1 = shd.rank_sum([g[:, -t1.shape[1]:] for g in gathered])
+    dt = x.dtype
+    if not spec.enabled:
+        return _bias(trunk.to(dt).reshape(*out_lead, n_out), sram)
+    rom = params["rom"]
+    if trunk is None:
+        y = torch.zeros((math.prod(out_lead), n_out), dtype=torch.float32,
+                        device=x.device)
+    elif scale is None:             # the fused kernel's trunk
+        y = trunk * rom["w_scale"].reshape(1, -1).float()
+    else:                           # as ops._TrunkMatmulPallas.forward
+        y = (trunk * keep(scale)).to(dt) * rom["w_scale"].reshape(
+            1, -1).to(dt)
+    if t1 is not None:
+        core = sram["core"].float()
+        if core.shape[0] == t1.shape[1]:          # core kept whole
+            z = keep(rows.rowwise(lambda a: a @ core, t1))
+        else:
+            lo, hi = shd.h_layout(t1.shape[1], n)[r]
+            zp = rows.rowwise(lambda a: a[:, lo:hi] @ core, t1)
+            z = (shd.reduce_model(zp) if sp is None else shd.reduce_chunk(
+                zp.reshape(*lead, -1), 1).reshape(-1, zp.shape[-1]))
+        uf = rom["U"].float()
+        branch = rows.rowwise(lambda a: a @ uf, z)
+        y = y + branch if scale is None else y + branch.to(dt)
+    return _bias(y.to(dt).reshape(*out_lead, n_out), sram)
 
 
 def freeze_to_rom(params_dense, gen: torch.Generator, spec: ReBranchSpec):

@@ -20,9 +20,20 @@ branch-only draft, ``api.draft_config``), ``draft_prefill``,
 It resolves the engine through the strict registry, folds the per-site
 placement (a ``PlacementPlan`` or a ``layer_overrides`` map) into the
 config's ``rebranch_overrides``, binds the tuning-table policy
-(``tune=``) and, for CNNs, a mesh (``mesh=``: a
-``launch.mesh.Mesh``; the model then runs H-sharded over its ranks on the
-'pallas_sharded' engine), and returns a :class:`CompiledModel`.
+(``tune=``) and a mesh (``mesh=``: a ``launch.mesh.Mesh``; a CNN then
+runs H-sharded over its ranks on the 'pallas_sharded' engine, a dense LM
+tensor-parallel over ``model`` and data-parallel over ``data``), and
+returns a :class:`CompiledModel`.
+
+An LM over a mesh (every rank runs the same calls)::
+
+    mesh = launch.mesh.make_lm_mesh(1, 4, backend="gloo")
+    model = deploy.compile_model(cfg, engine="pallas_fused", mesh=mesh)
+    params = model.shard_params(model.init(seed=0))   # this rank's blocks
+    prefill = launch.steps.make_prefill_step(cfg, 8, 256, model=model)
+    logits, cache = prefill(params, {"tokens": tokens})   # whole batch
+    step = launch.steps.make_serve_step(cfg, model=model)
+    next_tok, cache = step(params, {"tokens": next_tok[:, None]}, cache)
 """
 
 from __future__ import annotations
@@ -133,20 +144,25 @@ class CompiledModel:
         return api.apply_head(params, x, self.cfg)
 
     @_scoped
-    def prefill(self, params, batch, cache):
-        """Prompt into ``cache`` (updated in place); last-position logits."""
+    def prefill(self, params, batch, cache, **kw):
+        """Prompt into ``cache`` (updated in place); last-position logits.
+        Under a mesh: this rank's rows of the batch (``launch.steps.
+        local_batch``), its block of the parameters and cache; the logits
+        come back whole over the vocab, or with ``whole_logits=False`` as
+        this rank's vocab columns."""
         self._lm_only("prefill")
         tokens = batch.get("tokens", batch.get("embeds"))
         if tokens is not None:
             self._check_cache("prefill", tokens, cache)
-        return api.prefill(params, batch, self.cfg, cache)
+        return api.prefill(params, batch, self.cfg, cache, **kw)
 
     @_scoped
-    def decode_step(self, params, tokens, cache):
-        """One token per row against ``cache`` (updated in place)."""
+    def decode_step(self, params, tokens, cache, **kw):
+        """One token per row against ``cache`` (updated in place); under a
+        mesh as :meth:`prefill`."""
         self._lm_only("decode_step")
         self._check_cache("decode_step", tokens, cache)
-        return api.decode_step(params, tokens, self.cfg, cache)
+        return api.decode_step(params, tokens, self.cfg, cache, **kw)
 
     @property
     def draft_cfg(self):
@@ -186,7 +202,30 @@ class CompiledModel:
         self._check_cache("decode_step", tokens, cache)
         return api.decode_step(params, tokens, self.draft_cfg, cache)
 
+    def shard_params(self, params):
+        """This rank's local tree of the whole tree ``params`` under the
+        model's mesh: every leaf's block under ``param_shardings`` (GSPMD's
+        even layout), the contracting rows of row-parallel ``w_q`` and
+        ``C`` as whole k-blocks (``sharding.k_layout``).  Without a mesh,
+        or on one rank, ``params`` itself."""
+        self._lm_only("shard_params")
+        if self.mesh is None or self.mesh.size == 1:
+            return params
+        shardings = bridge.flatten(shd.param_shardings(params, self.mesh))
+
+        def rows_of(path: str) -> int:
+            site = ("blocks.attn" if "['attn']" in path else "blocks.mlp"
+                    if "['mlp']" in path else "lm_head")
+            return spec_for(self.cfg, site).cim.rows_per_subarray
+
+        with torch.no_grad():
+            return bridge.map_named(params, lambda path, leaf: shd.local_param(
+                path, leaf, shardings[path], rows_of(path)))
+
+    @_scoped
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
+        """A zero cache; under a mesh this rank's block of it
+        (``api.init_cache``)."""
         self._lm_only("init_cache")
         return api.init_cache(self.cfg, batch, max_len, dtype,
                               device_lib.resolve(device))
@@ -278,13 +317,16 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
         table (``True`` raises unless the engine's ``capabilities.tune``
         says its kernels read it); ``False`` pins the shape rule's plans
         (``tune.disabled()`` around every call).  No plan moves a bit.
-    mesh: a ``launch.mesh.Mesh`` the CNN is deployed onto: every call runs
-        under ``sharding.use_mesh(mesh)``, NHWC activations sharded over H
-        on the axis of the ``"cnn_h"`` rule and the image batch over the
-        axis of the ``"cnn_batch"`` rule (``pod``, where the mesh has
-        one).  Every ROM site's engine must run its conv sharded
-        (``'conv' in capabilities.sharded_ops``: 'pallas_sharded').  LM configs raise: their tensor-parallel
-        serving is a later slice.
+    mesh: a ``launch.mesh.Mesh`` the model is deployed onto: every call
+        runs under ``sharding.use_mesh(mesh)``.  A CNN's NHWC activations
+        shard over H on the axis of the ``"cnn_h"`` rule and the image
+        batch over the axis of the ``"cnn_batch"`` rule (``pod``, where
+        the mesh has one); every ROM site's engine must run its conv
+        sharded (``'conv' in capabilities.sharded_ops``:
+        'pallas_sharded').  A dense LM runs tensor-parallel over
+        ``model`` and data-parallel over ``data`` (``shard_params``, the
+        steps of ``launch.steps``); the other LM families raise, naming
+        ROADMAP item 5(d).
     """
     if not isinstance(cfg, (cnn.CNNConfig, ArchConfig)):
         raise TypeError(f"compile_model takes a cnn.CNNConfig or an "
@@ -292,11 +334,8 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
     if mesh is not None and not isinstance(mesh, mesh_lib.AbstractMesh):
         raise TypeError(f"mesh= takes a launch.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
-    if mesh is not None and not isinstance(cfg, cnn.CNNConfig):
-        raise NotImplementedError(
-            f"compile_model(mesh=) serves CNNs over a mesh; "
-            f"{cfg.name!r} is an LM, whose sharded serving comes with "
-            f"{shd.LM_SLICE}")
+    if mesh is not None and isinstance(cfg, ArchConfig):
+        api.check_mesh(cfg, mesh)
     if plan is not None:
         if layer_overrides:
             raise ValueError(
@@ -337,7 +376,8 @@ def compile_model(cfg, *, engine=None, layer_overrides=None,
         if not spec.enabled:
             continue
         site_eng = engine_lib.resolve(spec)  # gate per-layer engines too
-        if mesh is not None and "conv" not in site_eng.capabilities.sharded_ops:
+        if (mesh is not None and isinstance(cfg, cnn.CNNConfig)
+                and "conv" not in site_eng.capabilities.sharded_ops):
             raise ValueError(
                 f"mesh= needs every ROM site on an engine that runs its conv "
                 f"sharded ('pallas_sharded'); site {site} is on "

@@ -33,8 +33,21 @@ the same order, because every rank builds the same graph: a rank with
 no rows still runs each op on empty tensors
 (``core.rebranch.zeros_from`` keeps an empty result in the graph).
 
-The LM logical axes are not executed yet: :func:`shard` raises naming the
-slice that ports them.
+The LM's tensor parallelism runs over the ``model`` axis (rules
+``heads``, ``kv_heads``, ``mlp``, ``vocab`` and ``seq_sp``), its data
+parallelism over ``data`` (``batch``).  :func:`linear_tp` gives a ReBranch
+linear its role from the same ``_WIDE_OUT``/``_WIDE_IN`` tables that
+:func:`param_specs` reads, so layout and execution cannot disagree: a
+column-parallel site holds its output columns, a row-parallel one whole
+k-blocks of its contraction (:func:`k_layout`, kept beside
+:func:`h_layout`), because a trunk kernel quantises x once per (row,
+k-block) and an even split that cuts a block would compute another model.
+The reductions gather every rank's f32 partial (:func:`gather_parts`) and
+add them in rank order (:func:`rank_sum`, ascending k), the same bits on
+every rank; a gloo all-reduce adds each chunk in another order.  Column
+moves go through :func:`move_rows` with ``dim=-1``.  The axes still not
+executed (``expert``, ``expert_mlp``, ``ssm_inner``, ``kv_seq``) raise
+naming the item that ports them.
 """
 
 from __future__ import annotations
@@ -52,7 +65,12 @@ import torch.distributed as dist
 
 from repro_torch import bridge
 
-LM_SLICE = "the LM tensor-parallel slice (ROADMAP Queue 1 item 5(c))"
+LM_SLICE = "the rest of tensor parallelism (ROADMAP Queue 1 item 5(d))"
+
+# the logical axes shard() executes
+CNN_AXES = ("cnn_batch", "cnn_h")
+LM_AXES = ("batch", "seq", "seq_sp", "heads", "kv_heads", "mlp", "vocab",
+           "embed")
 
 # logical axis -> tuple of mesh axis names (tried in order, first that
 # exists in the current mesh wins; missing axes mean "replicated")
@@ -177,15 +195,19 @@ def h_layout(h: int, n: int) -> list[tuple[int, int]]:
     return [(min(r * c, h), min((r + 1) * c, h)) for r in range(n)]
 
 
+def _need_groups(mesh):
+    if not hasattr(mesh, "group"):
+        raise TypeError(f"{mesh!r} has no process groups: activations "
+                        f"shard over a launch.mesh.Mesh")
+
+
 def _axis_with_groups(logical: str, mesh):
     """``(mesh, axis)`` when the ``logical`` rule names an axis of size > 1
     of ``mesh`` (which must then have process groups), else None."""
     axis = mesh_axis_for(logical, mesh)
     if axis is None:
         return None
-    if not hasattr(mesh, "group"):
-        raise TypeError(f"{mesh!r} has no process groups: activations "
-                        f"shard over a launch.mesh.Mesh")
+    _need_groups(mesh)
     return mesh, axis
 
 
@@ -309,18 +331,29 @@ def reset_traffic():
 
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
-    """This rank's block of a whole (replicated) NHWC activation, for
-    ``shard(x, "cnn_batch", "cnn_h")``: its ``pod`` block of the batch and
-    its ``data`` slab of H.  Without a mesh, on a 1-rank mesh or on
-    size-1 axes it returns ``x`` untouched."""
+    """This rank's block of a whole (replicated) activation.
+
+    ``shard(x, "cnn_batch", "cnn_h")`` cuts an NHWC activation's ``pod``
+    block of the batch and its ``data`` slab of H.  The LM axes
+    (:data:`LM_AXES`) cut each dimension whose logical axis maps onto a
+    mesh axis of size > 1, by the reference's size rule (a dimension that
+    does not divide its mesh axes, or is smaller than them, stays whole),
+    in GSPMD's layout (:func:`local_block`).  Without a mesh, on a 1-rank
+    mesh or on size-1 axes it returns ``x`` untouched."""
     mesh = current_mesh()
     if mesh is None or mesh.size == 1:
         return x
     for ax in axes:
-        if ax not in (None, "", "cnn_batch", "cnn_h"):
+        if ax not in (None, "", *CNN_AXES, *LM_AXES):
             raise NotImplementedError(
                 f"shard over logical axis {ax!r} is not executed by the "
-                f"port yet: the LM axes come with {LM_SLICE}")
+                f"port yet: it comes with {LM_SLICE}")
+    if not any(ax in CNN_AXES for ax in axes):
+        spec = _size_check(logical_to_spec(axes, mesh), tuple(x.shape), mesh)
+        if not spec:
+            return x
+        _need_groups(mesh)
+        return local_block(x, NamedSharding(mesh, spec))
     for logical, dim, at in (("cnn_batch", 0, batch_axis(mesh)),
                              ("cnn_h", 1, h_axis(mesh))):
         if at is None or logical not in axes:
@@ -368,6 +401,217 @@ def mesh_group(mesh):
         raise ValueError(f"{mesh!r} does not span the world of "
                          f"{dist.get_world_size()} ranks")
     return dist.group.WORLD
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+def k_layout(k: int, n: int, rows: int = 128) -> list[tuple[int, int]]:
+    """The whole k-blocks of ``tiling.k_partition(k, rows)`` dealt to ``n``
+    ranks in order, as evenly as whole blocks allow: rank r holds the
+    global K range ``(lo, hi)`` of its blocks (``(k, k)`` for none).
+    14 blocks over 4 ranks go 4, 4, 3, 3; one block goes to rank 0."""
+    from repro_torch.kernels import tiling     # deferred: import cycle
+    ends = [0] + [b for _, b in tiling.k_partition(k, rows)] if k else [0]
+    nb = len(ends) - 1
+    base, extra = divmod(nb, n)
+    out, at = [], 0
+    for r in range(n):
+        c = base + (r < extra)
+        out.append((ends[at], ends[at + c]))
+        at += c
+    return out
+
+
+def model_axis(mesh=None):
+    """``(mesh, axis)`` when the ``"mlp"`` rule names a mesh axis of size
+    > 1 (the ``model`` axis), else None."""
+    mesh = mesh or current_mesh()
+    return None if mesh is None else _axis_with_groups("mlp", mesh)
+
+
+def axis_layout(logical: str, size: int, mesh=None):
+    """``(mesh, axis, layout)`` when :func:`shard` would cut a dimension
+    of ``size`` over the ``logical`` axis (the size rule), ``layout`` the
+    GSPMD blocks of every rank; else None."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.size == 1:
+        return None
+    spec = _size_check(logical_to_spec((logical,), mesh), (size,), mesh)
+    if not spec:
+        return None
+    names = spec[0] if isinstance(spec[0], tuple) else (spec[0],)
+    names = tuple(a for a in names if mesh.shape[a] > 1)
+    if not names:
+        return None
+    if len(names) != 1:
+        raise NotImplementedError(
+            f"the LM's {logical!r} axis over {names} (more than one mesh "
+            f"axis) comes with {LM_SLICE}")
+    _need_groups(mesh)
+    return mesh, names[0], h_layout(size, mesh.shape[names[0]])
+
+
+def batch_block(b: int, mesh=None) -> tuple[int, int]:
+    """This rank's rows of a batch of ``b`` under the LM's data
+    parallelism (``launch.steps.batch_pspec``: over pod+data once the
+    batch is at least their size, GSPMD's uneven blocks), ``(0, b)``
+    when the batch is not split."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return 0, b
+    axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+    total = math.prod(mesh.shape[a] for a in axes)
+    if total == 1 or b < total:
+        return 0, b
+    return block_bounds((b,), NamedSharding(mesh, P(tuple(axes))))[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearTP:
+    """How one ReBranch linear runs over the model axis.  ``column``: x is
+    whole and the rank holds output columns ``cols``.  ``row``: x arrives
+    in the even layout ``x_layout`` of its K columns (the previous
+    column-parallel site's, or the heads') and the rank holds the rows
+    ``k_ranges[rank]`` of the contraction (:func:`k_layout`)."""
+    role: str
+    mesh: Any
+    axis: str
+    d_in: int
+    d_out: int
+    cols: tuple = ()
+    x_layout: tuple = ()
+    k_ranges: tuple = ()
+
+    @property
+    def n(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    @property
+    def coord(self) -> int:
+        return self.mesh.coordinate(self.axis)
+
+
+def linear_tp(site: str, d_in: int, d_out: int, rows: int = 128):
+    """The :class:`LinearTP` of the linear ``site`` (its key in the tree:
+    ``"q"``, ``"o"``, ``"down"``, ``"lm_head"``...) of ``d_in`` x
+    ``d_out`` under the bound mesh, from the spec :func:`param_specs`
+    gives its ``w_q``; None without a model axis or where the size rule
+    keeps the site whole."""
+    at = model_axis()
+    if at is None:
+        return None
+    mesh, axis = at
+    n = mesh.shape[axis]
+    spec = tuple(_spec_of(f"['{site}']['rom']['w_q']",
+                          torch.empty((d_in, d_out), device="meta"), mesh))
+    if spec == (None, axis):
+        return LinearTP("column", mesh, axis, d_in, d_out,
+                        cols=h_layout(d_out, n)[mesh.coordinate(axis)])
+    if spec == (axis,):
+        return LinearTP("row", mesh, axis, d_in, d_out,
+                        x_layout=tuple(h_layout(d_in, n)),
+                        k_ranges=tuple(k_layout(d_in, n, rows)))
+    return None
+
+
+def gather_parts(x: torch.Tensor, mesh, axis: str,
+                 kind: str) -> list[torch.Tensor]:
+    """Every rank's ``x`` (one shape on every rank) over ``axis``, in
+    rank order, on ``x``'s device (host buffers over gloo); counts the
+    bytes this rank sends under ``kind``."""
+    n, group = mesh.shape[axis], mesh.group(axis)
+    host = _collective_device(group, x).type != x.device.type
+    src = x.contiguous()
+    src = src.cpu() if host else src
+    bufs = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(bufs, src, group=group)
+    bytes_sent[kind] += src.numel() * src.element_size() * (n - 1)
+    if not host:
+        return bufs
+    return list(torch.stack(bufs).to(x.device).unbind(0))
+
+
+def rank_sum(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The parts added in rank order (ascending k for a row-parallel
+    site): one association, so every rank and every test names its
+    bits."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def reduce_model(x: torch.Tensor, kind: str = "reduce") -> torch.Tensor:
+    """The whole sum over the model axis of every rank's ``x``, added in
+    rank order (``x`` itself without a model axis)."""
+    at = model_axis()
+    if at is None:
+        return x
+    return rank_sum(gather_parts(x, *at, kind))
+
+
+def reduce_chunk(x: torch.Tensor, dim: int,
+                 kind: str = "reduce") -> torch.Tensor:
+    """This rank's chunk along ``dim`` (GSPMD's layout over the model
+    axis) of the rank-order sum of every rank's ``x``: the reference's
+    reduce-scatter into ``seq_sp``."""
+    at = model_axis()
+    if at is None:
+        return x
+    mesh, axis = at
+    lo, hi = h_layout(x.shape[dim], mesh.shape[axis])[mesh.coordinate(axis)]
+    return rank_sum([p.narrow(dim, lo, hi - lo)
+                     for p in gather_parts(x, mesh, axis, kind)])
+
+
+def rank_max(x: torch.Tensor, mesh, axis: str,
+             kind: str = "absmax") -> torch.Tensor:
+    """The elementwise max of every rank's ``x`` over ``axis`` (exact in
+    any order)."""
+    parts = gather_parts(x, mesh, axis, kind)
+    out = parts[0]
+    for p in parts[1:]:
+        out = torch.maximum(out, p)
+    return out
+
+
+def gather_cols(x: torch.Tensor, width: int, mesh, axis: str, dim: int = -1,
+                kind: str = "gather") -> torch.Tensor:
+    """The whole ``width`` along ``dim`` on every rank from the blocks of
+    its even layout over ``axis`` (:func:`move_rows`)."""
+    n = mesh.shape[axis]
+    return move_rows(x, h_layout(width, n), [(0, width)] * n, mesh, axis,
+                     kind, dim=dim)
+
+
+def gather_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Whole logits from vocab-parallel ones (``logits`` itself when they
+    are whole)."""
+    at = model_axis()
+    if at is None or logits.shape[-1] == vocab:
+        return logits
+    return gather_cols(logits, vocab, *at)
+
+
+def vocab_argmax(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``torch.argmax(whole_logits, -1)`` from vocab-parallel logits: each
+    rank's max and its first index, gathered, the lowest global index
+    winning a tie (``torch.argmax``'s rule), the same on every rank."""
+    at = model_axis()
+    if at is None or logits.shape[-1] == vocab:
+        return torch.argmax(logits, dim=-1)
+    mesh, axis = at
+    lo = h_layout(vocab, mesh.shape[axis])[mesh.coordinate(axis)][0]
+    idx = torch.argmax(logits, dim=-1, keepdim=True)
+    val = logits.gather(-1, idx)
+    packed = torch.cat([val.double(), (idx + lo).double()], dim=-1)
+    best = None
+    for p in gather_parts(packed, mesh, axis, "argmax"):
+        best = p if best is None else torch.where(
+            (p[..., :1] > best[..., :1]), p, best)
+    return best[..., 1].long()
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +765,89 @@ def block_bounds(shape, sharding: NamedSharding) -> list[tuple[int, int]]:
 
 def local_block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``sharding``."""
-    for d, (lo, hi) in enumerate(block_bounds(x.shape, sharding)):
+    return _cut(x, block_bounds(x.shape, sharding))
+
+
+def _cut(x: torch.Tensor, bounds) -> torch.Tensor:
+    for d, (lo, hi) in enumerate(bounds):
         if hi - lo != x.shape[d]:
             x = x.narrow(d, lo, hi - lo)
     return x.contiguous()
+
+
+def is_row_contraction(path: str) -> bool:
+    """Whether the leaf at ``path`` holds the contracting rows of a
+    row-parallel site (its ``w_q``, plain ``w`` or ``C``): those split by
+    :func:`k_layout`, not evenly."""
+    return (any(k in path for k in _WIDE_IN) and "experts" not in path
+            and ("w_q" in path or "['w']" in path or "['C']" in path))
+
+
+def param_bounds(path: str, shape, sharding: NamedSharding,
+                 rows: int = 128) -> list[tuple[int, int]]:
+    """:func:`block_bounds` of a parameter leaf, with the contracting rows
+    of a row-parallel site dealt as whole k-blocks (:func:`k_layout`)."""
+    bounds = block_bounds(shape, sharding)
+    if not is_row_contraction(path):
+        return bounds
+    for d, part in enumerate(tuple(sharding.spec)):
+        if part is None:
+            continue
+        names = part if isinstance(part, tuple) else (part,)
+        if len(names) != 1:
+            raise NotImplementedError(
+                f"{path}: contracting rows over {names} come with {LM_SLICE}")
+        m = sharding.mesh
+        bounds[d] = k_layout(shape[d], m.shape[names[0]],
+                             rows)[m.coordinate(names[0])]
+    return bounds
+
+
+def local_param(path: str, x: torch.Tensor, sharding: NamedSharding,
+                rows: int = 128) -> torch.Tensor:
+    """This rank's block of the whole parameter leaf ``x`` at ``path``
+    (:func:`param_bounds`)."""
+    return _cut(x, param_bounds(path, x.shape, sharding, rows))
+
+
+# ---------------------------------------------------------------------------
+# cache specs
+# ---------------------------------------------------------------------------
+
+def cache_spec(p: str, leaf, mesh) -> PartitionSpec:
+    """The reference's path+shape rule for one KV/SSM cache leaf (leaf
+    names as ``bridge.flatten`` gives them): the batch over pod+data, kv
+    heads over ``model`` where they divide it, else the sequence
+    (flash-decoding style), a batch-1 cache's sequence over every axis."""
+    baxes = [a for a in ("pod", "data") if a in mesh.axis_names]
+    b_total = math.prod(mesh.shape[a] for a in baxes)
+    m_size = mesh.shape.get("model", 1)
+    # scan-over-layers archs stack caches with a leading L dim
+    stacked = "['layers']" in p and not _LAYER_LIST_RE.search(p)
+    shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
+    nd = len(shape)
+    pre = (None,) if stacked else ()
+    if ("'k'" in p or "'v'" in p) and nd == 4:
+        bsz, s, kv, _ = shape
+        bspec = tuple(baxes) if bsz >= b_total else None
+        if bspec is None:
+            # batch-1 long-context: shard the sequence instead
+            return P(*pre, None,
+                     tuple(mesh.axis_names) if s % mesh.size == 0 else None,
+                     None, None)
+        if kv % m_size == 0:
+            return P(*pre, bspec, None, "model", None)
+        if s % m_size == 0:
+            # kv heads do not divide the model axis: shard the cache
+            # sequence (flash-decoding style)
+            return P(*pre, bspec, "model", None, None)
+        return P(*pre, bspec, None, None, None)
+    if "'h'" in p and nd == 3:                 # [B, d_inner, N]
+        bspec = tuple(baxes) if shape[0] >= b_total else None
+        return P(*pre, bspec,
+                 "model" if shape[1] % m_size == 0 else None, None)
+    if "'conv'" in p and nd == 3:              # [B, K-1, d_inner]
+        bspec = tuple(baxes) if shape[0] >= b_total else None
+        return P(*pre, bspec, None,
+                 "model" if shape[2] % m_size == 0 else None)
+    return P()

@@ -87,8 +87,23 @@ class TrunkEngine:
         """NHWC/HWIO frozen-trunk conv with an optional epilogue."""
         raise NotImplementedError
 
+    def matmul_partial(self, cfg, x_q, w_q):
+        """The CiM dot of int8 rows ``x_q`` [M, k], quantised at their
+        whole row's scale, against ROM rows ``w_q`` [k, N] holding whole
+        k-blocks, f32 [M, N] before any scale: what a rank of a
+        row-parallel site adds into the rank-order sum."""
+        raise NotImplementedError(
+            f"engine {self.name!r} has no row-parallel partial matmul")
+
     def fused_matmul(self, cfg, x, w_q, w_scale, c, core, u):
         """Fused trunk+branch ReBranch matmul ('matmul' in fused_ops)."""
+        raise NotImplementedError(
+            f"engine {self.name!r} has no fused matmul path")
+
+    def fused_partial(self, cfg, x, w_q, c):
+        """The fused kernel's (trunk, sketch) of x [M, k] holding whole
+        k-blocks, before the epilogue ('matmul' in fused_ops): a rank's
+        part of a row-parallel site."""
         raise NotImplementedError(
             f"engine {self.name!r} has no fused matmul path")
 

@@ -17,6 +17,7 @@ pallas_fused: 'pallas' plus the fused trunk+branch conv (the trunk
 
 from __future__ import annotations
 
+from repro_torch.core import cim as cim_lib
 from repro_torch.core import rebranch as rebranch_lib
 from repro_torch.engine import base
 from repro_torch.engine.registry import register
@@ -29,6 +30,9 @@ class Int8NativeEngine(base.TrunkEngine):
 
     def matmul(self, cfg, x, w_q, w_scale):
         return rebranch_lib.trunk_matmul(cfg, x, w_q, w_scale)
+
+    def matmul_partial(self, cfg, x_q, w_q):
+        return cim_lib.cim_matmul_model(x_q, w_q, cfg)
 
     def conv(self, cfg, x, w_q, w_scale, *, stride=1, padding="SAME",
              epilogue=None):
@@ -63,6 +67,9 @@ class PallasEngine(base.TrunkEngine):
     def matmul(self, cfg, x, w_q, w_scale):
         return kops.trunk_matmul_pallas(cfg, x, w_q, w_scale)
 
+    def matmul_partial(self, cfg, x_q, w_q):
+        return kops.cim_matmul(x_q, w_q, cfg)
+
     def conv(self, cfg, x, w_q, w_scale, *, stride=1, padding="SAME",
              epilogue=None):
         y = kops.trunk_conv(cfg, stride, padding, x, w_q, w_scale)
@@ -86,6 +93,9 @@ class PallasFusedEngine(PallasEngine):
         y = kops.rebranch_matmul(x.reshape(-1, x.shape[-1]), w_q, w_scale,
                                  c, core, u, cfg)
         return y.reshape(*lead, y.shape[-1])
+
+    def fused_partial(self, cfg, x, w_q, c):
+        return kops.rebranch_trunk_sketch(x, w_q, c, cfg)
 
     def fused_conv(self, cfg, x, w_q, w_scale, c, core, u, *, stride=1,
                    padding="SAME", epilogue=None):

@@ -51,6 +51,9 @@ class ShardedPallasEngine(base.TrunkEngine):
     def matmul(self, cfg, x, w_q, w_scale):
         return get("pallas").matmul(cfg, x, w_q, w_scale)
 
+    def matmul_partial(self, cfg, x_q, w_q):
+        return get("pallas").matmul_partial(cfg, x_q, w_q)
+
     def conv(self, cfg, x, w_q, w_scale, *, stride=1, padding="SAME",
              epilogue=None):
         global fallbacks

@@ -58,28 +58,43 @@ def cim_block_dot(cfg: cim_lib.CiMConfig, x: torch.Tensor,
         return acc
 
     if cfg.mode == "bitserial":
+        # for each sign pair, subarray si, pulse group g and weight bit
+        # plane j, in that order: acc += sign * 4**g * 2**j * ADC(count).
+        # The planes j of one (si, g) go through the matmul and the ADC as
+        # one batch (integer counts and elementwise ops: the same bits);
+        # only the f32 sum into acc runs term by term, in the order above.
         mag_bits, act_groups, gmax = adc_lib.bitserial_planes(cfg)
+        dev = x.device
         x_i = x.to(torch.int32)
         w_i = w.to(torch.int32)
         acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
-                          device=x.device)
+                          device=dev)
+        g_shift = (torch.arange(act_groups, device=dev, dtype=torch.int32)
+                   * cfg.act_group_bits).view(-1, 1, 1)
+        j_shift = torch.arange(mag_bits, device=dev,
+                               dtype=torch.int32).view(-1, 1, 1)
+        # sign * 4**g * 2**j: powers of two, exact in f32
+        scales = {sign: torch.tensor(
+            [[sign * (4.0 ** g) * (2.0 ** j) for j in range(mag_bits)]
+             for g in range(act_groups)], dtype=torch.float32,
+            device=dev).view(act_groups, mag_bits, 1, 1)
+            for sign in (1.0, -1.0)}
         for sa, a_part in ((0, x_i.clamp_min(0)), (1, (-x_i).clamp_min(0))):
+            a_planes = ((a_part.unsqueeze(0) >> g_shift) & gmax).float()
             for sw, w_part in ((0, w_i.clamp_min(0)),
                                (1, (-w_i).clamp_min(0))):
-                sign = 1.0 if sa == sw else -1.0
+                scale = scales[1.0 if sa == sw else -1.0]
                 for si in range(x.shape[1] // rows):
-                    a_s = a_part[:, si * rows:(si + 1) * rows]
                     w_s = w_part[si * rows:(si + 1) * rows, :]
+                    w_js = ((w_s.unsqueeze(0) >> j_shift) & 1).float()
+                    popcount = w_js.sum(dim=1, keepdim=True)
+                    rng = (popcount * gmax).clamp_min(1.0)
                     for g in range(act_groups):
-                        a_g = ((a_s >> (g * cfg.act_group_bits)) & gmax
-                               ).float()
+                        a_g = a_planes[g, :, si * rows:(si + 1) * rows]
+                        sensed = adc_lib.adc_transfer(a_g @ w_js, rng, cfg)
+                        terms = sensed * scale[g]
                         for j in range(mag_bits):
-                            w_j = ((w_s >> j) & 1).float()
-                            counts = a_g @ w_j
-                            popcount = w_j.sum(dim=0, keepdim=True)
-                            rng = (popcount * gmax).clamp_min(1.0)
-                            sensed = adc_lib.adc_transfer(counts, rng, cfg)
-                            acc = acc + sign * (4.0 ** g) * (2.0 ** j) * sensed
+                            acc = acc + terms[j]
         return acc
 
     raise ValueError(f"unknown CiM mode: {cfg.mode!r}")

@@ -56,6 +56,11 @@ def trunk_matmul_pallas(cfg: cim_lib.CiMConfig, x, w_q, w_scale):
     return _TrunkMatmulPallas.apply(x, w_q, w_scale, cfg)
 
 
+def rebranch_trunk_sketch(x, w_q, c, cfg: cim_lib.CiMConfig = rm.IDEAL):
+    """The fused ReBranch matmul kernel's (UNscaled trunk, t1 = x @ C)."""
+    return rm.rebranch_trunk_sketch(x, w_q, c, cfg)
+
+
 def rebranch_matmul(x, w_q, w_scale, c, core, u,
                     cfg: cim_lib.CiMConfig = rm.IDEAL):
     """Fused trunk+branch ReBranch layer forward (inference only)."""

@@ -146,6 +146,14 @@ def make_cnn_serve_mesh(n_data: int = 8, *, backend: str) -> Mesh:
     return make_mesh((n_data, 1), backend=backend)
 
 
+def make_lm_mesh(n_data: int, n_model: int, *, backend: str) -> Mesh:
+    """LM serving mesh ``(data, model)``: the batch over ``data`` (rule
+    ``"batch"``), heads, MLP columns, vocab and k-blocks over ``model``;
+    each data coordinate has its own ``model`` group (``Mesh.group``).
+    The world must have ``n_data * n_model`` ranks."""
+    return make_mesh((n_data, n_model), backend=backend)
+
+
 # ---------------------------------------------------------------------------
 # a local world of spawned ranks
 # ---------------------------------------------------------------------------

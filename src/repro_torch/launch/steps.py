@@ -15,14 +15,21 @@ Under a bound mesh of more than one rank a train step is data-parallel:
 each rank computes the loss on what it holds (an LM rank its block of
 the batch; a CNN rank the whole output, gathered from every rank's
 slab), and every trainable gradient is all-reduced as a mean over the
-ranks before AdamW, so the update is the same on every rank.  Tensor
-parallelism (a ``model`` axis over 1) is not executed yet.
+ranks before AdamW, so the update is the same on every rank.  Training
+over a ``model`` axis over 1 raises (ROADMAP item 5(d)).
+
+Serving runs over a ``(data, model)`` mesh: the prefill and serve steps
+of a model compiled with ``mesh=`` take the whole batch on every rank,
+run the rank's rows (:func:`local_batch`) tensor-parallel on its block
+of the parameters (``CompiledModel.shard_params``) and cache, and return
+the logits and next tokens whole and bitwise equal on every rank; the
+next token is a distributed argmax over the vocab-parallel logits
+(``sharding.vocab_argmax``).
 """
 
 from __future__ import annotations
 
 import math
-import re
 
 import torch
 import torch.distributed as dist
@@ -107,54 +114,16 @@ def cache_specs(cfg: ArchConfig, global_batch: int, max_len: int):
     return model.init_cache(global_batch, max_len, device="meta")
 
 
-_LAYER_LIST = re.compile(r"\['layers'\]\[\d+\]")
-
-
 def cache_pspecs(cfg: ArchConfig, mesh, cache_tree):
     """Path+shape-aware PartitionSpecs for KV/SSM caches (the
-    reference's rules, leaf names as ``bridge.flatten`` gives them)."""
+    reference's rules, ``sharding.cache_spec``)."""
     return bridge.map_named(cache_tree,
-                            lambda p, leaf: _cache_spec(p, leaf, mesh))
+                            lambda p, leaf: shd.cache_spec(p, leaf, mesh))
 
 
 def cache_shardings(cfg: ArchConfig, mesh, cache_tree):
     return bridge.map_named(cache_tree, lambda p, leaf: shd.NamedSharding(
-        mesh, _cache_spec(p, leaf, mesh)))
-
-
-def _cache_spec(p: str, leaf, mesh):
-    baxes = [a for a in ("pod", "data") if a in mesh.axis_names]
-    b_total = math.prod(mesh.shape[a] for a in baxes)
-    m_size = mesh.shape.get("model", 1)
-    # scan-over-layers archs stack caches with a leading L dim
-    stacked = "['layers']" in p and not _LAYER_LIST.search(p)
-    shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
-    nd = len(shape)
-    pre = (None,) if stacked else ()
-    if ("'k'" in p or "'v'" in p) and nd == 4:
-        bsz, s, kv, _ = shape
-        bspec = tuple(baxes) if bsz >= b_total else None
-        if bspec is None:
-            # batch-1 long-context: shard the sequence instead
-            return P(*pre, None,
-                     tuple(mesh.axis_names) if s % mesh.size == 0 else None,
-                     None, None)
-        if kv % m_size == 0:
-            return P(*pre, bspec, None, "model", None)
-        if s % m_size == 0:
-            # kv heads do not divide the model axis: shard the cache
-            # sequence (flash-decoding style)
-            return P(*pre, bspec, "model", None, None)
-        return P(*pre, bspec, None, None, None)
-    if "'h'" in p and nd == 3:                 # [B, d_inner, N]
-        bspec = tuple(baxes) if shape[0] >= b_total else None
-        return P(*pre, bspec,
-                 "model" if shape[1] % m_size == 0 else None, None)
-    if "'conv'" in p and nd == 3:              # [B, K-1, d_inner]
-        bspec = tuple(baxes) if shape[0] >= b_total else None
-        return P(*pre, bspec, None,
-                 "model" if shape[2] % m_size == 0 else None)
-    return P()
+        mesh, shd.cache_spec(p, leaf, mesh)))
 
 
 def model_state_shardings(cfg, mesh, model=None):
@@ -237,14 +206,14 @@ def value_and_grad(loss_fn, trainable):
 def train_mesh():
     """The bound mesh a train step reduces over, or None when there is
     none or it has one rank.  A ``model`` axis over 1 raises:
-    tensor-parallel training is not executed yet."""
+    tensor-parallel training comes with ROADMAP item 5(d)."""
     mesh = shd.current_mesh()
     if mesh is None or mesh.size == 1:
         return None
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
-            f"a train step over {mesh!r} would shard tensors over its "
-            f"'model' axis; that comes with {shd.LM_SLICE}")
+            f"a train step over {mesh!r} would train over its 'model' "
+            f"axis; that comes with {shd.LM_SLICE}")
     return mesh
 
 
@@ -341,26 +310,69 @@ def make_train_step(cfg: ArchConfig, opt_cfg: optim.AdamWConfig | None = None,
     return BranchStep(loss_fn, opt_cfg, lr_fn, compress=compress)
 
 
+def gather_rows(x: torch.Tensor, mesh, global_batch: int) -> torch.Tensor:
+    """The whole batch (dim 0) of ``global_batch`` rows on every rank from
+    the ranks' blocks of :func:`local_batch` (``x`` itself when the batch
+    is not split)."""
+    lo, hi = shd.batch_block(global_batch, mesh)
+    if hi - lo == global_batch:
+        return x
+    axes = [a for a in ("pod", "data") if a in mesh.axis_names
+            and mesh.shape[a] > 1]
+    if len(axes) != 1:
+        raise NotImplementedError(
+            f"a batch over {axes} comes with {shd.LM_SLICE}")
+    n = mesh.shape[axes[0]]
+    return shd.move_rows(x, shd.h_layout(global_batch, n),
+                         [(0, global_batch)] * n, mesh, axes[0], "gather",
+                         dim=0)
+
+
+def _serving_mesh(model):
+    mesh = model.mesh
+    return None if mesh is None or mesh.size == 1 else mesh
+
+
 def make_prefill_step(cfg: ArchConfig, global_batch: int, seq_len: int,
                       model=None, *, device=None):
     """``prefill_step(params, batch) -> (logits, cache)`` into a fresh
-    cache on ``device`` (default: the CUDA card)."""
+    cache on ``device`` (default: the CUDA card).  Under the model's mesh
+    every rank passes the whole batch and its block of the parameters;
+    the cache is the rank's block, the logits come back whole."""
     model = model or deploy.compile_model(cfg)
 
     def prefill_step(params, batch):
         cache = model.init_cache(global_batch, seq_len, device=device)
+        mesh = _serving_mesh(model)
         with torch.no_grad():
-            return model.prefill(params, batch, cache)
+            if mesh is None:
+                return model.prefill(params, batch, cache)
+            local = local_batch(cfg, mesh, batch, global_batch)
+            logits, cache = model.prefill(params, local, cache)
+            return gather_rows(logits, mesh, global_batch), cache
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig, model=None):
     """``serve_step(params, batch, cache) -> (next_tok int32, cache)``:
-    one greedy decode token; the cache is updated in place."""
+    one greedy decode token; the cache is updated in place.  Under the
+    model's mesh every rank passes the whole batch, its blocks of the
+    parameters and cache; the next tokens (a distributed argmax over the
+    rank's vocab columns, ``torch.argmax``'s tie rule) come back whole."""
     model = model or deploy.compile_model(cfg)
 
     def serve_step(params, batch, cache):
+        mesh = _serving_mesh(model)
         with torch.no_grad():
-            logits, cache = model.decode_step(params, batch["tokens"], cache)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+            if mesh is None:
+                logits, cache = model.decode_step(params, batch["tokens"],
+                                                  cache)
+                return torch.argmax(logits, dim=-1).to(torch.int32), cache
+            b = batch["tokens"].shape[0]
+            local = local_batch(cfg, mesh, batch, b)
+            logits, cache = model.decode_step(params, local["tokens"], cache,
+                                              whole_logits=False)
+            with shd.use_mesh(mesh):
+                tok = shd.vocab_argmax(logits, cfg.vocab_size)
+            return gather_rows(tok.to(torch.int32), mesh, b), cache
     return serve_step

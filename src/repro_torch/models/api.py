@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from repro_torch import bridge
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.config import ArchConfig
 
@@ -51,18 +52,61 @@ def apply_head(params, x, cfg: ArchConfig):
     return _mod(cfg).apply_head(params, x, cfg)
 
 
-def prefill(params, batch, cfg: ArchConfig, cache):
-    return _mod(cfg).prefill(params, batch, cfg, cache)
+def prefill(params, batch, cfg: ArchConfig, cache, **kw):
+    return _mod(cfg).prefill(params, batch, cfg, cache, **kw)
 
 
-def decode_step(params, tokens, cfg: ArchConfig, cache):
-    return _mod(cfg).decode_step(params, tokens, cfg, cache)
+def decode_step(params, tokens, cfg: ArchConfig, cache, **kw):
+    return _mod(cfg).decode_step(params, tokens, cfg, cache, **kw)
+
+
+def check_mesh(cfg: ArchConfig, mesh=None):
+    """Raise unless ``cfg`` can run over ``mesh`` (default: the bound
+    one): every family but dense waits for ROADMAP item 5(d)."""
+    mesh = mesh or shd.current_mesh()
+    if mesh is not None and mesh.size > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name!r} is a {cfg.family!r} config: over a mesh the port "
+            f"serves the dense family; the others come with "
+            f"{shd.LM_SLICE}")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device=None):
-    return _mod(cfg).init_cache(cfg, batch, max_len,
-                                dtype or torch.bfloat16, device)
+    """A zero cache of ``batch`` x ``max_len``.  Under a bound mesh of more
+    than one rank, this rank's block of it by ``sharding.cache_spec``
+    (the batch over data, the kv heads or, where they do not divide the
+    model axis, the sequence over model); every rank's ``length`` stays
+    whole."""
+    dtype = dtype or torch.bfloat16
+    mesh = shd.current_mesh()
+    if mesh is None or mesh.size == 1:
+        return _mod(cfg).init_cache(cfg, batch, max_len, dtype, device)
+    check_mesh(cfg, mesh)
+    whole = _mod(cfg).init_cache(cfg, batch, max_len, dtype, "meta")
+
+    def block(path, leaf):
+        spec = shd.cache_spec(path, leaf, mesh)
+        for part in spec:
+            if isinstance(part, tuple) and len(part) > 1 and part != (
+                    "pod", "data"):
+                raise NotImplementedError(
+                    f"a batch-{batch} cache over {mesh!r} shards its "
+                    f"sequence over every axis (kv_seq): that comes with "
+                    f"{shd.LM_SLICE}")
+        if (("'k'" in path or "'v'" in path)
+                and shd.mesh_axis_for("mlp", mesh)
+                and "model" not in tuple(spec)):
+            raise NotImplementedError(
+                f"max_len {max_len} does not divide the model axis and "
+                f"the kv heads do not either: a whole cache on every rank "
+                f"comes with {shd.LM_SLICE}")
+        bounds = shd.block_bounds(leaf.shape,
+                                  shd.NamedSharding(mesh, spec))
+        return torch.zeros([hi - lo for lo, hi in bounds], dtype=leaf.dtype,
+                           device=device)
+
+    return bridge.map_named(whole, block)
 
 
 def supports_paging(cfg: ArchConfig) -> bool:

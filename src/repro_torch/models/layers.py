@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant, rebranch, rows
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ArchConfig, torch_dtype
 
 
@@ -64,20 +65,44 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int):
 
 
 def apply_embedding(params, ids, cfg: ArchConfig):
+    """The lookup; from a vocab-parallel table (its rows split over the
+    model axis) each rank looks up the ids it holds, zeros elsewhere, and
+    the ranks' lookups are added in rank order: exact, since one rank
+    holds each row."""
     dt = torch_dtype(cfg.dtype)
     t_q = params["rom"]["table_q"]
     t_s = params["rom"]["table_scale"]
-    return t_q[ids].to(dt) * t_s[ids].to(dt)
+    if t_q.shape[0] == cfg.vocab_size:
+        return t_q[ids].to(dt) * t_s[ids].to(dt)
+    mesh, axis = shd.model_axis()
+    lo, hi = shd.h_layout(cfg.vocab_size,
+                          mesh.shape[axis])[mesh.coordinate(axis)]
+    local = ids - lo
+    own = (local >= 0) & (local < hi - lo)
+    idx = local.clamp(0, hi - lo - 1)
+    e = t_q[idx].to(dt) * t_s[idx].to(dt)
+    e = torch.where(own[..., None], e, torch.zeros((), dtype=dt,
+                                                   device=e.device))
+    return shd.reduce_model(e, "embed")
 
 
 def embedding_as_logits(params, x, cfg: ArchConfig):
     """Tied-embedding readout: x @ dequant(table)^T (the reference
-    dequantises the whole table each call, and so does the port)."""
+    dequantises the whole table each call, and so does the port).  A
+    vocab-parallel table gives this rank's vocab columns."""
     t_q = params["rom"]["table_q"]
     t_s = params["rom"]["table_scale"]
     w = t_q.to(x.dtype) * t_s.to(x.dtype)                  # [V, d]
     logits = rows.rowwise(lambda a: a @ w.T, x.reshape(-1, x.shape[-1]))
     return logits.reshape(*x.shape[:-1], w.shape[0])
+
+
+def linear(params, x, spec, tp=None, sp=None):
+    """``rebranch.apply_linear``, passed the tensor-parallel arguments only
+    when there are any (an unsharded call keeps its three arguments)."""
+    if tp is None and sp is None:
+        return rebranch.apply_linear(params, x, spec)
+    return rebranch.apply_linear(params, x, spec, tp=tp, sp=sp)
 
 
 # ---------------------------------------------------------------------------
@@ -284,28 +309,51 @@ def _write_decode(cache, k, v, length, rows):
 
 
 def apply_attention(params, x, cfg: ArchConfig, layer_idx: int,
-                    positions=None, cache=None, decode: bool = False):
-    """Returns (out, new_cache_entry); the cache is updated in place."""
+                    positions=None, cache=None, decode: bool = False,
+                    sp=None):
+    """Returns (out, new_cache_entry); the cache is updated in place.
+    Under a model axis the heads run tensor-parallel
+    (:func:`_attention_tp`); ``sp`` is the seq_sp layout the output's
+    sequence takes there."""
+    at = shd.model_axis()
+    if at is not None:
+        return _attention_tp(params, x, cfg, layer_idx, positions, cache,
+                             decode, sp, at)
     spec = cfg.rebranch
     b, s, _ = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    window = 0 if cfg.uses_full_attention(layer_idx) else cfg.sliding_window
 
     q = rebranch.apply_linear(params["q"], x, spec).reshape(b, s, h, dh)
     k = rebranch.apply_linear(params["k"], x, spec).reshape(b, s, kv, dh)
     v = rebranch.apply_linear(params["v"], x, spec).reshape(b, s, kv, dh)
+    out, new_cache = _attend(q, k, v, cfg, layer_idx, positions, cache,
+                             decode)
+    out = out.to(x.dtype).reshape(b, s, h * dh)
+    return rebranch.apply_linear(params["o"], out, spec), new_cache
 
+
+def _positions(b: int, s: int, cache, positions, device):
+    """[B, S] positions: given, else the cache's length onward (decode, or
+    a prefill continuing the cache), else 0..S-1."""
+    if positions is not None:
+        return positions
+    steps = torch.arange(s, device=device)
+    if cache is not None:
+        return cache["length"][:, None] + steps[None]
+    return steps[None].expand(b, s)
+
+
+def _attend(q, k, v, cfg: ArchConfig, layer_idx: int, positions, cache,
+            decode: bool):
+    """RoPE, the cache update and attention of projected q [B, S, H, Dh]
+    and k, v [B, S, KV, Dh]; returns (out [B, S, H, Dh], new cache)."""
+    b, s = q.shape[:2]
+    window = 0 if cfg.uses_full_attention(layer_idx) else cfg.sliding_window
     paged = cache is not None and "table" in cache
-    steps = torch.arange(s, device=x.device)
-    if positions is None:
-        if cache is not None:
-            # decode, or a prefill continuing the cache at its length
-            positions = cache["length"][:, None] + steps[None]
-        else:
-            positions = steps[None].expand(b, s)
+    steps = torch.arange(s, device=q.device)
+    positions = _positions(b, s, cache, positions, q.device)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
-
     if decode:
         # s == 1: plain decode.  s > 1: speculative VERIFY, a k-token
         # block per row, written entry by entry as k decode steps would
@@ -314,7 +362,7 @@ def apply_attention(params, x, cfg: ArchConfig, layer_idx: int,
         if cache is None:
             raise ValueError("decode needs a KV cache")
         length = cache["length"]
-        rows = torch.arange(b, device=x.device)
+        rows = torch.arange(b, device=q.device)
         k_view, v_view = _write_decode(cache, k, v, length, rows)
         s_max = k_view.shape[1]
         if s == 1:
@@ -355,8 +403,172 @@ def apply_attention(params, x, cfg: ArchConfig, layer_idx: int,
             else:
                 new_cache = None
 
-    out = out.to(x.dtype).reshape(b, s, h * dh)
-    return rebranch.apply_linear(params["o"], out, spec), new_cache
+    return out, new_cache
+
+
+def _kv_heads(r: int, hq: int, h: int, kv: int) -> tuple[int, int]:
+    """The kv heads ``[k0, k1)`` that model rank ``r``'s ``hq`` q heads
+    attend to (GQA: q head i reads kv head ``i // (h / kv)``), grouped so
+    the rank's heads form whole groups."""
+    rep = h // kv
+    if hq % rep and rep % hq:
+        raise NotImplementedError(
+            f"{hq} q heads a rank do not form whole groups of {rep} q heads "
+            f"per kv head; that layout comes with {shd.LM_SLICE}")
+    q0 = r * hq
+    return q0 // rep, (q0 + hq - 1) // rep + 1
+
+
+def _attention_tp(params, x, cfg: ArchConfig, layer_idx: int, positions,
+                  cache, decode: bool, sp, at):
+    """Attention over the model axis (port of what GSPMD makes of the
+    reference under ``param_specs`` and ``launch.steps.cache_pspecs``).
+
+    q is column-parallel: the rank holds its heads.  Where the kv heads
+    divide the model axis, k and v are too, the cache holds the rank's kv
+    heads and attention is local (GQA groups stay inside a rank).  Where
+    they do not (Gemma's one kv head), k and v are column-parallel over
+    their columns and gathered after the projection, and the cache is
+    split over the sequence: a decode step writes its position on the
+    rank that owns it, every rank attends all q heads (gathered) over its
+    positions, and the (max, sum of exp, weighted v) partials are
+    combined in rank order, each rank keeping its heads; a prefill
+    attends from the gathered k and v and writes each rank's positions.
+    The output projection is row-parallel."""
+    mesh, axis = at
+    n, r = mesh.shape[axis], mesh.coordinate(axis)
+    spec = cfg.rebranch
+    rows_k = spec.cim.rows_per_subarray
+    b, s, d = x.shape
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if h % n:
+        raise NotImplementedError(
+            f"{h} heads over a {n}-way model axis: uneven heads come with "
+            f"{shd.LM_SLICE}")
+    if cache is not None and "table" in cache:
+        raise NotImplementedError(
+            f"a paged KV cache over a mesh comes with {shd.LM_SLICE}")
+    hq = h // n
+    window = 0 if cfg.uses_full_attention(layer_idx) else cfg.sliding_window
+    q = linear(params["q"], x, spec,
+                              tp=shd.linear_tp("q", d, h * dh, rows_k))
+    q = q.reshape(b, s, hq, dh)
+    tp_k = shd.linear_tp("k", d, kv * dh, rows_k)
+    kv_t = torch.stack([linear(params[name], x, spec, tp=tp_k)
+                        for name in ("k", "v")])
+    if kv % n == 0:
+        k, v = kv_t.reshape(2, b, s, kv // n, dh).unbind(0)
+        out, new_cache = _attend(q, k, v, cfg, layer_idx, positions, cache,
+                                 decode)
+    else:
+        if tp_k is not None:
+            kv_t = shd.gather_cols(kv_t, kv * dh, mesh, axis)
+        k, v = kv_t.reshape(2, b, s, kv, dh).unbind(0)
+        out, new_cache = _attend_seq_split(q, k, v, cfg, positions, cache,
+                                           decode, window, mesh, axis)
+    out = out.to(x.dtype).reshape(b, s, hq * dh)
+    return linear(
+        params["o"], out, spec, tp=shd.linear_tp("o", h * dh, d, rows_k),
+        sp=sp), new_cache
+
+
+def _attend_seq_split(q, k, v, cfg: ArchConfig, positions, cache,
+                      decode: bool, window: int, mesh, axis):
+    """:func:`_attend` of the rank's q heads [B, S, hq, Dh] and whole k, v
+    [B, S, KV, Dh] against a cache split over its sequence (or none)."""
+    n, r = mesh.shape[axis], mesh.coordinate(axis)
+    b, s, hq, _ = q.shape
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    k0, k1 = _kv_heads(r, hq, h, kv)
+    positions = _positions(b, s, cache, positions, q.device)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    if cache is None:
+        return _chunked_causal_attention(q, k[:, :, k0:k1], v[:, :, k0:k1],
+                                         cfg.attn_chunk, window), None
+    if cache["k"].shape[2] != kv:
+        raise ValueError(f"a cache of {cache['k'].shape[2]} kv heads for "
+                         f"{kv}: not the sequence-split layout")
+    s_loc = cache["k"].shape[1]
+    s_max, p0 = s_loc * n, r * s_loc
+    length = cache["length"]
+    if decode:
+        if s != 1:
+            raise NotImplementedError(
+                f"a speculative verify block over a sequence-split cache "
+                f"comes with {shd.LM_SLICE}")
+        slot = length % s_max
+        own = ((slot >= p0) & (slot < p0 + s_loc))[:, None, None]
+        at = (slot - p0).clamp(0, s_loc - 1)
+        rows_i = torch.arange(b, device=q.device)
+        for leaf, new in (("k", k), ("v", v)):
+            c = cache[leaf]
+            c[rows_i, at] = torch.where(own, new[:, 0].to(c.dtype),
+                                        c[rows_i, at])
+        qa = shd.gather_cols(q, h, mesh, axis, dim=2)
+        part = rows.rowwise(
+            functools.partial(_decode_partial_rows, p0=p0), qa, cache["k"],
+            cache["v"], torch.clamp(length + 1, max=s_max))
+        out = rows.rowwise(lambda *ps: _combine_partials(ps),
+                           *shd.gather_parts(part, mesh, axis, "attention"))
+        out = out[:, r * hq:(r + 1) * hq][:, None]
+        return out, {**cache, "length": length + 1}
+    # prefill: the whole horizon's view, this call's k and v in it, the
+    # rank's positions written back
+    view = torch.stack([cache["k"], cache["v"]])
+    view = shd.move_rows(view, shd.h_layout(s_max, n), [(0, s_max)] * n,
+                         mesh, axis, "gather", dim=2)
+    if s < s_max:
+        offset = length[0]
+        idx = offset + torch.arange(s, device=q.device)
+        kv_new = torch.stack([k, v])
+        att = view.to(k.dtype).index_copy(2, idx, kv_new)
+        out = _prefill_attention(q, att[0][:, :, k0:k1], att[1][:, :, k0:k1],
+                                 cfg.attn_chunk, window, offset)
+        view = view.index_copy(2, idx, kv_new.to(view.dtype))
+    else:                             # prompt >= horizon: ring fill
+        out = _chunked_causal_attention(q, k[:, :, k0:k1], v[:, :, k0:k1],
+                                        cfg.attn_chunk, window)
+        view = torch.roll(torch.stack([k, v])[:, :, -s_max:], s % s_max,
+                          2).to(view.dtype)
+    cache["k"].copy_(view[0][:, p0:p0 + s_loc])
+    cache["v"].copy_(view[1][:, p0:p0 + s_loc])
+    return out, {"k": cache["k"], "v": cache["v"], "length": length + s}
+
+
+def _decode_partial_rows(q, k_cache, v_cache, valid_count, p0: int):
+    """One decode query of all heads against this rank's cache positions
+    ``p0 ..``: per (row, head) the masked max, the sum of exp and the
+    exp-weighted v, packed [B, H, Dh + 2] (f32)."""
+    b, _, h, dh = q.shape
+    s_loc, kvh = k_cache.shape[1], k_cache.shape[2]
+    rep = h // kvh
+    qq = (q.float() * (1.0 / np.sqrt(dh)))[:, 0].reshape(b, kvh, rep, dh)
+    sc = torch.einsum("bgrd,bcgd->bgrc", qq, k_cache.float())
+    pos = p0 + torch.arange(s_loc, device=q.device)
+    mask = pos[None, :] < valid_count[:, None]
+    sc = torch.where(mask[:, None, None, :], sc, -1e30)
+    m = sc.amax(dim=-1)
+    p = torch.exp(sc - m[..., None])
+    acc = torch.einsum("bgrc,bcgd->bgrd", p, v_cache.float())
+    packed = torch.cat([acc, m[..., None], p.sum(dim=-1)[..., None]], -1)
+    return packed.reshape(b, h, dh + 2)
+
+
+def _combine_partials(parts) -> torch.Tensor:
+    """The ranks' (weighted v, max, sum of exp) partials [B, H, Dh + 2]
+    combined in rank order: out [B, H, Dh] = sum_r acc_r e^(m_r - M) /
+    sum_r l_r e^(m_r - M), M the max over the ranks (a rank whose
+    positions are all masked weighs e^(-1e30 - M) = 0)."""
+    big = parts[0][..., -2]
+    for p in parts[1:]:
+        big = torch.maximum(big, p[..., -2])
+    acc = den = None
+    for p in parts:
+        w = torch.exp(p[..., -2] - big)
+        a, l = p[..., :-2] * w[..., None], p[..., -1] * w
+        acc, den = (a, l) if acc is None else (acc + a, den + l)
+    return acc / den.clamp_min(1e-30)[..., None]
 
 
 def init_attention_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -429,14 +641,32 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(params, x, cfg: ArchConfig):
+def _bucketed(fn, x):
+    """Elementwise ``fn`` of ``x`` on bucketed rows (``core.rows``)."""
+    return rows.rowwise(fn, x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
+def apply_mlp(params, x, cfg: ArchConfig, sp=None):
+    """Under a model axis column-parallel (gate, up: the rank's ``mlp``
+    columns) into row-parallel (down, whole output or, with ``sp``, the
+    rank's seq_sp chunk)."""
     spec = cfg.rebranch
+    rows_k = spec.cim.rows_per_subarray
+    d, ff = cfg.d_model, cfg.d_ff
+    tp_in = shd.linear_tp("up", d, ff, rows_k)
+    act = F.silu if cfg.mlp_type == "swiglu" else _gelu
+    if tp_in is not None:
+        # the rank's columns are few enough that the CPU's vectorised
+        # transcendental loops leave a row's tail to the scalar ones,
+        # whose bits differ: bucketed rows keep one shape for any batch
+        act = functools.partial(_bucketed, act)
     if cfg.mlp_type in ("swiglu", "geglu"):
-        g = rebranch.apply_linear(params["gate"], x, spec)
-        u = rebranch.apply_linear(params["up"], x, spec)
-        act = F.silu(g) if cfg.mlp_type == "swiglu" else _gelu(g)
-        h = act * u
+        g = linear(params["gate"], x, spec, tp=tp_in)
+        u = linear(params["up"], x, spec, tp=tp_in)
+        h = act(g) * u
     else:
-        h = _gelu(rebranch.apply_linear(params["up"], x, spec))
-    return rebranch.apply_linear(params["down"], h, spec)
+        h = act(linear(params["up"], x, spec, tp=tp_in))
+    return linear(params["down"], h, spec,
+                                 tp=shd.linear_tp("down", ff, d, rows_k),
+                                 sp=sp)
 

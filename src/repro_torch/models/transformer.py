@@ -22,6 +22,16 @@ so trees match key for key and shape for shape; the port loops over L in
 Python on views of the stacked tensors.  As under the reference's scan,
 every layer runs with ``layer_idx`` 0.  Caches are updated in place (see
 ``models.layers``).
+
+Under a mesh (dense family) each rank runs its rows of the batch (the
+steps cut them, ``launch.steps.local_batch``) with its block of the
+parameters and cache (``deploy.CompiledModel.shard_params``,
+``api.init_cache``): the embedding and readout vocab-parallel, attention
+and MLP tensor-parallel (``models.layers``), the residual stream of a
+prefill in the reference's ``seq_sp`` layout (each rank its chunk of the
+sequence, gathered before attention and MLP).  The reference's ``shard``
+sites stand where a whole tensor takes a layout; the batch is never cut
+here.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.core import rebranch
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers, moe
 from repro_torch.models.config import ArchConfig, spec_for, torch_dtype
 
@@ -65,19 +76,43 @@ def _block_init(gen, cfg: ArchConfig):
 
 
 def _block_apply(params, x, cfg: ArchConfig, layer_idx: int,
-                 positions=None, cache=None, decode=False):
+                 positions=None, cache=None, decode=False, sp=None):
+    """One block.  ``sp``: the seq_sp layout of the residual ``x`` over
+    the model axis (each rank holds its sequence chunk): the normed input
+    of attention and MLP is gathered whole, their row-parallel outputs
+    come back as the rank's chunk."""
+    h = _unchunk(layers.apply_rmsnorm(params["ln1"], x, cfg.norm_eps), sp)
+    kw = {} if sp is None else {"sp": sp}    # unsharded: the 7 arguments
     h, new_cache = layers.apply_attention(
-        params["attn"], layers.apply_rmsnorm(params["ln1"], x, cfg.norm_eps),
-        site_cfg(cfg, "blocks.attn"), layer_idx,
-        positions=positions, cache=cache, decode=decode)
+        params["attn"], h, site_cfg(cfg, "blocks.attn"), layer_idx,
+        positions=positions, cache=cache, decode=decode, **kw)
     x = x + h
-    h2 = layers.apply_rmsnorm(params["ln2"], x, cfg.norm_eps)
+    h2 = _unchunk(layers.apply_rmsnorm(params["ln2"], x, cfg.norm_eps), sp)
     if cfg.family == "moe":
         h2 = moe.apply_moe_block(params["moe"], h2,
                                  site_cfg(cfg, "blocks.moe"))
     else:
-        h2 = layers.apply_mlp(params["mlp"], h2, site_cfg(cfg, "blocks.mlp"))
+        h2 = layers.apply_mlp(params["mlp"], h2, site_cfg(cfg, "blocks.mlp"),
+                              **kw)
     return x + h2, new_cache
+
+
+def _seq_parallel(x):
+    """The whole residual ``x`` [B, S, d] into the reference's
+    ``shard(x, "batch", "seq_sp", "embed")`` layout (the batch is already
+    the rank's rows), with that layout (None when S stays whole)."""
+    at = shd.axis_layout("seq_sp", x.shape[1])
+    return shd.shard(x, None, "seq_sp", "embed"), \
+        None if at is None else at[2]
+
+
+def _unchunk(x, sp):
+    """The whole sequence on every rank from seq_sp chunks."""
+    if sp is None:
+        return x
+    mesh, axis = shd.model_axis()
+    return shd.move_rows(x, sp, [(0, sp[-1][1])] * len(sp), mesh, axis,
+                         "gather", dim=1)
 
 
 def layer(tree, i: int):
@@ -150,8 +185,13 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
     return _token_embed(params, batch["tokens"], cfg)
 
 
-def apply_head(params, x, cfg: ArchConfig):
-    """ln_f + readout projection on [..., d] -> [..., V] / [..., Q, V]."""
+def apply_head(params, x, cfg: ArchConfig, whole_logits: bool = True):
+    """ln_f + readout projection on [..., d] -> [..., V] / [..., Q, V].
+
+    Under a model axis the readout is vocab-parallel (the tied table's
+    rows, or a column-parallel ``lm_head``); the logits come back whole
+    on every rank, or with ``whole_logits=False`` as this rank's vocab
+    columns (``sharding.vocab_argmax`` reads them)."""
     x = layers.apply_rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if cfg.num_codebooks:
         logits = rebranch.apply_linear(params["codebook_head"], x,
@@ -159,19 +199,33 @@ def apply_head(params, x, cfg: ArchConfig):
         return logits.reshape(*logits.shape[:-1], cfg.num_codebooks,
                               cfg.vocab_size)
     if cfg.tie_embeddings:
-        return layers.embedding_as_logits(params["embed"], x, cfg)
-    return rebranch.apply_linear(params["lm_head"], x,
-                                 spec_for(cfg, "lm_head"))
+        logits = layers.embedding_as_logits(params["embed"], x, cfg)
+    else:
+        spec = spec_for(cfg, "lm_head")
+        logits = layers.linear(
+            params["lm_head"], x, spec,
+            tp=shd.linear_tp("lm_head", cfg.d_model, cfg.vocab_size,
+                             spec.cim.rows_per_subarray))
+    return shd.gather_vocab(logits, cfg.vocab_size) if whole_logits \
+        else logits
+
+
+def _readout(params, x, cfg: ArchConfig, whole_logits: bool):
+    """:func:`apply_head`, passed ``whole_logits`` only when it is False
+    (the whole-logits call keeps its three arguments)."""
+    if whole_logits:
+        return apply_head(params, x, cfg)
+    return apply_head(params, x, cfg, whole_logits=False)
 
 
 def features(params, batch, cfg: ArchConfig):
     """Forward through the blocks only (pre-ln_f hidden states)."""
     _check_family(cfg)
-    x = _embed_inputs(params, batch, cfg)
+    x, sp = _seq_parallel(_embed_inputs(params, batch, cfg))
     positions = batch.get("positions")
     for block in unstack(params["layers"], cfg.num_layers):
-        x = _block_apply(block, x, cfg, 0, positions=positions)[0]
-    return x
+        x = _block_apply(block, x, cfg, 0, positions=positions, sp=sp)[0]
+    return _unchunk(x, sp)
 
 
 def forward(params, batch, cfg: ArchConfig):
@@ -200,39 +254,63 @@ def init_paged_cache(cfg: ArchConfig, rows: int, n_blocks: int,
 
 
 def _run_layers(params, x, cfg: ArchConfig, cache, positions=None,
-                decode=False):
+                decode=False, sp=None, s=None):
     """Every layer against its cache slice; the caches' K/V are written in
-    place and the stacked lengths advanced."""
+    place and the stacked lengths advanced.  Under a mesh that splits the
+    batch the cache holds the rank's rows and its lengths stay whole: the
+    layers read the rank's rows of them, and every row advances by the
+    ``s`` tokens of this call, as every row of a step does."""
     cl = cache["layers"]
+    rows = None
+    if cl["length"].shape[1] != x.shape[0]:
+        rows = shd.batch_block(cl["length"].shape[1])
     lengths = []
     for i in range(cfg.num_layers):
+        lc = layer(cl, i)
+        if rows is not None:
+            lc = {**lc, "length": lc["length"][rows[0]:rows[1]]}
         x, nc = _block_apply(layer(params["layers"], i), x, cfg, 0,
-                             positions=positions, cache=layer(cl, i),
-                             decode=decode)
+                             positions=positions, cache=lc,
+                             decode=decode, sp=sp)
         lengths.append(nc["length"])
-    cl["length"].copy_(torch.stack(lengths))
+    if rows is None:
+        cl["length"].copy_(torch.stack(lengths))
+    else:
+        cl["length"].add_(s)
     return x, cache
 
 
-def prefill(params, batch, cfg: ArchConfig, cache):
+def prefill(params, batch, cfg: ArchConfig, cache,
+            whole_logits: bool = True):
     """Prompt into ``cache`` (``tokens`` [B, S] or [B, S, Q] and/or
     ``embeds`` [B, S, d]; ``positions`` [B, S], or [B, S, 3] for
-    M-RoPE); logits of the last position."""
+    M-RoPE); logits of the last position (``apply_head``'s
+    ``whole_logits``)."""
     _check_family(cfg)
     x = _embed_inputs(params, batch, cfg)
+    s = x.shape[1]
+    x, sp = _seq_parallel(x)
     x, cache = _run_layers(params, x, cfg, cache,
-                           positions=batch.get("positions"))
-    return apply_head(params, x[:, -1:, :], cfg), cache
+                           positions=batch.get("positions"), sp=sp, s=s)
+    if sp is not None:            # the last position, from its owner
+        mesh, axis = shd.model_axis()
+        x = shd.move_rows(x, sp, [(s - 1, s)] * len(sp), mesh, axis,
+                          "gather", dim=1)
+    else:
+        x = x[:, -1:, :]
+    return _readout(params, x, cfg, whole_logits), cache
 
 
-def decode_step(params, tokens, cfg: ArchConfig, cache):
+def decode_step(params, tokens, cfg: ArchConfig, cache,
+                whole_logits: bool = True):
     """One token per sequence against the KV cache; tokens [B, 1] (or
     [B, 1, Q] codebooks, or a [B, k] verify block, see
     :func:`verify_step`)."""
     _check_family(cfg)
-    x = _token_embed(params, tokens, cfg)
-    x, cache = _run_layers(params, x, cfg, cache, decode=True)
-    return apply_head(params, x, cfg), cache
+    x = shd.shard(_token_embed(params, tokens, cfg), None, None, "embed")
+    x, cache = _run_layers(params, x, cfg, cache, decode=True,
+                           s=x.shape[1])
+    return _readout(params, x, cfg, whole_logits), cache
 
 
 def verify_step(params, tokens, cfg: ArchConfig, cache):

@@ -1,6 +1,6 @@
 """Rank functions of the spawned gloo worlds of ``test_torch_sharding.py``,
-``test_torch_halo_conv.py`` and ``test_torch_dist_train.py``, and the
-inputs both sides share.
+``test_torch_halo_conv.py``, ``test_torch_dist_train.py`` and
+``test_torch_tp.py``, and the inputs both sides share.
 
 The ranks import no JAX: they rebuild the same numpy inputs from seeds,
 run the port on the CPU (plain kernel versions) over 4 ranks, and return
@@ -449,3 +449,277 @@ def _cnn_cfg(name: str, dense: bool = False):
     if dense:
         cfg = dataclasses.replace(cfg, rebranch=ReBranchSpec(enabled=False))
     return cfg
+
+
+# ---------------------------------------------------------------------------
+# test_torch_tp.py: LM tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+TP_MESHES = ((1, 4), (2, 2))               # (data, model)
+# Yi's smoke config (kv 2: head-split over model 2, sequence-split over
+# 4), Gemma's (kv 1), and Yi's with d_ff 1536: its down projection's three
+# k-blocks deal 1, 1, 1, 0 over model 4 and 2, 1 over model 2, and its
+# even split (384, 768 a rank) cuts a block
+TP_CONFIGS = ("yi_34b", "gemma_2b", "yi_34b_ff1536")
+TP_ENGINES = ("int8_native", "pallas", "pallas_fused")
+TP_BATCH, TP_PROMPT, TP_MAX_LEN, TP_STEPS = 8, 8, 32, 4
+# (config, site, d_in, d_out) held site by site, in layer 0
+TP_ROW_SITES = (("yi_34b_ff1536", "down"), ("yi_34b", "o"),
+                ("gemma_2b", "down"), ("gemma_2b", "o"))
+TP_COL_SITES = (("yi_34b_ff1536", "gate"), ("yi_34b", "q"),
+                ("gemma_2b", "k"))
+
+
+def tp_config(name: str):
+    from repro_torch import configs
+    if name == "yi_34b_ff1536":
+        return dataclasses.replace(configs.get_smoke("yi_34b"), d_ff=1536)
+    return configs.get_smoke(name)
+
+
+def tp_port_tree(name: str) -> dict:
+    """The port's init of ``name`` with seeded non-zero cores, as numpy
+    (the same in every process)."""
+    from repro_torch import bridge, deploy
+    tree = bridge.to_numpy(deploy.compile_model(tp_config(name)).init(
+        seed=0, device="cpu"))
+    return with_cores(tree, np.random.default_rng(1))
+
+
+def tp_prompts(vocab: int) -> np.ndarray:
+    return np.random.default_rng(7).integers(
+        0, vocab, (TP_BATCH, TP_PROMPT)).astype(np.int32)
+
+
+def tp_site(cfg, params, site: str):
+    """(layer-0 params of ``site``, d_in, d_out, module key)."""
+    block = "mlp" if site in ("gate", "up", "down") else "attn"
+    d, ff = cfg.d_model, cfg.d_ff
+    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    dims = {"q": (d, hd), "k": (d, kvd), "v": (d, kvd), "o": (hd, d),
+            "gate": (d, ff), "up": (d, ff), "down": (ff, d)}[site]
+    leaf = {k: {kk: vv[0] for kk, vv in v.items()}
+            for k, v in params["layers"][block][site].items()}
+    return leaf, dims[0], dims[1]
+
+
+def tp_steps(cfg, whole, mesh, engine: str):
+    """(logits, tokens [B, 1 + TP_STEPS]) of the prefill step and
+    TP_STEPS greedy serve steps on the prompts, over ``mesh`` (None: the
+    unsharded steps), and (model, local params, cache)."""
+    from repro_torch import deploy
+    from repro_torch.launch import steps
+    prompts = torch.from_numpy(tp_prompts(cfg.vocab_size))
+    model = deploy.compile_model(cfg, engine=engine, mesh=mesh)
+    params = model.shard_params(whole)
+    logits, cache = steps.make_prefill_step(
+        cfg, TP_BATCH, TP_MAX_LEN, model=model, device="cpu")(
+            params, {"tokens": prompts})
+    serve = steps.make_serve_step(cfg, model=model)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    toks = [tok]
+    for _ in range(TP_STEPS):
+        tok, cache = serve(params, {"tokens": tok}, cache)
+        toks.append(tok)
+    return (logits.numpy(), torch.cat(toks, 1).numpy()), (model, params,
+                                                          cache)
+
+
+def _tp_batch_invariance(cfg, model, params, cache) -> dict:
+    """Two decode steps of the batch-8 cache against the same steps of a
+    small batch made of its first local row on every rank (batch 1 on a
+    single data rank; on data 2, rows 0 and 4: each data rank's first):
+    that row's logits, bitwise."""
+    import copy
+
+    from repro_torch.distributed import sharding as shd
+    n_data = model.mesh.shape["data"]
+    small = 1 if n_data == 1 else n_data
+    rows = [shd.h_layout(TP_BATCH, n_data)[d][0] for d in range(n_data)]
+    big = copy.deepcopy(cache)
+    sm = model.init_cache(small, TP_MAX_LEN, device="cpu")
+    for leaf in ("k", "v"):
+        sm["layers"][leaf].copy_(big["layers"][leaf][:, :1])
+    sm["layers"]["length"].copy_(big["layers"]["length"][:, rows])
+    tok = torch.from_numpy(tp_prompts(cfg.vocab_size)[:, :1])
+    lo, hi = shd.batch_block(TP_BATCH, model.mesh)
+    got = []
+    for _ in range(2):
+        lb, big = model.decode_step(params, tok[lo:hi], big)
+        ls, sm = model.decode_step(params, tok[lo:lo + 1], sm)
+        got.append((lb[:1].numpy(), ls.numpy()))
+    return {"pairs": got}
+
+
+def _tp_row_site(cfg, whole, mesh, site: str, engine: str) -> dict:
+    """A row-parallel site: the reduced trunk against the rank-order sum
+    of the plain version over ``k_layout``'s ranges (bitwise), the output
+    against the unsharded site's, and the relayout traffic."""
+    from repro_torch import deploy
+    from repro_torch.core import cim, quant, rebranch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import rebranch_matmul as rm
+    model = deploy.compile_model(cfg, engine=engine, mesh=mesh)
+    spec = dataclasses.replace(cfg.rebranch, trunk_impl=engine)
+    p_all, d_in, d_out = tp_site(cfg, whole, site)
+    p_loc, _, _ = tp_site(cfg, model.shard_params(whole), site)
+    x = torch.from_numpy(np.random.default_rng(d_in + len(site)).normal(
+        size=(3, 5, d_in)).astype(np.float32))
+    n, r = mesh.shape["model"], mesh.coordinate("model")
+    with shd.use_mesh(mesh):
+        tp = shd.linear_tp(site, d_in, d_out, 128)
+        lo, hi = shd.h_layout(d_in, n)[r]
+        shd.reset_traffic()
+        parts = rebranch.row_parallel_parts(p_loc, x[..., lo:hi], spec, tp)
+        traffic = dict(shd.bytes_sent)
+        reduced = shd.rank_sum(shd.gather_parts(parts["trunk"], mesh,
+                                                "model", "reduce"))
+        y = rebranch.apply_linear(p_loc, x[..., lo:hi], spec, tp=tp)
+    y_whole = rebranch.apply_linear(p_all, x, spec)
+    x2 = x.reshape(-1, d_in)
+    w, c = p_all["rom"]["w_q"], p_all["rom"]["C"]
+    x_q = quant.quantize_activations(x2)[0]
+    want = []
+    for k0, k1 in tp.k_ranges:
+        if k1 == k0:
+            want.append(torch.zeros((x2.shape[0], d_out)))
+        elif engine == "pallas_fused":
+            want.append(rm.rebranch_matmul_plain(x2[:, k0:k1], w[k0:k1],
+                                                 c[k0:k1], spec.cim)[0])
+        elif engine == "pallas":
+            want.append(cm.cim_matmul_plain(x_q[:, k0:k1], w[k0:k1],
+                                            spec.cim))
+        else:
+            want.append(cim.cim_matmul_model(x_q[:, k0:k1], w[k0:k1],
+                                             spec.cim))
+    return {"equal": torch.equal(reduced, shd.rank_sum(want)),
+            "k_ranges": tp.k_ranges, "even": shd.h_layout(d_in, n),
+            "y": y.numpy(), "y_whole": y_whole.numpy(),
+            "relayout": traffic.get("relayout", 0),
+            "empty": tp.k_ranges[r][0] == tp.k_ranges[r][1]}
+
+
+def _tp_col_site(cfg, whole, mesh, site: str, engine: str) -> dict:
+    """A column-parallel site: its trunk (branch off) bitwise the
+    unsharded site's columns, its output with the branch within
+    tolerance."""
+    from repro_torch import deploy
+    from repro_torch.core import rebranch
+    from repro_torch.distributed import sharding as shd
+    model = deploy.compile_model(cfg, engine=engine, mesh=mesh)
+    spec = dataclasses.replace(cfg.rebranch, trunk_impl=engine)
+    bare = dataclasses.replace(spec, branch_enabled=False)
+    p_all, d_in, d_out = tp_site(cfg, whole, site)
+    p_loc, _, _ = tp_site(cfg, model.shard_params(whole), site)
+    x = torch.from_numpy(np.random.default_rng(d_out).normal(
+        size=(3, 5, d_in)).astype(np.float32))
+    with shd.use_mesh(mesh):
+        tp = shd.linear_tp(site, d_in, d_out, 128)
+        lo, hi = tp.cols
+        trunk = rebranch.apply_linear(p_loc, x, bare, tp=tp)
+        y = rebranch.apply_linear(p_loc, x, spec, tp=tp)
+    out = {"trunk_equal": torch.equal(
+        trunk, rebranch.apply_linear(p_all, x, bare)[..., lo:hi]),
+        "y": y.numpy(),
+        "y_whole": rebranch.apply_linear(p_all, x, spec)[..., lo:hi].numpy(),
+        "cols": (lo, hi)}
+    if engine == "pallas_fused":        # kernel 3's trunk on the columns
+        from repro_torch.kernels import rebranch_matmul as rm
+        x2, c = x.reshape(-1, d_in), p_all["rom"]["C"]
+        out["trunk_equal"] &= torch.equal(
+            rm.rebranch_trunk_sketch(x2, p_loc["rom"]["w_q"], c)[0],
+            rm.rebranch_trunk_sketch(x2, p_all["rom"]["w_q"], c)[0][:, lo:hi])
+    return out
+
+
+def _tp_vocab(cfg, whole, mesh) -> dict:
+    """The vocab-parallel lookup (bitwise) and the distributed argmax with
+    ties across the ranks' vocab blocks (``torch.argmax``'s rule)."""
+    from repro_torch import deploy
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers
+    model = deploy.compile_model(cfg, mesh=mesh)
+    local = model.shard_params(whole)
+    ids = torch.from_numpy(tp_prompts(cfg.vocab_size))
+    v, n = cfg.vocab_size, mesh.shape["model"]
+    r = mesh.coordinate("model")
+    logits = torch.zeros((4, 3, v))
+    blk = v // n
+    logits[0, :, [1, blk + 1]] = 5.0              # a tie across two ranks
+    logits[1, :, [blk * (n - 1) + 2]] = 7.0       # the last rank's
+    logits[2, :, [3, 3 + blk]] = -1.0             # ties below zeros
+    logits[3] = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(3, v)).astype(np.float32))
+    with shd.use_mesh(mesh):
+        emb = layers.apply_embedding(local["embed"], ids, cfg)
+        arg = shd.vocab_argmax(logits[..., r * blk:(r + 1) * blk], v)
+    return {"embed_equal": torch.equal(
+        emb, layers.apply_embedding(whole["embed"], ids, cfg)),
+        "argmax_equal": torch.equal(arg, torch.argmax(logits, dim=-1))}
+
+
+def _tp_head(cfg, whole, mesh) -> dict:
+    """The vocab-parallel readout (the tied table's rows, or Yi's
+    column-parallel ``lm_head``): its whole logits and this rank's vocab
+    block against the unsharded head's."""
+    from repro_torch import deploy
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer
+    model = deploy.compile_model(cfg, engine="pallas", mesh=mesh)
+    local = model.shard_params(whole)
+    x = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(3, 2, cfg.d_model)).astype(np.float32))
+    n, r = mesh.shape["model"], mesh.coordinate("model")
+    with shd.use_mesh(mesh):
+        got = transformer.apply_head(local, x, cfg)
+        block = transformer.apply_head(local, x, cfg, whole_logits=False)
+    want = transformer.apply_head(whole, x, cfg)
+    lo, hi = shd.h_layout(cfg.vocab_size, n)[r]
+    return {"logits": got.numpy(), "want": want.numpy(),
+            "block_equal": torch.equal(block, got[..., lo:hi])}
+
+
+def tp_world(rank: int, world: int, path: str) -> dict:
+    """Every config on meshes (1, 4) and (2, 2) under the three engines
+    (the plain kernel versions): the sharded steps, batch 8 against a
+    small batch, the site checks.  The d_ff 1536 config comes from the
+    port's init and runs first; the JAX-initialised trees are read from
+    ``path`` once the test process has written it."""
+    import os
+    import time
+
+    from repro_torch import bridge
+    from repro_torch.launch import mesh as mesh_lib
+    warnings.simplefilter("ignore")
+    meshes = {s: mesh_lib.make_lm_mesh(*s, backend="gloo")
+              for s in TP_MESHES}
+    trees = {"yi_34b_ff1536": bridge.to_torch(tp_port_tree("yi_34b_ff1536"),
+                                              "cpu")}
+    out = {"steps": {}, "batch": {}, "row": {}, "col": {}, "vocab": {},
+           "head": {}}
+    for name in ("yi_34b_ff1536", "yi_34b", "gemma_2b"):
+        while name not in trees:
+            if os.path.exists(path):
+                trees.update(torch.load(path))
+            else:
+                time.sleep(0.05)
+        cfg, whole = tp_config(name), trees[name]
+        for shape, mesh in meshes.items():
+            for engine in TP_ENGINES:
+                res, (model, params, cache) = tp_steps(cfg, whole, mesh,
+                                                       engine)
+                out["steps"][name, shape, engine] = res
+                if engine == "pallas":
+                    out["batch"][name, shape] = _tp_batch_invariance(
+                        cfg, model, params, cache)
+            out["vocab"][name, shape] = _tp_vocab(cfg, whole, mesh)
+            out["head"][name, shape] = _tp_head(cfg, whole, mesh)
+            for engine in TP_ENGINES:
+                for site in [s for n, s in TP_ROW_SITES if n == name]:
+                    out["row"][name, site, shape, engine] = _tp_row_site(
+                        cfg, whole, mesh, site, engine)
+                for site in [s for n, s in TP_COL_SITES if n == name]:
+                    out["col"][name, site, shape, engine] = _tp_col_site(
+                        cfg, whole, mesh, site, engine)
+    return out

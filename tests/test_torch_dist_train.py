@@ -397,10 +397,10 @@ def test_a_model_axis_over_1_and_the_lm_axes_still_raise():
     step = tsteps.BranchStep(lambda p, b: p["w"].sum())
     t = {"w": torch.ones(2)}
     with tshd.use_mesh(mesh_lib.AbstractMesh((2, 2))):
-        with pytest.raises(NotImplementedError, match=r"item 5\(c\)"):
+        with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
             step.grads(t, {"w": None}, {})
-        with pytest.raises(NotImplementedError, match="LM tensor-parallel"):
-            tshd.shard(torch.zeros(2, 4, 4, 3), "batch", "seq")
+        with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
+            tshd.shard(torch.zeros(2, 4, 4, 3), "expert")
     with tshd.use_mesh(mesh_lib.AbstractMesh((1, 1))):
         loss, g = step.grads(t, {"w": None}, {})    # one rank: no reduce
     assert float(loss) == 2.0 and torch.equal(g["w"], torch.ones(2))
