@@ -417,6 +417,24 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    the witness's.  Printed: bytes sent by kind, per-rank prefill and
    step host ms, rank 0's kernel calls of a step timed with the other
    ranks idle, the peak device memory per rank.
+33. The step cost counter (``launch/cost.py``) and the dry run
+   (``launch/dryrun.py``), run after phase 8 on the models phases 3 and 6
+   built.  DarkNet-19/416's forward at batch 8 (``pallas_fused``) and a
+   Gemma-2B decode step at 8 rows under ``pallas_fused`` and ``pallas``,
+   each under ``cost.count()`` on the card: 20 kernel-1, 126 kernel-3 or
+   126 kernel-4 launches; trunk FLOPs exactly 2 x rows x the ROM sites'
+   MACs (``plan.site_tree``); FLOPs and HBM bytes equal, op by op, to the
+   same step on ``meta`` (``bridge.abstract`` of the same arguments); the
+   meta record's peak within 10% of ``max_memory_allocated`` over the
+   step (beyond the memory held before it that is not the step's); the
+   kernel's bound from the counted work equal to ``PERF.md``'s (kernel 1
+   0.267, kernel 3 2.180, kernel 4 0.600 ms).  Gemma-2B at 18 layers on a
+   fake (data 1, model 4) world on ``meta``: every rank sends phase 32's
+   bytes of a decode step exactly.  ``python -m repro_torch.launch.dryrun
+   --shape fig12 --fast`` and ``--arch deepseek_67b --shape decode_32k
+   --single-pod --fast`` in subprocesses (started first, run beside the
+   rest), each exiting 0, their records printed.  Printed: each step's
+   FLOPs, bytes, CUDA-event time and the rates they imply.
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -453,7 +471,7 @@ ranks idle (``ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
 0's calls of one decode step timed with the other ranks idle (``ms``,
 ``device_ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
 ``library_ms``).  Phases 18-27 run after the training phases, 28-32
-last.
+last; phase 33 runs after phase 8.
 """
 
 from __future__ import annotations
@@ -940,14 +958,19 @@ def phase_cpu(model, params, image):
           f"{self_moved:.3e}")
 
 
-def lm_bound_ms(m: int, k: int, n: int, cdim: int = 0) -> tuple[float, str]:
-    """Least time for the fused matmul (cdim > 0: x f32 [m, k], W int8
-    [k, n], C f32 [k, cdim] -> trunk f32 [m, n], t1 f32 [m, cdim]) or the
-    CiM matmul (cdim = 0: X int8 [m, k], W int8 [k, n] -> f32 [m, n]):
-    each input read once and each output written once over the HBM rate,
-    or the int8 and f32 operations over their peak rates, whichever is
-    larger."""
-    x_bytes = (4.0 if cdim else 1.0) * m * k
+def lm_bound_ms(m: int, k: int, n: int, cdim: int = 0,
+                x_bytes: float | None = None) -> tuple[float, str]:
+    """Least time for the fused matmul (cdim > 0: x [m, k] of ``x_bytes``
+    a value, f32 by default, W int8 [k, n], C f32 [k, cdim] -> trunk f32
+    [m, n], t1 f32 [m, cdim]) or the CiM matmul (cdim = 0: X int8 [m, k],
+    W int8 [k, n] -> f32 [m, n]): each input read once and each output
+    written once over the HBM rate, or the int8 and f32 operations over
+    their peak rates, whichever is larger.  x counts in the dtype the
+    wrapper is handed (``launch/cost.py``'s count): a bf16 decode x is
+    read as it is."""
+    if x_bytes is None:
+        x_bytes = 4.0 if cdim else 1.0
+    x_bytes *= m * k
     nbytes = x_bytes + k * n + 4.0 * m * n + 4.0 * (k * cdim + m * cdim)
     ops_ms = (2.0 * m * k * n / PEAK_INT8_OPS
               + 2.0 * m * k * cdim / PEAK_F32_OPS) * 1e3
@@ -1109,7 +1132,7 @@ def phase_lm_kernels(dev) -> dict:
                 lib4_dev = time_graph_ms(torch._int_mm, lib_args,
                                          3 * copies4)
                 del lib_args
-            b3, by3 = lm_bound_ms(m, k, n, cdim)
+            b3, by3 = lm_bound_ms(m, k, n, cdim, xm.element_size())
             b4, by4 = lm_bound_ms(m, k, n)
             # the plans the wrappers handed the kernels, read back
             st, ss, s4 = (rm.last_launch.trunk, rm.last_launch.sketch,
@@ -3903,7 +3926,8 @@ def pass_times(kernel, plain, calls, sketch: bool) -> dict:
         return lambda: [fn(*a) for a in calls]
 
     bounds = [lm_bound_ms(a[0].shape[0], *a[1].shape,
-                          a[2].shape[1] if sketch else 0) for a in calls]
+                          a[2].shape[1] if sketch else 0,
+                          a[0].element_size()) for a in calls]
     with torch.no_grad():
         out = {"rows": calls[0][0].shape[0], "launches": len(calls),
                "ms": time_ms(run(kernel), 5),
@@ -6654,6 +6678,194 @@ def phase_tp(dev, smi: str) -> dict:
     return tp
 
 
+# phase 33: the step cost counter on the card
+COST_ROWS = 8                  # Gemma-2B's decode rows (phases 6-7)
+COST_PEAK_RTOL = 0.10          # the meta record's peak against the card's
+COST_DEADLINE_S = 240          # each dry-run subprocess
+# phase 32's bytes a rank sends a decode step (PERF.md): full Gemma-2B, 18
+# layers, 8 rows, max_len 256, on (data 1, model 4)
+TP_STEP_BYTES = {"reduce": 16809984, "attention": 3566592, "gather": 552960,
+                 "embed": 98304, "argmax": 384}
+# PERF.md's ideal-mode Bound column, ms: kernel 1 per DarkNet-19/416
+# forward at batch 8, kernels 3 and 4 per Gemma-2B decode pass at 8 rows
+# (kernel 3 with x in its dtype: the bf16 x it reads at M <= 16)
+COST_BOUNDS = {"trunk_conv": 0.267, "rebranch_matmul": 2.180,
+               "cim_matmul": 0.600}
+
+
+def kernel_bound_ms(entry: dict) -> float:
+    """The least time of a record's kernel: per launch the larger of its
+    int8 and f32 operations over their peaks and its bytes over the HBM
+    rate, summed."""
+    return sum(n * max(i8 / PEAK_INT8_OPS + f32 / PEAK_F32_OPS,
+                       nbytes / PEAK_BYTES)
+               for (i8, f32, nbytes), n in entry["work"].items()) * 1e3
+
+
+def rom_macs(model) -> int:
+    """The MACs a unit of work (an image, a token) of the model's ROM
+    sites (``plan.site_tree``) costs."""
+    from repro_torch import plan as plan_lib
+    return sum(s.total_macs for s in plan_lib.site_tree(model.cfg)
+               if model.layer_spec(s.name).enabled)
+
+
+def cost_step(what: str, fn, args, kernel: str, launches: int, rows: int,
+              model, smi: str) -> dict:
+    """One step ``fn(*args)`` on the card under ``launch.cost.count()``
+    and again on meta (``bridge.abstract`` of the same arguments): the
+    launches, trunk FLOPs against the ROM sites' MACs, card == meta
+    FLOPs and bytes op by op, the meta peak against the card's, the
+    kernel's bound from the counted work; CUDA-event time printed."""
+    from repro_torch import bridge
+    from repro_torch.launch import cost, dryrun
+    with torch.no_grad():
+        fn(*args)                                   # warm-up
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: fn(*args), 3)
+        arg_bytes = sum(dryrun._storages(args).values())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with cost.count() as card:
+            fn(*args)
+        torch.cuda.synchronize()
+        got = read_launches()
+        card_peak = torch.cuda.max_memory_allocated() - base + arg_bytes
+        meta_args = bridge.abstract(lambda: args)
+        t0 = time.perf_counter()
+        meta, meta_rec = dryrun.measure(lambda: fn(*meta_args), meta_args)
+        meta_s = time.perf_counter() - t0
+    check(got == {k: launches if k == kernel else 0 for k in got},
+          f"{what}: launches {got}, want {launches} of {kernel} only")
+    k = card["kernels"][kernel]
+    check(k["launches"] == launches, f"{what}: counted {k['launches']}")
+    want = 2 * rows * rom_macs(model)
+    check(k["trunk_flops"] == want,
+          f"{what}: trunk FLOPs {k['trunk_flops']} != 2 x {rows} x the ROM "
+          f"sites' MACs {want}")
+    diff = {op: (e, meta_rec["by_op"].get(op))
+            for op, e in card["by_op"].items()
+            if meta_rec["by_op"].get(op) != e}
+    diff.update({op: (None, e) for op, e in meta_rec["by_op"].items()
+                 if op not in card["by_op"]})
+    for op, (c, m) in diff.items():
+        print(f"  {what}: {op} card {c} meta {m}")
+    check(not diff and card["kernels"].keys() == meta_rec["kernels"].keys()
+          and card["flops"] == meta["flops"]
+          and card["hbm_bytes"] == meta["hbm_bytes"],
+          f"{what}: card and meta counts differ ({len(diff)} ops)")
+    rel = abs(meta["peak_bytes_per_dev"] - card_peak) / card_peak
+    check(rel <= COST_PEAK_RTOL,
+          f"{what}: meta peak {meta['peak_bytes_per_dev']} vs card "
+          f"{card_peak} ({rel:.3f})")
+    bound = kernel_bound_ms(k)
+    check(round(bound, 3) == COST_BOUNDS[kernel],
+          f"{what}: kernel bound {bound:.4f} ms != {COST_BOUNDS[kernel]}")
+    print(f"(33) {what}: {k['launches']} {kernel} launches, trunk FLOPs "
+          f"{k['trunk_flops']} = 2 x {rows} x {want // (2 * rows)} ROM MACs; "
+          f"card == meta: FLOPs {card['flops']}, HBM bytes "
+          f"{card['hbm_bytes']} ({len(card['by_op'])} ops); kernel "
+          f"{k['flops']} FLOPs, {k['bytes']} bytes, bound {bound:.4f} ms; "
+          f"peak meta {meta['peak_bytes_per_dev']} bytes (args "
+          f"{meta['argument_bytes_per_dev']}, out "
+          f"{meta['output_bytes_per_dev']}, temp "
+          f"{meta['temp_bytes_per_dev']}) vs card {card_peak} "
+          f"(max_memory_allocated {torch.cuda.max_memory_allocated()}, "
+          f"{rel:.4f} apart); meta run {meta_s:.2f} s", flush=True)
+    print(f"  {what}: step {ms:.3f} ms (CUDA events) -> "
+          f"{card['flops'] / ms / 1e9:.3f} TFLOP/s, "
+          f"{card['hbm_bytes'] / ms / 1e6:.1f} GB/s; kernel bound "
+          f"{bound:.4f} ms [{smi}]", flush=True)
+    return {"ms": ms, "flops": card["flops"], "hbm_bytes": card["hbm_bytes"],
+            "kernel_flops": k["flops"], "kernel_bytes": k["bytes"],
+            "bound_ms": bound, "peak_meta": meta["peak_bytes_per_dev"],
+            "peak_card": card_peak}
+
+
+def phase_cost(dev, smi: str, cnn_model, cnn_params, images, lm_model,
+               lm_params) -> dict:
+    """33. The step cost counter (``launch/cost.py``) and the dry run
+    (``launch/dryrun.py``) on the card, on models phases 3 and 6 built."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve import registry
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {"fig12": ["--shape", "fig12", "--fast"],
+            "deepseek_67b": ["--arch", "deepseek_67b", "--shape",
+                             "decode_32k", "--single-pod", "--fast"]}
+    procs = {}
+    for name, argv in runs.items():
+        out = os.path.join(ROOT, "build", f"dryrun_{name}.json")
+        procs[name] = (out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", out], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        x = torch.from_numpy(images).to(dev)
+        out = {"darknet19": cost_step(
+            f"DarkNet-19/{SIZE} forward, batch {x.shape[0]}",
+            cnn_model.forward, (cnn_params, x), "trunk_conv", 20,
+            x.shape[0], cnn_model, smi)}
+        pallas, _ = registry.compile_entry("gemma-2b-pallas")
+        for key, model, kernel in (
+                ("gemma_2b", lm_model, "rebranch_matmul"),
+                ("gemma_2b_pallas", pallas, "cim_matmul")):
+            cache = model.init_cache(COST_ROWS, LM_MAX_LEN, device=dev)
+            tok = torch.zeros((COST_ROWS, 1), dtype=torch.int32, device=dev)
+            out[key] = cost_step(
+                f"Gemma-2B {model.engine.name} decode step, {COST_ROWS} rows",
+                model.decode_step, (lm_params, tok, cache), kernel,
+                7 * model.cfg.num_layers, COST_ROWS, model, smi)
+            del cache
+        t0 = time.perf_counter()
+        with dryrun.dry_world(4):
+            mesh = mesh_lib.make_lm_mesh(1, 4, backend=mesh_lib.FAKE)
+            rec = dryrun.lower_cell(
+                "gemma_2b", "decode_32k", mesh, cfg=lm_config(),
+                ranks=[{"model": m} for m in range(4)],
+                engine="pallas_fused", seq=LM_MAX_LEN, gbatch=COST_ROWS)
+        for r in rec["ranks"]:
+            check(r["bytes_sent"] == TP_STEP_BYTES,
+                  f"dry run rank {r['rank']}: bytes {r['bytes_sent']} != "
+                  f"phase 32's {TP_STEP_BYTES}")
+        print(f"(33) dry run, Gemma-2B (18 layers) decode step on a fake "
+              f"(1, 4) world: every rank sends {TP_STEP_BYTES} bytes, "
+              f"phase 32's; peak {rec['peak_bytes_per_dev']} bytes a rank, "
+              f"{rec['flops']} FLOPs, {rec['hbm_bytes']} HBM bytes, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out["dry_tp"] = {k: rec[k] for k in ("peak_bytes_per_dev", "flops",
+                                             "hbm_bytes", "bytes_sent")}
+    finally:
+        logs = {}
+        for name, (path, proc) in procs.items():
+            try:
+                logs[name] = proc.communicate(timeout=max(
+                    1.0, COST_DEADLINE_S - (time.perf_counter() - t_phase)))[0]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                logs[name] = proc.communicate()[0] + "\n(timed out)"
+    for name, (path, proc) in procs.items():
+        lines = [ln for ln in logs[name].splitlines()
+                 if ln.startswith(("[ok]", "[not", "[FAIL]")) or "records ok"
+                 in ln]
+        print(f"(33) python -m repro_torch.launch.dryrun {' '.join(runs[name])}"
+              f": exit {proc.returncode}")
+        for ln in lines:
+            print(f"  {ln}")
+        check(proc.returncode == 0, f"dry run {name} exited "
+              f"{proc.returncode}:\n{logs[name][-3000:]}")
+        with open(path) as f:
+            for r in json.load(f):
+                if r.get("kind") != "fig12":
+                    print("  " + json.dumps({k: v for k, v in r.items()
+                                             if k != "ranks"}))
+    print(f"phase 33 {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6700,6 +6912,8 @@ def main() -> int:
     lap("7")
     phase_lm_cpu(lm_model, lm_params, lm_srv)
     lap("8")
+    phase_cost(dev, smi, model, params, images, lm_model, lm_params)
+    lap("33")
     del lm_model, lm_params, lm_srv
     torch.cuda.empty_cache()
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import cost
+
 # Every batch-variant op sees row slices of exactly this many rows.
 ROW_BUCKET = 16
 
@@ -34,6 +36,26 @@ def rowwise(fn, *rows: torch.Tensor):
     ``ROW_BUCKET`` rows whatever M is, and a row gets the same bits in a
     pool of any size as alone."""
     m = rows[0].shape[0]
+    if rows[0].device.type == "meta" and m > 2 * ROW_BUCKET:
+        return _meta_rowwise(fn, rows, m)
     outs = [fn(*(padded(r[i:i + ROW_BUCKET]) for r in rows))[:m - i]
             for i in range(0, max(m, 1), ROW_BUCKET)]
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _meta_rowwise(fn, rows, m: int):
+    """:func:`rowwise` on ``meta`` tensors (shapes only): every full slice
+    runs the same ops on the same shapes, so ``fn`` runs on the first and
+    ``launch.cost`` counts it once per full slice; the other full slices'
+    outputs are allocated as one block, the padded last slice runs as it
+    is, and one concatenation of the same bytes joins them.  A prefill of
+    32k tokens then costs a few ops a site."""
+    n_full, tail = divmod(m, ROW_BUCKET)
+    with cost.repeated(n_full):
+        first = fn(*(r[:ROW_BUCKET] for r in rows))
+    rest = first.new_empty((n_full - 1, *first.shape))
+    outs = [first, rest.reshape(-1, *first.shape[1:])]
+    if tail:
+        outs.append(fn(*(padded(r[n_full * ROW_BUCKET:]) for r in rows))
+                    [:tail])
+    return torch.cat(outs)

@@ -58,12 +58,14 @@ import contextvars
 import dataclasses
 import math
 import re
+import types
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import bridge
+from repro_torch.launch import cost
 
 LM_SLICE = "the rest of tensor parallelism (ROADMAP Queue 1 item 5(d))"
 
@@ -227,21 +229,45 @@ def batch_axis(mesh=None):
 
 def _collective_device(group, x: torch.Tensor) -> torch.device:
     """Where a collective on ``group`` takes its tensors: the tensor's own
-    device over NCCL, host buffers over gloo."""
-    return x.device if dist.get_backend(group) == "nccl" else torch.device(
-        "cpu")
+    device over NCCL and on ``meta`` (a dry run's fake world moves
+    nothing), host buffers over gloo."""
+    if x.device.type == "meta" or dist.get_backend(group) == "nccl":
+        return x.device
+    return torch.device("cpu")
+
+
+def _sent(kind: str, nbytes: int, rows: int = 0):
+    """Count ``nbytes`` (and ``rows``) this rank sends under ``kind``, into
+    the counters and the active ``launch.cost`` record (times the runs the
+    call stands for, ``cost.repeated``)."""
+    t = cost.times()
+    nbytes *= t
+    rows_sent[kind] += rows * t
+    bytes_sent[kind] += nbytes
+    rec = cost.recording()
+    if rec is not None:
+        rec.sent("bytes_sent", kind, nbytes)
 
 
 def global_h(x: torch.Tensor, mesh, axis: str, dim: int = 1) -> int:
     """H (or, with ``dim=0``, the batch) of the activation whose slab this
     rank holds: an all-gather of the slabs' sizes along ``dim``, checked
-    against the uneven layout."""
+    against the uneven layout.  A ``meta`` slab has no value to send: the
+    sizes come from the dry run's mesh (``launch.dryrun``), which runs the
+    ranks of the axis side by side in this process."""
     n, group = mesh.shape[axis], mesh.group(axis)
-    mine = torch.tensor([x.shape[dim]], dtype=torch.int64,
-                        device=_collective_device(group, x))
-    sizes = [torch.empty_like(mine) for _ in range(n)]
-    dist.all_gather(sizes, mine, group=group)
-    sizes = [int(t.item()) for t in sizes]
+    if x.device.type == "meta":
+        if not hasattr(mesh, "dry_sizes"):
+            raise RuntimeError(
+                f"global_h of a meta slab needs the ranks' sizes: run it "
+                f"on a launch.dryrun mesh, not {mesh!r}")
+        sizes = mesh.dry_sizes(axis, x.shape[dim])
+    else:
+        mine = torch.tensor([x.shape[dim]], dtype=torch.int64,
+                            device=_collective_device(group, x))
+        sizes = [torch.empty_like(mine) for _ in range(n)]
+        dist.all_gather(sizes, mine, group=group)
+        sizes = [int(t.item()) for t in sizes]
     h = sum(sizes)
     if sizes != [b - a for a, b in h_layout(h, n)]:
         raise RuntimeError(f"slab sizes {sizes} over {n} ranks are not "
@@ -275,8 +301,7 @@ def _exchange(x: torch.Tensor, have: list, want: list, mesh, axis: str,
             piece = x.narrow(dim, s0 - a0, s1 - s0).contiguous()
             piece = piece.cpu() if host else piece
             ops.append(dist.P2POp(dist.isend, piece, peer, group=group))
-            rows_sent[kind] += s1 - s0
-            bytes_sent[kind] += piece.numel() * piece.element_size()
+            _sent(kind, piece.numel() * piece.element_size(), s1 - s0)
         t0, t1 = max(have[q][0], lo), min(have[q][1], hi)
         if t1 > t0:                       # q's rows that I want
             shape[dim] = t1 - t0
@@ -504,8 +529,8 @@ def linear_tp(site: str, d_in: int, d_out: int, rows: int = 128):
         return None
     mesh, axis = at
     n = mesh.shape[axis]
-    spec = tuple(_spec_of(f"['{site}']['rom']['w_q']",
-                          torch.empty((d_in, d_out), device="meta"), mesh))
+    shape = types.SimpleNamespace(shape=(d_in, d_out), ndim=2)
+    spec = tuple(_spec_of(f"['{site}']['rom']['w_q']", shape, mesh))
     if spec == (None, axis):
         return LinearTP("column", mesh, axis, d_in, d_out,
                         cols=h_layout(d_out, n)[mesh.coordinate(axis)])
@@ -527,7 +552,7 @@ def gather_parts(x: torch.Tensor, mesh, axis: str,
     src = src.cpu() if host else src
     bufs = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(bufs, src, group=group)
-    bytes_sent[kind] += src.numel() * src.element_size() * (n - 1)
+    _sent(kind, src.numel() * src.element_size() * (n - 1))
     if not host:
         return bufs
     return list(torch.stack(bufs).to(x.device).unbind(0))
@@ -769,10 +794,16 @@ def local_block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
 
 
 def _cut(x: torch.Tensor, bounds) -> torch.Tensor:
+    """The block of ``x`` within ``bounds`` in storage of its own: a view
+    (a cut along dim 0 is contiguous) would keep the whole tensor's
+    storage alive on the rank as long as the block lives."""
+    whole = x
     for d, (lo, hi) in enumerate(bounds):
         if hi - lo != x.shape[d]:
             x = x.narrow(d, lo, hi - lo)
-    return x.contiguous()
+    if x is whole:
+        return x.contiguous()
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def is_row_contraction(path: str) -> bool:

@@ -29,6 +29,7 @@ from repro_torch.core import adc as adc_lib
 from repro_torch.core import cim as cim_lib
 from repro_torch.kernels import _build
 from repro_torch.kernels import tiling
+from repro_torch.launch import cost
 from repro_torch.tune import table as tune_table
 
 IDEAL = cim_lib.CiMConfig(mode="ideal")
@@ -321,8 +322,23 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     (``plan``, the tuning table's, or ``tiling.split_plan``'s: none moves
     a bit); a CPU tensor takes :func:`cim_matmul_plain`.  The split's f32
     parts are left uninitialised: every part is written before the
-    reduction reads it.
+    reduction reads it.  A ``meta`` tensor gets only the output's shape.
+    Under ``launch.cost.count()`` the call counts as one kernel by its
+    geometry, whatever runs.
     """
+    if x_q.device.type == "meta" or cost.recording() is not None:
+        m, k = x_q.shape
+        n = w_q.shape[1]
+        return cost.kernel(
+            "cim_matmul", 2 * m * k * n, 0,
+            x_q.numel() * x_q.element_size() + w_q.numel() + 4 * m * n,
+            lambda: _cim_matmul(x_q, w_q, cfg, plan),
+            (lambda: x_q.new_empty((m, n), dtype=torch.float32))
+            if x_q.device.type == "meta" else None)
+    return _cim_matmul(x_q, w_q, cfg, plan)
+
+
+def _cim_matmul(x_q, w_q, cfg, plan):
     if x_q.device.type == "cpu":
         return cim_matmul_plain(x_q, w_q, cfg)
     kernel_args(cfg)

@@ -32,6 +32,7 @@ from repro_torch.core import cim as cim_lib
 from repro_torch.core import quant
 from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import tiling
+from repro_torch.launch import cost
 from repro_torch.tune import table as tune_table
 
 IDEAL = cim_lib.CiMConfig(mode="ideal")
@@ -144,8 +145,24 @@ def trunk_conv_dot(x: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
     build or launch failure, raises) under ``tiling.resolve_plan``'s plan
     (``plan``, the tuning table's or the shape rule's); a CPU tensor takes
     the plain version :func:`trunk_patch_dot_plain` on
-    :func:`patch_matrix`.
+    :func:`patch_matrix`; a ``meta`` tensor only the output's shape.
+    Under ``launch.cost.count()`` the call counts as one kernel by its
+    geometry, whatever runs.
     """
+    if x.device.type == "meta" or cost.recording() is not None:
+        kh, kw, c_in, c_out = w_q.shape
+        g = conv_geometry(tuple(x.shape), kh, kw, stride, padding)
+        m = g.n * g.oh * g.ow
+        return cost.kernel(
+            "trunk_conv", 2 * m * kh * kw * c_in * c_out, 0,
+            x.numel() * x.element_size() + w_q.numel() + 4 * m * c_out,
+            lambda: _trunk_conv_dot(x, w_q, stride, padding, cfg, plan),
+            (lambda: x.new_empty((m, c_out), dtype=torch.float32))
+            if x.device.type == "meta" else None)
+    return _trunk_conv_dot(x, w_q, stride, padding, cfg, plan)
+
+
+def _trunk_conv_dot(x, w_q, stride, padding, cfg, plan):
     kh, kw, c_in, c_out = w_q.shape
     if x.device.type == "cpu":
         p, _ = patch_matrix(x.float(), kh, kw, stride, padding)

@@ -32,6 +32,7 @@ from repro_torch.core import rows
 from repro_torch.kernels import cim_matmul as cm
 from repro_torch.kernels import tiling
 from repro_torch.kernels.rebranch_conv import trunk_patch_dot_plain
+from repro_torch.launch import cost
 from repro_torch.tune import table as tune_table
 
 IDEAL = cim_lib.CiMConfig(mode="ideal")
@@ -126,8 +127,25 @@ def rebranch_trunk_sketch(x: torch.Tensor, w_q: torch.Tensor,
     takes :func:`rebranch_matmul_plain`.  The kernel reads x in f32 or,
     at M <= 16, bf16 with K even; any other x, and a bf16 C, is widened
     first.  Widening is exact, so
-    the bits do not depend on the route.
+    the bits do not depend on the route.  A ``meta`` tensor gets only the
+    outputs' shapes.  Under ``launch.cost.count()`` the call counts as one
+    kernel by its geometry, whatever runs.
     """
+    if x.device.type == "meta" or cost.recording() is not None:
+        m, k = x.shape
+        n, cdim = w_q.shape[1], c.shape[1]
+        return cost.kernel(
+            "rebranch_matmul", 2 * m * k * n, 2 * m * k * cdim,
+            x.numel() * x.element_size() + w_q.numel()
+            + c.numel() * c.element_size() + 4 * m * (n + cdim),
+            lambda: _rebranch_trunk_sketch(x, w_q, c, cfg, plan),
+            (lambda: (x.new_empty((m, n), dtype=torch.float32),
+                      x.new_empty((m, cdim), dtype=torch.float32)))
+            if x.device.type == "meta" else None)
+    return _rebranch_trunk_sketch(x, w_q, c, cfg, plan)
+
+
+def _rebranch_trunk_sketch(x, w_q, c, cfg, plan):
     if x.device.type == "cpu":
         return rebranch_matmul_plain(x, w_q, c, cfg)
     cm.kernel_args(cfg)

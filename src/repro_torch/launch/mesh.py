@@ -16,6 +16,13 @@ card, or the CPU).  Every process group has a timeout of
 :data:`TIMEOUT`, so a collective that one rank skips fails the others
 within a minute instead of hanging them.
 
+:func:`init_dry_world` makes this process one rank of a world of any size
+on PyTorch's fake backend (``FakeProcessGroup``: every collective returns
+at once and moves nothing), so one process can build the production mesh
+of 256 or 512 ranks and run a step as any of its ranks on the ``meta``
+device (``launch/dryrun.py``).  ``backend="fake"`` is taken only inside
+such a world; :data:`BACKENDS` stays what a real run may choose.
+
 :func:`spawn` starts a local world of ranks (the port's counterpart of the
 reference's forced host devices): spawned processes, a ``file://``
 rendezvous in a fresh directory, a deadline after which every rank is
@@ -38,6 +45,7 @@ import torch.distributed as dist
 TIMEOUT = datetime.timedelta(seconds=60)
 AXES = ("data", "model")
 BACKENDS = ("gloo", "nccl")
+FAKE = "fake"
 
 
 class AbstractMesh:
@@ -76,10 +84,13 @@ class Mesh(AbstractMesh):
 
 
 def _check_backend(backend: str):
+    if backend == FAKE and dist.is_initialized() and dist.get_backend() == FAKE:
+        return
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS} (the caller "
                          f"chooses: 'nccl' where each rank owns a card, "
-                         f"'gloo' otherwise), got {backend!r}")
+                         f"'gloo' otherwise; 'fake' only in a world of "
+                         f"init_dry_world), got {backend!r}")
 
 
 def init_world(backend: str, *, rank: int, world_size: int,
@@ -89,6 +100,31 @@ def init_world(backend: str, *, rank: int, world_size: int,
     _check_backend(backend)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size, timeout=timeout)
+
+
+def init_dry_world(rank: int, world_size: int):
+    """Make this process rank ``rank`` of a world of ``world_size`` ranks on
+    the fake backend: no process is started and no byte moves (a
+    collective returns its buffers untouched), so the ranks' steps run on
+    ``meta`` tensors and only the shapes and the exchange counters
+    (``sharding.bytes_sent``, ``compress.wire_bytes``) mean anything.
+    Raises if a process group is already initialised; end the world with
+    ``torch.distributed.destroy_process_group()``."""
+    from torch._C._distributed_c10d import FakeProcessGroup
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; "
+                           "destroy it before starting a dry world")
+
+    def create(common, options):
+        return FakeProcessGroup._create_internal(common.group_rank,
+                                                 common.group_size, options)
+    # registered for each world: PyTorch's own registration of the fake
+    # backend (made when some of its modules load) lacks "meta", by whose
+    # device the point-to-point ops pick their backend
+    dist.Backend.register_backend(FAKE, create, extended_api=True,
+                                  devices=["cpu", "cuda", "meta"])
+    dist.init_process_group(FAKE, rank=rank, world_size=world_size,
+                            store=dist.HashStore())
 
 
 def _options(backend: str):
@@ -115,7 +151,8 @@ def make_mesh(shape, axis_names=AXES, *, backend: str) -> Mesh:
     device_mesh = init_device_mesh(
         "cuda" if backend == "nccl" else "cpu", tuple(shape),
         mesh_dim_names=tuple(axis_names),
-        backend_override={a: (backend, _options(backend))
+        backend_override={a: backend if backend == FAKE
+                          else (backend, _options(backend))
                           for a in axis_names})
     mesh = Mesh(device_mesh, backend)
     for a in mesh.axis_names:

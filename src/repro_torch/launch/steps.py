@@ -220,15 +220,16 @@ def train_mesh():
 def reduce_grads(loss, grads, mesh):
     """(loss, grads) as means over the ranks of ``mesh``: every leaf and
     the loss packed into one f32 buffer, one all-reduce (SUM) on the
-    mesh's group (host buffers over gloo), divided by the rank count."""
+    mesh's group (host buffers for CUDA tensors over gloo), divided by the
+    rank count."""
     named = bridge.flatten(grads)
     group = shd.mesh_group(mesh)
     flat = torch.cat([loss.reshape(1).float()]
                      + [g.reshape(-1).float() for g in named.values()])
-    host = dist.get_backend(group) != "nccl" and flat.device.type != "cpu"
+    host = dist.get_backend(group) != "nccl" and flat.device.type == "cuda"
     buf = flat.cpu() if host else flat
     dist.all_reduce(buf, group=group)
-    compress_lib.wire_bytes["f32"] += buf.numel() * 4
+    compress_lib.count_wire("f32", buf.numel() * 4)
     flat = buf.to(flat.device) / dist.get_world_size(group)
     out, at = {}, 1
     for k, g in named.items():

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.distributed import sharding as shd
+from repro_torch.launch import cost
 from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.config import ArchConfig
 
@@ -83,7 +84,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     if mesh is None or mesh.size == 1:
         return _mod(cfg).init_cache(cfg, batch, max_len, dtype, device)
     check_mesh(cfg, mesh)
-    whole = _mod(cfg).init_cache(cfg, batch, max_len, dtype, "meta")
+    with cost.untracked():                  # shapes only
+        whole = _mod(cfg).init_cache(cfg, batch, max_len, dtype, "meta")
 
     def block(path, leaf):
         spec = shd.cache_spec(path, leaf, mesh)
@@ -188,10 +190,11 @@ def cache_geometry(cfg: ArchConfig, cache) -> tuple[int, int | None]:
 
     Leaves carry batch at axis 1 under stacked layers (axis 0 otherwise).
     The horizon is the largest K/V sequence axis (full-attention layers
-    hold ``max_len``, SWA layers their window), ``None`` for the
-    attention-free (O(1) state) ssm family.  Paged caches report their
-    LOGICAL geometry: the block-table row count and ``table_width *
-    block_size``.
+    hold ``max_len``, SWA layers their window; under a bound mesh that
+    splits the sequence over its model axis, the whole sequence),
+    ``None`` for the attention-free (O(1) state) ssm family.  Paged caches
+    report their LOGICAL geometry: the block-table row count and
+    ``table_width * block_size``.
     """
     axis = 1 if cfg.scan_layers else 0
     first = _first_layer(cache)
@@ -204,8 +207,15 @@ def cache_geometry(cfg: ArchConfig, cache) -> tuple[int, int | None]:
     batch = leaves[0].shape[axis]
     if cfg.is_attention_free:
         return batch, None
-    kv = [leaf.shape[1 + axis] for leaf in leaves if leaf.dim() == 4 + axis]
-    return batch, max(kv)
+    kv = [leaf for leaf in leaves if leaf.dim() == 4 + axis]
+    horizon = max(leaf.shape[1 + axis] for leaf in kv)
+    at = shd.model_axis()
+    if at is not None and kv[0].shape[2 + axis] == cfg.num_kv_heads:
+        # a rank's block of a cache split over its sequence (every kv
+        # head on every rank, ``sharding.cache_spec``): the horizon is
+        # the whole sequence, as the reference's global cache has it
+        horizon *= at[0].shape[at[1]]
+    return batch, horizon
 
 
 def _first_layer(cache):

@@ -43,6 +43,7 @@ import torch
 from repro_torch import bridge
 from repro_torch.core import rebranch
 from repro_torch.distributed import sharding as shd
+from repro_torch.launch import cost
 from repro_torch.models import layers, moe
 from repro_torch.models.config import ArchConfig, spec_for, torch_dtype
 
@@ -265,14 +266,19 @@ def _run_layers(params, x, cfg: ArchConfig, cache, positions=None,
     if cl["length"].shape[1] != x.shape[0]:
         rows = shd.batch_block(cl["length"].shape[1])
     lengths = []
-    for i in range(cfg.num_layers):
-        lc = layer(cl, i)
-        if rows is not None:
-            lc = {**lc, "length": lc["length"][rows[0]:rows[1]]}
-        x, nc = _block_apply(layer(params["layers"], i), x, cfg, 0,
-                             positions=positions, cache=lc,
-                             decode=decode, sp=sp)
-        lengths.append(nc["length"])
+    # on meta (shapes only) every layer runs the same ops on the same
+    # shapes (the reference's scanned body): one runs for all of them
+    n = 1 if x.device.type == "meta" else cfg.num_layers
+    with cost.repeated(cfg.num_layers // n):
+        for i in range(n):
+            lc = layer(cl, i)
+            if rows is not None:
+                lc = {**lc, "length": lc["length"][rows[0]:rows[1]]}
+            x, nc = _block_apply(layer(params["layers"], i), x, cfg, 0,
+                                 positions=positions, cache=lc,
+                                 decode=decode, sp=sp)
+            lengths.append(nc["length"])
+    lengths *= cfg.num_layers // n
     if rows is None:
         cl["length"].copy_(torch.stack(lengths))
     else:

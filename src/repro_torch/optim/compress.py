@@ -26,6 +26,7 @@ import torch.distributed as dist
 
 from repro_torch import bridge
 from repro_torch.distributed import sharding as shd
+from repro_torch.launch import cost
 
 # bytes this rank contributed to gradient collectives, by kind, since the
 # count was last cleared
@@ -48,9 +49,21 @@ def _group(mesh, axis):
     return shd.mesh_group(mesh) if axis is None else mesh.group(axis)
 
 
+def count_wire(kind: str, nbytes: int):
+    """Count ``nbytes`` put into a collective under ``kind``, into
+    :data:`wire_bytes` and the active ``launch.cost`` record (times the
+    runs the call stands for, ``cost.repeated``)."""
+    nbytes *= cost.times()
+    wire_bytes[kind] += nbytes
+    rec = cost.recording()
+    if rec is not None:
+        rec.sent("wire_bytes", kind, nbytes)
+
+
 def _gather(t: torch.Tensor, group) -> list[torch.Tensor]:
-    """Every rank's ``t`` in rank order (host buffers over gloo)."""
-    host = dist.get_backend(group) != "nccl" and t.device.type != "cpu"
+    """Every rank's ``t`` in rank order (host buffers for a CUDA tensor
+    over gloo; a ``meta`` tensor stays on meta)."""
+    host = dist.get_backend(group) != "nccl" and t.device.type == "cuda"
     src = t.cpu() if host else t
     out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, src.contiguous(), group=group)
@@ -74,7 +87,7 @@ def all_reduce_int8(g, err, mesh, axis: str | None = None):
     group = _group(mesh, axis)
     q, scale, new_err = quantize_with_feedback(g, err)
     qs, ss = _gather(q, group), _gather(scale.reshape(1), group)
-    wire_bytes["int8"] += q.numel() + 4
+    count_wire("int8", q.numel() + 4)
     return _mean_of([s[0] for s in ss], qs, len(qs)).to(g.dtype), new_err
 
 
@@ -91,7 +104,7 @@ def tree_all_reduce_int8(grads, err_state, mesh, axis: str | None = None):
         return grads, err_state
     qs = _gather(torch.cat([q.reshape(-1) for q, _, _ in quant]), group)
     ss = _gather(torch.stack([s for _, s, _ in quant]), group)
-    wire_bytes["int8"] += qs[0].numel() + 4 * len(quant)
+    count_wire("int8", qs[0].numel() + 4 * len(quant))
     out_g, out_e, at = {}, {}, 0
     for i, (k, (q, _, e)) in enumerate(zip(names, quant)):
         n = q.numel()

@@ -96,6 +96,9 @@ class PlacementPlan:
     def spec(self, site: str) -> ReBranchSpec:
         return resolve_override(self.entries, site, self.default)
 
+    def residency(self, site: str) -> str:
+        return "rom" if self.spec(site).enabled else "sram"
+
     def as_overrides(self) -> tuple:
         return self.entries
 

@@ -181,10 +181,12 @@ def halo_world(rank: int, world: int) -> dict:
 def sharding_world(rank: int, world: int) -> dict:
     """The meshes' constructors, and ``compile_model(mesh=)`` forwards of
     the four CNNs on meshes (4, 1), (2, 2) and (1, 4), each with the
-    engine's fallback count and warnings (DarkNet-19 twice on each mesh: the
-    second forward must not warn again)."""
+    engine's fallback count, warnings and the bytes the rank sent
+    (DarkNet-19 twice on each mesh: the second forward must not warn
+    again)."""
     import torch.distributed as dist
     from repro_torch import bridge, deploy
+    from repro_torch.distributed import sharding as shd
     from repro_torch.engine import sharded as sharded_engine
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import cnn
@@ -207,7 +209,7 @@ def sharding_world(rank: int, world: int) -> dict:
         for name, m in [("local", local), ("serve4", serve),
                         *meshes.items()]}
     out["rank"] = dist.get_rank()
-    out["forward"] = {}
+    out["forward"], out["traffic"] = {}, {}
     for name in ("darknet19", *[c for c in CNNS if c != "darknet19"]):
         params, x = cnn_case(name)
         params = bridge.to_torch(params, "cpu")
@@ -218,10 +220,12 @@ def sharding_world(rank: int, world: int) -> dict:
                                          mesh=mesh)
             for run in range(2 if name == "darknet19" else 1):
                 sharded_engine.fallbacks = 0
+                shd.reset_traffic()
                 with warnings.catch_warnings(record=True) as caught, \
                         torch.no_grad():
                     warnings.simplefilter("always")
                     y = model.forward(params, torch.from_numpy(x))
+                out["traffic"][name, shape, run] = dict(shd.bytes_sent)
                 msgs = [str(w.message) for w in caught
                         if "falling back" in str(w.message)]
                 out["forward"][name, shape, run] = (
@@ -506,8 +510,10 @@ def tp_site(cfg, params, site: str):
 def tp_steps(cfg, whole, mesh, engine: str):
     """(logits, tokens [B, 1 + TP_STEPS]) of the prefill step and
     TP_STEPS greedy serve steps on the prompts, over ``mesh`` (None: the
-    unsharded steps), and (model, local params, cache)."""
+    unsharded steps), and (model, local params, cache); the sharding
+    counters hold the last serve step's bytes."""
     from repro_torch import deploy
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps
     prompts = torch.from_numpy(tp_prompts(cfg.vocab_size))
     model = deploy.compile_model(cfg, engine=engine, mesh=mesh)
@@ -518,7 +524,9 @@ def tp_steps(cfg, whole, mesh, engine: str):
     serve = steps.make_serve_step(cfg, model=model)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     toks = [tok]
-    for _ in range(TP_STEPS):
+    for i in range(TP_STEPS):
+        if i == TP_STEPS - 1:
+            shd.reset_traffic()       # the last step's bytes (tp_world)
         tok, cache = serve(params, {"tokens": tok}, cache)
         toks.append(tok)
     return (logits.numpy(), torch.cat(toks, 1).numpy()), (model, params,
@@ -682,14 +690,16 @@ def _tp_head(cfg, whole, mesh) -> dict:
 
 def tp_world(rank: int, world: int, path: str) -> dict:
     """Every config on meshes (1, 4) and (2, 2) under the three engines
-    (the plain kernel versions): the sharded steps, batch 8 against a
-    small batch, the site checks.  The d_ff 1536 config comes from the
-    port's init and runs first; the JAX-initialised trees are read from
-    ``path`` once the test process has written it."""
+    (the plain kernel versions): the sharded steps and the bytes of their
+    last serve step, batch 8 against a small batch, the site checks.  The
+    d_ff 1536 config comes from the port's init and runs first; the
+    JAX-initialised trees are read from ``path`` once the test process
+    has written it."""
     import os
     import time
 
     from repro_torch import bridge
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import mesh as mesh_lib
     warnings.simplefilter("ignore")
     meshes = {s: mesh_lib.make_lm_mesh(*s, backend="gloo")
@@ -697,7 +707,7 @@ def tp_world(rank: int, world: int, path: str) -> dict:
     trees = {"yi_34b_ff1536": bridge.to_torch(tp_port_tree("yi_34b_ff1536"),
                                               "cpu")}
     out = {"steps": {}, "batch": {}, "row": {}, "col": {}, "vocab": {},
-           "head": {}}
+           "head": {}, "traffic": {}}
     for name in ("yi_34b_ff1536", "yi_34b", "gemma_2b"):
         while name not in trees:
             if os.path.exists(path):
@@ -710,6 +720,7 @@ def tp_world(rank: int, world: int, path: str) -> dict:
                 res, (model, params, cache) = tp_steps(cfg, whole, mesh,
                                                        engine)
                 out["steps"][name, shape, engine] = res
+                out["traffic"][name, shape, engine] = dict(shd.bytes_sent)
                 if engine == "pallas":
                     out["batch"][name, shape] = _tp_batch_invariance(
                         cfg, model, params, cache)

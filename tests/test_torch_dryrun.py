@@ -1,0 +1,160 @@
+"""``repro_torch.launch.dryrun`` (each cell's step run per rank on the
+``meta`` device over a fake world) against the JAX package's
+``repro.launch.dryrun`` and against the layouts it cuts, on the CPU.
+
+Held:
+  * ``run_fig12(fast=True)``: the records equal the reference's, field
+    for field, for DarkNet-19, ResNet-18 and Tiny-YOLO.  The reference
+    runs in one subprocess that prints JSON: importing
+    ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host devices, which
+    would reach every later JAX test of this worker;
+  * smoke LM cells (Gemma-2B's and Yi-34B's smoke configs, decode and
+    prefill) on fake worlds of (data 1, model 4) and (2, 2): every rank's
+    ``argument_bytes_per_dev`` is the sum of the blocks the layouts give
+    it (``sharding.param_bounds``, ``cache_spec``), and its peak covers it;
+  * a smoke ``cnn_serve`` cell: every rank of 8 runs the 20 trunk convs,
+    the halo crosses as collective-permute bytes;
+  * ``main`` on a cell that waits for ROADMAP item 5(d) prints ``not
+    ported`` with its sub-slice and returns 0; the fake backend only
+    inside a dry world.
+
+A fixture ends any fake world a test leaves behind.  The per-rank bytes
+against a real world's are held where the worlds run:
+``test_torch_tp.py`` (LM) and ``test_torch_sharding.py`` (CNN).
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch import bridge, configs, deploy
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def no_world_left():
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_fig12_records_equal_the_references():
+    code = textwrap.dedent("""
+        import json
+        from repro.launch import dryrun
+        print(json.dumps({n: dryrun.run_fig12(n, fast=True)
+                          for n in dryrun.FIG12_MODELS}))
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    want = json.loads(out.stdout.strip().splitlines()[-1])
+    assert list(want) == list(dryrun.FIG12_MODELS)
+    for name, recs in want.items():
+        got = json.loads(json.dumps(dryrun.run_fig12(name, fast=True)))
+        assert got == recs, name
+
+
+def _expected_arguments(cfg, mesh, kind, seq, gbatch, engine) -> int:
+    """The bytes of the rank's blocks: parameters by ``param_bounds``, the
+    cache by ``cache_spec``, the inputs whole (every rank gets the
+    batch)."""
+    model = deploy.compile_model(cfg, engine=engine)
+    whole = bridge.abstract(lambda: model.init(seed=0, device="cpu"))
+    shardings = bridge.flatten(shd.param_shardings(whole, mesh))
+    rows = cfg.rebranch.cim.rows_per_subarray
+
+    def size(leaf, bounds):
+        n = 1
+        for lo, hi in bounds:
+            n *= hi - lo
+        return n * leaf.element_size()
+
+    total = sum(size(leaf, shd.param_bounds(path, leaf.shape,
+                                            shardings[path], rows))
+                for path, leaf in bridge.flatten(whole).items())
+    total += sum(t.numel() * t.element_size() for t in
+                 steps.input_specs(cfg, seq, gbatch, kind).values())
+    if kind == "decode":
+        cache = model.init_cache(gbatch, seq, device="meta")
+        total += sum(size(leaf, shd.block_bounds(
+            leaf.shape, shd.NamedSharding(mesh, shd.cache_spec(p, leaf,
+                                                               mesh))))
+            for p, leaf in bridge.flatten(cache).items())
+    return total
+
+
+@pytest.mark.parametrize("kind", ["decode_32k", "prefill_32k"])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("name", ["gemma_2b", "yi_34b"])
+def test_each_rank_holds_the_blocks_its_layouts_give_it(name, shape, kind):
+    cfg = configs.get_smoke(name)
+    seq, gbatch = 32, 8
+    ranks = [{"data": d, "model": m} for d in range(shape[0])
+             for m in range(shape[1])]
+    with dryrun.dry_world(4):
+        mesh = mesh_lib.make_lm_mesh(*shape, backend=mesh_lib.FAKE)
+        rec = dryrun.lower_cell(name, kind, mesh, cfg=cfg, ranks=ranks,
+                                engine="pallas_fused", seq=seq,
+                                gbatch=gbatch)
+        for coords, r in zip(ranks, rec["ranks"]):
+            view = dryrun.RankMesh(mesh, coords)
+            assert r["rank"] == view.rank
+            assert r["argument_bytes_per_dev"] == _expected_arguments(
+                cfg, view, configs.SHAPES[kind][2], seq, gbatch,
+                "pallas_fused")
+            assert r["peak_bytes_per_dev"] > r["argument_bytes_per_dev"]
+            assert r["flops"] > 0 and r["collective_bytes"] > 0
+    assert rec["mesh"] == "x".join(map(str, shape)) and rec["devices"] == 4
+    assert rec["peak_bytes_per_dev"] == max(
+        r["peak_bytes_per_dev"] for r in rec["ranks"])
+    assert rec["peak_bytes_per_dev"] == (
+        rec["argument_bytes_per_dev"] + rec["output_bytes_per_dev"]
+        + rec["temp_bytes_per_dev"])
+
+
+def test_smoke_cnn_serve_cell_runs_every_rank():
+    with dryrun.dry_world(8):
+        mesh = mesh_lib.make_cnn_serve_mesh(8, backend=mesh_lib.FAKE)
+        rec = dryrun.lower_cnn_cell("darknet19", mesh, size=32, gbatch=2)
+    assert len(rec["ranks"]) == 8
+    assert rec["kernels"]["trunk_conv"]["launches"] == 20
+    assert rec["collectives"]["collective-permute"] > 0
+    assert rec["collectives"]["all-gather"] > 0
+    assert (rec["shape"], rec["mesh"], rec["global_batch"]) == (
+        "cnn_serve", "8x1", 2)
+
+
+def test_main_reports_a_cell_that_waits_for_5d_as_not_ported(capsys):
+    assert dryrun.main(["--arch", "granite_moe_3b", "--shape",
+                        "decode_32k", "--single-pod"]) == 0
+    out = capsys.readouterr().out
+    assert "[not ported: 5(d)(iii)] granite_moe_3b x decode_32k" in out
+    assert "0 records ok, 1 cells not ported, 0 failed" in out
+    assert not dist.is_initialized()
+
+
+def test_the_fake_backend_only_inside_a_dry_world():
+    with pytest.raises(ValueError, match="fake"):
+        mesh_lib.init_world("fake", rank=0, world_size=1,
+                            init_method="tcp://localhost:1")
+    with dryrun.dry_world(2):
+        with pytest.raises(RuntimeError, match="already initialised"):
+            mesh_lib.init_dry_world(0, 2)
+        mesh = mesh_lib.make_mesh((2, 1), backend=mesh_lib.FAKE)
+        assert dist.get_backend(mesh.group("data")) == mesh_lib.FAKE
+        x = torch.empty(3, device="meta")
+        assert shd.gather_parts(x, mesh, "data", "reduce")[0].is_meta

@@ -15,7 +15,9 @@ its absmax, ``test_torch_cnn.py``'s tolerance for whole quantised
 forwards (they are chaotic at the ulp level; each layer is held tightly
 in ``test_torch_halo_conv.py``).  DarkNet-19 at 32 px has sites of H <= 2
 whose halo does not fit a 2- or 4-way split: there the engine gathers
-the layer, warns once per geometry and counts it.
+the layer, warns once per geometry and counts it.  Each rank's bytes
+sent in a DarkNet-19 forward are held, kind by kind, to the dry run's
+(``launch.dryrun``: the same forward per rank on ``meta``).
 """
 
 import concurrent.futures
@@ -39,6 +41,7 @@ from repro_torch import deploy as tdeploy
 from repro_torch import engine as tengine
 from repro_torch.core import cim as tcim
 from repro_torch.distributed import sharding as tshd
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import api as tapi
 from repro_torch.models import cnn as tcnn
@@ -291,6 +294,24 @@ def test_darknet19_at_32_falls_back_where_the_halo_does_not_fit(
         assert again == fallbacks and msgs == []           # warned once
         np.testing.assert_array_equal(
             y, r["forward"]["darknet19", shape, 0][0])
+
+
+@pytest.mark.parametrize("shape", world.MESH_SHAPES)
+def test_the_dry_run_sends_each_ranks_bytes_of_a_forward(ranks, shape):
+    """DarkNet-19's sharded forward run per rank on ``meta`` over a fake
+    world (``launch.dryrun``, the ranks side by side, H from each other's
+    slab heights) sends, rank by rank and kind by kind, the bytes the
+    gloo world's ranks sent."""
+    coords = {"data": shape[0], "model": shape[1]}
+    with dryrun.dry_world(4):
+        mesh = mesh_lib.make_mesh(shape, backend=mesh_lib.FAKE)
+        rec = dryrun.lower_cnn_cell("darknet19", mesh,
+                                    size=world.cnn_size("darknet19"),
+                                    gbatch=2)
+    got = {r["rank"]: r["bytes_sent"] for r in rec["ranks"]}
+    assert len(got) == coords["data"] * coords["model"]
+    assert [got[r["rank"]] for r in ranks] == [
+        r["traffic"]["darknet19", shape, 0] for r in ranks]
 
 
 def test_dataclass_fields_of_the_plan_are_the_references():

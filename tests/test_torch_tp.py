@@ -32,7 +32,10 @@ Held:
     unsharded ``make_prefill_step`` / ``make_serve_step``
     (``int8_native``), logits within ``test_torch_lm.py``'s 5e-2 of the
     absmax and tokens agreeing in >= 99% of (row, step) pairs;
-  * every leaf's rank blocks tiling it whole; what still raises.
+  * every leaf's rank blocks tiling it whole; what still raises;
+  * the dry run (``launch.dryrun``: each rank's serve step on ``meta``
+    over a fake world) sends each rank's bytes of the world's last serve
+    step, kind by kind, under ``pallas_fused`` and ``pallas``.
 
 The reference's own sharded test fails here (jax 0.9's ``shard_map``
 refuses ``check_rep``), so its unsharded steps are the oracle.
@@ -56,6 +59,7 @@ from repro_torch import bridge
 from repro_torch import configs as tconfigs
 from repro_torch import deploy as tdeploy
 from repro_torch.distributed import sharding as tshd
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import layers as tlayers
@@ -330,6 +334,27 @@ def test_rank_blocks_tile_every_leaf(name, shape):
             assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), path
             if tshd.is_row_contraction(path):
                 assert spans == tshd.k_layout(leaf.shape[i], shape[1]), path
+
+
+@pytest.mark.parametrize("engine", ["pallas_fused", "pallas"])
+@pytest.mark.parametrize("name,shape", CASES)
+def test_the_dry_run_sends_each_ranks_bytes_of_a_serve_step(run, name,
+                                                             shape, engine):
+    """The same serve step run per rank on ``meta`` over a fake world
+    (``launch.dryrun``) sends, rank by rank and kind by kind, the bytes
+    the gloo world's ranks sent, under the two kernel engines
+    (``int8_native`` sends ``pallas``'s bytes)."""
+    ranks, _, _ = run
+    coords = [{"data": r // shape[1], "model": r % shape[1]}
+              for r in range(WORLD)]
+    with dryrun.dry_world(WORLD):
+        mesh = mesh_lib.make_lm_mesh(*shape, backend=mesh_lib.FAKE)
+        rec = dryrun.lower_cell(
+            {"yi_34b_ff1536": "yi_34b"}.get(name, name), "decode_32k", mesh,
+            cfg=world.tp_config(name), ranks=coords, engine=engine,
+            seq=world.TP_MAX_LEN, gbatch=world.TP_BATCH)
+    assert [r["bytes_sent"] for r in rec["ranks"]] == [
+        r["traffic"][name, shape, engine] for r in ranks]
 
 
 def test_what_still_raises():
