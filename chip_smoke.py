@@ -394,11 +394,12 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    every per-rank geometry of the phase (column sites' N columns,
    row-parallel sites' whole k-blocks, 17 geometries) ``torch.equal`` to
    their plain versions in all three modes at decode M (f32 and bf16 x)
-   and prefill M.  (b) Full-width Gemma-2B (9 of 18 layers, bf16) on (data 1,
-   model 4) and (2, 2) under ``pallas_fused``, and under ``pallas`` on
-   (1, 4); Yi-34B at its published widths cut to 2 layers on (1, 4): 8
-   prompts of 64, ``max_len`` 256, a prefill and 16 serve steps (4 for
-   ``pallas`` and Yi), each fed the unsharded steps' token.  The
+   and prefill M.  (b) Full-width Gemma-2B (9 of 18 layers, bf16) on
+   (data 1, model 4), (2, 2) and (pod 2, data 2, model 1: a batch over
+   pod x data) under ``pallas_fused``, and under ``pallas`` on (1, 4);
+   Yi-34B at its published widths cut to 2 layers on (1, 4): 8 prompts
+   of 64, ``max_len`` 256, a prefill and 16 serve steps (4 for
+   ``pallas``, Yi and pod x data), each fed the unsharded steps' token.  The
    unsharded steps run first in this process; each rank then builds the
    whole tree in turn, keeps its blocks and layer 0's whole ROM leaves.
    Held: one launch per linear whose block a rank holds, per step and
@@ -406,17 +407,33 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    row-parallel reduced trunks bitwise the rank-order sums of the plain
    version over ``k_layout``'s ranges and its column trunks bitwise the
    unsharded columns; a row decoded at batch 8 bitwise the same row at
-   batch 1 (2 on two data ranks); every kernel call of a served step
-   ``torch.equal`` to its plain version.  Full Gemma-2B with random
-   weights is chaotic at the ulp level, so the whole model is held to a
-   one-process witness, the unsharded steps with every trunk nudged by
-   ~1 f32 ulp (``nudged_kernels``): logits within max(5e-2, 2 x the
-   witness's distance) of the absmax, and tokens in >= 99% of the (row,
-   step) pairs whose top two unsharded logits lie over twice the
+   batch 1 (2 on two data ranks, 4 over pod x data); on (2, 2, 1) each
+   rank's rows of two decode steps from the unsharded prefill's cache
+   bitwise the unsharded 8-row steps' logits, the tokens gathered over
+   pod x data bitwise their argmax, and every rank's bytes a decode step
+   equal to the dry run's on a fake (2, 2, 1) world; every kernel call of
+   a served step ``torch.equal`` to its plain version.  Full Gemma-2B
+   with random weights is chaotic at the ulp level, so the whole model is
+   held to a one-process witness, the unsharded steps with every trunk
+   nudged by ~1 f32 ulp (``nudged_kernels``): logits within max(5e-2, 2
+   x the witness's distance) of the absmax, and tokens in >= 99% of the
+   (row, step) pairs whose top two unsharded logits lie over twice the
    measured logit distance apart, the overall agreement printed beside
-   the witness's.  Printed: bytes sent by kind, per-rank prefill and
-   step host ms, rank 0's kernel calls of a step timed with the other
-   ranks idle, the peak device memory per rank.
+   the witness's.  Printed: bytes sent per rank by kind, per-rank
+   prefill and step host ms, rank 0's kernel calls of a step timed with
+   the other ranks idle, the peak device memory per rank.
+34. Dense layouts of uneven heads over 3 gloo ranks on the one card
+   (56, 40 and 8 heads all divide 4).  (a) Kernels 3 and 4 at every
+   per-rank geometry of (b) that 32(a) did not hold (q's whole heads, o's
+   k-blocks, the sites the size rule keeps whole, Qwen's vocab-parallel
+   readout), held as 32(a) holds them.  (b) On (data 1, model 3), under
+   ``pallas_fused``: Gemma-2B at phase 32's 9 layers (heads 3, 3, 2; its
+   one kv head read by every rank; 256 % 3: a whole cache on every rank),
+   and under ``pallas`` too; Yi-34B and Qwen1.5-32B (qkv bias) at 2
+   layers (heads 19, 19, 18 and 14, 14, 12; Yi's GQA groups of 7 split
+   between ranks), each held as phase 32 holds its runs, to the same
+   unsharded steps (Qwen's run here first); every rank's bytes a decode
+   step equal to the dry run's on a fake (1, 3) world.
 33. The step cost counter (``launch/cost.py``) and the dry run
    (``launch/dryrun.py``), run after phase 8 on the models phases 3 and 6
    built.  DarkNet-19/416's forward at batch 8 (``pallas_fused``) and a
@@ -467,17 +484,19 @@ sharded forward and two requests; ``trunk_conv`` and ``cim_matmul`` carry
 ``dist_train``, rank 0's launches of one step timed with the other
 ranks idle (``ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
 ``library_ms``); ``rebranch_matmul`` and ``cim_matmul`` carry
-``tp_serve``, per phase-32 run each rank's launches per step and rank
-0's calls of one decode step timed with the other ranks idle (``ms``,
-``device_ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
-``library_ms``).  Phases 18-27 run after the training phases, 28-32
-last; phase 33 runs after phase 8.
+``tp_serve``, per phase-32 and phase-34 run each rank's launches and
+bytes sent per step and rank 0's calls of one decode step timed with
+the other ranks idle (``ms``, ``device_ms``, ``plain_ms``,
+``bound_ms``; kernel 4 also ``library_ms``).  Phases 18-27 run after the
+training phases, 28-32 and 34 last; phase 33 runs after phase 8.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -6031,11 +6050,13 @@ def phase_dist_train(smi: str) -> dict:
 
 TP_RANKS = 4
 TP_MESHES = ((1, 4), (2, 2))        # (data, model)
+TP_POD_MESH = (2, 2, 1)             # (pod, data, model): a batch over
+                                    # pod x data
 TP_LAYERS = 9                       # Gemma-2B's depth cut (of 18), for the
                                     # script's time limit
 TP_YI_LAYERS = 2                    # Yi-34B at its published widths, cut
 TP_BATCH, TP_PROMPT, TP_MAX_LEN = 8, 64, 256
-TP_NEW, TP_PALLAS_NEW, TP_YI_NEW = 16, 4, 4
+TP_NEW, TP_PALLAS_NEW, TP_YI_NEW, TP_POD_NEW = 16, 4, 4, 4
 TP_CORE_SEED = 32
 TP_LOGITS_RTOL = 5e-2               # whole models: of the unsharded absmax
 TP_AGREE = 0.99                     # tokens: the reference's own threshold
@@ -6057,7 +6078,8 @@ TP_SITES = (("attn", "q", "col"), ("attn", "k", "col"), ("attn", "v", "col"),
 
 
 def tp_config(arch: str):
-    """The FULL config of ``arch`` at phase 32's depth."""
+    """The FULL config of ``arch`` at phase 32's depth (Gemma-2B's
+    TP_LAYERS, the others' TP_YI_LAYERS)."""
     from repro_torch import configs
     return dataclasses.replace(
         configs.get(arch),
@@ -6072,51 +6094,85 @@ def tp_dims(cfg, site: str) -> tuple[int, int]:
             "lm_head": (d, cfg.vocab_size)}[site]
 
 
-def tp_geometries() -> dict:
-    """{(K, N): (decode M, prefill M or 0, owners)}: every per-rank
-    geometry kernels 3 and 4 take on phase 32's path (the columns of
-    column-parallel sites, the k-blocks of row-parallel ones; Yi's
-    lm_head runs at the last position only)."""
+def tp_site_layout(cfg, site: str, n: int, r: int):
+    """``sharding.linear_tp`` of ``site`` as model rank ``r`` of ``n`` sees
+    it (None: the size rule keeps the site whole), from the layouts alone
+    (no process group)."""
     from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+
+    class At(mesh_lib.AbstractMesh):
+        def coordinate(self, axis):
+            return r if axis == "model" else 0
+
+        def group(self, axis):
+            return None
+    with shd.use_mesh(At((1, n))):
+        return shd.linear_tp(site, *tp_dims(cfg, site),
+                             cfg.rebranch.cim.rows_per_subarray,
+                             head_dim=cfg.head_dim)
+
+
+def tp_sites(cfg) -> list:
+    """The ROM linears of a dense block in the order it runs them, then an
+    untied readout."""
+    return [s for _, s, _ in TP_SITES] + (
+        [] if cfg.tie_embeddings else ["lm_head"])
+
+
+def tp_rank_geometry(cfg, site: str, n: int, r: int):
+    """(K, N) of model rank ``r``'s call of ``site`` over ``n`` ranks, None
+    where it launches nothing (no columns, no k-block)."""
+    k, nn = tp_dims(cfg, site)
+    tp = tp_site_layout(cfg, site, n, r)
+    if tp is None:
+        return k, nn
+    lo, hi = tp.cols if tp.role == "column" else tp.k_ranges[r]
+    if hi == lo:
+        return None
+    return (k, hi - lo) if tp.role == "column" else (hi - lo, nn)
+
+
+def tp_geometries(runs=None, skip=()) -> dict:
+    """{(K, N): (decode M, prefill M or 0, owners)}: every per-rank
+    geometry kernels 3 and 4 take on the path of ``runs`` ((arch, data x
+    model meshes); phase 32's by default) but those of ``skip``: the
+    columns of column-parallel sites (q on whole heads), the k-blocks of
+    row-parallel ones, the whole of a site the size rule keeps whole; an
+    untied lm_head runs at the last position only."""
     out = {}
-    for arch, meshes in (("gemma_2b", TP_MESHES), ("yi_34b", ((1, 4),))):
+    for arch, meshes in runs or (("gemma_2b", TP_MESHES),
+                                 ("yi_34b", ((1, 4),))):
         cfg = tp_config(arch)
-        sites = [(s, r) for _, s, r in TP_SITES]
-        if not cfg.tie_embeddings:
-            sites.append(("lm_head", "col"))
         for n_data, n in meshes:
             dec = TP_BATCH // n_data
-            for site, role in sites:
-                k, nn = tp_dims(cfg, site)
+            for site in tp_sites(cfg):
                 pre = 0 if site == "lm_head" else dec * TP_PROMPT
-                if role == "col":
-                    geoms = {(k, hi - lo) for lo, hi in shd.h_layout(nn, n)}
-                else:
-                    geoms = {(hi - lo, nn) for lo, hi in shd.k_layout(k, n)
-                             if hi > lo}
-                for g in geoms:
+                geoms = {tp_rank_geometry(cfg, site, n, r) for r in range(n)}
+                for g in geoms - {None} - set(skip):
                     m0, p0, who = out.get(g, (dec, pre, []))
                     out[g] = (max(m0, dec), max(p0, pre),
                               who + [f"{arch}:{site}@{n_data}x{n}"])
     return out
 
 
-def phase_tp_kernels(dev) -> int:
-    """32(a): kernels 3 and 4 at every per-rank geometry of the phase, in
-    all three CiM modes, at decode M (f32 and bf16 x; kernel 3 reads bf16
-    as it is there) and prefill M (f32), ``torch.equal`` to their plain
-    versions: every row in ideal mode, the decode rows and every
-    TP_ROW_STRIDE-th prefill row in the ADC modes (a plain row is exact
-    sums over that row alone).  x holds bfloat16 values, so one plain
-    call serves both dtypes."""
+def phase_tp_kernels(dev, geoms=None, phase: str = "32(a)") -> dict:
+    """32(a): kernels 3 and 4 at every per-rank geometry of the phase
+    (``geoms``: :func:`tp_geometries`'), in all three CiM modes, at decode
+    M (f32 and bf16 x; kernel 3 reads bf16 as it is there) and prefill M
+    (f32), ``torch.equal`` to their plain versions: every row in ideal
+    mode, the decode rows and every TP_ROW_STRIDE-th prefill row in the
+    ADC modes (a plain row is exact sums over that row alone).  x holds
+    bfloat16 values, so one plain call serves both dtypes.  Returns the
+    geometries held."""
     from repro_torch.core import cim as cim_lib
     from repro_torch.core import quant
     from repro_torch.kernels import cim_matmul as cm
     from repro_torch.kernels import rebranch_matmul as rm
     t0 = time.perf_counter()
-    geoms = tp_geometries()
+    geoms = tp_geometries() if geoms is None else geoms
     gen = torch.Generator(device=dev).manual_seed(32)
-    print(f"phase 32(a): kernels 3 and 4 at {len(geoms)} per-rank "
+    print(f"phase {phase}: kernels 3 and 4 at {len(geoms)} per-rank "
           f"geometries: K N Cd decode_M prefill_M owners")
     for (k, n), (dec, pre, who) in sorted(geoms.items()):
         cdim = k // 4
@@ -6158,23 +6214,19 @@ def phase_tp_kernels(dev) -> int:
               f"{', '.join(('ideal',) + ADC_MODES)}", flush=True)
         del w, c, xs
     torch.cuda.empty_cache()
-    print(f"phase 32(a): {len(geoms)} geometries in "
+    print(f"phase {phase}: {len(geoms)} geometries in "
           f"{time.perf_counter() - t0:.1f} s")
-    return len(geoms)
+    return geoms
 
 
 def tp_expected_launches(cfg, mesh) -> int:
     """Kernel launches a rank makes per prefill or decode step: one per
     linear whose block it holds (a rank without a k-block of a
-    row-parallel site launches nothing there), the readout once."""
-    from repro_torch.distributed import sharding as shd
+    row-parallel site, or without q heads, launches nothing there), the
+    readout once."""
     n, r = mesh.shape["model"], mesh.coordinate("model")
-    per_layer = 0
-    for _, site, role in TP_SITES:
-        k, nn = tp_dims(cfg, site)
-        lo, hi = (shd.h_layout(nn, n) if role == "col"
-                  else shd.k_layout(k, n))[r]
-        per_layer += hi > lo
+    per_layer = sum(tp_rank_geometry(cfg, site, n, r) is not None
+                    for _, site, _ in TP_SITES)
     return per_layer * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
 
 
@@ -6265,23 +6317,29 @@ def tp_layer0(tree, block: str, site: str) -> dict:
             for part, leaves in tree["layers"][block][site].items()}
 
 
-def tp_build(model, rank: int, world: int, probes: bool = True):
+def tp_build(model, rank: int, world: int, probes: bool = True,
+             with_whole=None):
     """This rank's blocks of the seeded tree: the ranks build the whole
     tree on the card in turn, behind barriers, each keeping its blocks
     (and layer 0's whole ROM leaves of every linear, for the site
-    checks); never two whole trees at once."""
+    checks); never two whole trees at once.  ``with_whole(tree)`` runs on
+    the whole tree in the rank's turn."""
     import torch.distributed as dist
     local = probe = None
     for turn in range(world):
         if turn == rank:
             t0 = time.perf_counter()
             whole = tp_params(model)
-            if probes:
+            if with_whole is not None:
+                with_whole(whole)
+            if probes:            # what tp_site_checks reads
                 probe = {site: {k: v.clone() for k, v in
-                                tp_layer0(whole, block, site)["rom"].items()}
+                                tp_layer0(whole, block, site)["rom"].items()
+                                if k in ("w_q", "C")}
                          for block, site, _ in TP_SITES}
             local = model.shard_params(whole)
             del whole
+            gc.collect()
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             build_s = time.perf_counter() - t0
@@ -6295,44 +6353,58 @@ def tp_site_checks(model, cfg, local, probe, cache, tok, smi: str) -> dict:
     rank-order sum of the plain version over ``k_layout``'s ranges (on
     the whole input, gathered, and layer 0's whole W and C), each
     column-parallel site's kernel-3 trunk bitwise the kernel's on the
-    whole W, on the rank's columns."""
+    whole W, on the rank's columns (a rank without columns of a site
+    calls nothing there); sites the size rule keeps whole run as
+    unsharded."""
     from repro_torch.core import rebranch
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import rebranch_matmul as rm
     mesh = model.mesh
-    rows, sketches = [], []
+    n, r = mesh.shape["model"], mesh.coordinate("model")
+    layouts = {site: tp_site_layout(cfg, site, n, r)
+               for _, site, _ in TP_SITES}
+    rows, sketches = {}, []
     real_parts, real_sketch = rebranch.row_parallel_parts, \
         rm.rebranch_trunk_sketch
 
+    # layer 0's row-parallel sites are the first to run (a rank without a
+    # k-block of one runs it too); its column sites' kernels by their W
+    row_sites = [site for _, site, _ in TP_SITES
+                 if layouts[site] is not None and layouts[site].role == "row"]
+    col_ptrs = {}
+    for block, site, _ in TP_SITES:
+        tp, w = layouts[site], tp_layer0(local, block, site)["rom"]["w_q"]
+        if tp is not None and tp.role == "column" and w.numel():
+            col_ptrs[w.data_ptr()] = site
+
     def parts(params, x, spec, tp):
         out = real_parts(params, x, spec, tp)
-        if len(rows) < 2:
-            rows.append((x, tp, out))
+        if len(rows) < len(row_sites):
+            rows[row_sites[len(rows)]] = (x, tp, out)
         return out
-
-    ptrs = {tp_layer0(local, block, site)["rom"]["w_q"].data_ptr(): site
-            for block, site, role in TP_SITES if role == "col"}
 
     def sketch(x, w, c, cfg_=rm.IDEAL, plan=None):
         out = real_sketch(x, w, c, cfg_, plan)
-        if w.data_ptr() in ptrs:
-            sketches.append((ptrs.pop(w.data_ptr()), x, w, c, out))
+        if w.data_ptr() in col_ptrs:
+            sketches.append((col_ptrs.pop(w.data_ptr()), x, w, c, out))
         return out
 
     rebranch.row_parallel_parts, rm.rebranch_trunk_sketch = parts, sketch
     try:
-        model.decode_step(local, tok, {"layers": {
-            k: v.clone() for k, v in cache["layers"].items()}})
+        model.decode_step(local, tok, copy.deepcopy(cache))
     finally:
         rebranch.row_parallel_parts = real_parts
         rm.rebranch_trunk_sketch = real_sketch
-    check(len(rows) == 2 and not ptrs, "layer 0's calls recorded")
+    check(list(rows) == row_sites and not col_ptrs,
+          f"layer 0's calls recorded: row sites {list(rows)} of "
+          f"{row_sites}, column sites not seen {col_ptrs}")
     moved = {}
-    for (x, tp, got), site in zip(rows, ("o", "down")):
+    for site, (x, tp, got) in rows.items():
         with shd.use_mesh(mesh):
             reduced = shd.rank_sum(shd.gather_parts(got["trunk"], mesh,
                                                     "model", "check"))
-            xw = shd.gather_cols(x, tp.d_in, mesh, "model", kind="check")
+            xw = shd.move_rows(x, list(tp.x_layout), [(0, tp.d_in)] * n,
+                               mesh, "model", "check", dim=-1)
         x2 = xw.reshape(-1, tp.d_in)
         w, c = probe[site]["w_q"], probe[site]["C"]
         want = shd.rank_sum([
@@ -6345,9 +6417,7 @@ def tp_site_checks(model, cfg, local, probe, cache, tok, smi: str) -> dict:
         moved[site] = [hi - lo for lo, hi in tp.k_ranges]
     cols = 0
     for site, x, w, c, (trunk, _) in sketches:
-        with shd.use_mesh(mesh):
-            tp = shd.linear_tp(site, *tp_dims(cfg, site))
-        lo, hi = tp.cols
+        lo, hi = layouts[site].cols
         whole = rm.rebranch_trunk_sketch(x, probe[site]["w_q"], c)[0]
         check(torch.equal(trunk, whole[:, lo:hi]),
               f"{cfg.name} {site}: kernel-3 trunk columns {lo}:{hi} != the "
@@ -6356,16 +6426,17 @@ def tp_site_checks(model, cfg, local, probe, cache, tok, smi: str) -> dict:
     return {"row_blocks": moved, "col_sites": cols}
 
 
-def tp_batch_check(model, local, cache, tok, mesh_shape) -> int:
+def tp_batch_check(model, local, cache, tok) -> int:
     """Two decode steps from the batch-8 cache against the same steps of
     a small batch made of each data rank's first row (batch 1 on one data
-    rank; 2 on two: rows 0 and 4): that row's logits bitwise."""
+    rank; 2 on two: rows 0 and 4; 4 over pod 2 x data 2: rows 0, 2, 4,
+    6): that row's logits bitwise."""
     from repro_torch.distributed import sharding as shd
-    n_data = mesh_shape[0]
+    n_data = math.prod(model.mesh.shape.get(a, 1) for a in ("pod", "data"))
     small = 1 if n_data == 1 else n_data
     first_rows = [shd.h_layout(TP_BATCH, n_data)[d][0]
                   for d in range(n_data)]
-    big = {"layers": {k: v.clone() for k, v in cache["layers"].items()}}
+    big = copy.deepcopy(cache)
     sm = model.init_cache(small, TP_MAX_LEN)
     for leaf in ("k", "v"):
         sm["layers"][leaf].copy_(big["layers"][leaf][:, :1])
@@ -6377,6 +6448,40 @@ def tp_batch_check(model, local, cache, tok, mesh_shape) -> int:
         check(torch.equal(lb[:1], ls), f"step {i}: a row decoded at batch "
               f"{TP_BATCH} != the same row at batch {small}")
     return small
+
+
+def tp_pod_check(arch: str, engine: str, model, local, prompts) -> int:
+    """On (pod 2, data 2, model 1), where a rank's blocks are the whole
+    tree: two decode steps of this rank's rows of the unsharded 8-row
+    prefill's cache, through the mesh's ``decode_step`` and serve step,
+    against the unsharded 8-row steps: the rows' logits bitwise, the
+    tokens gathered over pod x data bitwise their argmax."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    cfg, whole = tp_config(arch), tp_model(arch, engine)
+    logits, cache8 = steps.make_prefill_step(
+        cfg, TP_BATCH, TP_MAX_LEN, model=whole)(local, {"tokens": prompts})
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    lo, hi = shd.batch_block(TP_BATCH, model.mesh)
+    mine = model.init_cache(TP_BATCH, TP_MAX_LEN)
+    for leaf in ("k", "v"):
+        mine["layers"][leaf].copy_(cache8["layers"][leaf][:, lo:hi])
+    mine["layers"]["length"].copy_(cache8["layers"]["length"])
+    serve = steps.make_serve_step(cfg, model=model)
+    for i in range(2):
+        with torch.no_grad():
+            want, cache8 = whole.decode_step(local, tok, cache8)
+            got, _ = model.decode_step(local, tok[lo:hi],
+                                       copy.deepcopy(mine))
+            nxt, mine = serve(local, {"tokens": tok}, mine)
+        check(torch.equal(got, want[lo:hi]), f"{arch} over pod x data, "
+              f"step {i}: rows {lo}:{hi}' logits != the unsharded 8-row "
+              f"step's")
+        check(torch.equal(nxt, torch.argmax(want, -1).to(torch.int32)),
+              f"{arch} over pod x data, step {i}: the gathered tokens != "
+              f"the unsharded 8-row step's")
+        tok = nxt
+    return hi - lo
 
 
 def tp_serve(arch: str, engine: str, mesh, local, probe, oracle: dict,
@@ -6397,6 +6502,7 @@ def tp_serve(arch: str, engine: str, mesh, local, probe, oracle: dict,
     want_toks = oracle["tokens"].to(dev)
     out = {"engine": engine, "mesh": tuple(mesh.shape.values()),
            "model": arch.replace("_", "-")}
+    out["key"] = f"{out['model']}-{engine}-" + "x".join(map(str, out["mesh"]))
     prefill = steps.make_prefill_step(cfg, TP_BATCH, TP_MAX_LEN, model=model)
     serve = steps.make_serve_step(cfg, model=model)
     dist.barrier()
@@ -6422,8 +6528,8 @@ def tp_serve(arch: str, engine: str, mesh, local, probe, oracle: dict,
           f"{out['logits_rel']:.3e} of the unsharded absmax (limit "
           f"{limit:.3e})")
     lo, hi = shd.batch_block(TP_BATCH, mesh)
-    first, _ = model.decode_step(local, want_toks[lo:hi, :1], {"layers": {
-        k: v.clone() for k, v in cache["layers"].items()}})
+    first, _ = model.decode_step(local, want_toks[lo:hi, :1],
+                                 copy.deepcopy(cache))
     ref = oracle["first"].to(dev)[lo:hi]
     step_noise = (first.float() - ref).abs().max().item()
     out["first_rel"] = step_noise / ref.abs().max().item()
@@ -6510,43 +6616,53 @@ def tp_serve(arch: str, engine: str, mesh, local, probe, oracle: dict,
     dist.barrier()
     del calls
     if sites:
-        out["sites"] = tp_site_checks(model, cfg, local, probe, cache,
-                                      want_toks[lo:hi, new:new + 1], smi)
+        if mesh.shape["model"] > 1:
+            out["sites"] = tp_site_checks(model, cfg, local, probe, cache,
+                                          want_toks[lo:hi, new:new + 1], smi)
         out["batch"] = tp_batch_check(model, local, cache,
-                                      want_toks[:, new:new + 1],
-                                      tuple(mesh.shape.values()))
+                                      want_toks[:, new:new + 1])
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return out
+
+
+def tp_meshes(shapes) -> dict:
+    """A mesh per shape: (data, model), or (pod, data, model)."""
+    from repro_torch.launch import mesh as mesh_lib
+    return {s: mesh_lib.make_mesh(s, ("pod", "data", "model")[-len(s):],
+                                  backend="gloo") for s in shapes}
 
 
 def phase_tp_rank(rank: int, world: int, path: str, smi: str) -> dict:
     """Phase 32, one spawned rank."""
     from repro_torch import device as device_lib
     from repro_torch.kernels import _build
-    from repro_torch.launch import mesh as mesh_lib
     for name in ("cim_matmul", "rebranch_matmul"):
         check(_build.target(name).exists(),
               f"{name} is not built: the parent builds it before the ranks")
     device_lib.resolve()
     torch.cuda.reset_peak_memory_stats()
     oracle = torch.load(path)
-    meshes = {s: mesh_lib.make_lm_mesh(*s, backend="gloo")
-              for s in TP_MESHES}
+    meshes = tp_meshes(TP_MESHES + (TP_POD_MESH,))
     res = {"runs": [], "build_s": []}
     t0 = time.perf_counter()
-    for shape in TP_MESHES:
+    for shape in TP_MESHES + (TP_POD_MESH,):
         mesh = meshes[shape]
         model = tp_model("gemma_2b", "pallas_fused", mesh)
         local, probe, build_s = tp_build(model, rank, world)
         res["build_s"].append(build_s)
-        res["runs"].append(tp_serve("gemma_2b", "pallas_fused", mesh, local,
-                                    probe, oracle["gemma_2b"], TP_NEW, rank,
-                                    world, smi))
+        res["runs"].append(tp_serve(
+            "gemma_2b", "pallas_fused", mesh, local, probe,
+            oracle["gemma_2b"], TP_POD_NEW if shape == TP_POD_MESH
+            else TP_NEW, rank, world, smi))
         if shape == (1, 4):             # kernel 4 on the same blocks
             res["runs"].append(tp_serve(
                 "gemma_2b", "pallas", mesh, local, probe,
                 oracle["gemma_2b_pallas"], TP_PALLAS_NEW, rank, world, smi,
                 sites=False))
+        if shape == TP_POD_MESH:
+            res["runs"][-1]["pod_rows"] = tp_pod_check(
+                "gemma_2b", "pallas_fused", model, local,
+                oracle["gemma_2b"]["prompts"].to(device_lib.resolve()))
         del local, probe
         torch.cuda.empty_cache()
     res["gemma_s"] = time.perf_counter() - t0
@@ -6565,43 +6681,28 @@ def phase_tp_rank(rank: int, world: int, path: str, smi: str) -> dict:
     return res
 
 
-def phase_tp(dev, smi: str) -> dict:
-    """32. Dense LMs served tensor-parallel over 4 gloo ranks on the one
-    card: Gemma-2B at full width on (data 1, model 4) and (2, 2), Yi-34B
-    at its widths cut to 2 layers on (1, 4), held to the port's unsharded
-    steps run first in this process."""
-    from repro_torch.launch import mesh as mesh_lib
-    t_phase = time.perf_counter()
-    n_geoms = phase_tp_kernels(dev)
-    print(f"phase 32 on {smi}: {TP_RANKS} gloo ranks on one card; "
-          f"Gemma-2B ({TP_LAYERS} layers, full width, bf16) on meshes "
-          f"{TP_MESHES}, Yi-34B (widths published, {TP_YI_LAYERS} layers) "
-          f"on (1, 4); {TP_BATCH} prompts of {TP_PROMPT}, max_len "
-          f"{TP_MAX_LEN}; the ranks time-share the card, so the host "
-          f"times are no scaling figure")
-    oracle = {}
-    for arch, engine, new, key in (
-            ("gemma_2b", "pallas_fused", TP_NEW, "gemma_2b"),
-            ("gemma_2b", "pallas", TP_PALLAS_NEW, "gemma_2b_pallas"),
-            ("yi_34b", "pallas_fused", TP_YI_NEW, "yi_34b")):
-        if arch not in oracle.get("_built", ()):
-            oracle.pop("_params", None)
+def tp_oracles(dev, todo, oracle: dict, params=None) -> dict:
+    """The port's unsharded steps of each (arch, engine, new, key) of
+    ``todo`` into ``oracle[key]``, run in this process on the card (on
+    ``params``, the arch's whole tree, if given), each with its witness:
+    the same steps, fed the same tokens, with every trunk nudged by ~1 f32
+    ulp (the model's own sensitivity to a reassociated sum)."""
+    built = None if params is None else todo[0][0]
+    for arch, engine, new, key in todo:
+        if arch != built:
+            params = None
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            oracle["_params"] = tp_params(tp_model(arch, engine))
-            oracle["_built"] = (arch,)
+            params, built = tp_params(tp_model(arch, engine)), arch
             print(f"  {arch}: the whole tree drawn on the card in "
                   f"{time.perf_counter() - t0:.1f} s, "
                   f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
-        oracle[key] = tp_oracle_run(arch, engine, oracle["_params"], new)
+        oracle[key] = tp_oracle_run(arch, engine, params, new)
         print(f"  unsharded {arch} {engine}: decode step "
               f"{oracle[key]['step_ms']:.2f} ms (host clock), launches "
               f"{oracle[key]['launches']}", flush=True)
-        # the witness: the same steps, fed the same tokens, with every
-        # trunk nudged by ~1 f32 ulp (the model's own sensitivity to a
-        # reassociated sum)
         with nudged_kernels(dev):
-            w = tp_oracle_run(arch, engine, oracle["_params"], new,
+            w = tp_oracle_run(arch, engine, params, new,
                               feed=oracle[key]["tokens"])
         ref = oracle[key]
         oracle[key]["witness"] = {
@@ -6616,23 +6717,23 @@ def phase_tp(dev, smi: str) -> dict:
               f"{ref['witness']['first_rel']:.3e} of the absmax away, tokens "
               f"agree in {ref['witness']['agree']:.4f} of (row, step) pairs",
               flush=True)
-    del oracle["_params"], oracle["_built"]
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    path = os.path.join(ROOT, "build", "tp_oracle.pt")
-    torch.save(oracle, path)
-    t0 = time.perf_counter()
-    ranks = mesh_lib.spawn(phase_tp_rank, TP_RANKS, backend="gloo",
-                           args=(path, smi), deadline_s=TP_DEADLINE_S)
-    spawn_s = time.perf_counter() - t0
+    return oracle
+
+
+def tp_report(phase: str, ranks: list, smi: str) -> dict:
+    """Every run of the ranks printed (checks held, host times, bytes sent
+    by kind, rank 0's kernel calls of a step timed with the others idle);
+    {run key: launches per step and the timed pass}."""
     tp = {}
     for i, run in enumerate(ranks[0]["runs"]):
         runs = [r["runs"][i] for r in ranks]
-        key = (f"{run['model']}-{run['engine']}-"
-               f"{run['mesh'][0]}x{run['mesh'][1]}")
+        key = run["key"]
         lp = [x["launches_per_step"] for x in runs]
         wit = run["witness"]
-        print(f"(32) {key}: prefill logits {run['logits_rel']:.3e} and "
+        print(f"({phase}) {key}: prefill logits {run['logits_rel']:.3e} and "
               f"first decode logits {run['first_rel']:.3e} of the unsharded "
               f"absmax (witness {wit['logits_rel']:.3e}, "
               f"{wit['first_rel']:.3e}); tokens agree in {run['agree']:.4f} "
@@ -6647,18 +6748,24 @@ def phase_tp(dev, smi: str) -> dict:
               f"{[round(x['prefill_ms'], 1) for x in runs]}; decode step "
               + "; ".join(f"{np.median(x['step_ms']):.1f}" for x in runs)
               + f" (median of {len(run['step_ms'])}) [{smi}]")
-        sums = [{k: sum(x[what].get(k, 0) for x in runs)
-                 for k in sorted({k for x in runs for k in x[what]})}
-                for what in ("prefill_bytes", "step_bytes")]
-        print(f"  bytes sent over the {len(runs)} ranks by kind: a prefill "
-              f"{sums[0]}, a decode step {sums[1]}")
+        print(f"  bytes sent per rank by kind: a prefill "
+              f"{[x['prefill_bytes'] for x in runs]}, a decode step "
+              f"{[x['step_bytes'] for x in runs]}")
         if "sites" in run:
             print(f"  layer 0: row-parallel reduced trunks bitwise the "
                   f"rank-order sums of the plain version over k_layout "
                   f"(blocks a rank: {run['sites']['row_blocks']}), "
-                  f"{run['sites']['col_sites']} column-parallel trunks "
-                  f"bitwise the unsharded columns; a row decoded at batch "
-                  f"{TP_BATCH} bitwise the same at batch {run['batch']}")
+                  f"{[x['sites']['col_sites'] for x in runs]} "
+                  f"column-parallel trunks a rank bitwise the unsharded "
+                  f"columns")
+        if "batch" in run:
+            print(f"  a row decoded at batch {TP_BATCH} bitwise the same "
+                  f"at batch {run['batch']}")
+        if "pod_rows" in run:
+            print(f"  over pod x data: each rank's {run['pod_rows']} rows' "
+                  f"logits of two decode steps bitwise the unsharded "
+                  f"{TP_BATCH}-row steps', the gathered tokens bitwise "
+                  f"their argmax")
         t = run["pass"]
         lib = (f", torch._int_mm {t['library_ms']:.3f}"
                if "library_ms" in t else "")
@@ -6667,14 +6774,177 @@ def phase_tp(dev, smi: str) -> dict:
               f"{t['device_ms']:.3f}), plain {t['plain_ms']:.3f}, bound "
               f"{t['bound_ms']:.3f} ({t['bound_by']}){lib}; per-rank "
               f"geometries {run['geoms']} [{smi}]")
-        tp[key] = {"launches_per_step": lp, "pass": t}
+        tp[key] = {"launches_per_step": lp, "pass": t,
+                   "step_bytes": [x["step_bytes"] for x in runs]}
     print(f"  builds in turn per rank (s): "
           f"{[[round(b, 1) for b in r['build_s']] for r in ranks]}; peak "
           f"device memory per rank {[round(r['peak_gib'], 2) for r in ranks]}"
           f" GiB (sum {sum(r['peak_gib'] for r in ranks):.2f})")
-    print(f"phase 32 {time.perf_counter() - t_phase:.1f} s ({n_geoms} "
+    return tp
+
+
+def tp_dry_bytes(phase: str, shape, archs, tp: dict):
+    """Each arch's serve step per rank on ``meta`` over a fake world of
+    ``shape`` (``launch.dryrun``) against the bytes the gloo ranks sent a
+    decode step, rank by rank and kind by kind."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    names = ("pod", "data", "model")[-len(shape):]
+    with dryrun.dry_world(math.prod(shape)):
+        mesh = mesh_lib.make_mesh(shape, names, backend=mesh_lib.FAKE)
+        coords = [dict(zip(names, np.unravel_index(r, shape)))
+                  for r in range(mesh.size)]
+        for arch in archs:
+            rec = dryrun.lower_cell(
+                arch, "decode_32k", mesh, cfg=tp_config(arch), ranks=coords,
+                engine="pallas_fused", seq=TP_MAX_LEN, gbatch=TP_BATCH)
+            key = (f"{arch.replace('_', '-')}-pallas_fused-"
+                   + "x".join(map(str, shape)))
+            got = [r["bytes_sent"] for r in rec["ranks"]]
+            check(got == tp[key]["step_bytes"], f"dry run {key}: bytes a "
+                  f"rank {got} != the ranks' {tp[key]['step_bytes']}")
+            print(f"({phase}) dry run of {key} on a fake {shape} world: "
+                  f"every rank's bytes a decode step equal the gloo "
+                  f"ranks' {got}", flush=True)
+    print(f"  dry runs {time.perf_counter() - t0:.1f} s")
+
+
+def phase_tp(dev, smi: str) -> tuple[dict, dict]:
+    """32. Dense LMs served tensor-parallel over 4 gloo ranks on the one
+    card: Gemma-2B at full width on (data 1, model 4), (2, 2) and (pod 2,
+    data 2, model 1), Yi-34B at its widths cut to 2 layers on (1, 4), held
+    to the port's unsharded steps run first in this process.  Returns the
+    runs and the unsharded steps (phase 34 holds its runs to them too)."""
+    t_phase = time.perf_counter()
+    geoms = phase_tp_kernels(dev)
+    print(f"phase 32 on {smi}: {TP_RANKS} gloo ranks on one card; "
+          f"Gemma-2B ({TP_LAYERS} layers, full width, bf16) on meshes "
+          f"{TP_MESHES + (TP_POD_MESH,)}, Yi-34B (widths published, "
+          f"{TP_YI_LAYERS} layers) on (1, 4); {TP_BATCH} prompts of "
+          f"{TP_PROMPT}, max_len {TP_MAX_LEN}; the ranks time-share the "
+          f"card, so the host times are no scaling figure")
+    oracle = tp_oracles(dev, (
+        ("gemma_2b", "pallas_fused", TP_NEW, "gemma_2b"),
+        ("gemma_2b", "pallas", TP_PALLAS_NEW, "gemma_2b_pallas"),
+        ("yi_34b", "pallas_fused", TP_YI_NEW, "yi_34b")), {})
+    ranks, spawn_s = tp_spawn(phase_tp_rank, TP_RANKS, oracle, "tp_oracle",
+                              smi)
+    tp = tp_report("32", ranks, smi)
+    tp_dry_bytes("32", TP_POD_MESH, ("gemma_2b",), tp)
+    print(f"phase 32 {time.perf_counter() - t_phase:.1f} s ({len(geoms)} "
           f"kernel geometries; ranks {spawn_s:.1f} s: Gemma "
           f"{ranks[0]['gemma_s']:.1f} s, Yi {ranks[0]['yi_s']:.1f} s)")
+    return tp, {"oracle": oracle, "geoms": geoms}
+
+
+def tp_spawn(fn, n: int, oracle: dict, name: str, smi: str):
+    """``fn`` in ``n`` spawned gloo ranks on the card, the unsharded steps
+    handed over through a file under ``build/``; (results, seconds)."""
+    from repro_torch.launch import mesh as mesh_lib
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", f"{name}.pt")
+    torch.save(oracle, path)
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(fn, n, backend="gloo", args=(path, smi),
+                           deadline_s=TP_DEADLINE_S)
+    return ranks, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# phase 34: the dense layouts of uneven heads, over 3 ranks
+# ---------------------------------------------------------------------------
+
+TP3_RANKS = 3
+TP3_MESH = (1, 3)               # (data, model): 56, 40 and 8 heads all
+                                # divide 4, so no production dense model
+                                # splits its heads unevenly over 4 ranks
+# (arch, decode steps): Gemma-2B at phase 32's 9 layers (heads 3, 3, 2;
+# its one kv head read by every rank; 256 % 3: a whole cache), Yi-34B and
+# Qwen1.5-32B (with its qkv bias) at 2 layers (heads 19, 19, 18 and 14,
+# 14, 12; Yi's kv heads 3, 3, 2 a rank read at rep 7, groups split)
+TP3_ARCHS = (("gemma_2b", TP_NEW), ("yi_34b", TP_YI_NEW),
+             ("qwen15_32b", TP_YI_NEW))
+
+
+def phase_tp_uneven_rank(rank: int, world: int, path: str, smi: str) -> dict:
+    """Phase 34, one spawned rank.  An arch phase 32 did not run gets its
+    unsharded steps on rank 0, from the whole tree of its build turn (the
+    parent would have to draw it too, and Qwen1.5-32B's is 29 GiB: its
+    readout U alone 21.5), handed to the others."""
+    import torch.distributed as dist
+    from repro_torch import device as device_lib
+    # before the rank's first CUDA allocation: Qwen1.5-32B's whole tree
+    # (29 GiB) beside two ranks' blocks (14 GiB each) leaves no room for
+    # the caching allocator's fragments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    dev = device_lib.resolve()
+    torch.cuda.reset_peak_memory_stats()
+    oracle = torch.load(path)
+    mesh = tp_meshes((TP3_MESH,))[TP3_MESH]
+    res = {"runs": [], "build_s": [], "arch_s": {}, "held_gib": {}}
+    for arch, new in TP3_ARCHS:
+        t0 = time.perf_counter()
+        # what the rank holds before it builds (nothing of the last arch)
+        res["held_gib"][arch] = torch.cuda.memory_allocated() / 2 ** 30
+        todo = () if arch in oracle else ((arch, "pallas_fused", new, arch),)
+        local, probe, build_s = tp_build(
+            tp_model(arch, "pallas_fused", mesh), rank, world,
+            with_whole=lambda whole: rank == 0 and todo and tp_oracles(
+                dev, todo, oracle, params=whole))
+        if todo:
+            box = [oracle.get(arch)]
+            dist.broadcast_object_list(box, src=0)
+            oracle[arch] = box[0]
+        res["build_s"].append(build_s)
+        res["runs"].append(tp_serve(arch, "pallas_fused", mesh, local, probe,
+                                    oracle[arch], new, rank, world, smi))
+        if arch == "gemma_2b":          # kernel 4 on the same blocks
+            res["runs"].append(tp_serve(
+                arch, "pallas", mesh, local, probe,
+                oracle["gemma_2b_pallas"], TP_PALLAS_NEW, rank, world, smi,
+                sites=False))
+        del local, probe
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["arch_s"][arch] = time.perf_counter() - t0
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def phase_tp_uneven(dev, smi: str, held: dict) -> dict:
+    """34. Dense LMs whose heads split unevenly over the model axis (a
+    rank holds ``h_layout(h, 3)``'s heads), GQA groups split between
+    ranks, a whole cache on every rank: Gemma-2B, Yi-34B and Qwen1.5-32B
+    at full width over 3 gloo ranks on the one card, on (data 1, model 3),
+    held as phase 32 holds its runs (``held``: its unsharded steps and
+    the kernel geometries 32(a) held)."""
+    t_phase = time.perf_counter()
+    runs = [(arch, (TP3_MESH,)) for arch, _ in TP3_ARCHS]
+    # skipped: 32(a)'s geometries, and Gemma-2B's unsharded ones (phases 5
+    # and 9 hold those in all three modes; a row's bits do not depend on M)
+    geoms = phase_tp_kernels(dev, tp_geometries(
+        runs, skip=set(held["geoms"]) | set(LM_GEOMS)), "34(a)")
+    print(f"phase 34 on {smi}: {TP3_RANKS} gloo ranks on one card, mesh "
+          f"{TP3_MESH}; Gemma-2B ({TP_LAYERS} layers), Yi-34B and "
+          f"Qwen1.5-32B ({TP_YI_LAYERS} layers), full width, bf16; "
+          f"{TP_BATCH} prompts of {TP_PROMPT}, max_len {TP_MAX_LEN}; "
+          f"Qwen's unsharded steps on rank 0", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  this process: {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB "
+          f"reserved as the ranks start", flush=True)
+    ranks, spawn_s = tp_spawn(phase_tp_uneven_rank, TP3_RANKS,
+                              held["oracle"], "tp3_oracle", smi)
+    tp = tp_report("34", ranks, smi)
+    print(f"  GiB a rank holds before each build: "
+          f"{[r['held_gib'] for r in ranks]}")
+    tp_dry_bytes("34", TP3_MESH, [a for a, _ in TP3_ARCHS], tp)
+    print(f"phase 34 {time.perf_counter() - t_phase:.1f} s ({len(geoms)} "
+          f"new kernel geometries; ranks {spawn_s:.1f} s: "
+          + ", ".join(f"{a} {t:.1f} s" for a, t in
+                      ranks[0]["arch_s"].items()) + ")")
     return tp
 
 
@@ -6996,8 +7266,11 @@ def main() -> int:
     lap("30")
     dist_train = phase_dist_train(smi)
     lap("31")
-    tp_serve = phase_tp(dev, smi)
+    tp_serve, tp_held = phase_tp(dev, smi)
     lap("32")
+    tp_serve.update(phase_tp_uneven(dev, smi, tp_held))
+    del tp_held
+    lap("34")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -7069,14 +7342,15 @@ def main() -> int:
             out["dist_train_launches"] = dist_train[name]["launches"]
             out["dist_train"] = dist_train[name]["kernel"]
         if name in ("rebranch_matmul", "cim_matmul"):
-            # phase 32: per tensor-parallel run (model, engine, mesh), each
-            # rank's launches per decode step, and rank 0's calls of one
+            # phases 32 and 34: per tensor-parallel run (model, engine,
+            # mesh), each rank's launches and bytes sent per decode step,
+            # and rank 0's calls of one
             # decode step timed with the other ranks idle (``ms``,
             # ``device_ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
             # ``library_ms``, torch._int_mm with W column-major)
             out["tp_serve"] = {
                 k: v for k, v in tp_serve.items()
-                if k.endswith("-pallas-1x4") == (name == "cim_matmul")}
+                if ("-pallas-" in k) == (name == "cim_matmul")}
         if name == "cim_matmul":
             # phase 27: launches over each new family's 10 train steps at
             # the 2-layer cut, and per step (checked: the block linears

@@ -206,8 +206,9 @@ class CompiledModel:
         """This rank's local tree of the whole tree ``params`` under the
         model's mesh: every leaf's block under ``param_shardings`` (GSPMD's
         even layout), the contracting rows of row-parallel ``w_q`` and
-        ``C`` as whole k-blocks (``sharding.k_layout``).  Without a mesh,
-        or on one rank, ``params`` itself."""
+        ``C`` as whole k-blocks (``sharding.k_layout``), the attention's q
+        and o on whole heads (``sharding.param_bounds``).  Without a
+        mesh, or on one rank, ``params`` itself."""
         self._lm_only("shard_params")
         if self.mesh is None or self.mesh.size == 1:
             return params
@@ -220,7 +221,8 @@ class CompiledModel:
 
         with torch.no_grad():
             return bridge.map_named(params, lambda path, leaf: shd.local_param(
-                path, leaf, shardings[path], rows_of(path)))
+                path, leaf, shardings[path], rows_of(path),
+                self.cfg.head_dim))
 
     @_scoped
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None):

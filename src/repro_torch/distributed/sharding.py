@@ -35,13 +35,17 @@ no rows still runs each op on empty tensors
 
 The LM's tensor parallelism runs over the ``model`` axis (rules
 ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and ``seq_sp``), its data
-parallelism over ``data`` (``batch``).  :func:`linear_tp` gives a ReBranch
+parallelism over ``data`` (``batch``; over ``pod`` and ``data`` flattened
+in mesh order, :func:`gather_flat`).  :func:`linear_tp` gives a ReBranch
 linear its role from the same ``_WIDE_OUT``/``_WIDE_IN`` tables that
 :func:`param_specs` reads, so layout and execution cannot disagree: a
 column-parallel site holds its output columns, a row-parallel one whole
 k-blocks of its contraction (:func:`k_layout`, kept beside
 :func:`h_layout`), because a trunk kernel quantises x once per (row,
 k-block) and an even split that cuts a block would compute another model.
+The attention's q holds whole heads (:func:`head_layout`: GSPMD's uneven
+layout of the heads, a trailing rank may hold none) and its o takes them
+in that layout, whatever the size rule says of their widths.
 The reductions gather every rank's f32 partial (:func:`gather_parts`) and
 add them in rank order (:func:`rank_sum`, ascending k), the same bits on
 every rank; a gloo all-reduce adds each chunk in another order.  Column
@@ -105,7 +109,8 @@ _rules: contextvars.ContextVar = contextvars.ContextVar(
 
 # rows and bytes this process sent through move_rows, by kind ('halo',
 # 'relayout', 'gather'; their adjoints as 'halo_adjoint' and so on), since
-# the last reset_traffic()
+# the last reset_traffic(); what runs under a ``launch.cost`` record counts
+# into that record instead (a dry run's ranks share this process)
 rows_sent: collections.Counter = collections.Counter()
 bytes_sent: collections.Counter = collections.Counter()
 
@@ -237,16 +242,17 @@ def _collective_device(group, x: torch.Tensor) -> torch.device:
 
 
 def _sent(kind: str, nbytes: int, rows: int = 0):
-    """Count ``nbytes`` (and ``rows``) this rank sends under ``kind``, into
-    the counters and the active ``launch.cost`` record (times the runs the
-    call stands for, ``cost.repeated``)."""
+    """Count ``nbytes`` (and ``rows``) this rank sends under ``kind``
+    (times the runs the call stands for, ``cost.repeated``): into the
+    active ``launch.cost`` record, else into :data:`rows_sent` and
+    :data:`bytes_sent`."""
     t = cost.times()
-    nbytes *= t
-    rows_sent[kind] += rows * t
-    bytes_sent[kind] += nbytes
     rec = cost.recording()
     if rec is not None:
-        rec.sent("bytes_sent", kind, nbytes)
+        rec.sent("bytes_sent", kind, nbytes * t)
+        return
+    rows_sent[kind] += rows * t
+    bytes_sent[kind] += nbytes * t
 
 
 def global_h(x: torch.Tensor, mesh, axis: str, dim: int = 1) -> int:
@@ -416,6 +422,35 @@ def gather_batch(x: torch.Tensor) -> torch.Tensor:
                      dim=0)
 
 
+def gather_flat(x: torch.Tensor, size: int, mesh, axes, dim: int = 0,
+                kind: str = "gather") -> torch.Tensor:
+    """The whole ``size`` along ``dim`` on every rank from the blocks of
+    GSPMD's layout over ``axes`` flattened in mesh order (block ``c_a *
+    n_b + c_b`` over axes ``(a, b)``, as :func:`block_bounds` deals
+    them): one :func:`move_rows` per axis of size > 1, the innermost
+    first, each on that axis' own group, so the rows of a line's blocks
+    meet before the lines do."""
+    sizes = [mesh.shape[a] for a in axes]
+    layout = h_layout(size, math.prod(sizes))
+    coords = [mesh.coordinate(a) for a in axes]
+    for i in reversed(range(len(axes))):
+        m = sizes[i]
+        if m == 1:
+            continue
+        span = math.prod(sizes[i + 1:])       # blocks merged so far
+        first = 0                             # this line's first block
+        for c, n in zip(coords[:i], sizes[:i]):
+            first = first * n + c
+        first *= m * span
+
+        def rows(b0: int, nb: int) -> tuple[int, int]:
+            return layout[b0][0], layout[b0 + nb - 1][1]
+        have = [rows(first + c * span, span) for c in range(m)]
+        want = [rows(first, m * span)] * m
+        x = move_rows(x, have, want, mesh, axes[i], kind, dim=dim)
+    return x
+
+
 def mesh_group(mesh):
     """The process group of all of ``mesh``'s ranks: the one axis of size
     > 1, else the world (a mesh spans the whole world)."""
@@ -459,7 +494,9 @@ def model_axis(mesh=None):
 def axis_layout(logical: str, size: int, mesh=None):
     """``(mesh, axis, layout)`` when :func:`shard` would cut a dimension
     of ``size`` over the ``logical`` axis (the size rule), ``layout`` the
-    GSPMD blocks of every rank; else None."""
+    GSPMD blocks of every rank; else None.  Over several mesh axes
+    ``axis`` is their tuple and the blocks are dealt to the axes
+    flattened in mesh order (:func:`block_bounds`)."""
     mesh = mesh or current_mesh()
     if mesh is None or mesh.size == 1:
         return None
@@ -470,12 +507,9 @@ def axis_layout(logical: str, size: int, mesh=None):
     names = tuple(a for a in names if mesh.shape[a] > 1)
     if not names:
         return None
-    if len(names) != 1:
-        raise NotImplementedError(
-            f"the LM's {logical!r} axis over {names} (more than one mesh "
-            f"axis) comes with {LM_SLICE}")
     _need_groups(mesh)
-    return mesh, names[0], h_layout(size, mesh.shape[names[0]])
+    n = math.prod(mesh.shape[a] for a in names)
+    return mesh, names[0] if len(names) == 1 else names, h_layout(size, n)
 
 
 def batch_block(b: int, mesh=None) -> tuple[int, int]:
@@ -518,17 +552,41 @@ class LinearTP:
         return self.mesh.coordinate(self.axis)
 
 
-def linear_tp(site: str, d_in: int, d_out: int, rows: int = 128):
+def head_layout(width: int, head_dim: int, n: int) -> list[tuple[int, int]]:
+    """The columns of ``width // head_dim`` whole heads dealt to ``n`` ranks
+    in GSPMD's uneven layout (:func:`h_layout` of the heads): Yi-34B's 56
+    heads over 16 ranks go 4 to each of ranks 0-13 and none to 14-15."""
+    return [(a * head_dim, b * head_dim)
+            for a, b in h_layout(width // head_dim, n)]
+
+
+def linear_tp(site: str, d_in: int, d_out: int, rows: int = 128,
+              head_dim: int | None = None):
     """The :class:`LinearTP` of the linear ``site`` (its key in the tree:
     ``"q"``, ``"o"``, ``"down"``, ``"lm_head"``...) of ``d_in`` x
-    ``d_out`` under the bound mesh, from the spec :func:`param_specs`
-    gives its ``w_q``; None without a model axis or where the size rule
-    keeps the site whole."""
+    ``d_out`` under the bound mesh; None without a model axis.  The
+    attention's head sites run on whole heads of ``head_dim`` columns
+    (required for them): ``q`` column-parallel on the rank's heads
+    (:func:`head_layout`; ``cols`` gives them), ``o`` row-parallel on
+    whole k-blocks, its input in the heads' layout.  Every other site
+    takes its role from the spec :func:`param_specs` gives its ``w_q``
+    (None where the size rule keeps it whole)."""
     at = model_axis()
     if at is None:
         return None
     mesh, axis = at
     n = mesh.shape[axis]
+    if site in ("q", "o"):
+        if not head_dim:
+            raise ValueError(f"linear_tp({site!r}) deals whole heads: "
+                             f"pass head_dim")
+        if site == "q":
+            return LinearTP("column", mesh, axis, d_in, d_out,
+                            cols=head_layout(d_out, head_dim,
+                                             n)[mesh.coordinate(axis)])
+        return LinearTP("row", mesh, axis, d_in, d_out,
+                        x_layout=tuple(head_layout(d_in, head_dim, n)),
+                        k_ranges=tuple(k_layout(d_in, n, rows)))
     shape = types.SimpleNamespace(shape=(d_in, d_out), ndim=2)
     spec = tuple(_spec_of(f"['{site}']['rom']['w_q']", shape, mesh))
     if spec == (None, axis):
@@ -814,31 +872,60 @@ def is_row_contraction(path: str) -> bool:
             and ("w_q" in path or "['w']" in path or "['C']" in path))
 
 
+def head_site(path: str) -> str | None:
+    """``"q"`` or ``"o"`` for the leaves of the attention's head sites that
+    :func:`param_bounds` deals in whole heads (q's ``w_q``/``w``,
+    ``w_scale`` and ``U`` columns; o's contracting rows), else None."""
+    if "['attn']" not in path or "experts" in path:
+        return None
+    if "['q']" in path and any(k in path for k in (
+            "w_q", "['w']", "w_scale", "['U']")):
+        return "q"
+    if "['o']" in path and is_row_contraction(path):
+        return "o"
+    return None
+
+
 def param_bounds(path: str, shape, sharding: NamedSharding,
-                 rows: int = 128) -> list[tuple[int, int]]:
+                 rows: int = 128,
+                 head_dim: int | None = None) -> list[tuple[int, int]]:
     """:func:`block_bounds` of a parameter leaf, with the contracting rows
-    of a row-parallel site dealt as whole k-blocks (:func:`k_layout`)."""
+    of a row-parallel site dealt as whole k-blocks (:func:`k_layout`; over
+    several mesh axes flattened in mesh order).  Over a model axis of
+    size > 1 the head sites' leaves (:func:`head_site`) are cut on whole
+    heads of ``head_dim`` columns (required for them), whatever the size
+    rule says: q's output columns by :func:`head_layout`, o's contracting
+    rows by :func:`k_layout`."""
+    m = sharding.mesh
     bounds = block_bounds(shape, sharding)
+    site = head_site(path)
+    axis = site and mesh_axis_for("heads", m)
+    if axis:
+        if not head_dim:
+            raise ValueError(f"{path} is cut on whole heads: pass head_dim")
+        n, c = m.shape[axis], m.coordinate(axis)
+        if site == "q":
+            bounds[-1] = head_layout(shape[-1], head_dim, n)[c]
+        else:
+            bounds[-2] = k_layout(shape[-2], n, rows)[c]
+        return bounds
     if not is_row_contraction(path):
         return bounds
     for d, part in enumerate(tuple(sharding.spec)):
         if part is None:
             continue
-        names = part if isinstance(part, tuple) else (part,)
-        if len(names) != 1:
-            raise NotImplementedError(
-                f"{path}: contracting rows over {names} come with {LM_SLICE}")
-        m = sharding.mesh
-        bounds[d] = k_layout(shape[d], m.shape[names[0]],
-                             rows)[m.coordinate(names[0])]
+        n, c = 1, 0
+        for a in (part if isinstance(part, tuple) else (part,)):
+            n, c = n * m.shape[a], c * m.shape[a] + m.coordinate(a)
+        bounds[d] = k_layout(shape[d], n, rows)[c]
     return bounds
 
 
 def local_param(path: str, x: torch.Tensor, sharding: NamedSharding,
-                rows: int = 128) -> torch.Tensor:
+                rows: int = 128, head_dim: int | None = None) -> torch.Tensor:
     """This rank's block of the whole parameter leaf ``x`` at ``path``
     (:func:`param_bounds`)."""
-    return _cut(x, param_bounds(path, x.shape, sharding, rows))
+    return _cut(x, param_bounds(path, x.shape, sharding, rows, head_dim))
 
 
 # ---------------------------------------------------------------------------

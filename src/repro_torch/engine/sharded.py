@@ -13,10 +13,12 @@ delegates to 'pallas' when no mesh is bound or the ``"cnn_h"`` axis has
 size 1.  When the halo would span more than one neighbour (H too small for
 the mesh) the layer is gathered on every rank, run whole through kernel 1
 and re-split: correct, not sharded; it warns once per geometry and adds
-one to :data:`fallbacks`.  ``grads=True``: the sharded trunk's backward
-is the STE on each rank's extended slab, and the halo exchange's adjoint
-returns the halo rows' gradient to their owners (a gathered layer's
-gather sums its gradient back), so branch training runs on the H layout.
+one to :data:`fallbacks` (under a ``launch.cost`` record, a dry run's
+rank, it adds one to the record's ``fallbacks`` and warns nothing).
+``grads=True``: the sharded trunk's backward is the STE on each rank's
+extended slab, and the halo exchange's adjoint returns the halo rows'
+gradient to their owners (a gathered layer's gather sums its gradient
+back), so branch training runs on the H layout.
 There are no ``fused_ops``: training takes the trunk + branch route.
 """
 
@@ -29,6 +31,7 @@ from repro_torch.engine import base
 from repro_torch.engine.registry import get, register
 from repro_torch.kernels import halo_conv
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import cost
 
 # trunk convs run gathered (halo does not fit) since the count was last
 # set to 0
@@ -70,7 +73,10 @@ class ShardedPallasEngine(base.TrunkEngine):
             return base.finish(y, epilogue)
         n = mesh.shape[axis]
         key = (h, kh, stride, padding, n)
-        if key not in _warned_fallbacks:
+        rec = cost.recording()
+        if rec is not None:
+            rec["fallbacks"] += cost.times()
+        elif key not in _warned_fallbacks:
             _warned_fallbacks.add(key)
             warnings.warn(
                 f"pallas_sharded: halo for H={h} kh={kh} stride={stride} "
@@ -78,7 +84,8 @@ class ShardedPallasEngine(base.TrunkEngine):
                 f"would span more than one neighbour shard); falling back "
                 f"to the unsharded 'pallas' conv for this layer (gathered "
                 f"on every rank and re-split)", stacklevel=3)
-        fallbacks += 1
+        if rec is None:
+            fallbacks += 1
         y = halo_conv.gathered(
             lambda xf: kops.trunk_conv(cfg, stride, padding, xf, w_q,
                                        w_scale), x, mesh, axis, h)

@@ -29,9 +29,13 @@ or ``cost.analyse(fn, *args)`` for the dict the reference's
                            ``work``, the launches by their ``(int8_ops,
                            f32_ops, bytes)`` (a roofline bound per
                            launch).
-  * ``bytes_sent``, ``wire_bytes``: the port's exchange counters
-                           (``sharding.bytes_sent`` by kind,
-                           ``compress.wire_bytes``) over this record.
+  * ``bytes_sent``, ``wire_bytes``: the port's exchange counters by
+                           kind over this record (outside a record they
+                           count into ``sharding.bytes_sent`` and
+                           ``compress.wire_bytes``).
+  * ``fallbacks``        : the 'pallas_sharded' layers run gathered
+                           (``engine.sharded.fallbacks`` outside a
+                           record).
   * ``peak_bytes``         : the peak of the storages created while
                            counting that are alive at once (storages made
                            before the record are not tracked).
@@ -147,7 +151,7 @@ class Record(dict):
             flops=0, hbm_bytes=0, collective_bytes=0,
             collectives=dict.fromkeys(COLLECTIVES, 0),
             by_op={}, kernels={}, bytes_sent=collections.Counter(),
-            wire_bytes=collections.Counter(), peak_bytes=0)
+            wire_bytes=collections.Counter(), peak_bytes=0, fallbacks=0)
         self._hidden = 0            # counts nothing (a kernel's wrapper)
         self._untracked = 0         # nor tracks storages (shape helpers)
         self._live = {}             # id(storage) -> (serial, nbytes)

@@ -39,12 +39,12 @@ counted apart; any other exception is a ``[FAIL]``.
 
 ``--shape cnn_serve`` runs the H-sharded CNN cells (DarkNet-19 and
 ResNet-18 on 'pallas_sharded', :data:`CNN_SERVE`) over a fake world of 8
-ranks; the ranks of a CNN cell run side by side in threads, because a
-rank learns H from the others' slab heights (``sharding.global_h``,
-:meth:`RankMesh.dry_sizes`).  ``--shape fig12`` walks ROM/SRAM area
-budgets through ``plan.sweep``/``plan.solve`` (the paper's Fig. 12),
-records equal to the reference's.  The reference's ``--no-donate`` has
-no counterpart: the port donates nothing.
+ranks; the ranks of a CNN cell run in threads that take turns (one runs
+at a time), because a rank learns H from the others' slab heights
+(``sharding.global_h``, :meth:`RankMesh.dry_sizes`).  ``--shape fig12``
+walks ROM/SRAM area budgets through ``plan.sweep``/``plan.solve`` (the
+paper's Fig. 12), records equal to the reference's.  The reference's
+``--no-donate`` has no counterpart: the port donates nothing.
 
 Usage (a host-only tool, as the reference):
 
@@ -108,24 +108,56 @@ def dry_world(world_size: int):
 
 class _Sizes:
     """The slab sizes the ranks of one line exchange (``global_h``), for
-    ranks run side by side in threads: each posts its size and waits for
-    the line's others."""
+    ranks run side by side in threads that take turns: one thread runs at
+    a time (:meth:`turn`), and it hands the turn on only while it waits
+    in :meth:`exchange` for the line's other sizes.  So no two ranks' ops
+    ever interleave: a fake group takes one ``batch_isend_irecv`` at a
+    time (its coalescing state is per group, and every rank's view of the
+    mesh shares this process's groups), and storage finalizers and
+    warnings are process-wide.
+
+    The ranks cannot simply run one after another: ``global_h`` needs
+    the whole H, and a rank's own slab does not fix it (over 4 ranks,
+    rank 0 holds 4 rows of any H from 13 to 16), so each rank's forward
+    waits at every exchange for the sizes of ranks that have not run
+    that far.  The threads are that loop, suspended at the exchanges."""
 
     def __init__(self):
         self.cond = threading.Condition()
         self.posted = {}
         self.failed = False
+        self.busy = False
+
+    def _take(self, ready, what: str):
+        """Wait (holding ``cond``) until ``ready()`` and the turn is free,
+        then take the turn."""
+        if not self.cond.wait_for(
+                lambda: (ready() and not self.busy) or self.failed,
+                SIZE_TIMEOUT_S):
+            raise RuntimeError(f"dry run: {what} timed out")
+        if self.failed:
+            raise RuntimeError("dry run: another rank failed")
+        self.busy = True
+
+    @contextlib.contextmanager
+    def turn(self):
+        """Run the block as the one thread running."""
+        with self.cond:
+            self._take(lambda: True, "the turn")
+        try:
+            yield
+        finally:
+            with self.cond:
+                self.busy = False
+                self.cond.notify_all()
 
     def exchange(self, key, n: int, coord: int, size: int) -> list:
         with self.cond:
             got = self.posted.setdefault(key, {})
             got[coord] = size
+            self.busy = False
             self.cond.notify_all()
-            if not self.cond.wait_for(
-                    lambda: len(got) == n or self.failed, SIZE_TIMEOUT_S):
-                raise RuntimeError(f"dry run: slab sizes of {key} timed out")
-            if self.failed:
-                raise RuntimeError("dry run: another rank failed")
+            self._take(lambda: len(got) == n, f"slab sizes of {key}")
             return [got[q] for q in range(n)]
 
     def fail(self):
@@ -207,6 +239,7 @@ def measure(fn, args, mesh=None):
         "collectives": rec.summary()["collectives"],
         "bytes_sent": dict(rec["bytes_sent"]),
         "wire_bytes": dict(rec["wire_bytes"]),
+        "fallbacks": rec["fallbacks"],
         "kernels": {k: {f: v[f] for f in ("launches", "flops",
                                           "trunk_flops", "bytes")}
                     for k, v in rec["kernels"].items()},
@@ -311,9 +344,10 @@ def cnn_serve_config(name: str, size: int):
 
 def lower_cnn_cell(name: str, mesh, *, size=None, gbatch=None) -> dict:
     """One H-sharded CNN forward on 'pallas_sharded' (:data:`CNN_SERVE`,
-    or ``size``/``gbatch``), every rank of ``mesh`` run side by side in a
-    thread; the record of the rank with the largest peak, the halo
-    exchange in ``collectives``' collective-permute bytes."""
+    or ``size``/``gbatch``), every rank of ``mesh`` in a thread of its
+    own, the threads taking turns (:class:`_Sizes`); the record of the
+    rank with the largest peak, the halo exchange in ``collectives``'
+    collective-permute bytes."""
     s0, b0 = CNN_SERVE.get(name, (None, None))
     size, gbatch = size or s0, gbatch or b0
     cfg = cnn_serve_config(name, size)
@@ -328,10 +362,11 @@ def lower_cnn_cell(name: str, mesh, *, size=None, gbatch=None) -> dict:
         for a in reversed(names):
             coords[a], rest = rest % mesh.shape[a], rest // mesh.shape[a]
         try:
-            view = RankMesh(mesh, coords, sizes)
-            model = deploy.compile_model(cfg, mesh=view)
-            results[r] = measure(lambda: model.forward(whole, x),
-                                 (whole, x), view)[0]
+            with sizes.turn():
+                view = RankMesh(mesh, coords, sizes)
+                model = deploy.compile_model(cfg, mesh=view)
+                results[r] = measure(lambda: model.forward(whole, x),
+                                     (whole, x), view)[0]
         except BaseException as e:        # noqa: BLE001 - re-raised below
             errors.append(e)
             sizes.fail()

@@ -314,19 +314,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: optim.AdamWConfig | None = None,
 def gather_rows(x: torch.Tensor, mesh, global_batch: int) -> torch.Tensor:
     """The whole batch (dim 0) of ``global_batch`` rows on every rank from
     the ranks' blocks of :func:`local_batch` (``x`` itself when the batch
-    is not split)."""
+    is not split): over ``pod`` and ``data`` the blocks are dealt to the
+    two axes flattened in mesh order, and gathered one axis at a time
+    (``sharding.gather_flat``)."""
     lo, hi = shd.batch_block(global_batch, mesh)
     if hi - lo == global_batch:
         return x
-    axes = [a for a in ("pod", "data") if a in mesh.axis_names
-            and mesh.shape[a] > 1]
-    if len(axes) != 1:
-        raise NotImplementedError(
-            f"a batch over {axes} comes with {shd.LM_SLICE}")
-    n = mesh.shape[axes[0]]
-    return shd.move_rows(x, shd.h_layout(global_batch, n),
-                         [(0, global_batch)] * n, mesh, axes[0], "gather",
-                         dim=0)
+    axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+    return shd.gather_flat(x, global_batch, mesh, axes, dim=0)
 
 
 def _serving_mesh(model):

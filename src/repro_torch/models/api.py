@@ -76,9 +76,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device=None):
     """A zero cache of ``batch`` x ``max_len``.  Under a bound mesh of more
     than one rank, this rank's block of it by ``sharding.cache_spec``
-    (the batch over data, the kv heads or, where they do not divide the
-    model axis, the sequence over model); every rank's ``length`` stays
-    whole."""
+    (the batch over pod and data, the kv heads or, where they do not
+    divide the model axis, the sequence over model, or, where neither
+    does, the whole sequence on every rank); every rank's ``length``
+    stays whole.  The layout is decided here, once: a cache whose K/V
+    blocks split the sequence over the model axis says so by the key
+    ``"seq_split"`` (value None: not a leaf, so tree maps, copies and
+    byte counts keep or skip it like the layout they describe), because
+    a rank's block of a split sequence and a whole cache can have one
+    shape."""
     dtype = dtype or torch.bfloat16
     mesh = shd.current_mesh()
     if mesh is None or mesh.size == 1:
@@ -96,19 +102,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                     f"a batch-{batch} cache over {mesh!r} shards its "
                     f"sequence over every axis (kv_seq): that comes with "
                     f"{shd.LM_SLICE}")
-        if (("'k'" in path or "'v'" in path)
-                and shd.mesh_axis_for("mlp", mesh)
-                and "model" not in tuple(spec)):
-            raise NotImplementedError(
-                f"max_len {max_len} does not divide the model axis and "
-                f"the kv heads do not either: a whole cache on every rank "
-                f"comes with {shd.LM_SLICE}")
         bounds = shd.block_bounds(leaf.shape,
                                   shd.NamedSharding(mesh, spec))
         return torch.zeros([hi - lo for lo, hi in bounds], dtype=leaf.dtype,
                            device=device)
 
-    return bridge.map_named(whole, block)
+    cache = bridge.map_named(whole, block)
+    k = whole["layers"]["k"]                # the dense family's stack
+    if shd.cache_spec("['layers']['k']", k, mesh)[-3] == "model":
+        cache["layers"]["seq_split"] = None
+    return cache
 
 
 def supports_paging(cfg: ArchConfig) -> bool:
@@ -186,7 +189,8 @@ def supports_chunked_prefill(cfg: ArchConfig) -> bool:
 
 
 def cache_geometry(cfg: ArchConfig, cache) -> tuple[int, int | None]:
-    """(batch, horizon) a serve cache was built for, from shapes only.
+    """(batch, horizon) a serve cache was built for, from its shapes (and
+    ``init_cache``'s ``"seq_split"`` mark).
 
     Leaves carry batch at axis 1 under stacked layers (axis 0 otherwise).
     The horizon is the largest K/V sequence axis (full-attention layers
@@ -209,12 +213,10 @@ def cache_geometry(cfg: ArchConfig, cache) -> tuple[int, int | None]:
         return batch, None
     kv = [leaf for leaf in leaves if leaf.dim() == 4 + axis]
     horizon = max(leaf.shape[1 + axis] for leaf in kv)
-    at = shd.model_axis()
-    if at is not None and kv[0].shape[2 + axis] == cfg.num_kv_heads:
-        # a rank's block of a cache split over its sequence (every kv
-        # head on every rank, ``sharding.cache_spec``): the horizon is
-        # the whole sequence, as the reference's global cache has it
-        horizon *= at[0].shape[at[1]]
+    if isinstance(first, dict) and "seq_split" in first:
+        # a rank's block of a cache split over its sequence: the horizon
+        # is the whole sequence, as the reference's global cache has it
+        horizon *= shd.current_mesh().shape["model"]
     return batch, horizon
 
 

@@ -344,10 +344,14 @@ def _positions(b: int, s: int, cache, positions, device):
 
 
 def _attend(q, k, v, cfg: ArchConfig, layer_idx: int, positions, cache,
-            decode: bool):
+            decode: bool, group=None):
     """RoPE, the cache update and attention of projected q [B, S, H, Dh]
-    and k, v [B, S, KV, Dh]; returns (out [B, S, H, Dh], new cache)."""
+    and k, v [B, S, KV, Dh]; returns (out [B, S, H, Dh], new cache).
+    ``group`` (:func:`_group_kv`) gives, from k or v with every kv head
+    (and the cache with all of them), the kv heads q's heads read, for a
+    rank that holds some of the heads (tensor parallelism)."""
     b, s = q.shape[:2]
+    inner = _attention_of(group)
     window = 0 if cfg.uses_full_attention(layer_idx) else cfg.sliding_window
     paged = cache is not None and "table" in cache
     steps = torch.arange(s, device=q.device)
@@ -366,10 +370,10 @@ def _attend(q, k, v, cfg: ArchConfig, layer_idx: int, positions, cache,
         k_view, v_view = _write_decode(cache, k, v, length, rows)
         s_max = k_view.shape[1]
         if s == 1:
-            out = _decode_attention(q, k_view, v_view,
-                                    torch.clamp(length + 1, max=s_max))
+            out = inner(_decode_attention, q, k_view, v_view,
+                        torch.clamp(length + 1, max=s_max))
         else:
-            out = _verify_attention(q, k_view, v_view, length, s_max)
+            out = inner(_verify_attention, q, k_view, v_view, length, s_max)
         new_cache = {**cache, "length": length + s}
     else:
         if paged:
@@ -386,14 +390,15 @@ def _attend(q, k, v, cfg: ArchConfig, layer_idx: int, positions, cache,
             idx = offset + steps
             k_att = cache["k"].to(k.dtype).index_copy(1, idx, k)
             v_att = cache["v"].to(v.dtype).index_copy(1, idx, v)
-            out = _prefill_attention(q, k_att, v_att, cfg.attn_chunk,
-                                     window, offset)
+            out = inner(_prefill_attention, q, k_att, v_att,
+                        cfg.attn_chunk, window, offset)
             cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
             cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
             new_cache = {"k": cache["k"], "v": cache["v"],
                          "length": cache["length"] + s}
         else:
-            out = _chunked_causal_attention(q, k, v, cfg.attn_chunk, window)
+            out = inner(_chunked_causal_attention, q, k, v, cfg.attn_chunk,
+                        window)
             if cache is not None:    # prompt >= horizon: ring fill
                 s_max = cache["k"].shape[1]
                 cache["k"].copy_(torch.roll(k[:, -s_max:], s % s_max, 1))
@@ -406,17 +411,37 @@ def _attend(q, k, v, cfg: ArchConfig, layer_idx: int, positions, cache,
     return out, new_cache
 
 
-def _kv_heads(r: int, hq: int, h: int, kv: int) -> tuple[int, int]:
-    """The kv heads ``[k0, k1)`` that model rank ``r``'s ``hq`` q heads
-    attend to (GQA: q head i reads kv head ``i // (h / kv)``), grouped so
-    the rank's heads form whole groups."""
-    rep = h // kv
-    if hq % rep and rep % hq:
-        raise NotImplementedError(
-            f"{hq} q heads a rank do not form whole groups of {rep} q heads "
-            f"per kv head; that layout comes with {shd.LM_SLICE}")
-    q0 = r * hq
-    return q0 // rep, (q0 + hq - 1) // rep + 1
+def _kv_heads(q0: int, q1: int, rep: int) -> tuple[int, int]:
+    """The kv heads ``[k0, k1)`` that q heads ``[q0, q1)`` read (GQA: q
+    head i reads kv head ``i // rep``); a GQA group may be split between
+    ranks (Yi-34B's rep 7 over 19, 19, 18 heads)."""
+    return q0 // rep, (q1 - 1) // rep + 1
+
+
+def _group_kv(t, q0: int, q1: int, rep: int):
+    """The kv heads of ``t`` [B, S, KV, Dh] (every kv head) that q heads
+    ``[q0, q1)`` read, laid out for the attention functions (q head i of
+    the block reads kv head ``i // (hq / kv_block)``): a slice where the
+    block holds whole groups or reads one kv head, else one kv head per q
+    head (a group split between ranks)."""
+    k0, k1 = _kv_heads(q0, q1, rep)
+    if k1 - k0 == 1 or (q0 % rep == 0 and q1 % rep == 0):
+        return t[:, :, k0:k1]
+    idx = torch.arange(q0, q1, device=t.device) // rep
+    return t.index_select(2, idx)
+
+
+def _attention_of(group=None):
+    """``inner(fn, q, k, v, *args)``: the attention ``fn`` of q's heads
+    against k and v, or with ``group`` the kv heads it picks from them; a
+    rank with no q heads attends nothing (an empty result)."""
+    def inner(fn, q, k, v, *args):
+        if group is None:
+            return fn(q, k, v, *args)
+        if q.shape[2] == 0:
+            return q.new_zeros(q.shape, dtype=torch.float32)
+        return fn(q, group(k), group(v), *args)
+    return inner
 
 
 def _attention_tp(params, x, cfg: ArchConfig, layer_idx: int, positions,
@@ -424,35 +449,36 @@ def _attention_tp(params, x, cfg: ArchConfig, layer_idx: int, positions,
     """Attention over the model axis (port of what GSPMD makes of the
     reference under ``param_specs`` and ``launch.steps.cache_pspecs``).
 
-    q is column-parallel: the rank holds its heads.  Where the kv heads
-    divide the model axis, k and v are too, the cache holds the rank's kv
-    heads and attention is local (GQA groups stay inside a rank).  Where
-    they do not (Gemma's one kv head), k and v are column-parallel over
-    their columns and gathered after the projection, and the cache is
-    split over the sequence: a decode step writes its position on the
-    rank that owns it, every rank attends all q heads (gathered) over its
-    positions, and the (max, sum of exp, weighted v) partials are
-    combined in rank order, each rank keeping its heads; a prefill
-    attends from the gathered k and v and writes each rank's positions.
-    The output projection is row-parallel."""
+    q is column-parallel on whole heads: the rank holds the heads of its
+    ``sharding.linear_tp`` columns (``sharding.head_layout``, GSPMD's
+    uneven layout: Yi-34B's 56 heads over 16 ranks go 4 to ranks 0-13,
+    none to 14-15).  Where the kv heads divide the model axis, k and v
+    are column-parallel too, the cache holds the rank's kv heads and
+    attention is local (GQA groups stay inside a rank).  Where they do
+    not, k and v are column-parallel over their columns and gathered
+    after the projection (or kept whole, by the size rule), and each rank
+    attends its q heads against the kv heads they read
+    (:func:`_group_kv`).  The cache is then split over the sequence
+    (``init_cache`` marks it ``"seq_split"``; :func:`_attend_seq_split`),
+    or whole on every rank when ``max_len`` does not divide the model
+    axis either (every rank writes every position).  The output
+    projection is row-parallel, its input in the heads' layout.  A rank
+    without heads launches no q kernel and attends nothing, but joins
+    every exchange."""
     mesh, axis = at
-    n, r = mesh.shape[axis], mesh.coordinate(axis)
+    n = mesh.shape[axis]
     spec = cfg.rebranch
     rows_k = spec.cim.rows_per_subarray
     b, s, d = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if h % n:
-        raise NotImplementedError(
-            f"{h} heads over a {n}-way model axis: uneven heads come with "
-            f"{shd.LM_SLICE}")
     if cache is not None and "table" in cache:
         raise NotImplementedError(
             f"a paged KV cache over a mesh comes with {shd.LM_SLICE}")
-    hq = h // n
+    tp_q = shd.linear_tp("q", d, h * dh, rows_k, head_dim=dh)
+    q0, q1 = (c // dh for c in tp_q.cols)
     window = 0 if cfg.uses_full_attention(layer_idx) else cfg.sliding_window
-    q = linear(params["q"], x, spec,
-                              tp=shd.linear_tp("q", d, h * dh, rows_k))
-    q = q.reshape(b, s, hq, dh)
+    q = linear(params["q"], x, spec, tp=tp_q)
+    q = q.reshape(b, s, q1 - q0, dh)
     tp_k = shd.linear_tp("k", d, kv * dh, rows_k)
     kv_t = torch.stack([linear(params[name], x, spec, tp=tp_k)
                         for name in ("k", "v")])
@@ -464,28 +490,38 @@ def _attention_tp(params, x, cfg: ArchConfig, layer_idx: int, positions,
         if tp_k is not None:
             kv_t = shd.gather_cols(kv_t, kv * dh, mesh, axis)
         k, v = kv_t.reshape(2, b, s, kv, dh).unbind(0)
-        out, new_cache = _attend_seq_split(q, k, v, cfg, positions, cache,
-                                           decode, window, mesh, axis)
-    out = out.to(x.dtype).reshape(b, s, hq * dh)
+        group = functools.partial(_group_kv, q0=q0, q1=q1, rep=h // kv)
+        if cache is None or "seq_split" not in cache:
+            out, new_cache = _attend(q, k, v, cfg, layer_idx, positions,
+                                     cache, decode, group)
+        else:
+            out, new_cache = _attend_seq_split(q, k, v, cfg, positions,
+                                               cache, decode, window, mesh,
+                                               axis, group, q0)
+    out = out.to(x.dtype).reshape(b, s, (q1 - q0) * dh)
     return linear(
-        params["o"], out, spec, tp=shd.linear_tp("o", h * dh, d, rows_k),
-        sp=sp), new_cache
+        params["o"], out, spec,
+        tp=shd.linear_tp("o", h * dh, d, rows_k, head_dim=dh), sp=sp), \
+        new_cache
 
 
 def _attend_seq_split(q, k, v, cfg: ArchConfig, positions, cache,
-                      decode: bool, window: int, mesh, axis):
-    """:func:`_attend` of the rank's q heads [B, S, hq, Dh] and whole k, v
-    [B, S, KV, Dh] against a cache split over its sequence (or none)."""
+                      decode: bool, window: int, mesh, axis, group,
+                      q0: int):
+    """:func:`_attend` of the rank's q heads [B, S, hq, Dh] (heads ``q0``
+    on) and whole k, v [B, S, KV, Dh] against a cache split over its
+    sequence: a decode step writes its position on the rank that owns it,
+    every rank attends all q heads (gathered) over its positions, and the
+    (max, sum of exp, weighted v) partials are combined in rank order,
+    each rank keeping its heads; a prefill attends from the gathered
+    cache and writes each rank's positions back."""
     n, r = mesh.shape[axis], mesh.coordinate(axis)
     b, s, hq, _ = q.shape
     h, kv = cfg.num_heads, cfg.num_kv_heads
-    k0, k1 = _kv_heads(r, hq, h, kv)
+    inner = _attention_of(group)
     positions = _positions(b, s, cache, positions, q.device)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
-    if cache is None:
-        return _chunked_causal_attention(q, k[:, :, k0:k1], v[:, :, k0:k1],
-                                         cfg.attn_chunk, window), None
     if cache["k"].shape[2] != kv:
         raise ValueError(f"a cache of {cache['k'].shape[2]} kv heads for "
                          f"{kv}: not the sequence-split layout")
@@ -511,7 +547,7 @@ def _attend_seq_split(q, k, v, cfg: ArchConfig, positions, cache,
             cache["v"], torch.clamp(length + 1, max=s_max))
         out = rows.rowwise(lambda *ps: _combine_partials(ps),
                            *shd.gather_parts(part, mesh, axis, "attention"))
-        out = out[:, r * hq:(r + 1) * hq][:, None]
+        out = out[:, q0:q0 + hq][:, None]
         return out, {**cache, "length": length + 1}
     # prefill: the whole horizon's view, this call's k and v in it, the
     # rank's positions written back
@@ -523,12 +559,12 @@ def _attend_seq_split(q, k, v, cfg: ArchConfig, positions, cache,
         idx = offset + torch.arange(s, device=q.device)
         kv_new = torch.stack([k, v])
         att = view.to(k.dtype).index_copy(2, idx, kv_new)
-        out = _prefill_attention(q, att[0][:, :, k0:k1], att[1][:, :, k0:k1],
-                                 cfg.attn_chunk, window, offset)
+        out = inner(_prefill_attention, q, att[0], att[1], cfg.attn_chunk,
+                    window, offset)
         view = view.index_copy(2, idx, kv_new.to(view.dtype))
     else:                             # prompt >= horizon: ring fill
-        out = _chunked_causal_attention(q, k[:, :, k0:k1], v[:, :, k0:k1],
-                                        cfg.attn_chunk, window)
+        out = inner(_chunked_causal_attention, q, k, v, cfg.attn_chunk,
+                    window)
         view = torch.roll(torch.stack([k, v])[:, :, -s_max:], s % s_max,
                           2).to(view.dtype)
     cache["k"].copy_(view[0][:, p0:p0 + s_loc])

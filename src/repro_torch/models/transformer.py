@@ -133,11 +133,13 @@ def unstack(tree, n: int) -> list:
 def init_stacked(gen: torch.Generator, cfg: ArchConfig, block_init):
     """``cfg.num_layers`` blocks of ``block_init(gen, cfg)`` drawn in order
     into preallocated stacked [L, ...] tensors, one at a time, so the peak
-    is one layer above the stacked tree."""
+    is one layer above the stacked tree.  Under a fake-tensor mode
+    (``bridge.abstract``: shapes only) the first block stands for all."""
     first = block_init(gen, cfg)
     stacked = bridge.tree_map(
         first, lambda t: t.new_empty((cfg.num_layers, *t.shape)))
-    for i in range(cfg.num_layers):
+    fake = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+    for i in range(1 if fake is not None else cfg.num_layers):
         block = first if i == 0 else block_init(gen, cfg)
         bridge.tree_map2(layer(stacked, i), block, lambda d, s: d.copy_(s))
         del block

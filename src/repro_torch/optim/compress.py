@@ -50,14 +50,15 @@ def _group(mesh, axis):
 
 
 def count_wire(kind: str, nbytes: int):
-    """Count ``nbytes`` put into a collective under ``kind``, into
-    :data:`wire_bytes` and the active ``launch.cost`` record (times the
-    runs the call stands for, ``cost.repeated``)."""
+    """Count ``nbytes`` put into a collective under ``kind`` (times the
+    runs the call stands for, ``cost.repeated``): into the active
+    ``launch.cost`` record, else into :data:`wire_bytes`."""
     nbytes *= cost.times()
-    wire_bytes[kind] += nbytes
     rec = cost.recording()
     if rec is not None:
         rec.sent("wire_bytes", kind, nbytes)
+    else:
+        wire_bytes[kind] += nbytes
 
 
 def _gather(t: torch.Tensor, group) -> list[torch.Tensor]:

@@ -46,6 +46,20 @@ def with_cores(params, rng):
     return params
 
 
+def with_biases(params, rng):
+    """Every zero linear bias replaced by seeded N(0, 0.1) values."""
+    if isinstance(params, dict):
+        out = {k: with_biases(v, rng) for k, v in params.items()}
+        if "b" in out.get("sram", {}):
+            b = out["sram"]["b"]
+            out["sram"] = dict(out["sram"], b=(
+                rng.normal(size=b.shape) * 0.1).astype(b.dtype))
+        return out
+    if isinstance(params, list):
+        return [with_biases(v, rng) for v in params]
+    return params
+
+
 def cnn_case(name: str):
     """(numpy params with live cores, NHWC images [2, S, S, 3])."""
     from repro_torch import bridge, deploy
@@ -460,34 +474,80 @@ def _cnn_cfg(name: str, dense: bool = False):
 # ---------------------------------------------------------------------------
 
 TP_MESHES = ((1, 4), (2, 2))               # (data, model)
+TP_POD_MESH = (2, 2, 1)                    # (pod, data, model)
 # Yi's smoke config (kv 2: head-split over model 2, sequence-split over
 # 4), Gemma's (kv 1), and Yi's with d_ff 1536: its down projection's three
 # k-blocks deal 1, 1, 1, 0 over model 4 and 2, 1 over model 2, and its
 # even split (384, 768 a rank) cuts a block
-TP_CONFIGS = ("yi_34b", "gemma_2b", "yi_34b_ff1536")
+TP_EVEN = ("yi_34b", "gemma_2b", "yi_34b_ff1536")
+# uneven heads, on (1, 4): Gemma's with 3 heads (1, 1, 1, 0 a rank: a rank
+# without heads, MQA's one group read by three ranks), Yi's with 6 heads
+# over 2 kv heads (2, 2, 2, 0; rep 3: groups split between ranks), the
+# same at max_len 30 (neither the kv heads nor 30 divide 4: a whole cache
+# on every rank), and Qwen1.5's with 6 heads and its seeded q/k/v biases
+# (each rank's q bias cut on its whole heads, 2, 2, 2, 0)
+TP_UNEVEN = ("gemma_2b_h3", "yi_34b_h6", "yi_34b_h6_len30", "qwen15_32b_h6")
+TP_CONFIGS = TP_EVEN + TP_UNEVEN
+# (config, mesh shape): the even configs on both meshes, the uneven ones on
+# (1, 4), Yi's and Gemma's smoke configs on (pod 2, data 2, model 1), a
+# batch over pod x data
+TP_CASES = ([(n, s) for n in TP_EVEN for s in TP_MESHES]
+            + [(n, (1, 4)) for n in TP_UNEVEN]
+            + [(n, TP_POD_MESH) for n in ("yi_34b", "gemma_2b")])
 TP_ENGINES = ("int8_native", "pallas", "pallas_fused")
 TP_BATCH, TP_PROMPT, TP_MAX_LEN, TP_STEPS = 8, 8, 32, 4
 # (config, site, d_in, d_out) held site by site, in layer 0
 TP_ROW_SITES = (("yi_34b_ff1536", "down"), ("yi_34b", "o"),
-                ("gemma_2b", "down"), ("gemma_2b", "o"))
+                ("gemma_2b", "down"), ("gemma_2b", "o"),
+                ("yi_34b_h6", "o"), ("gemma_2b_h3", "o"))
 TP_COL_SITES = (("yi_34b_ff1536", "gate"), ("yi_34b", "q"),
-                ("gemma_2b", "k"))
+                ("gemma_2b", "k"), ("yi_34b_h6", "q"), ("gemma_2b_h3", "q"),
+                ("qwen15_32b_h6", "q"))
+
+
+def tp_shapes(name: str) -> list:
+    """The mesh shapes config ``name`` runs on."""
+    return [s for n, s in TP_CASES if n == name]
+
+
+def tp_max_len(name: str) -> int:
+    return 30 if name.endswith("_len30") else TP_MAX_LEN
 
 
 def tp_config(name: str):
     from repro_torch import configs
+    name = name.removesuffix("_len30")
     if name == "yi_34b_ff1536":
         return dataclasses.replace(configs.get_smoke("yi_34b"), d_ff=1536)
+    if name == "yi_34b_h6":
+        return dataclasses.replace(configs.get_smoke("yi_34b"), num_heads=6,
+                                   num_kv_heads=2, head_dim=8)
+    if name == "gemma_2b_h3":
+        return dataclasses.replace(configs.get_smoke("gemma_2b"),
+                                   num_heads=3, head_dim=32)
+    if name == "qwen15_32b_h6":
+        return dataclasses.replace(configs.get_smoke("qwen15_32b"),
+                                   num_heads=6, num_kv_heads=6, head_dim=8)
     return configs.get_smoke(name)
 
 
+def tp_mesh(shape, backend: str):
+    """A (data, model) mesh, or (pod, data, model) for three sizes."""
+    from repro_torch.launch import mesh as mesh_lib
+    if len(shape) == 3:
+        return mesh_lib.make_mesh(shape, ("pod", "data", "model"),
+                                  backend=backend)
+    return mesh_lib.make_lm_mesh(*shape, backend=backend)
+
+
 def tp_port_tree(name: str) -> dict:
-    """The port's init of ``name`` with seeded non-zero cores, as numpy
-    (the same in every process)."""
+    """The port's init of ``name`` with seeded non-zero cores and biases,
+    as numpy (the same in every process)."""
     from repro_torch import bridge, deploy
     tree = bridge.to_numpy(deploy.compile_model(tp_config(name)).init(
         seed=0, device="cpu"))
-    return with_cores(tree, np.random.default_rng(1))
+    return with_biases(with_cores(tree, np.random.default_rng(1)),
+                       np.random.default_rng(2))
 
 
 def tp_prompts(vocab: int) -> np.ndarray:
@@ -507,7 +567,7 @@ def tp_site(cfg, params, site: str):
     return leaf, dims[0], dims[1]
 
 
-def tp_steps(cfg, whole, mesh, engine: str):
+def tp_steps(cfg, whole, mesh, engine: str, max_len: int = TP_MAX_LEN):
     """(logits, tokens [B, 1 + TP_STEPS]) of the prefill step and
     TP_STEPS greedy serve steps on the prompts, over ``mesh`` (None: the
     unsharded steps), and (model, local params, cache); the sharding
@@ -519,7 +579,7 @@ def tp_steps(cfg, whole, mesh, engine: str):
     model = deploy.compile_model(cfg, engine=engine, mesh=mesh)
     params = model.shard_params(whole)
     logits, cache = steps.make_prefill_step(
-        cfg, TP_BATCH, TP_MAX_LEN, model=model, device="cpu")(
+        cfg, TP_BATCH, max_len, model=model, device="cpu")(
             params, {"tokens": prompts})
     serve = steps.make_serve_step(cfg, model=model)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -533,19 +593,21 @@ def tp_steps(cfg, whole, mesh, engine: str):
                                                           cache)
 
 
-def _tp_batch_invariance(cfg, model, params, cache) -> dict:
+def _tp_batch_invariance(cfg, model, params, cache, max_len) -> dict:
     """Two decode steps of the batch-8 cache against the same steps of a
     small batch made of its first local row on every rank (batch 1 on a
-    single data rank; on data 2, rows 0 and 4: each data rank's first):
-    that row's logits, bitwise."""
+    single data rank; over data 2, rows 0 and 4: each data rank's first;
+    over pod 2 x data 2, rows 0, 2, 4 and 6): that row's logits,
+    bitwise."""
     import copy
+    import math
 
     from repro_torch.distributed import sharding as shd
-    n_data = model.mesh.shape["data"]
+    n_data = math.prod(model.mesh.shape.get(a, 1) for a in ("pod", "data"))
     small = 1 if n_data == 1 else n_data
     rows = [shd.h_layout(TP_BATCH, n_data)[d][0] for d in range(n_data)]
     big = copy.deepcopy(cache)
-    sm = model.init_cache(small, TP_MAX_LEN, device="cpu")
+    sm = model.init_cache(small, max_len, device="cpu")
     for leaf in ("k", "v"):
         sm["layers"][leaf].copy_(big["layers"][leaf][:, :1])
     sm["layers"]["length"].copy_(big["layers"]["length"][:, rows])
@@ -574,10 +636,10 @@ def _tp_row_site(cfg, whole, mesh, site: str, engine: str) -> dict:
     p_loc, _, _ = tp_site(cfg, model.shard_params(whole), site)
     x = torch.from_numpy(np.random.default_rng(d_in + len(site)).normal(
         size=(3, 5, d_in)).astype(np.float32))
-    n, r = mesh.shape["model"], mesh.coordinate("model")
+    r = mesh.coordinate("model")
     with shd.use_mesh(mesh):
-        tp = shd.linear_tp(site, d_in, d_out, 128)
-        lo, hi = shd.h_layout(d_in, n)[r]
+        tp = shd.linear_tp(site, d_in, d_out, 128, head_dim=cfg.head_dim)
+        lo, hi = tp.x_layout[r]
         shd.reset_traffic()
         parts = rebranch.row_parallel_parts(p_loc, x[..., lo:hi], spec, tp)
         traffic = dict(shd.bytes_sent)
@@ -602,7 +664,7 @@ def _tp_row_site(cfg, whole, mesh, site: str, engine: str) -> dict:
             want.append(cim.cim_matmul_model(x_q[:, k0:k1], w[k0:k1],
                                              spec.cim))
     return {"equal": torch.equal(reduced, shd.rank_sum(want)),
-            "k_ranges": tp.k_ranges, "even": shd.h_layout(d_in, n),
+            "k_ranges": tp.k_ranges, "even": tp.x_layout,
             "y": y.numpy(), "y_whole": y_whole.numpy(),
             "relayout": traffic.get("relayout", 0),
             "empty": tp.k_ranges[r][0] == tp.k_ranges[r][1]}
@@ -623,7 +685,7 @@ def _tp_col_site(cfg, whole, mesh, site: str, engine: str) -> dict:
     x = torch.from_numpy(np.random.default_rng(d_out).normal(
         size=(3, 5, d_in)).astype(np.float32))
     with shd.use_mesh(mesh):
-        tp = shd.linear_tp(site, d_in, d_out, 128)
+        tp = shd.linear_tp(site, d_in, d_out, 128, head_dim=cfg.head_dim)
         lo, hi = tp.cols
         trunk = rebranch.apply_linear(p_loc, x, bare, tp=tp)
         y = rebranch.apply_linear(p_loc, x, spec, tp=tp)
@@ -632,7 +694,7 @@ def _tp_col_site(cfg, whole, mesh, site: str, engine: str) -> dict:
         "y": y.numpy(),
         "y_whole": rebranch.apply_linear(p_all, x, spec)[..., lo:hi].numpy(),
         "cols": (lo, hi)}
-    if engine == "pallas_fused":        # kernel 3's trunk on the columns
+    if engine == "pallas_fused" and hi > lo:   # kernel 3 on the columns
         from repro_torch.kernels import rebranch_matmul as rm
         x2, c = x.reshape(-1, d_in), p_all["rom"]["C"]
         out["trunk_equal"] &= torch.equal(
@@ -654,9 +716,9 @@ def _tp_vocab(cfg, whole, mesh) -> dict:
     r = mesh.coordinate("model")
     logits = torch.zeros((4, 3, v))
     blk = v // n
-    logits[0, :, [1, blk + 1]] = 5.0              # a tie across two ranks
+    logits[0, :, [1, (blk + 1) % v]] = 5.0        # a tie across two ranks
     logits[1, :, [blk * (n - 1) + 2]] = 7.0       # the last rank's
-    logits[2, :, [3, 3 + blk]] = -1.0             # ties below zeros
+    logits[2, :, [3, (3 + blk) % v]] = -1.0       # ties below zeros
     logits[3] = torch.from_numpy(np.random.default_rng(3).normal(
         size=(3, v)).astype(np.float32))
     with shd.use_mesh(mesh):
@@ -689,10 +751,10 @@ def _tp_head(cfg, whole, mesh) -> dict:
 
 
 def tp_world(rank: int, world: int, path: str) -> dict:
-    """Every config on meshes (1, 4) and (2, 2) under the three engines
-    (the plain kernel versions): the sharded steps and the bytes of their
-    last serve step, batch 8 against a small batch, the site checks.  The
-    d_ff 1536 config comes from the port's init and runs first; the
+    """Every case of :data:`TP_CASES` under the three engines (the plain
+    kernel versions): the sharded steps and the bytes of their last serve
+    step, batch 8 against a small batch, the site checks over a model
+    axis.  The configs the port initialises run first; the
     JAX-initialised trees are read from ``path`` once the test process
     has written it."""
     import os
@@ -700,32 +762,34 @@ def tp_world(rank: int, world: int, path: str) -> dict:
 
     from repro_torch import bridge
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch import mesh as mesh_lib
     warnings.simplefilter("ignore")
-    meshes = {s: mesh_lib.make_lm_mesh(*s, backend="gloo")
-              for s in TP_MESHES}
-    trees = {"yi_34b_ff1536": bridge.to_torch(tp_port_tree("yi_34b_ff1536"),
-                                              "cpu")}
+    meshes = {s: tp_mesh(s, "gloo") for s in dict.fromkeys(
+        s for _, s in TP_CASES)}
+    trees = {name: bridge.to_torch(tp_port_tree(name), "cpu")
+             for name in TP_CONFIGS if name not in ("yi_34b", "gemma_2b")}
     out = {"steps": {}, "batch": {}, "row": {}, "col": {}, "vocab": {},
            "head": {}, "traffic": {}}
-    for name in ("yi_34b_ff1536", "yi_34b", "gemma_2b"):
+    for name in (*trees, "yi_34b", "gemma_2b"):
         while name not in trees:
             if os.path.exists(path):
                 trees.update(torch.load(path))
             else:
                 time.sleep(0.05)
-        cfg, whole = tp_config(name), trees[name]
-        for shape, mesh in meshes.items():
+        cfg, whole, max_len = tp_config(name), trees[name], tp_max_len(name)
+        for shape in tp_shapes(name):
+            mesh = meshes[shape]
             for engine in TP_ENGINES:
                 res, (model, params, cache) = tp_steps(cfg, whole, mesh,
-                                                       engine)
+                                                       engine, max_len)
                 out["steps"][name, shape, engine] = res
                 out["traffic"][name, shape, engine] = dict(shd.bytes_sent)
                 if engine == "pallas":
                     out["batch"][name, shape] = _tp_batch_invariance(
-                        cfg, model, params, cache)
+                        cfg, model, params, cache, max_len)
             out["vocab"][name, shape] = _tp_vocab(cfg, whole, mesh)
             out["head"][name, shape] = _tp_head(cfg, whole, mesh)
+            if mesh.shape["model"] == 1:
+                continue
             for engine in TP_ENGINES:
                 for site in [s for n, s in TP_ROW_SITES if n == name]:
                     out["row"][name, site, shape, engine] = _tp_row_site(

@@ -8,15 +8,18 @@ Held:
     runs in one subprocess that prints JSON: importing
     ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host devices, which
     would reach every later JAX test of this worker;
-  * smoke LM cells (Gemma-2B's and Yi-34B's smoke configs, decode and
-    prefill) on fake worlds of (data 1, model 4) and (2, 2): every rank's
-    ``argument_bytes_per_dev`` is the sum of the blocks the layouts give
-    it (``sharding.param_bounds``, ``cache_spec``), and its peak covers it;
+  * smoke LM cells (Gemma-2B's and Yi-34B's smoke configs and the
+    uneven-head variants of ``_torch_world.tp_config``, decode and
+    prefill) on fake worlds of (data 1, model 4), (2, 2) and (pod 2,
+    data 2, model 2): every rank's ``argument_bytes_per_dev`` is the sum
+    of the blocks the layouts give it (``sharding.param_bounds``,
+    ``cache_spec``), and its peak covers it;
   * a smoke ``cnn_serve`` cell: every rank of 8 runs the 20 trunk convs,
     the halo crosses as collective-permute bytes;
   * ``main`` on a cell that waits for ROADMAP item 5(d) prints ``not
-    ported`` with its sub-slice and returns 0; the fake backend only
-    inside a dry world.
+    ported`` with its sub-slice and returns 0, and runs the dense
+    ``decode_32k`` cells that waited for sub-slice (i) (uneven heads, a
+    batch over pod x data); the fake backend only inside a dry world.
 
 A fixture ends any fake world a test leaves behind.  The per-rank bytes
 against a real world's are held where the worlds run:
@@ -24,15 +27,18 @@ against a real world's are held where the worlds run:
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+import _torch_world as world
 from repro_torch import bridge, configs, deploy
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import dryrun
@@ -84,7 +90,8 @@ def _expected_arguments(cfg, mesh, kind, seq, gbatch, engine) -> int:
         return n * leaf.element_size()
 
     total = sum(size(leaf, shd.param_bounds(path, leaf.shape,
-                                            shardings[path], rows))
+                                            shardings[path], rows,
+                                            cfg.head_dim))
                 for path, leaf in bridge.flatten(whole).items())
     total += sum(t.numel() * t.element_size() for t in
                  steps.input_specs(cfg, seq, gbatch, kind).values())
@@ -97,17 +104,28 @@ def _expected_arguments(cfg, mesh, kind, seq, gbatch, engine) -> int:
     return total
 
 
-@pytest.mark.parametrize("kind", ["decode_32k", "prefill_32k"])
-@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
-@pytest.mark.parametrize("name", ["gemma_2b", "yi_34b"])
+SHAPES = [(1, 4), (2, 2), (2, 2, 2)]
+BLOCK_CASES = [
+    pytest.param(name, shape, kind, id=f"{name}-shape{SHAPES.index(shape)}"
+                                       f"-{kind}")
+    for name, shapes in (("gemma_2b", SHAPES), ("yi_34b", SHAPES[:2]),
+                         ("gemma_2b_h3", SHAPES[:2]), ("yi_34b_h6", SHAPES),
+                         ("qwen15_32b_h6", SHAPES[:1]))
+    for shape in shapes for kind in ("decode_32k", "prefill_32k")]
+
+
+@pytest.mark.parametrize("name,shape,kind", BLOCK_CASES)
 def test_each_rank_holds_the_blocks_its_layouts_give_it(name, shape, kind):
-    cfg = configs.get_smoke(name)
+    """(2, 2, 2) is (pod, data, model): the batch over pod x data, with
+    the heads over model 2."""
+    cfg = world.tp_config(name)
     seq, gbatch = 32, 8
-    ranks = [{"data": d, "model": m} for d in range(shape[0])
-             for m in range(shape[1])]
-    with dryrun.dry_world(4):
-        mesh = mesh_lib.make_lm_mesh(*shape, backend=mesh_lib.FAKE)
-        rec = dryrun.lower_cell(name, kind, mesh, cfg=cfg, ranks=ranks,
+    with dryrun.dry_world(math.prod(shape)):
+        mesh = world.tp_mesh(shape, mesh_lib.FAKE)
+        ranks = [dict(zip(mesh.axis_names, np.unravel_index(r, shape)))
+                 for r in range(mesh.size)]
+        rec = dryrun.lower_cell(cfg.name.removesuffix("_smoke"), kind,
+                                mesh, cfg=cfg, ranks=ranks,
                                 engine="pallas_fused", seq=seq,
                                 gbatch=gbatch)
         for coords, r in zip(ranks, rec["ranks"]):
@@ -118,7 +136,8 @@ def test_each_rank_holds_the_blocks_its_layouts_give_it(name, shape, kind):
                 "pallas_fused")
             assert r["peak_bytes_per_dev"] > r["argument_bytes_per_dev"]
             assert r["flops"] > 0 and r["collective_bytes"] > 0
-    assert rec["mesh"] == "x".join(map(str, shape)) and rec["devices"] == 4
+    assert rec["mesh"] == "x".join(map(str, shape))
+    assert rec["devices"] == math.prod(shape)
     assert rec["peak_bytes_per_dev"] == max(
         r["peak_bytes_per_dev"] for r in rec["ranks"])
     assert rec["peak_bytes_per_dev"] == (
@@ -144,6 +163,22 @@ def test_main_reports_a_cell_that_waits_for_5d_as_not_ported(capsys):
     out = capsys.readouterr().out
     assert "[not ported: 5(d)(iii)] granite_moe_3b x decode_32k" in out
     assert "0 records ok, 1 cells not ported, 0 failed" in out
+    assert not dist.is_initialized()
+
+
+def test_main_runs_the_dense_cells_of_uneven_heads_and_pod_batches(capsys):
+    """Yi-34B (56 heads), Qwen1.5-32B (40) and Gemma-2B (8) over a 16-way
+    model axis, DeepSeek-67B's batch over pod x data: each ``decode_32k``
+    cell on both meshes runs (its first and last model rank), none waits
+    for sub-slice (i)."""
+    for arch in ("yi_34b", "qwen15_32b", "gemma_2b", "deepseek_67b"):
+        assert dryrun.main(["--arch", arch, "--shape", "decode_32k",
+                            "--fast"]) == 0
+    out = capsys.readouterr().out
+    for arch in ("yi_34b", "qwen15_32b", "gemma_2b", "deepseek_67b"):
+        for mesh in ("single_pod", "multi_pod"):
+            assert f"[ok] {arch} x decode_32k x {mesh}:" in out
+    assert "[not ported" not in out and "[FAIL]" not in out
     assert not dist.is_initialized()
 
 

@@ -17,12 +17,14 @@ in ``test_torch_halo_conv.py``).  DarkNet-19 at 32 px has sites of H <= 2
 whose halo does not fit a 2- or 4-way split: there the engine gathers
 the layer, warns once per geometry and counts it.  Each rank's bytes
 sent in a DarkNet-19 forward are held, kind by kind, to the dry run's
-(``launch.dryrun``: the same forward per rank on ``meta``).
+(``launch.dryrun``: the same forward per rank on ``meta``), and the dry
+run repeated in this process gives equal records.
 """
 
 import concurrent.futures
 import dataclasses
 import functools
+import sys
 import warnings
 
 import jax
@@ -312,6 +314,29 @@ def test_the_dry_run_sends_each_ranks_bytes_of_a_forward(ranks, shape):
     assert len(got) == coords["data"] * coords["model"]
     assert [got[r["rank"]] for r in ranks] == [
         r["traffic"]["darknet19", shape, 0] for r in ranks]
+
+
+def test_the_dry_run_gives_equal_records_call_after_call(ranks):
+    """DarkNet-19's dry run repeated in this process, after the world was
+    spawned: every record equal (the ranks' threads take turns, so no two
+    ranks' ops interleave), the gathered layers counted per record, as
+    many as each gloo rank ran."""
+    shape = (4, 1)                        # the most gathered layers (8)
+    recs = []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)           # threads switch as often as can be
+    try:
+        for _ in range(3):
+            with dryrun.dry_world(4):
+                mesh = mesh_lib.make_mesh(shape, backend=mesh_lib.FAKE)
+                rec = dryrun.lower_cnn_cell(
+                    "darknet19", mesh, size=world.cnn_size("darknet19"),
+                    gbatch=2)
+            recs.append({k: v for k, v in rec.items() if k != "run_s"})
+    finally:
+        sys.setswitchinterval(interval)
+    assert recs[1] == recs[0] and recs[2] == recs[0]
+    assert rec["fallbacks"] == ranks[0]["forward"]["darknet19", shape, 0][1]
 
 
 def test_dataclass_fields_of_the_plan_are_the_references():

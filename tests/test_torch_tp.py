@@ -4,13 +4,20 @@ unsharded steps, on the CPU.
 
 One spawned world of 4 gloo ranks (``_torch_world.tp_world``, started
 once for the module; the JAX init and references run in this process
-meanwhile, the ranks starting on the config that needs no JAX tree)
-serves three configs on meshes (1, 4) and (2, 2) under ``int8_native``,
-``pallas`` and ``pallas_fused`` (the plain kernel versions): Yi-34B's
-smoke config (kv 2: head-split over model 2, sequence-split over 4),
-Gemma-2B's (kv 1) and Yi's with d_ff 1536, whose down projection deals
-its three k-blocks 1, 1, 1, 0 over model 4 (an empty rank) and 2, 1 over
-model 2, and whose even split (384, 768 a rank) cuts a k-block.
+meanwhile, the ranks starting on the configs that need no JAX tree)
+serves the cases of ``_torch_world.TP_CASES`` under ``int8_native``,
+``pallas`` and ``pallas_fused`` (the plain kernel versions).  On meshes
+(1, 4) and (2, 2): Yi-34B's smoke config (kv 2: head-split over model 2,
+sequence-split over 4), Gemma-2B's (kv 1) and Yi's with d_ff 1536, whose
+down projection deals its three k-blocks 1, 1, 1, 0 over model 4 (an
+empty rank) and 2, 1 over model 2, and whose even split (384, 768 a
+rank) cuts a k-block.  On (1, 4), uneven heads: Gemma's with 3 heads
+(1, 1, 1, 0 a rank: a rank without heads), Yi's with 6 heads over 2 kv
+heads (2, 2, 2, 0, rep 3: GQA groups split between ranks), the same at
+``max_len`` 30 (a whole cache on every rank), and Qwen1.5's with 6 heads
+and seeded q/k/v biases (the q bias cut on each rank's whole heads).  On
+(pod 2, data 2, model 1), Yi's and Gemma's smoke configs: a batch over
+pod x data.
 
 Held:
   * row-parallel sites: the reduced trunk bitwise the rank-order sum of
@@ -42,6 +49,7 @@ refuses ``check_rep``), so its unsharded steps are the oracle.
 """
 
 import concurrent.futures
+import copy
 import dataclasses
 import functools
 
@@ -62,6 +70,7 @@ from repro_torch.distributed import sharding as tshd
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as tsteps
+from repro_torch.models import api as tapi
 from repro_torch.models import layers as tlayers
 
 WORLD = 4
@@ -69,28 +78,35 @@ DEADLINE_S = 240
 REL = 1e-5
 LOGITS_REL = 5e-2     # whole models vs JAX: test_torch_lm.py's tolerance
 AGREE = 0.99          # tokens, the reference's sharded-decode threshold
-JAX_CONFIGS = ("yi_34b", "gemma_2b")
+JAX_INIT = ("yi_34b", "gemma_2b")       # the JAX init; the rest the port's
+JAX_CONFIGS = JAX_INIT + world.TP_UNEVEN     # held to the JAX package
 
 
 def _close(got, want, rel, what=""):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, what
+    if not want.size:                 # a rank without columns
+        return
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=rel * max(np.abs(want).max(), 1e-30),
                                err_msg=what)
 
 
 def _jax_cfg(name):
-    if name == "yi_34b_ff1536":
-        return dataclasses.replace(jconfigs.get_smoke("yi_34b"), d_ff=1536)
-    return jconfigs.get_smoke(name)
+    """The JAX package's config of ``name`` (``_torch_world.tp_config``'s
+    fields)."""
+    t = world.tp_config(name)
+    base = jconfigs.get_smoke(t.name.removesuffix("_smoke"))
+    return dataclasses.replace(base, num_heads=t.num_heads,
+                               num_kv_heads=t.num_kv_heads,
+                               head_dim=t.head_dim, d_ff=t.d_ff)
 
 
 @functools.cache
 def _params(name):
     """The JAX init (jitted) with seeded non-zero cores, as numpy; the
-    d_ff 1536 config, held to the port alone, from the port's init."""
-    if name not in JAX_CONFIGS:
+    other configs from the port's init (one tree on both sides)."""
+    if name not in JAX_INIT:
         return world.tp_port_tree(name)
     jm = jdeploy.compile_model(_jax_cfg(name), engine="int8_native")
     tree = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0)))
@@ -103,7 +119,7 @@ def _jax_steps(name):
     model = jdeploy.compile_model(cfg, engine="int8_native")
     params = jax.tree.map(jnp.asarray, _params(name))
     prefill = jax.jit(jsteps.make_prefill_step(
-        cfg, world.TP_BATCH, world.TP_MAX_LEN, model=model))
+        cfg, world.TP_BATCH, world.tp_max_len(name), model=model))
     serve = jax.jit(jsteps.make_serve_step(cfg, model=model))
     logits, cache = prefill(params, {"tokens": jnp.asarray(
         world.tp_prompts(cfg.vocab_size))})
@@ -128,14 +144,15 @@ def run(tmp_path_factory):
                               args=(str(path),))
         trees = {name: bridge.to_torch(_params(name), "cpu")
                  for name in world.TP_CONFIGS}
-        torch.save({k: trees[k] for k in JAX_CONFIGS}, root / "part.pt")
+        torch.save({k: trees[k] for k in JAX_INIT}, root / "part.pt")
         (root / "part.pt").rename(path)       # the ranks read it whole
         refs = {name: _jax_steps(name) for name in JAX_CONFIGS}
         threads = torch.get_num_threads()
         torch.set_num_threads(1)      # as a rank runs: the same GEMM bits
         try:
             whole = {(name, engine): world.tp_steps(
-                world.tp_config(name), trees[name], None, engine)[0]
+                world.tp_config(name), trees[name], None, engine,
+                world.tp_max_len(name))[0]
                 for name in world.TP_CONFIGS for engine in world.TP_ENGINES}
         finally:
             torch.set_num_threads(threads)
@@ -143,8 +160,7 @@ def run(tmp_path_factory):
     return ranks, refs, whole
 
 
-CASES = [(name, shape) for name in world.TP_CONFIGS
-         for shape in world.TP_MESHES]
+CASES = world.TP_CASES
 
 
 # ---------------------------------------------------------------------------
@@ -209,8 +225,8 @@ def test_a_row_decodes_the_same_bits_in_any_batch(run, name, shape):
 # the sites
 # ---------------------------------------------------------------------------
 
-ROW = [(n, s, m, e) for n, s in world.TP_ROW_SITES for m in world.TP_MESHES
-       for e in world.TP_ENGINES]
+ROW = [(n, s, m, e) for n, s in world.TP_ROW_SITES
+       for m in world.tp_shapes(n) if m[-1] > 1 for e in world.TP_ENGINES]
 
 
 @pytest.mark.parametrize("name,site,shape,engine", ROW, ids=str)
@@ -235,8 +251,8 @@ def test_row_parallel_site_sums_whole_k_blocks_in_rank_order(
             [False, False, False, True] if n == 4 else [False] * 4)
 
 
-COL = [(n, s, m, e) for n, s in world.TP_COL_SITES for m in world.TP_MESHES
-       for e in world.TP_ENGINES]
+COL = [(n, s, m, e) for n, s in world.TP_COL_SITES
+       for m in world.tp_shapes(n) if m[-1] > 1 for e in world.TP_ENGINES]
 
 
 @pytest.mark.parametrize("name,site,shape,engine", COL, ids=str)
@@ -307,10 +323,12 @@ class _At(mesh_lib.AbstractMesh):
 @pytest.mark.parametrize("shape", world.TP_MESHES, ids=str)
 def test_rank_blocks_tile_every_leaf(name, shape):
     """Every leaf's blocks over the ranks (``k_layout`` for row-parallel
-    contracting rows, GSPMD's even layout elsewhere) concatenate back to
-    the whole leaf, each rank's once per data coordinate."""
-    tree = bridge.abstract(lambda: tdeploy.compile_model(
-        world.tp_config(name)).init(seed=0, device="cpu"))
+    contracting rows, whole heads for q's columns, GSPMD's even layout
+    elsewhere) concatenate back to the whole leaf, each rank's once per
+    data coordinate."""
+    cfg = world.tp_config(name)
+    tree = bridge.abstract(lambda: tdeploy.compile_model(cfg).init(
+        seed=0, device="cpu"))
     flat = bridge.flatten(tree)
     coords = [(d, m) for d in range(shape[0]) for m in range(shape[1])]
     for path, leaf in flat.items():
@@ -318,7 +336,8 @@ def test_rank_blocks_tile_every_leaf(name, shape):
         for coord in coords:
             mesh = _At(shape, coord)
             sh = bridge.flatten(tshd.param_shardings(tree, mesh))[path]
-            blocks[coord] = tuple(tshd.param_bounds(path, leaf.shape, sh))
+            blocks[coord] = tuple(tshd.param_bounds(
+                path, leaf.shape, sh, head_dim=cfg.head_dim))
         for d in range(shape[0]):
             got = [blocks[d, m] for m in range(shape[1])]
             split = [i for i in range(leaf.dim())
@@ -334,6 +353,9 @@ def test_rank_blocks_tile_every_leaf(name, shape):
             assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), path
             if tshd.is_row_contraction(path):
                 assert spans == tshd.k_layout(leaf.shape[i], shape[1]), path
+            if tshd.head_site(path) == "q":
+                assert spans == tshd.head_layout(
+                    leaf.shape[i], cfg.head_dim, shape[1]), path
 
 
 @pytest.mark.parametrize("engine", ["pallas_fused", "pallas"])
@@ -345,14 +367,15 @@ def test_the_dry_run_sends_each_ranks_bytes_of_a_serve_step(run, name,
     the gloo world's ranks sent, under the two kernel engines
     (``int8_native`` sends ``pallas``'s bytes)."""
     ranks, _, _ = run
-    coords = [{"data": r // shape[1], "model": r % shape[1]}
-              for r in range(WORLD)]
     with dryrun.dry_world(WORLD):
-        mesh = mesh_lib.make_lm_mesh(*shape, backend=mesh_lib.FAKE)
+        mesh = world.tp_mesh(shape, mesh_lib.FAKE)
+        coords = [dict(zip(mesh.axis_names, np.unravel_index(r, shape)))
+                  for r in range(WORLD)]
+        cfg = world.tp_config(name)
         rec = dryrun.lower_cell(
-            {"yi_34b_ff1536": "yi_34b"}.get(name, name), "decode_32k", mesh,
-            cfg=world.tp_config(name), ranks=coords, engine=engine,
-            seq=world.TP_MAX_LEN, gbatch=world.TP_BATCH)
+            cfg.name.removesuffix("_smoke"), "decode_32k", mesh, cfg=cfg,
+            ranks=coords, engine=engine, seq=world.tp_max_len(name),
+            gbatch=world.TP_BATCH)
     assert [r["bytes_sent"] for r in rec["ranks"]] == [
         r["traffic"][name, shape, engine] for r in ranks]
 
@@ -370,8 +393,24 @@ def test_what_still_raises():
         for axis in ("expert", "expert_mlp", "ssm_inner", "kv_seq"):
             with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
                 tshd.shard(torch.zeros(4, 4), None, axis)
-    model = tdeploy.compile_model(tconfigs.get_smoke("gemma_2b"), mesh=mesh)
+    cfg = tconfigs.get_smoke("gemma_2b")
+    model = tdeploy.compile_model(cfg, mesh=mesh)
     with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
         model.init_cache(1, 32, device="cpu")       # kv_seq at batch 1
-    with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
-        model.init_cache(2, 31, device="cpu")       # kv 1, 31 % 2: whole
+    # kv 1 and 31 do not divide model 2: no longer refused, a whole cache
+    # (the rank's batch row, every position and kv head) on every rank;
+    # at 62 the sequence splits, 31 positions a rank: the same block
+    # shape, told apart by the cache's "seq_split" mark, which a copy and
+    # a clone of every leaf keep
+    model = tdeploy.compile_model(cfg, mesh=_At((2, 2), (1, 1)))
+    whole = tdeploy.compile_model(cfg).init_cache(1, 31, device="cpu")
+    for max_len, split in ((31, False), (62, True)):
+        cache = model.init_cache(2, max_len, device="cpu")
+        for leaf in ("k", "v"):
+            assert cache["layers"][leaf].shape == whole["layers"][leaf].shape
+        assert cache["layers"]["length"].shape == (cfg.num_layers, 2)
+        assert ("seq_split" in cache["layers"]) == split
+        with tshd.use_mesh(model.mesh):
+            for c in (cache, copy.deepcopy(cache),
+                      bridge.tree_map(cache, torch.clone)):
+                assert tapi.cache_geometry(cfg, c) == (1, max_len)
