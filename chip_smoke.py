@@ -2749,8 +2749,9 @@ def lm_train_cpu_check(smi: str):
     layers_, batch, seq = TRAIN_CUT
     cpu = torch.device("cpu")
     for dtype in ("bfloat16", "float32"):
+        # remat off: the phase's launch counts are the forward's alone
         cfg = dc.replace(configs.get("gemma_2b"), num_layers=layers_,
-                         dtype=dtype)
+                         dtype=dtype, remat=False)
         model, step_fn = lm_train_setup(cfg)
         params = with_cores(model.init(seed=3),
                             torch.Generator().manual_seed(4))
@@ -2872,8 +2873,10 @@ def phase_lm_train(smi: str, kernel_pass_ms: float) -> int:
     from repro_torch.data import synthetic
     from repro_torch.launch import train as train_cli
     t_phase = time.perf_counter()
+    # remat off: 7 launches a layer and step, the forward's alone (phase
+    # 35 trains with it on)
     cfg = dataclasses.replace(configs.get("gemma_2b"),
-                              num_layers=TRAIN_LAYERS)
+                              num_layers=TRAIN_LAYERS, remat=False)
     model, step_fn = lm_train_setup(cfg)
     params = model.init(seed=0)
     trainable, frozen = rebranch.partition(params)
@@ -2979,8 +2982,8 @@ def phase_lm_train(smi: str, kernel_pass_ms: float) -> int:
           f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, 'pallas': loss {losses[0]:.4f} "
           f"-> {losses[-1]:.4f} (entropy floor "
           f"{synthetic.entropy_floor(dcfg):.4f}); {per_pass} kernel-4 "
-          f"launches per step, none in the backward; ROM fingerprint and "
-          f"trunk data_ptrs unchanged [{smi}]")
+          f"launches per step (remat off), none in the backward; ROM "
+          f"fingerprint and trunk data_ptrs unchanged [{smi}]")
     print(f"losses: {' '.join(f'{v:.4f}' for v in losses)}")
     print(f"train step (steps 3-{TRAIN_SAVE_AT}): {step_ms:.3f} ms CUDA "
           f"events (min {min(steady):.3f}, max {max(steady):.3f}), "
@@ -4868,7 +4871,8 @@ def phase_family_train(dev, smi: str) -> dict:
     for arch in FAMILY_TRAIN_ARCHS:
         t_model = time.perf_counter()
         cfg = dataclasses.replace(configs.get(arch),
-                                  num_layers=FAMILY_TRAIN_LAYERS)
+                                  num_layers=FAMILY_TRAIN_LAYERS,
+                                  remat=False)
         plan = plan_lib.solve(cfg, engine="pallas")
         model = deploy.compile_model(cfg, plan=plan)
         params = with_cores(model.init(seed=0),
@@ -4951,7 +4955,8 @@ def phase_family_train(dev, smi: str) -> dict:
         step_ms = sum(ev_ms[2:]) / len(ev_ms[2:])
         print(f"{arch} at {FAMILY_TRAIN_LAYERS} layers, full width: loss "
               f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} "
-              f"steps; {expect} kernel-4 launches a step ({blocks} block "
+              f"steps (remat off); {expect} kernel-4 launches a step "
+              f"({blocks} block "
               f"linears + the head {heads} x {TRAIN_CHUNKS} chunks x 2), a "
               f"forward {fwd}, so none in the STE backward; step "
               f"{step_ms:.3f} ms (CUDA events, mean of steps 3-"
@@ -5731,7 +5736,8 @@ def dist_lm_rank(rank: int, world: int, res: dict):
     # rank's block and the whole batch round apart, is held to a
     # one-process witness in dist_lm_bf16_rank
     cfg = dataclasses.replace(configs.get("gemma_2b"),
-                              num_layers=TRAIN_LAYERS, dtype="float32")
+                              num_layers=TRAIN_LAYERS, dtype="float32",
+                              remat=False)
     model, _ = lm_train_setup(cfg)
     params = model.init(seed=0)
     trainable, frozen = rebranch.partition(params)
@@ -5848,7 +5854,7 @@ def dist_lm_bf16_rank(rank: int, world: int, res: dict):
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
     cfg = dataclasses.replace(configs.get("gemma_2b"),
-                              num_layers=TRAIN_LAYERS)
+                              num_layers=TRAIN_LAYERS, remat=False)
     check(cfg.dtype == "bfloat16", f"Gemma-2B's dtype is {cfg.dtype}")
     model, _ = lm_train_setup(cfg)
     trainable, frozen = rebranch.partition(model.init(seed=0))
@@ -5998,7 +6004,8 @@ def phase_dist_train(smi: str) -> dict:
           f"{[round(x['restore_ms'], 1) for x in c]}")
     lm = [r["lm"] for r in ranks]
     l0 = lm[0]
-    print(f"(b) {l0['rows']} rows a rank; kernel-4 launches per rank a step "
+    print(f"(b) remat off; {l0['rows']} rows a rank; kernel-4 launches "
+          f"per rank a step "
           f"{[x['plain']['launches']['cim_matmul'] for x in lm]} plain, "
           f"{[x['int8']['launches']['cim_matmul'] for x in lm]} int8, the "
           f"single-rank step {l0['whole_launches']}; every call at M = "
@@ -6948,6 +6955,365 @@ def phase_tp_uneven(dev, smi: str, held: dict) -> dict:
     return tp
 
 
+# ---------------------------------------------------------------------------
+# phase 35: branch training over a model axis
+# ---------------------------------------------------------------------------
+
+TPT_MESHES = ((1, 4), (2, 2))       # (data, model)
+# (activations, meshes): f32 held to one process on both meshes, bf16 to
+# a witness on the widest model axis (phase 31 runs bf16 on one mesh too)
+TPT_RUNS = (("float32", TPT_MESHES), ("bfloat16", ((1, 4),)))
+TPT_STEPS = 3
+TPT_DEADLINE_S = 400
+# bf16: a rank's gradient blocks vs the one-process step on the whole
+# batch, as a multiple of the gap of a one-process witness whose trunks
+# are moved by ~1 f32 ulp (``nudged_kernels``), or GRAD_RTOL, whichever
+# is larger
+TPT_WITNESS_FACTOR = 2.0
+
+
+def tpt_config(dtype: str):
+    """Gemma-2B at full width cut to phase 31's TRAIN_LAYERS, remat on
+    (the reference's training forward)."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get("gemma_2b"),
+                              num_layers=TRAIN_LAYERS, dtype=dtype)
+    check(cfg.remat, "Gemma-2B's config trains without remat")
+    return cfg
+
+
+def tpt_step(cfg, model):
+    """The phase's step: ``make_train_step`` at the dry run's loss chunks
+    (its bytes are held to the dry run's)."""
+    from repro_torch import optim
+    from repro_torch.launch import steps
+    return steps.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR),
+                                 model=model)
+
+
+def tpt_expected_launches(cfg, n: int, r: int) -> int:
+    """Kernel-4 launches model rank ``r`` of ``n`` makes a train step: one
+    per ROM linear whose block it holds in the forward, one more in each
+    block's remat recompute, none in the straight-through backward (the
+    readout is the tied table: no kernel)."""
+    per_layer = sum(tp_rank_geometry(cfg, site, n, r) is not None
+                    for _, site, _ in TP_SITES)
+    return 2 * per_layer * cfg.num_layers
+
+
+def tpt_whole_rank(cfg, whole, batch, dev) -> dict:
+    """Rank 0's one-process step on the whole batch: gradients (on the
+    host), loss, grad_norm; in bf16 also the nudged witness's gradients."""
+    from repro_torch import bridge, deploy, optim
+    from repro_torch.core import rebranch
+    model = deploy.compile_model(cfg, engine="pallas")
+    t, f = rebranch.partition(whole)
+    step = tpt_step(cfg, model)
+    loss, grads = step.grads(t, f, batch)
+    _, _, m = step(t, f, optim.init(t), batch)
+    out = {"loss": float(loss), "grad_norm": float(m["grad_norm"]),
+           "grads": bridge.tree_map(grads, lambda g: g.float().cpu())}
+    if cfg.dtype == "bfloat16":
+        with nudged_kernels(dev):
+            _, nudged = step.grads(t, f, batch)
+        out["witness"] = worst_leaf(nudged, grads)
+    return out
+
+
+def tpt_run(cfg, whole, mesh, batch, ref: dict, rank: int, world: int,
+            fingerprint: bool) -> dict:
+    """TPT_STEPS steps of ``cfg`` over ``mesh`` on the rank's blocks,
+    held to the one-process step ``ref`` (rank 0's, broadcast); the ROM's
+    objects and addresses unmoved, and with ``fingerprint`` its SHA-256
+    (~1 GB a rank through the host)."""
+    import torch.distributed as dist
+    from repro_torch import bridge, deploy, optim
+    from repro_torch.core import rebranch, rom
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.launch import steps
+    from repro_torch.optim import compress
+    n, r = mesh.shape["model"], mesh.coordinate("model")
+    model = deploy.compile_model(cfg, engine="pallas", mesh=mesh)
+    local = model.shard_params(whole)
+    t, f = rebranch.partition(local)
+    opt = optim.init(t)
+    trunk = trunk_objects(local)
+    ptrs = {k: v.data_ptr() for k, v in trunk.items()}
+    fp0 = rom.rom_fingerprint(local) if fingerprint else None
+    mine = steps.local_batch(cfg, mesh, batch, TRAIN_BATCH)
+    step = tpt_step(cfg, model)
+    split = step.split_leaves(mesh)
+    calls, kernel = [], cm.cim_matmul
+
+    def recording(x_q, w_q, c=cm.IDEAL, plan=None):
+        calls.append((x_q, w_q, c))
+        return kernel(x_q, w_q, c, plan)
+
+    out = {"key": f"gemma-2b-{cfg.dtype}-" + "x".join(
+        str(mesh.shape[a]) for a in mesh.axis_names),
+        "rows": int(mine["tokens"].shape[0]), "step_ms": [], "loss": [],
+        "launches": [], "bytes": [], "wire": []}
+
+    def begin():
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        shd.reset_traffic()
+        compress.wire_bytes.clear()
+        return time.perf_counter()
+
+    def end(t0, m):
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(read_launches()["cim_matmul"])
+        out["bytes"].append(dict(shd.bytes_sent))
+        out["wire"].append(dict(compress.wire_bytes))
+        out["loss"].append(float(m["loss"]))
+    # step 1: its gradients kept (BranchStep.__call__ is grads + update)
+    t0 = begin()
+    cm.cim_matmul = recording
+    try:
+        loss, grads = step.grads(t, f, mine)
+    finally:
+        cm.cim_matmul = kernel
+    t, opt, m = step.update(t, opt, loss, grads)
+    end(t0, m)
+    out["grad_norm"] = float(m["grad_norm"])
+    # (a) every per-rank geometry of the step equal to the plain version
+    geoms = {}
+    for x_q, w_q, c in calls:
+        geoms.setdefault((x_q.shape[0], *w_q.shape), (x_q, w_q, c))
+    for (m, k, nn), (x_q, w_q, c) in geoms.items():
+        check(torch.equal(kernel(x_q, w_q, c),
+                          cm.cim_matmul_plain(x_q, w_q, c)),
+              f"kernel 4 at M = {m}, {k}x{nn} != its plain version")
+    out["geoms"] = sorted(geoms)
+    out["calls"] = len(calls)
+    # the loss and every leaf held whole bitwise equal on every rank
+    agreed(f"{out['key']}: the loss and the whole leaves' gradients",
+           (float(loss), digests({k: v for k, v in
+                                  bridge.flatten(grads).items()
+                                  if k not in split})), world)
+    # every block within the bar of the one-process step's leaf
+    sh = bridge.flatten(shd.param_shardings(whole, mesh))
+    want = bridge.flatten(ref["grads"])
+    worst = (0.0, "")
+    for k, g in bridge.flatten(grads).items():
+        b = shd.param_bounds(k, tuple(want[k].shape), sh[k],
+                             cfg.rebranch.cim.rows_per_subarray, cfg.head_dim)
+        block = want[k][tuple(slice(lo, hi) for lo, hi in b)]
+        rel = ((g.float().cpu() - block).abs().max().item()
+               / max(want[k].abs().max().item(), 1e-30))
+        worst = max(worst, (rel, k))
+    out["grad_rel"] = worst
+    out["loss0"] = float(loss)
+    for _ in range(TPT_STEPS - 1):
+        t0 = begin()
+        t, opt, m = step(t, f, opt, mine)
+        end(t0, m)
+    check(out["bytes"][1:] == out["bytes"][:-1], f"{out['key']} rank "
+          f"{rank}: the steps' bytes differ {out['bytes']}")
+    expect = tpt_expected_launches(cfg, n, r)
+    check(out["launches"] == [expect] * TPT_STEPS,
+          f"{out['key']} rank {rank}: kernel-4 launches a step "
+          f"{out['launches']}, expected {expect} (forward and recompute)")
+    check(all(math.isfinite(v) for v in out["loss"]),
+          f"{out['key']}: losses {out['loss']}")
+    agreed(f"{out['key']}: the losses and the first norm",
+           (out["loss"], out["grad_norm"]), world)
+    check(same_trunk(rebranch.combine(t, f), trunk, ptrs),
+          f"{out['key']}: training copied, replaced or moved a trunk tensor")
+    check(fp0 is None or rom.rom_fingerprint(rebranch.combine(t, f)) == fp0,
+          f"{out['key']}: the ROM fingerprint moved")
+    out["fingerprint"] = fingerprint
+    out["expect"] = expect
+    dist.barrier()
+    if rank == 0 and cfg.dtype == "float32":   # the other ranks idle
+        out["kernel"] = pass_times_m(calls, kernel, cm)
+    dist.barrier()
+    return out
+
+
+def phase_tp_train_rank(rank: int, world: int) -> dict:
+    """Phase 35, one spawned rank."""
+    import torch.distributed as dist
+    from repro_torch import deploy
+    from repro_torch import device as device_lib
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import _build
+    check(_build.target("cim_matmul").exists(),
+          "cim_matmul is not built: the parent builds it before the ranks")
+    dev = device_lib.resolve()
+    meshes = tp_meshes(TPT_MESHES)
+    res = {"runs": [], "parts_s": {}}
+    t_rank = time.perf_counter()
+
+    def part(name, t0):
+        res["parts_s"][name] = time.perf_counter() - t0
+        return time.perf_counter()
+    for dtype, shapes in TPT_RUNS:
+        t0 = time.perf_counter()
+        cfg = tpt_config(dtype)
+        whole = deploy.compile_model(cfg, engine="pallas").init(seed=0)
+        dcfg = synthetic.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH)
+        batch = synthetic.markov_batch(dcfg, 0, device=dev)
+        t0 = part(f"{dtype} init", t0)
+        box = [tpt_whole_rank(cfg, whole, batch, dev) if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        ref = box[0]
+        t0 = part(f"{dtype} one process", t0)
+        for shape in shapes:
+            run = tpt_run(cfg, whole, meshes[shape], batch, ref, rank,
+                          world, not res["runs"])
+            t0 = part(f"{run['key']}", t0)
+            if dtype == "float32":
+                check(run["grad_rel"][0] <= GRAD_RTOL,
+                      f"{run['key']} rank {rank}: gradient block "
+                      f"{run['grad_rel'][1]} is {run['grad_rel'][0]:.3e} of "
+                      f"its absmax from the one-process step's")
+            else:
+                limit = max(GRAD_RTOL, TPT_WITNESS_FACTOR
+                            * ref["witness"][0])
+                check(run["grad_rel"][0] <= limit,
+                      f"{run['key']} rank {rank}: bf16 gradient block "
+                      f"{run['grad_rel'][1]} is {run['grad_rel'][0]:.3e} of "
+                      f"its absmax from the one-process step's, over "
+                      f"{limit:.3e} (the nudged witness's "
+                      f"{ref['witness'][0]:.3e})")
+            check(abs(run["loss0"] - ref["loss"]) <= GRAD_RTOL * abs(
+                ref["loss"]), f"{run['key']}: loss {run['loss0']} vs one "
+                  f"process {ref['loss']}")
+            run["ref"] = {k: ref[k] for k in ("loss", "grad_norm")
+                          if k in ref}
+            run["witness"] = ref.get("witness")
+            res["runs"].append(run)
+            gc.collect()
+            torch.cuda.empty_cache()
+        del whole, ref, box
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["rank_s"] = time.perf_counter() - t_rank
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def tpt_dry_runs() -> dict:
+    """Each run's train step per rank on ``meta`` over a fake world of its
+    mesh (``launch.dryrun``): {run key: record}."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    out = {}
+    for dtype, shapes in TPT_RUNS:
+        cfg = tpt_config(dtype)
+        for shape in shapes:
+            with dryrun.dry_world(math.prod(shape)):
+                mesh = mesh_lib.make_lm_mesh(*shape, backend=mesh_lib.FAKE)
+                out[f"gemma-2b-{dtype}-" + "x".join(map(str, shape))] = \
+                    dryrun.lower_cell(
+                        "gemma_2b", "train_4k", mesh, cfg=cfg,
+                        ranks=[{"data": d, "model": m}
+                               for d in range(shape[0])
+                               for m in range(shape[1])],
+                        engine="pallas", seq=TRAIN_SEQ, gbatch=TRAIN_BATCH)
+    return out
+
+
+def tpt_dry_bytes(runs: dict, dry: dict):
+    """The dry runs' (:func:`tpt_dry_runs`) bytes a rank sends a step
+    against the gloo ranks', rank by rank and kind by kind, and their
+    kernel-4 launches against the ranks'."""
+    for dtype, shapes in TPT_RUNS:
+        for shape in shapes:
+            key = f"gemma-2b-{dtype}-" + "x".join(map(str, shape))
+            sent = [run["bytes"][0] for run in runs[key]]
+            rec = dry[key]
+            got = [r["bytes_sent"] for r in rec["ranks"]]
+            check(got == sent, f"dry run {key}: bytes a rank {got} != the "
+                  f"ranks' {sent}")
+            kernels = rec["kernels"].get("cim_matmul", {}).get("launches")
+            made = runs[key][rec["rank"]]["launches"][0]
+            check(kernels == made, f"dry run {key}: {kernels} kernel-4 "
+                  f"launches, rank {rec['rank']} made {made} a step")
+            print(f"(35) dry run of {key} on a fake {shape} world: every "
+                  f"rank's bytes a step equal the gloo ranks' (rank 0: "
+                  f"{got[0]}); rank {rec['rank']}'s kernel-4 launches "
+                  f"{kernels}; its peak {rec['peak_bytes_per_dev'] / 2 ** 30:.3f}"
+                  f" GiB", flush=True)
+
+
+def phase_tp_train(smi: str) -> dict:
+    """35. Branch training over a model axis: Gemma-2B at full width cut
+    to TRAIN_LAYERS, remat on, over 4 gloo ranks on the one card, the runs
+    of TPT_RUNS (f32 on (data 1, model 4) and (2, 2), bf16 on (1, 4)),
+    TPT_STEPS steps each, held to the one-process step on rank 0's whole
+    batch; the bytes a rank sends held to the dry run's."""
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    print(f"phase 35 on {smi}: {DIST_RANKS} gloo ranks on one card; "
+          f"Gemma-2B at full width cut to {TRAIN_LAYERS} layers (remat on), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, 'pallas', (activations, "
+          f"meshes) {TPT_RUNS}, {TPT_STEPS} steps each; the ranks "
+          f"time-share the card, so the host times are no scaling figure",
+          flush=True)
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(mesh_lib.spawn, phase_tp_train_rank,
+                              DIST_RANKS, backend="gloo",
+                              deadline_s=TPT_DEADLINE_S)
+        t_dry = time.perf_counter()
+        dry = tpt_dry_runs()            # meanwhile, on the host
+        t_dry = time.perf_counter() - t_dry
+        ranks = spawned.result()
+    runs = {}
+    for i, run in enumerate(ranks[0]["runs"]):
+        rs = [r["runs"][i] for r in ranks]
+        runs[run["key"]] = rs
+        wit = ("" if run["witness"] is None else
+               f" (the nudged witness {run['witness'][0]:.3e}, "
+               f"{run['witness'][1]})")
+        print(f"(35) {run['key']}: {run['rows']} rows a rank; loss "
+              f"{run['loss0']:.6f} vs one process {run['ref']['loss']:.6f}, "
+              f"bitwise on every rank with every whole leaf's gradient; "
+              f"worst gradient block per rank "
+              + ", ".join(f"{x['grad_rel'][0]:.3e}" for x in rs)
+              + f" of its leaf's absmax ({run['grad_rel'][1]}){wit}; "
+              f"grad_norm {run['grad_norm']:.6f} vs {run['ref']['grad_norm']:.6f}"
+              f"; losses {[round(v, 6) for v in run['loss']]}; kernel-4 "
+              f"launches per rank a step {[x['launches'][0] for x in rs]} "
+              f"(forward + recompute, none in the backward), "
+              f"{len(run['geoms'])} geometries on rank 0 torch.equal to the "
+              f"plain version; ROM tensors unmoved"
+              + (", its fingerprint too" if run["fingerprint"] else ""),
+              flush=True)
+        print(f"  step host ms per rank: " + "; ".join(
+            ", ".join(f"{t:.1f}" for t in x["step_ms"]) for x in rs)
+              + f" [{smi}]")
+        print(f"  bytes sent per rank a step by kind: "
+              + "; ".join(str(x["bytes"][0]) for x in rs)
+              + f"; wire bytes {[x['wire'][0] for x in rs]}")
+        k = run.get("kernel")
+        if k is not None:
+            print(f"  kernel 4, rank 0's {run['calls']} calls of a step's "
+                  f"value_and_grad (M, K, N: {run['geoms']}), the others "
+                  f"idle: {k['ms']:.3f} ms, plain {k['plain_ms']:.3f}, "
+                  f"torch._int_mm {k['library_ms']:.3f}, bound "
+                  f"{k['bound_ms']:.3f} ({k['bound_by']}) [{smi}]",
+                  flush=True)
+    tpt_dry_bytes(runs, dry)
+    r0 = ranks[0]
+    print(f"phase 35 {time.perf_counter() - t0:.1f} s (dry runs {t_dry:.1f} "
+          f"s beside the ranks; rank 0 {r0['rank_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in r0["parts_s"].items())
+          + f"; peak device memory per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB)")
+    return {key: {"launches": [x["launches"] for x in rs],
+                  "kernel": rs[0].get("kernel")}
+            for key, rs in runs.items()}
+
+
 # phase 33: the step cost counter on the card
 COST_ROWS = 8                  # Gemma-2B's decode rows (phases 6-7)
 COST_PEAK_RTOL = 0.10          # the meta record's peak against the card's
@@ -7271,6 +7637,8 @@ def main() -> int:
     tp_serve.update(phase_tp_uneven(dev, smi, tp_held))
     del tp_held
     lap("34")
+    tp_train = phase_tp_train(smi)
+    lap("35")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -7352,6 +7720,12 @@ def main() -> int:
                 k: v for k, v in tp_serve.items()
                 if ("-pallas-" in k) == (name == "cim_matmul")}
         if name == "cim_matmul":
+            # phase 35: per tensor-parallel training run (dtype, mesh),
+            # each rank's launches per step (forward and remat recompute)
+            # and rank 0's calls of one step's value_and_grad timed with
+            # the other ranks idle (ms, plain_ms, library_ms: torch._int_mm
+            # with W column-major, bound_ms)
+            out["tp_train"] = tp_train
             # phase 27: launches over each new family's 10 train steps at
             # the 2-layer cut, and per step (checked: the block linears
             # plus the head per loss chunk, forward and recompute)

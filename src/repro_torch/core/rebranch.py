@@ -112,22 +112,24 @@ def trunk_matmul(cfg, x, w_q, w_scale):
 
 class _ZerosFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, src, shape):
-        ctx.src = (src.shape, src.dtype, src.device)
-        return src.new_zeros(shape)
+    def forward(ctx, shape, dtype, src, *more):
+        ctx.src = [(t.shape, t.dtype, t.device) for t in (src, *more)]
+        return src.new_zeros(shape, dtype=dtype)
 
     @staticmethod
     def backward(ctx, g):
-        shape, dtype, device = ctx.src
-        return torch.zeros(shape, dtype=dtype, device=device), None
+        return (None, None, *(torch.zeros(s, dtype=d, device=v)
+                              for s, d, v in ctx.src))
 
 
-def zeros_from(src: torch.Tensor, shape) -> torch.Tensor:
-    """Zeros of ``shape`` that stand in the autograd graph after ``src``
-    (zero gradient): an empty result that still leads back to its input,
-    so that a rank of a mesh with no rows to compute reaches the exchanges
+def zeros_from(src: torch.Tensor, shape, *more: torch.Tensor,
+               dtype=None) -> torch.Tensor:
+    """Zeros of ``shape`` (``src``'s dtype by default) that stand in the
+    autograd graph after ``src`` and ``more`` (zero gradient): an empty
+    result that still leads back to its inputs, so that a rank of a mesh
+    with no rows (or heads, or k-blocks) to compute reaches the exchanges
     before it in its backward, as the other ranks do."""
-    return _ZerosFrom.apply(src, tuple(shape))
+    return _ZerosFrom.apply(tuple(shape), dtype or src.dtype, src, *more)
 
 
 def conv_nhwc(x, w, stride: int = 1, padding: str = "SAME"):
@@ -257,20 +259,30 @@ def apply_linear(params, x, spec: ReBranchSpec, tp=None, sp=None):
     row-parallel one by :func:`row_parallel_parts`, giving the whole
     output (or, with ``sp``, the seq_sp layout of every model rank,
     this rank's sequence chunk of it).
+
+    In training (``launch.steps.BranchStep``) the leaves a site holds
+    whole on every model rank but uses its own way (a column site's core,
+    which meets only the rank's U columns, and its bias, cut to them; any
+    trainable leaf of a site kept whole into the ``sp`` layout) are
+    marked (``sharding.mark_partial``): their gradient here is this
+    rank's part, which the step sums over the model axis when it reduces
+    the gradients, in one exchange for all of them.
     """
+    from repro_torch.distributed import sharding as shd
     if tp is not None and tp.role == "row":
         return _row_parallel(params, x, spec, tp, sp)
     if tp is not None:
         sram = params["sram"]
         b = sram.get("b")
+        shd.mark_partial(sram.get("core"), b)
         lo, hi = tp.cols
         if hi == lo:              # a rank without columns launches nothing
-            return x.new_zeros((*x.shape[:-1], 0))
+            return zeros_from(x, (*x.shape[:-1], 0))
         if b is not None and b.shape[-1] != hi - lo:   # biases stay whole
             params = {**params, "sram": {**sram, "b": b[..., lo:hi]}}
     y = _apply_local(params, x, spec)
     if sp is not None:            # a site kept whole, into the seq_sp layout
-        from repro_torch.distributed import sharding as shd
+        shd.mark_partial(params["sram"])
         mesh, axis = shd.model_axis()
         lo, hi = sp[mesh.coordinate(axis)]
         y = y.narrow(1, lo, hi - lo)
@@ -321,8 +333,12 @@ def row_parallel_parts(params, x, spec: ReBranchSpec, tp):
       plain (SRAM) site: ``x @ w`` in f32.  None under ``trunk_skip``.
     * ``"t1"``: f32 [M, Cd], the sketch ``x @ C`` of the rank's rows of C
       (the fused kernel's, or bucketed rows), when the branch is live.
+    * ``"x"``: x [M, k] on the rank's k-blocks (the trunk's
+      straight-through gradient goes to it).
 
-    A rank with no k-block computes zeros and launches nothing."""
+    A rank with no k-block computes zeros and launches nothing; its zeros
+    stand in the autograd graph after x (``zeros_from``), so its backward
+    joins every exchange."""
     from repro_torch.distributed import sharding as shd
     x = shd.move_rows(x, list(tp.x_layout), list(tp.k_ranges), tp.mesh,
                       tp.axis, "relayout", dim=-1)
@@ -331,11 +347,11 @@ def row_parallel_parts(params, x, spec: ReBranchSpec, tp):
     sram = params["sram"]
     rom = params.get("rom", {})
     live = spec.enabled and spec.branch_enabled and "core" in sram
-    out = {"trunk": None, "t1": None, "scale": None}
+    out = {"trunk": None, "t1": None, "scale": None, "x": x2}
     f32 = dict(dtype=torch.float32, device=x.device)
     if not spec.enabled:
         out["trunk"] = (x2.float() @ sram["w"].float() if k else
-                        torch.zeros((m, tp.d_out), **f32))
+                        zeros_from(x2, (m, tp.d_out), dtype=torch.float32))
         return out
     if not spec.trunk_skip:
         from repro_torch import engine as engine_lib
@@ -357,8 +373,95 @@ def row_parallel_parts(params, x, spec: ReBranchSpec, tp):
     if live and out["t1"] is None:
         cf = rom["C"].float()
         out["t1"] = (rows.rowwise(lambda a: a.float() @ cf, x2) if k else
-                     torch.zeros((m, cf.shape[1]), **f32))
+                     zeros_from(x2, (m, cf.shape[1]), dtype=torch.float32))
     return out
+
+
+def _keep_rows(t, lead, sp, r):
+    """[M, c] (M = prod(lead)) -> the rows of this rank r's ``sp``
+    sequence chunk (all of them without ``sp``)."""
+    if sp is None:
+        return t
+    lo, hi = sp[r]
+    return (t.reshape(*lead, t.shape[-1]).narrow(1, lo, hi - lo)
+            .reshape(-1, t.shape[-1]))
+
+
+def _whole_rows(g, lead, sp, mesh, axis):
+    """The adjoint of :func:`_keep_rows`: every rank's kept rows of a
+    gradient gathered into all M rows (``"chunk_adjoint"``)."""
+    if sp is None:
+        return g
+    from repro_torch.distributed import sharding as shd
+    r = mesh.coordinate(axis)
+    chunk = [lead[0], sp[r][1] - sp[r][0], *lead[2:], g.shape[-1]]
+    whole = shd.gather_chunks(g.reshape(chunk), sp, mesh, axis, 1,
+                              "chunk_adjoint")
+    return whole.reshape(-1, g.shape[-1])
+
+
+class _GatherSum(torch.autograd.Function):
+    """A row-parallel site's reduction: one gather of every rank's f32
+    [trunk | t1], the trunk added in rank order on the rows this rank
+    keeps, t1 on all rows.  Adjoint: each rank's trunk part had the whole
+    gradient of the sum, which this rank holds where it keeps all rows
+    (the output is then used alike on every rank) and gathers from the
+    ranks' chunks under ``sp``; t1's is this rank's gradient, or the
+    rank-order sum of the ranks' gradients where each rank uses t1 its own
+    way (``t1_partial``: its columns against its rows of a split core,
+    or its ``sp`` rows)."""
+
+    @staticmethod
+    def forward(ctx, trunk, t1, mesh, axis, lead, sp, t1_partial):
+        from repro_torch.distributed import sharding as shd
+        r = mesh.coordinate(axis)
+        ctx.geom = (mesh, axis, lead, sp, t1_partial)
+        pieces = [t for t in (trunk, t1) if t is not None]
+        gathered = shd.gather_parts(torch.cat(pieces, dim=-1), mesh, axis,
+                                    "reduce")
+        if trunk is not None:
+            n_out = trunk.shape[1]
+            trunk = shd.rank_sum([_keep_rows(g[:, :n_out], lead, sp, r)
+                                  for g in gathered])
+        if t1 is not None:
+            t1 = shd.rank_sum([g[:, -t1.shape[1]:] for g in gathered])
+        return trunk, t1
+
+    @staticmethod
+    def backward(ctx, g_trunk, g_t1):
+        from repro_torch.distributed import sharding as shd
+        mesh, axis, lead, sp, t1_partial = ctx.geom
+        d_trunk = d_t1 = None
+        if ctx.needs_input_grad[0]:
+            d_trunk = _whole_rows(g_trunk, lead, sp, mesh, axis)
+        if ctx.needs_input_grad[1]:
+            d_t1 = (shd.sum_parts(g_t1, mesh, axis, "reduce_adjoint")
+                    if t1_partial else g_t1)
+        return d_trunk, d_t1, None, None, None, None, None
+
+
+class _RowTrunkSTE(torch.autograd.Function):
+    """A row-parallel trunk's output from its reduced CiM sum: ``(trunk *
+    scale).to(dt) * w_scale`` (``ops._TrunkMatmulPallas.forward``'s
+    epilogue) with the reference's straight-through backward for this
+    rank's k-rows: ``dx = g @ (w_q * w_scale)^T``, ``g`` the whole output
+    gradient (gathered from the ranks' chunks under ``sp``)."""
+
+    @staticmethod
+    def forward(ctx, x2, trunk, scale, w_q, w_scale, mesh, axis, lead, sp):
+        ctx.save_for_backward(w_q, w_scale)
+        ctx.geom = (mesh, axis, lead, sp)
+        dt = x2.dtype
+        return (trunk * scale).to(dt) * w_scale.reshape(1, -1).to(dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, w_scale = ctx.saved_tensors
+        mesh, axis, lead, sp = ctx.geom
+        g = _whole_rows(g, lead, sp, mesh, axis)
+        w_deq = w_q.to(g.dtype) * w_scale.reshape(1, -1).to(g.dtype)
+        return (g @ w_deq.T, None, None, None, None, None, None, None,
+                None)
 
 
 def _row_parallel(params, x, spec: ReBranchSpec, tp, sp):
@@ -368,7 +471,13 @@ def _row_parallel(params, x, spec: ReBranchSpec, tp, sp):
     the reference's rule (C and core split on the contracting side:
     ``z = t1 @ core`` is a second rank-order sum of the ranks' rows of
     core, then ``z @ U``), and ``w_scale`` and the bias once, after the
-    reductions, as the unsharded site applies them."""
+    reductions, as the unsharded site applies them.
+
+    Differentiable (:class:`_GatherSum`, :class:`_RowTrunkSTE`, the
+    adjoints of ``sharding.reduce_model``/``reduce_chunk``): the whole
+    output's gradient reaches every rank's parts; a core or bias held
+    whole and used on the rank's ``sp`` rows is marked
+    (``sharding.mark_partial``)."""
     from repro_torch.distributed import sharding as shd
     mesh, axis, r, n = tp.mesh, tp.axis, tp.coord, tp.n
     lead = list(x.shape[:-1])
@@ -377,23 +486,16 @@ def _row_parallel(params, x, spec: ReBranchSpec, tp, sp):
     sram = params["sram"]
 
     def keep(t):                  # [M, c] -> the rows this rank keeps
-        if sp is None:
-            return t
-        lo, hi = sp[r]
-        return (t.reshape(*lead, t.shape[-1]).narrow(1, lo, hi - lo)
-                .reshape(-1, t.shape[-1]))
+        return _keep_rows(t, lead, sp, r)
 
     out_lead = list(lead)
     if sp is not None:
         out_lead[1] = sp[r][1] - sp[r][0]
-    pieces = [t for t in (trunk, t1) if t is not None]
-    gathered = shd.gather_parts(torch.cat(pieces, dim=-1), mesh, axis,
-                                "reduce")
+        shd.mark_partial(sram.get("b"))
+    core_split = t1 is not None and sram["core"].shape[0] != t1.shape[1]
+    trunk, t1 = _GatherSum.apply(trunk, t1, mesh, axis, lead, sp,
+                                 core_split or sp is not None)
     n_out = tp.d_out
-    if trunk is not None:
-        trunk = shd.rank_sum([keep(g[:, :n_out]) for g in gathered])
-    if t1 is not None:
-        t1 = shd.rank_sum([g[:, -t1.shape[1]:] for g in gathered])
     dt = x.dtype
     if not spec.enabled:
         return _bias(trunk.to(dt).reshape(*out_lead, n_out), sram)
@@ -404,11 +506,14 @@ def _row_parallel(params, x, spec: ReBranchSpec, tp, sp):
     elif scale is None:             # the fused kernel's trunk
         y = trunk * rom["w_scale"].reshape(1, -1).float()
     else:                           # as ops._TrunkMatmulPallas.forward
-        y = (trunk * keep(scale)).to(dt) * rom["w_scale"].reshape(
-            1, -1).to(dt)
+        y = _RowTrunkSTE.apply(parts["x"], trunk.detach(), keep(scale),
+                               rom["w_q"], rom["w_scale"], mesh, axis, lead,
+                               sp)
     if t1 is not None:
         core = sram["core"].float()
-        if core.shape[0] == t1.shape[1]:          # core kept whole
+        if not core_split:                        # core kept whole
+            if sp is not None:
+                shd.mark_partial(sram["core"])
             z = keep(rows.rowwise(lambda a: a @ core, t1))
         else:
             lo, hi = shd.h_layout(t1.shape[1], n)[r]

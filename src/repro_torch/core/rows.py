@@ -51,8 +51,9 @@ def _meta_rowwise(fn, rows, m: int):
     is, and one concatenation of the same bytes joins them.  A prefill of
     32k tokens then costs a few ops a site."""
     n_full, tail = divmod(m, ROW_BUCKET)
+    ins, close = cost.repeated_grad(n_full, *(r[:ROW_BUCKET] for r in rows))
     with cost.repeated(n_full):
-        first = fn(*(r[:ROW_BUCKET] for r in rows))
+        first = close(fn(*ins))
     rest = first.new_empty((n_full - 1, *first.shape))
     outs = [first, rest.reshape(-1, *first.shape[1:])]
     if tail:

@@ -139,9 +139,9 @@ class CompiledModel:
         return api.features(params, batch, self.cfg)
 
     @_scoped
-    def apply_head(self, params, x):
+    def apply_head(self, params, x, **kw):
         self._lm_only("apply_head")
-        return api.apply_head(params, x, self.cfg)
+        return api.apply_head(params, x, self.cfg, **kw)
 
     @_scoped
     def prefill(self, params, batch, cache, **kw):

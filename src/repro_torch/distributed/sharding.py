@@ -52,6 +52,22 @@ every rank; a gloo all-reduce adds each chunk in another order.  Column
 moves go through :func:`move_rows` with ``dim=-1``.  The axes still not
 executed (``expert``, ``expert_mlp``, ``ssm_inner``, ``kv_seq``) raise
 naming the item that ports them.
+
+Training over the model axis keeps Megatron's convention: a tensor whole
+on every model rank carries its whole gradient on every rank wherever
+every rank uses it alike, and tensor-parallel work that each rank does
+its own way is entered through *f* (:func:`replicate`: the identity,
+whose adjoint is the rank-order sum of the ranks' partial gradients) or
+through a gather whose adjoint sums (:func:`move_rows`).  So the
+adjoint of :func:`reduce_model` is the identity (a row-parallel site's
+t1, which each rank uses its own way, sums instead:
+``core.rebranch._GatherSum``); that of :func:`reduce_chunk` a gather of
+the chunks' gradients; and :func:`rank_max` stays out of the graph.
+Trainable leaves held whole but used by each rank its own way are marked
+(:func:`mark_partial`) and their gradients summed by the train step in
+one exchange.  Every adjoint counts what it sends under a ``*_adjoint``
+kind; the backward's sums (:func:`sum_parts`) are a reduce-scatter and
+an all-gather with the rank-order bits.
 """
 
 from __future__ import annotations
@@ -329,30 +345,41 @@ def _exchange(x: torch.Tensor, have: list, want: list, mesh, axis: str,
 
 class _MoveRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, have, want, mesh, axis, kind, dim):
-        ctx.geom = (have, want, mesh, axis, kind, dim)
+    def forward(ctx, x, have, want, mesh, axis, kind, dim, replicated):
+        ctx.geom = (have, want, mesh, axis, kind, dim, replicated)
         return _exchange(x, have, want, mesh, axis, kind, dim, add=False)
 
     @staticmethod
     def backward(ctx, g):
-        have, want, mesh, axis, kind, dim = ctx.geom
-        dx = _exchange(g.contiguous(), want, have, mesh, axis,
-                       f"{kind}_adjoint", dim, add=True)
-        return dx, None, None, None, None, None, None
+        have, want, mesh, axis, kind, dim, replicated = ctx.geom
+        if replicated:                  # this rank's rows of a whole gradient
+            r = mesh.coordinate(axis)
+            dx = g.narrow(dim, have[r][0] - want[r][0],
+                          have[r][1] - have[r][0])
+        else:
+            dx = _exchange(g.contiguous(), want, have, mesh, axis,
+                           f"{kind}_adjoint", dim, add=True)
+        return dx, None, None, None, None, None, None, None
 
 
 def move_rows(x: torch.Tensor, have: list, want: list, mesh, axis: str,
-              kind: str, dim: int = 1) -> torch.Tensor:
+              kind: str, dim: int = 1,
+              replicated: bool = False) -> torch.Tensor:
     """Rows ``want[r]`` (global ``(lo, hi)`` along ``dim``, H by default)
     of the activation for this rank r, which holds rows ``have[r]`` as
     ``x``; ``have`` and ``want`` are the same lists on every rank.  Rows
     outside every ``have`` (the conv's zero padding, outside ``[0, H)``)
     are zeros.  Only the rows that change owner cross between ranks, one
     message per pair at most.  Differentiable: the adjoint returns each
-    row's gradient to its owner, summed over the ranks that read it."""
+    row's gradient to its owner, summed over the ranks that read it (each
+    rank's gradient a part of the whole).  ``replicated``: every rank
+    gathers the whole (``want`` holds each ``have``) into work that is the
+    same on every rank, so each rank's gradient is the whole one and the
+    adjoint keeps this rank's rows of it, sending nothing."""
     if list(want) == list(have):
         return x
-    return _MoveRows.apply(x, list(have), list(want), mesh, axis, kind, dim)
+    return _MoveRows.apply(x, list(have), list(want), mesh, axis, kind, dim,
+                           replicated)
 
 
 def reset_traffic():
@@ -451,16 +478,11 @@ def gather_flat(x: torch.Tensor, size: int, mesh, axes, dim: int = 0,
     return x
 
 
-def mesh_group(mesh):
-    """The process group of all of ``mesh``'s ranks: the one axis of size
-    > 1, else the world (a mesh spans the whole world)."""
-    axes = [a for a in mesh.axis_names if mesh.shape[a] > 1]
-    if len(axes) == 1:
-        return mesh.group(axes[0])
-    if mesh.size != dist.get_world_size():
-        raise ValueError(f"{mesh!r} does not span the world of "
-                         f"{dist.get_world_size()} ranks")
-    return dist.group.WORLD
+def batch_axes(mesh) -> list:
+    """The axes of ``mesh`` the batch is split over (the ``"batch"`` rule:
+    ``pod`` and ``data``, in mesh order), those of size > 1."""
+    return [a for a in current_rules()["batch"]
+            if a in mesh.axis_names and mesh.shape[a] > 1]
 
 
 # ---------------------------------------------------------------------------
@@ -626,37 +648,204 @@ def rank_sum(parts: list[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
-def reduce_model(x: torch.Tensor, kind: str = "reduce") -> torch.Tensor:
-    """The whole sum over the model axis of every rank's ``x``, added in
-    rank order (``x`` itself without a model axis)."""
-    at = model_axis()
+def sum_parts(g: torch.Tensor, mesh, axis: str, kind: str) -> torch.Tensor:
+    """The rank-order sum over ``axis`` of every rank's ``g``: the bits of
+    :func:`rank_sum` over :func:`gather_parts`, on every rank, at a
+    reduce-scatter's and an all-gather's cost.  Rank q adds the ranks'
+    pieces of chunk q (GSPMD's layout of the flattened ``g``) in rank
+    order, then the sums are gathered: each rank holds one chunk of every
+    rank, not every rank's whole ``g``, and sends 2 (n-1)/n of it."""
+    n, r = mesh.shape[axis], mesh.coordinate(axis)
+    group = mesh.group(axis)
+    host = _collective_device(group, g).type != g.device.type
+    flat = g.contiguous().reshape(-1)
+    layout = h_layout(flat.numel(), n)
+    lo, hi = layout[r]
+    src = flat.cpu() if host else flat
+    ops, pieces = [], []
+    for q in range(n):
+        if q == r:
+            pieces.append(flat[lo:hi])
+            continue
+        peer = dist.get_global_rank(group, q)
+        a, b = layout[q]
+        if b > a:                            # my piece of q's chunk
+            ops.append(dist.P2POp(dist.isend, src[a:b], peer,
+                                  group=group))
+            _sent(kind, (b - a) * flat.element_size())
+        buf = src.new_empty(hi - lo)
+        if hi > lo:                          # q's piece of my chunk
+            ops.append(dist.P2POp(dist.irecv, buf, peer, group=group))
+        pieces.append(buf)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    total = rank_sum([p.to(g.device) for p in pieces])
+    return _exchange(total, layout, [(0, flat.numel())] * n, mesh, axis,
+                     kind, 0, add=False).reshape(g.shape)
+
+
+def gather_chunks(g: torch.Tensor, layout, mesh, axis: str, dim: int,
+                  kind: str) -> torch.Tensor:
+    """The whole extent along ``dim`` on every rank from the chunks of
+    ``layout`` (this rank's ``g``): the adjoint of a sum kept as chunks."""
+    n = mesh.shape[axis]
+    return _exchange(g.contiguous(), list(layout),
+                     [(0, layout[-1][1])] * n, mesh, axis, kind, dim,
+                     add=False)
+
+
+class _RankSum(torch.autograd.Function):
+    """The rank-order sum over ``axis`` into work every rank does alike:
+    each rank's part had the whole sum's gradient, which is this rank's
+    own, so the adjoint sends nothing.  (Where each rank uses the sum its
+    own way, a row-parallel site's t1, the adjoint sums the ranks'
+    gradients: ``core.rebranch._GatherSum``.)"""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, kind):
+        return rank_sum(gather_parts(x, mesh, axis, kind))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def reduce_model(x: torch.Tensor, kind: str = "reduce",
+                 at=None) -> torch.Tensor:
+    """The whole sum over the model axis (``at``: ``(mesh, axis)``, by
+    default the bound mesh's) of every rank's ``x``, added in rank order
+    (``x`` itself without a model axis), into work every rank does alike
+    (the embedding's lookup, the loss's sums, a row-parallel site's
+    branch ``z``): differentiable, its adjoint the identity
+    (:class:`_RankSum`)."""
+    at = at or model_axis()
     if at is None:
         return x
-    return rank_sum(gather_parts(x, *at, kind))
+    return _RankSum.apply(x, *at, kind)
+
+
+class _ReduceChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axis, kind):
+        layout = h_layout(x.shape[dim], mesh.shape[axis])
+        ctx.geom = (layout, mesh, axis, dim)
+        lo, hi = layout[mesh.coordinate(axis)]
+        return rank_sum([p.narrow(dim, lo, hi - lo)
+                         for p in gather_parts(x, mesh, axis, kind)])
+
+    @staticmethod
+    def backward(ctx, g):
+        layout, mesh, axis, dim = ctx.geom
+        return (gather_chunks(g, layout, mesh, axis, dim, "chunk_adjoint"),
+                None, None, None, None)
 
 
 def reduce_chunk(x: torch.Tensor, dim: int,
                  kind: str = "reduce") -> torch.Tensor:
     """This rank's chunk along ``dim`` (GSPMD's layout over the model
     axis) of the rank-order sum of every rank's ``x``: the reference's
-    reduce-scatter into ``seq_sp``."""
+    reduce-scatter into ``seq_sp``.  Its adjoint gathers the chunks'
+    gradients (``"chunk_adjoint"``): every rank's part had the whole
+    gradient."""
     at = model_axis()
     if at is None:
         return x
-    mesh, axis = at
-    lo, hi = h_layout(x.shape[dim], mesh.shape[axis])[mesh.coordinate(axis)]
-    return rank_sum([p.narrow(dim, lo, hi - lo)
-                     for p in gather_parts(x, mesh, axis, kind)])
+    return _ReduceChunk.apply(x, dim, *at, kind)
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.geom = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_parts(g, *ctx.geom, "replicate_adjoint"), None, None
+
+
+def replicate(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's *f*: ``x`` (whole, the same on every model rank) as the
+    input of tensor-parallel work, where each rank's gradient is a part:
+    the identity, whose adjoint is the rank-order sum of the ranks'
+    gradients (``"replicate_adjoint"``).  ``x`` itself without a model
+    axis or where autograd records nothing for it."""
+    at = model_axis()
+    if at is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _Replicate.apply(x, *at)
 
 
 def rank_max(x: torch.Tensor, mesh, axis: str,
              kind: str = "absmax") -> torch.Tensor:
     """The elementwise max of every rank's ``x`` over ``axis`` (exact in
-    any order)."""
-    parts = gather_parts(x, mesh, axis, kind)
+    any order).  Out of the autograd graph: it feeds a quantiser's scale
+    (straight-through) or a logsumexp's shift, which carry no gradient."""
+    parts = gather_parts(x.detach(), mesh, axis, kind)
     out = parts[0]
     for p in parts[1:]:
         out = torch.maximum(out, p)
+    return out
+
+
+# the trainable leaves held whole on every model rank whose use on this
+# rank is its own (a column site's core and bias, a norm scale on the
+# rank's sequence chunk...), so that their gradient here is this rank's
+# part: marked during a train step's forward (:func:`mark_partial`),
+# summed over the model axis by the step (``launch.steps.BranchStep``)
+_partial_leaves: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_partial_leaves", default=None)
+
+
+@contextlib.contextmanager
+def partial_leaves():
+    """Collect, in the yielded set, the ids of the leaves that
+    :func:`mark_partial` marks inside the block (a view stands for the
+    leaf it views: a stacked tree's per-layer slices mark the stack)."""
+    seen: set = set()
+    token = _partial_leaves.set(seen)
+    try:
+        yield seen
+    finally:
+        _partial_leaves.reset(token)
+
+
+def mark_partial(*trees):
+    """Mark every tensor of ``trees`` (held whole on every model rank) as
+    used by this rank its own way: its gradient on this rank is a part of
+    the whole, which the train step sums over the model axis.  Nothing
+    outside :func:`partial_leaves` or without a model axis."""
+    seen = _partial_leaves.get()
+    if seen is None or model_axis() is None:
+        return
+    for tree in trees:
+        leaves = (bridge.flatten(tree).values() if isinstance(tree, dict)
+                  else [tree])
+        for t in leaves:
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                seen.add(id(t if t._base is None else t._base))
+
+
+def model_split_leaves(params, mesh) -> set:
+    """The paths of the leaves of the whole tree ``params`` that the ranks
+    of ``mesh``'s model axis hold in blocks (their spec names the axis, or
+    :func:`param_bounds` cuts them on whole heads); every other leaf is
+    whole on each model rank."""
+    at = model_axis(mesh)
+    if at is None:
+        return set()
+    axis = at[1]
+    heads = mesh_axis_for("heads", mesh) is not None
+
+    def names(part):
+        return part if isinstance(part, tuple) else (part,)
+    out = set()
+    for path, leaf in bridge.flatten(params).items():
+        spec = _spec_of(path, leaf, mesh)
+        if (heads and head_site(path)) or any(
+                axis in names(p) for p in spec if p is not None):
+            out.add(path)
     return out
 
 

@@ -102,8 +102,14 @@ COLLECTIVE_OF = {
     "relayout_adjoint": "collective-permute",
     "gather": "all-gather", "gather_adjoint": "reduce-scatter",
     "reduce": "all-reduce", "attention": "all-reduce", "embed": "all-reduce",
-    "argmax": "all-reduce", "absmax": "all-reduce",
+    "argmax": "all-reduce", "absmax": "all-reduce", "loss": "all-reduce",
     "f32": "all-reduce", "int8": "all-gather",
+    # training over the model axis: the adjoints of a rank-order sum (a
+    # sum of the ranks' gradients, or a gather of a chunked sum's) and of
+    # Megatron's f, and the model-axis sum of the replicated leaves'
+    # gradients
+    "reduce_adjoint": "all-reduce", "chunk_adjoint": "all-gather",
+    "replicate_adjoint": "all-reduce", "grads": "all-reduce",
 }
 
 # ops that read and write nothing (allocation, metadata, scalars)
@@ -284,10 +290,13 @@ def count():
     :class:`Record`."""
     rec = Record()
     token = _active.set(rec)
+    # a backward cut short leaves no repeat count behind the record
+    times = _times.set(_times.get())
     try:
         with _Counter(rec):
             yield rec
     finally:
+        _times.reset(times)
         _active.reset(token)
 
 
@@ -303,6 +312,56 @@ def repeated(n: int):
         yield
     finally:
         _times.reset(token)
+
+
+class _RepeatMark(torch.autograd.Function):
+    """The identity at one end of a region that :func:`repeated_grad`
+    counts ``n`` times in the backward: the mark on its output (``"out"``,
+    first in the backward) multiplies the count, the first of the marks on
+    its inputs to run (after every node of the region) restores it and
+    drops the stand-ins the region keeps alive for its other runs."""
+
+    @staticmethod
+    def forward(ctx, x, box, end):
+        ctx.box, ctx.end = box, end
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        box = ctx.box
+        if ctx.end == "out":
+            box["token"] = _times.set(_times.get() * box["n"])
+        elif box["token"] is not None:
+            _times.reset(box["token"])
+            box["token"] = None
+            box["keep"].clear()
+        return g, None, None
+
+
+def repeated_grad(n: int, *inputs, keep=()):
+    """The backward side of :func:`repeated`: ``(inputs, close)`` for a
+    region run once on ``meta`` that stands for ``n`` runs, ``close``
+    applied to its output.  Between the output's mark and the first of
+    the inputs' marks the backward counts ``n`` times: the engine runs
+    the ready node made last, and every node of the region is made after
+    the inputs' marks and waits only on nodes of the region (an input the
+    region does not use gets no gradient; any other input's mark runs).
+    ``keep`` (storages standing for the other runs' saved tensors) lives
+    until the region's backward has run.  Nothing is marked unless
+    autograd records for some input and ``n`` > 1."""
+    box = {"n": n, "token": None, "keep": list(keep)}
+    marked, live = [], False
+    for x in inputs:
+        if n > 1 and torch.is_grad_enabled() and x.requires_grad:
+            x = _RepeatMark.apply(x, box, "in")
+            live = True
+        marked.append(x)
+
+    def close(out):
+        if not (live and out.requires_grad):
+            return out
+        return _RepeatMark.apply(out, box, "out")
+    return marked, close
 
 
 @contextlib.contextmanager

@@ -83,11 +83,11 @@ CNN_SERVE_DEVICES = 8
 # model -> iso-area baseline weight-reload factor (the reference's)
 FIG12_MODELS = {"darknet19": 3.0, "resnet18": 1.0, "tiny_yolo": 1.0}
 
-# the sub-slices of ROADMAP item 5(d) by what a cell needs first: the
-# layouts dense TP refuses (i, the default), training over the model axis,
-# then the families
-SUB_SLICES = {"train": "ii", "moe": "iii", "ssm": "iv", "hybrid": "iv",
-              "vlm": "v", "audio": "v"}
+# the sub-slices of ROADMAP item 5(d) a cell still waits for: the
+# families (the dense layouts, i, and training over the model axis, ii,
+# are ported)
+SUB_SLICES = {"moe": "iii", "ssm": "iv", "hybrid": "iv", "vlm": "v",
+              "audio": "v"}
 SIZE_TIMEOUT_S = 120
 
 
@@ -259,11 +259,13 @@ def whole_params(model):
 def lm_rank(cfg, kind: str, seq: int, gbatch: int, mesh, whole,
             engine=None) -> dict:
     """One rank's step of an LM cell over ``mesh`` (a :class:`RankMesh`)
-    from the ``whole`` meta tree, measured (:func:`measure`)."""
+    from the ``whole`` meta tree, measured (:func:`measure`).  A train
+    cell runs ``launch.steps.make_train_step``'s step as it runs on a
+    rank: the rank's rows of the batch, ``cfg.remat`` (its layers
+    checkpointed; on meta one layer runs for all, its backward and
+    recompute counted per layer), the vocab-parallel loss, the
+    gradients' reductions and AdamW."""
     model = deploy.compile_model(cfg, engine=engine, mesh=mesh)
-    if kind == "train":
-        with shd.use_mesh(mesh):
-            steps_lib.train_mesh()      # the train step's own refusal
     params = model.shard_params(whole)
     specs = steps_lib.input_specs(cfg, seq, gbatch, kind)
     if kind == "train":
@@ -428,12 +430,10 @@ def run_fig12(name: str, fast: bool = False):
 # the sweep
 # ---------------------------------------------------------------------------
 
-def sub_slice(arch: str, shape_name: str) -> str:
+def sub_slice(arch: str) -> str:
     """The sub-slice of ROADMAP item 5(d) a refused cell waits for: the
-    family's, else training's, else the layouts' (i)."""
-    family = configs.get(arch).family
-    kind = configs.SHAPES[shape_name][2]
-    return SUB_SLICES.get(family) or SUB_SLICES.get(kind) or "i"
+    family's, else the layouts' (i)."""
+    return SUB_SLICES.get(configs.get(arch).family) or "i"
 
 
 def _not_ported(e: Exception) -> bool:
@@ -493,7 +493,7 @@ def main(argv=None) -> int:
                             print(f"[FAIL] {tag}: {e!r}", flush=True)
                             traceback.print_exc()
                             continue
-                        sub = f"5(d)({sub_slice(arch, shape_name)})"
+                        sub = f"5(d)({sub_slice(arch)})"
                         refused.append({"arch": arch, "shape": shape_name,
                                         "mesh_name": name, "not_ported": sub,
                                         "error": str(e)})

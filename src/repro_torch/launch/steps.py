@@ -11,12 +11,17 @@ and dtypes, no allocation).  The sharding half is the reference's
 ``cache_shardings``, ``model_state_shardings``), as the port's
 ``sharding.NamedSharding`` records.
 
-Under a bound mesh of more than one rank a train step is data-parallel:
-each rank computes the loss on what it holds (an LM rank its block of
-the batch; a CNN rank the whole output, gathered from every rank's
-slab), and every trainable gradient is all-reduced as a mean over the
-ranks before AdamW, so the update is the same on every rank.  Training
-over a ``model`` axis over 1 raises (ROADMAP item 5(d)).
+Under a bound mesh of more than one rank a train step is data-parallel
+over the batch axes (``pod``, ``data``): each rank computes the loss on
+what it holds (an LM rank its block of the batch; a CNN rank the whole
+output, gathered from every rank's slab), and every trainable gradient
+is all-reduced as a mean over those axes before AdamW.  Over a ``model``
+axis (dense LMs) the step is tensor-parallel as serving is: each model
+rank keeps its blocks of the parameters and their gradients, the leaves
+it holds whole are reduced to the same gradient on every model rank, the
+loss is the vocab-parallel cross entropy (:func:`chunked_readout_loss`)
+and the clip's norm is the whole tree's (``optim.adamw.global_norm``),
+so the update is one process's on every rank.
 
 Serving runs over a ``(data, model)`` mesh: the prefill and serve steps
 of a model compiled with ``mesh=`` take the whole batch on every rank,
@@ -29,15 +34,17 @@ next token is a distributed argmax over the vocab-parallel logits
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.distributed as dist
-import torch.utils.checkpoint
 
 from repro_torch import bridge, deploy, optim
 from repro_torch.core import rebranch
 from repro_torch.distributed import sharding as shd
+from repro_torch.launch import cost
+from repro_torch.models import api, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import compress as compress_lib
 
@@ -152,6 +159,27 @@ def _ce_sum(logits, labels):
     return torch.sum(lse - picked)
 
 
+def _ce_sum_vocab(logits, labels, vocab: int, mesh, axis):
+    """:func:`_ce_sum` of the whole logits from this rank's vocab columns
+    (GSPMD's even layout over the model axis), the reference's one-hot
+    contraction plus one psum: the max over the ranks (a shift, out of
+    the graph), then one rank-order sum of each rank's sum of exp and of
+    the label's logit from the rank that holds it (0 elsewhere).  The
+    loss is equal on every rank; the logits' gradient is each rank's
+    columns of the softmax less the one-hot."""
+    lo, hi = shd.h_layout(vocab, mesh.shape[axis])[mesh.coordinate(axis)]
+    lf = logits.float()
+    big = shd.rank_max(lf.amax(dim=-1), mesh, axis, "loss")
+    sum_exp = torch.exp(lf - big[..., None]).sum(dim=-1)
+    local = labels.long() - lo
+    own = (local >= 0) & (local < hi - lo)
+    picked = lf.gather(-1, local.clamp(0, hi - lo - 1)[..., None])[..., 0]
+    picked = torch.where(own, picked, torch.zeros((), device=lf.device))
+    tot = shd.reduce_model(torch.stack([sum_exp, picked], dim=-1), "loss",
+                           at=(mesh, axis))
+    return torch.sum(torch.log(tot[..., 0]) + big - tot[..., 1])
+
+
 def token_cross_entropy(logits, labels):
     """Mean CE over the last axis; [B, S, V] or [B, S, Q, V] logits."""
     return _ce_sum(logits, labels) / labels.numel()
@@ -164,22 +192,29 @@ def chunked_readout_loss(params, feats, labels, cfg: ArchConfig,
     scan): the full-vocab logits exist for one chunk at a time, and the
     backward recomputes each chunk's logits.  The chunk count falls to the
     largest divisor of S at or below ``num_chunks``, as the reference's.
-    Labels are [B, S] or [B, S, Q] (multi-codebook logits [B, S, Q, V])."""
+    Labels are [B, S] or [B, S, Q] (multi-codebook logits [B, S, Q, V]).
+    Over a model axis a vocab-parallel readout's logits stay the rank's
+    columns (:func:`_ce_sum_vocab`): whole logits are never formed."""
     model = model or deploy.compile_model(cfg)
     s = feats.shape[1]
     nc = num_chunks
     while s % nc:
         nc -= 1
     w = s // nc
+    at = shd.model_axis(model.mesh)
 
     def chunk(xc, yc):
-        return _ce_sum(model.apply_head(params, xc), yc)
+        if at is None:
+            return _ce_sum(model.apply_head(params, xc), yc)
+        logits = model.apply_head(params, xc, whole_logits=False)
+        if logits.shape[-1] == cfg.vocab_size:      # a readout kept whole
+            return _ce_sum(logits, yc)
+        return _ce_sum_vocab(logits, yc, cfg.vocab_size, *at)
 
     total = torch.zeros((), dtype=torch.float32, device=feats.device)
     for i in range(nc):
-        total = total + torch.utils.checkpoint.checkpoint(
-            chunk, feats[:, i * w:(i + 1) * w], labels[:, i * w:(i + 1) * w],
-            use_reentrant=False)
+        total = total + transformer.checkpointed(
+            chunk, feats[:, i * w:(i + 1) * w], labels[:, i * w:(i + 1) * w])
     return total / labels.numel()
 
 
@@ -187,50 +222,77 @@ def chunked_readout_loss(params, feats, labels, cfg: ArchConfig,
 # steps
 # ---------------------------------------------------------------------------
 
-def value_and_grad(loss_fn, trainable):
+def value_and_grad(loss_fn, trainable, partial: set | None = None):
     """(loss, grads) of ``loss_fn(trainable)`` over every trainable leaf;
     a leaf the loss does not reach gets zeros (as ``jax.grad`` gives),
-    not ``None``, so AdamW still decays it and its moments."""
+    not ``None``, so AdamW still decays it and its moments.  ``partial``
+    gets the names of the leaves the forward marked as used by this rank
+    its own way (``sharding.mark_partial``)."""
     named = bridge.flatten(trainable)
     leaves = {k: v.detach().requires_grad_(True) for k, v in named.items()}
-    with torch.enable_grad():
+    with torch.enable_grad(), shd.partial_leaves() as seen:
         loss = loss_fn(bridge.map_named(trainable, lambda k, _: leaves[k]))
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
+    if partial is not None:
+        partial.update(k for k, v in leaves.items() if id(v) in seen)
     grads = dict(zip(leaves, grads))
     return loss.detach(), bridge.map_named(
         trainable, lambda k, p: torch.zeros_like(p) if grads[k] is None
         else grads[k])
 
 
-def train_mesh():
-    """The bound mesh a train step reduces over, or None when there is
-    none or it has one rank.  A ``model`` axis over 1 raises:
-    tensor-parallel training comes with ROADMAP item 5(d)."""
-    mesh = shd.current_mesh()
+def train_mesh(mesh=None):
+    """The mesh a train step reduces over (``mesh``, else the bound one),
+    or None when there is none or it has one rank."""
+    mesh = mesh or shd.current_mesh()
     if mesh is None or mesh.size == 1:
         return None
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a train step over {mesh!r} would train over its 'model' "
-            f"axis; that comes with {shd.LM_SLICE}")
     return mesh
 
 
-def reduce_grads(loss, grads, mesh):
-    """(loss, grads) as means over the ranks of ``mesh``: every leaf and
-    the loss packed into one f32 buffer, one all-reduce (SUM) on the
-    mesh's group (host buffers for CUDA tensors over gloo), divided by the
-    rank count."""
+def reduce_partial(grads, names, mesh):
+    """The gradients of the leaves ``names`` (held whole on every model
+    rank, each rank's gradient a part of the whole) summed over the model
+    axis in rank order, all in one f32 exchange (``"grads"``): the same
+    bits on every model rank.  ``grads`` itself without a model axis."""
+    at = shd.model_axis(mesh)
     named = bridge.flatten(grads)
-    group = shd.mesh_group(mesh)
+    keys = [k for k in named if k in names]
+    if at is None or not keys:
+        return grads
+    flat = shd.sum_parts(torch.cat([named[k].reshape(-1).float()
+                                    for k in keys]), *at, "grads")
+    out, i = dict(named), 0
+    for k in keys:
+        g = named[k]
+        out[k] = flat[i:i + g.numel()].reshape(g.shape).to(g.dtype)
+        i += g.numel()
+    return bridge.map_named(grads, lambda k, _: out[k])
+
+
+def reduce_grads(loss, grads, mesh):
+    """(loss, grads) as means over the batch axes of ``mesh``
+    (``sharding.batch_axes``: ``pod`` and ``data``; each model rank keeps
+    its blocks): every leaf and the loss packed into one f32 buffer, one
+    all-reduce (SUM) on each axis' group, the innermost first (host
+    buffers for CUDA tensors over gloo), divided by the ranks they
+    span."""
+    axes = shd.batch_axes(mesh)
+    if not axes:
+        return loss, grads
+    named = bridge.flatten(grads)
     flat = torch.cat([loss.reshape(1).float()]
                      + [g.reshape(-1).float() for g in named.values()])
-    host = dist.get_backend(group) != "nccl" and flat.device.type == "cuda"
-    buf = flat.cpu() if host else flat
-    dist.all_reduce(buf, group=group)
-    compress_lib.count_wire("f32", buf.numel() * 4)
-    flat = buf.to(flat.device) / dist.get_world_size(group)
+    buf = flat
+    for a in reversed(axes):
+        group = mesh.group(a)
+        host = (dist.get_backend(group) != "nccl"
+                and flat.device.type == "cuda")
+        buf = buf.cpu() if host else buf
+        dist.all_reduce(buf, group=group)
+        compress_lib.count_wire("f32", buf.numel() * 4)
+    flat = buf.to(flat.device) / math.prod(mesh.shape[a] for a in axes)
     out, at = {}, 1
     for k, g in named.items():
         out[k] = flat[at:at + g.numel()].reshape(g.shape).to(g.dtype)
@@ -248,33 +310,51 @@ class BranchStep:
     backward gives no gradient for it.
 
     Called under a bound mesh of more than one rank
-    (``sharding.use_mesh``), :meth:`grads` all-reduces the loss and every
-    gradient as a mean over the ranks before AdamW, so ``grad_norm``,
-    clipping and the update see the same tensors on every rank.  With
-    ``compress=True`` the gradients go through the error-feedback int8
-    all-reduce (``optim.compress``); its error state lives in this object,
-    one per rank, and is not checkpointed (a restored run starts it at
-    zero).  Without a mesh there is nothing to reduce, so ``compress``
-    changes nothing."""
+    (``sharding.use_mesh``, or ``mesh``), :meth:`grads` sums over the
+    model axis the gradients of the leaves each model rank holds whole
+    but uses its own way (:func:`reduce_partial`), then all-reduces the
+    loss and every gradient as a mean over the batch axes before AdamW,
+    so ``grad_norm`` (over the whole tree: ``split`` gives, per mesh, the
+    leaves the model ranks hold in blocks), clipping and the update are
+    one process's on every rank.  With ``compress=True`` the batch mean
+    goes through the error-feedback int8 all-reduce (``optim.compress``);
+    its error state lives in this object, one per rank, and is not
+    checkpointed (a restored run starts it at zero).  Without a mesh
+    there is nothing to reduce, so ``compress`` changes nothing."""
 
     def __init__(self, loss_fn, opt_cfg: optim.AdamWConfig | None = None,
-                 lr_fn=None, *, compress: bool = False):
+                 lr_fn=None, *, compress: bool = False, split=None,
+                 mesh=None):
         self.loss_fn = loss_fn
         self.opt_cfg = opt_cfg or optim.AdamWConfig()
         self.lr_fn = lr_fn
         self.compress = compress
+        self.split = split
+        self.mesh = mesh
         self.err = None
+        self._split_of = {}
+
+    def split_leaves(self, mesh) -> set:
+        """The trainable leaves the ranks of ``mesh``'s model axis hold in
+        blocks (none without ``split`` or a model axis)."""
+        if self.split is None or mesh is None:
+            return set()
+        if id(mesh) not in self._split_of:
+            self._split_of[id(mesh)] = (mesh, self.split(mesh))
+        return self._split_of[id(mesh)][1]
 
     def grads(self, trainable, frozen, batch):
         """(loss, grads), reduced over the mesh's ranks when there is
         one."""
+        partial = set()
         loss, grads = value_and_grad(
             lambda t: self.loss_fn(rebranch.combine(t, frozen), batch),
-            trainable)
-        mesh = train_mesh()
+            trainable, partial)
+        mesh = train_mesh(self.mesh)
         if mesh is None:
             return loss, grads
-        if not self.compress:
+        grads = reduce_partial(grads, partial, mesh)
+        if not self.compress or not shd.batch_axes(mesh):
             return reduce_grads(loss, grads, mesh)
         if self.err is None:
             self.err = compress_lib.init_error_state(grads)
@@ -285,9 +365,17 @@ class BranchStep:
 
     def __call__(self, trainable, frozen, opt_state, batch):
         loss, grads = self.grads(trainable, frozen, batch)
+        return self.update(trainable, opt_state, loss, grads)
+
+    def update(self, trainable, opt_state, loss, grads):
+        """The AdamW half of a step on :meth:`grads`' (loss, grads)."""
         lr = self.lr_fn(opt_state["step"]) if self.lr_fn else self.opt_cfg.lr
-        new_t, new_opt, m = optim.update(grads, opt_state, trainable,
-                                         self.opt_cfg, lr=lr)
+        mesh = train_mesh(self.mesh)
+        with shd.use_mesh(mesh) if mesh is not None else \
+                contextlib.nullcontext():
+            new_t, new_opt, m = optim.update(
+                grads, opt_state, trainable, self.opt_cfg, lr=lr,
+                split=self.split_leaves(mesh))
         metrics = {"loss": loss, "grad_norm": m["grad_norm"],
                    "lr": torch.as_tensor(lr, dtype=torch.float32,
                                          device=loss.device)}
@@ -298,17 +386,31 @@ def make_train_step(cfg: ArchConfig, opt_cfg: optim.AdamWConfig | None = None,
                     lr_fn=None, loss_chunks: int = 8, model=None, *,
                     compress: bool = False) -> BranchStep:
     """The LM train step: a :class:`BranchStep` on the chunked readout
-    loss of ``model.features``.  Under a mesh each rank passes its block
-    of the batch (:func:`local_batch`); the loss is the mean over ranks of
-    each rank's mean, the global mean when the blocks are equal."""
+    loss of ``model.features``.  Under a mesh (bound, or the model's)
+    each rank passes its block of the batch (:func:`local_batch`) and of
+    the parameters (``CompiledModel.shard_params``); the loss is the mean
+    over the batch ranks of each rank's mean, the global mean when the
+    blocks are equal.  Only the dense family trains over a mesh
+    (``api.check_mesh``)."""
     model = model or deploy.compile_model(cfg)
 
     def loss_fn(params, batch):
-        feats = model.features(params, batch)
-        return chunked_readout_loss(params, feats, batch["labels"], cfg,
-                                    loss_chunks, model=model)
+        mesh = model.mesh or shd.current_mesh()
+        api.check_mesh(cfg, mesh)
+        with shd.use_mesh(mesh) if mesh is not None else \
+                contextlib.nullcontext():
+            feats = model.features(params, batch)
+            return chunked_readout_loss(params, feats, batch["labels"], cfg,
+                                        loss_chunks, model=model)
 
-    return BranchStep(loss_fn, opt_cfg, lr_fn, compress=compress)
+    def split(mesh):
+        with cost.untracked():              # shapes only
+            shapes = bridge.abstract(lambda: model.init(seed=0,
+                                                        device="cpu"))
+        return shd.model_split_leaves(shapes, mesh)
+
+    return BranchStep(loss_fn, opt_cfg, lr_fn, compress=compress,
+                      split=split, mesh=model.mesh)
 
 
 def gather_rows(x: torch.Tensor, mesh, global_batch: int) -> torch.Tensor:

@@ -49,8 +49,8 @@ def features(params, batch, cfg: ArchConfig):
     return _mod(cfg).features(params, batch, cfg)
 
 
-def apply_head(params, x, cfg: ArchConfig):
-    return _mod(cfg).apply_head(params, x, cfg)
+def apply_head(params, x, cfg: ArchConfig, **kw):
+    return _mod(cfg).apply_head(params, x, cfg, **kw)
 
 
 def prefill(params, batch, cfg: ArchConfig, cache, **kw):

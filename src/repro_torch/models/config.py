@@ -63,7 +63,7 @@ class ArchConfig:
     rebranch_overrides: tuple = ()
     # --- numerics ---
     dtype: Any = "bfloat16"        # activation dtype, the JAX package's name
-    remat: bool = True             # (training only; no effect in the port)
+    remat: bool = True             # per-block activation checkpointing (train)
     attn_chunk: int = 1024         # online-softmax KV chunk of prefill
 
     def __post_init__(self):

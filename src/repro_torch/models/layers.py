@@ -438,8 +438,9 @@ def _attention_of(group=None):
     def inner(fn, q, k, v, *args):
         if group is None:
             return fn(q, k, v, *args)
-        if q.shape[2] == 0:
-            return q.new_zeros(q.shape, dtype=torch.float32)
+        if q.shape[2] == 0:       # zeros after q, k and v in the graph
+            return rebranch.zeros_from(q, q.shape, k, v,
+                                       dtype=torch.float32)
         return fn(q, group(k), group(v), *args)
     return inner
 
@@ -474,12 +475,16 @@ def _attention_tp(params, x, cfg: ArchConfig, layer_idx: int, positions,
     if cache is not None and "table" in cache:
         raise NotImplementedError(
             f"a paged KV cache over a mesh comes with {shd.LM_SLICE}")
+    if sp is None:                # whole x into the heads: Megatron's f
+        x = shd.replicate(x)
     tp_q = shd.linear_tp("q", d, h * dh, rows_k, head_dim=dh)
     q0, q1 = (c // dh for c in tp_q.cols)
     window = 0 if cfg.uses_full_attention(layer_idx) else cfg.sliding_window
     q = linear(params["q"], x, spec, tp=tp_q)
     q = q.reshape(b, s, q1 - q0, dh)
     tp_k = shd.linear_tp("k", d, kv * dh, rows_k)
+    if tp_k is None:              # k, v kept whole, read by the rank's heads
+        shd.mark_partial(params["k"].get("sram"), params["v"].get("sram"))
     kv_t = torch.stack([linear(params[name], x, spec, tp=tp_k)
                         for name in ("k", "v")])
     if kv % n == 0:
@@ -696,6 +701,10 @@ def apply_mlp(params, x, cfg: ArchConfig, sp=None):
         # transcendental loops leave a row's tail to the scalar ones,
         # whose bits differ: bucketed rows keep one shape for any batch
         act = functools.partial(_bucketed, act)
+        if sp is None:            # whole x into the columns: Megatron's f
+            x = shd.replicate(x)
+    elif sp is not None:          # kept whole, the output cut to sp rows
+        shd.mark_partial(*(params[k].get("sram") for k in params))
     if cfg.mlp_type in ("swiglu", "geglu"):
         g = linear(params["gate"], x, spec, tp=tp_in)
         u = linear(params["up"], x, spec, tp=tp_in)

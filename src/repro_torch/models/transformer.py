@@ -31,14 +31,18 @@ and MLP tensor-parallel (``models.layers``), the residual stream of a
 prefill in the reference's ``seq_sp`` layout (each rank its chunk of the
 sequence, gathered before attention and MLP).  The reference's ``shard``
 sites stand where a whole tensor takes a layout; the batch is never cut
-here.
+here.  A train step runs the same forward under autograd, each block
+checkpointed when ``cfg.remat`` (:func:`features`), the head's input
+entering its vocab-parallel readout through ``sharding.replicate``.
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import bridge
 from repro_torch.core import rebranch
@@ -81,7 +85,10 @@ def _block_apply(params, x, cfg: ArchConfig, layer_idx: int,
     """One block.  ``sp``: the seq_sp layout of the residual ``x`` over
     the model axis (each rank holds its sequence chunk): the normed input
     of attention and MLP is gathered whole, their row-parallel outputs
-    come back as the rank's chunk."""
+    come back as the rank's chunk (the norm scales then meet only the
+    rank's rows: ``sharding.mark_partial``)."""
+    if sp is not None:
+        shd.mark_partial(params["ln1"], params["ln2"])
     h = _unchunk(layers.apply_rmsnorm(params["ln1"], x, cfg.norm_eps), sp)
     kw = {} if sp is None else {"sp": sp}    # unsharded: the 7 arguments
     h, new_cache = layers.apply_attention(
@@ -107,13 +114,17 @@ def _seq_parallel(x):
         None if at is None else at[2]
 
 
-def _unchunk(x, sp):
-    """The whole sequence on every rank from seq_sp chunks."""
+def _unchunk(x, sp, replicated: bool = False):
+    """The whole sequence on every rank from seq_sp chunks.  Into a
+    block's tensor-parallel work each rank's gradient is a part, which
+    the gather's adjoint sums (Megatron's f); ``replicated``: into work
+    done alike on every rank (the head), whose gradient is whole on each
+    rank (``sharding.move_rows``)."""
     if sp is None:
         return x
     mesh, axis = shd.model_axis()
     return shd.move_rows(x, sp, [(0, sp[-1][1])] * len(sp), mesh, axis,
-                         "gather", dim=1)
+                         "gather", dim=1, replicated=replicated)
 
 
 def layer(tree, i: int):
@@ -202,13 +213,16 @@ def apply_head(params, x, cfg: ArchConfig, whole_logits: bool = True):
         return logits.reshape(*logits.shape[:-1], cfg.num_codebooks,
                               cfg.vocab_size)
     if cfg.tie_embeddings:
+        if params["embed"]["rom"]["table_q"].shape[0] != cfg.vocab_size:
+            x = shd.replicate(x)          # into the rank's vocab rows
         logits = layers.embedding_as_logits(params["embed"], x, cfg)
     else:
         spec = spec_for(cfg, "lm_head")
-        logits = layers.linear(
-            params["lm_head"], x, spec,
-            tp=shd.linear_tp("lm_head", cfg.d_model, cfg.vocab_size,
-                             spec.cim.rows_per_subarray))
+        tp = shd.linear_tp("lm_head", cfg.d_model, cfg.vocab_size,
+                           spec.cim.rows_per_subarray)
+        if tp is not None:
+            x = shd.replicate(x)          # into the rank's vocab columns
+        logits = layers.linear(params["lm_head"], x, spec, tp=tp)
     return shd.gather_vocab(logits, cfg.vocab_size) if whole_logits \
         else logits
 
@@ -221,14 +235,86 @@ def _readout(params, x, cfg: ArchConfig, whole_logits: bool):
     return apply_head(params, x, cfg, whole_logits=False)
 
 
+class _Recompute(torch.autograd.Function):
+    """The identity on a checkpointed block's output whose backward reads
+    a tensor the block saved: the block's recompute then runs first in
+    its backward, before any of its exchanges' adjoints, on every rank
+    alike (ranks without heads or k-blocks save other tensors, and would
+    otherwise recompute at another point of the exchanges' order)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.saved_tensors
+        return g
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``: only
+    its inputs are kept, and the backward recomputes it whole (no early
+    stop: every exchange of ``fn`` runs again, in the same order on every
+    rank) in this call's context (the bound mesh, the tuning policy and
+    the cost record: the backward runs outside them)."""
+    ctx = contextvars.copy_context()
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        return torch.utils.checkpoint.checkpoint(
+            lambda *a: ctx.run(fn, *a), *args, use_reentrant=False,
+            preserve_rng_state=False)
+
+
+def _remat_block(block, x, cfg: ArchConfig, positions, sp):
+    """One block checkpointed (:func:`checkpointed`; the reference's
+    ``jax.checkpoint``), recomputed first in its backward
+    (:class:`_Recompute`)."""
+    def run(blk, xx):
+        return _Recompute.apply(
+            _block_apply(blk, xx, cfg, 0, positions=positions, sp=sp)[0])
+    return checkpointed(run, block, x)
+
+
 def features(params, batch, cfg: ArchConfig):
-    """Forward through the blocks only (pre-ln_f hidden states)."""
+    """Forward through the blocks only (pre-ln_f hidden states).  When
+    autograd records and ``cfg.remat``, each block runs checkpointed
+    (:func:`_remat_block`), as the reference's training forward."""
     _check_family(cfg)
     x, sp = _seq_parallel(_embed_inputs(params, batch, cfg))
     positions = batch.get("positions")
-    for block in unstack(params["layers"], cfg.num_layers):
-        x = _block_apply(block, x, cfg, 0, positions=positions, sp=sp)[0]
-    return _unchunk(x, sp)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in bridge.flatten(params["layers"]).values())
+    blocks = unstack(params["layers"], cfg.num_layers)
+    if remat and x.device.type == "meta":
+        x = _meta_layers(blocks[0], x, cfg, positions, sp)
+    elif remat:
+        for block in blocks:
+            x = _remat_block(block, x, cfg, positions, sp)
+    else:
+        for block in blocks:
+            x = _block_apply(block, x, cfg, 0, positions=positions,
+                             sp=sp)[0]
+    return _unchunk(x, sp, replicated=True)
+
+
+def _meta_layers(block, x, cfg: ArchConfig, positions, sp):
+    """The checkpointed layers on ``meta`` (shapes only; a dry run): every
+    layer runs the same ops on the same shapes, so layer 0 runs for all,
+    its forward, recompute and backward counted ``num_layers`` times
+    (``cost.repeated``, ``cost.repeated_grad``), and stand-ins for the
+    other layers' saved inputs hold their memory until its backward."""
+    n = cfg.num_layers
+    keep = [x.new_empty(x.shape) for _ in range(n - 1)]
+    named = bridge.flatten(block)
+    # the region's inputs: x, and the layer's parameters (the first
+    # layer's x carries no gradient)
+    marked, close = cost.repeated_grad(n, x, *named.values(), keep=keep)
+    del keep
+    leaves = dict(zip(named, marked[1:]))
+    block = bridge.map_named(block, lambda k, _: leaves[k])
+    with cost.repeated(n):
+        return close(_remat_block(block, marked[0], cfg, positions, sp))
 
 
 def forward(params, batch, cfg: ArchConfig):

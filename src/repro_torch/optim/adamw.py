@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from repro_torch import bridge
+from repro_torch.distributed import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,11 +51,25 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt(sum of every leaf's sum of squares + 1e-30), f32."""
+def global_norm(tree, split=()) -> torch.Tensor:
+    """sqrt(sum of every leaf's sum of squares + 1e-30), f32.  ``split``:
+    the leaves that the ranks of the bound mesh's model axis hold in
+    blocks; their squared sums are added over the axis in rank order, the
+    other leaves (whole on every rank) counted once, so the norm is the
+    whole tree's, the same bits on every rank."""
+    named = bridge.flatten(tree)
     leaves = [torch.sum(torch.square(x.float()))
-              for x in bridge.flatten(tree).values()]
-    return sqrt((sum(leaves) if leaves else torch.zeros(())) + 1e-30)
+              for k, x in named.items() if k not in split]
+    total = sum(leaves) if leaves else torch.zeros(())
+    blocks = [torch.sum(torch.square(x.float()))
+              for k, x in named.items() if k in split]
+    at = shd.model_axis()
+    if blocks and at is not None:
+        total = total + shd.sum_parts(sum(blocks).reshape(1), *at,
+                                      "grads")[0]
+    elif blocks:
+        total = total + sum(blocks)
+    return sqrt(total + 1e-30)
 
 
 def _step_leaf(g, m, v, p, cfg: AdamWConfig, clip, t, lr):
@@ -74,15 +89,16 @@ def _step_leaf(g, m, v, p, cfg: AdamWConfig, clip, t, lr):
 
 
 def update(grads, state, params, cfg: AdamWConfig,
-           lr: torch.Tensor | float | None = None):
+           lr: torch.Tensor | float | None = None, *, split=()):
     """Returns (new_params, new_state, metrics); ``metrics["grad_norm"]``
-    is the norm before the clip.  A leaf with no gradient (``None``)
-    comes back ``None``, as in the reference."""
+    is the norm before the clip (:func:`global_norm`, ``split`` its
+    leaves held in blocks over the model axis).  A leaf with no gradient
+    (``None``) comes back ``None``, as in the reference."""
     lr = cfg.lr if lr is None else lr
     with torch.no_grad():
         step = state["step"] + 1
         t = step.float()
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, split)
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                            max=1.0)
         g_named = bridge.flatten(grads)

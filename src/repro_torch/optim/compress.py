@@ -45,8 +45,10 @@ def quantize_with_feedback(g, err):
     return q.reshape(target.shape), scale, new_err
 
 
-def _group(mesh, axis):
-    return shd.mesh_group(mesh) if axis is None else mesh.group(axis)
+def _axes(mesh, axis) -> list:
+    """``[axis]``, or for None the mesh's batch axes (``pod``, ``data``:
+    the axes a train step averages over)."""
+    return shd.batch_axes(mesh) if axis is None else [axis]
 
 
 def count_wire(kind: str, nbytes: int):
@@ -71,6 +73,20 @@ def _gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     return [o.to(t.device) for o in out]
 
 
+def _gather_axes(t: torch.Tensor, mesh, axes, kind: str) -> list:
+    """Every rank's ``t`` over ``axes`` flattened in mesh order: one
+    all-gather per axis, the innermost first (each gathers what the
+    previous one gathered), counting what this rank puts in under
+    ``kind``."""
+    parts = [t]
+    for a in reversed(axes):
+        block = torch.stack(parts)
+        count_wire(kind, block.numel() * block.element_size())
+        parts = [p for got in _gather(block, mesh.group(a))
+                 for p in got.unbind(0)]
+    return parts
+
+
 def _mean_of(scales, qs, n: int):
     """sum_q scale_q * q_q in rank order, over n (the reference's
     ``tensordot(ss, qs) / n``)."""
@@ -82,13 +98,13 @@ def _mean_of(scales, qs, n: int):
 
 def all_reduce_int8(g, err, mesh, axis: str | None = None):
     """Compressed mean-all-reduce of one gradient tensor over ``axis`` of
-    ``mesh`` (every rank of the mesh when None): all-gather the int8
-    payload and one f32 scale per rank, sum the dequantised copies in rank
-    order and divide by n.  Returns (mean in ``g``'s dtype, new error)."""
-    group = _group(mesh, axis)
+    ``mesh`` (the batch axes when None): all-gather the int8 payload and
+    one f32 scale per rank, sum the dequantised copies in rank order and
+    divide by n.  Returns (mean in ``g``'s dtype, new error)."""
+    axes = _axes(mesh, axis)
     q, scale, new_err = quantize_with_feedback(g, err)
-    qs, ss = _gather(q, group), _gather(scale.reshape(1), group)
-    count_wire("int8", q.numel() + 4)
+    qs = _gather_axes(q, mesh, axes, "int8")
+    ss = _gather_axes(scale.reshape(1), mesh, axes, "int8")
     return _mean_of([s[0] for s in ss], qs, len(qs)).to(g.dtype), new_err
 
 
@@ -96,16 +112,17 @@ def tree_all_reduce_int8(grads, err_state, mesh, axis: str | None = None):
     """:func:`all_reduce_int8` on every leaf (``err_state`` mirrors
     ``grads``), each leaf quantised with its own scale as the reference
     does; the payloads of all leaves travel in one int8 all-gather and
-    their scales in one f32 all-gather."""
-    group = _group(mesh, axis)
+    their scales in one f32 all-gather (one of each per batch axis)."""
+    axes = _axes(mesh, axis)
     names = list(bridge.flatten(grads))
     flat_g, flat_e = bridge.flatten(grads), bridge.flatten(err_state)
     quant = [quantize_with_feedback(flat_g[k], flat_e[k]) for k in names]
     if not quant:
         return grads, err_state
-    qs = _gather(torch.cat([q.reshape(-1) for q, _, _ in quant]), group)
-    ss = _gather(torch.stack([s for _, s, _ in quant]), group)
-    count_wire("int8", qs[0].numel() + 4 * len(quant))
+    qs = _gather_axes(torch.cat([q.reshape(-1) for q, _, _ in quant]), mesh,
+                      axes, "int8")
+    ss = _gather_axes(torch.stack([s for _, s, _ in quant]), mesh, axes,
+                      "int8")
     out_g, out_e, at = {}, {}, 0
     for i, (k, (q, _, e)) in enumerate(zip(names, quant)):
         n = q.numel()

@@ -1,6 +1,7 @@
 """Rank functions of the spawned gloo worlds of ``test_torch_sharding.py``,
-``test_torch_halo_conv.py``, ``test_torch_dist_train.py`` and
-``test_torch_tp.py``, and the inputs both sides share.
+``test_torch_halo_conv.py``, ``test_torch_dist_train.py``,
+``test_torch_tp.py``, ``test_torch_tp_train.py`` and
+``test_torch_dryrun.py``, and the inputs both sides share.
 
 The ranks import no JAX: they rebuild the same numpy inputs from seeds,
 run the port on the CPU (plain kernel versions) over 4 ranks, and return
@@ -798,3 +799,118 @@ def tp_world(rank: int, world: int, path: str) -> dict:
                     out["col"][name, site, shape, engine] = _tp_col_site(
                         cfg, whole, mesh, site, engine)
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_tp_train.py and test_torch_dryrun.py: LM training over a
+# model axis
+# ---------------------------------------------------------------------------
+
+# (config, mesh shape, sequence length): Gemma's smoke config on (1, 4)
+# and (2, 2) and with a batch over (pod 2, data 2, model 1); 3 heads (a
+# rank without heads), Yi's 6 heads over 2 kv heads (GQA groups split
+# between ranks), Yi's d_ff 1536 (a down projection with an empty rank);
+# Qwen1.5's 6 heads with biases at 15 tokens, which the model axis does
+# not divide (no seq_sp: the residual stream whole on every rank)
+TP_TRAIN_CASES = (("gemma_2b", (1, 4), 16), ("gemma_2b", (2, 2), 16),
+                  ("gemma_2b_h3", (1, 4), 16), ("yi_34b_h6", (1, 4), 16),
+                  ("yi_34b_ff1536", (1, 4), 16), ("gemma_2b", TP_POD_MESH, 16),
+                  ("qwen15_32b_h6", (1, 4), 15))
+TP_TRAIN_BATCH, TP_TRAIN_STEPS, TP_TRAIN_LR, TP_TRAIN_CHUNKS = 8, 2, 1e-3, 2
+TP_TRAIN_COMPRESS = ("gemma_2b", (2, 2), 16)
+TP_BYTES_CASE = ("gemma_2b", (1, 4), 16)   # the dry run's bytes held to it
+
+
+def tp_train_batch(cfg, seq: int):
+    from repro_torch.data import synthetic
+    dcfg = synthetic.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                seq_len=seq, global_batch=TP_TRAIN_BATCH)
+    return synthetic.markov_batch(dcfg, 0, device="cpu")
+
+
+def tp_train_run(cfg, whole, mesh, seq: int, compress: bool = False,
+                 steps_n: int = TP_TRAIN_STEPS) -> dict:
+    """``steps_n`` train steps of ``cfg`` from the whole tree ``whole``
+    (None mesh: one process on the whole batch), 'pallas' engine: each
+    step's loss and grad_norm, the first step's gradients (as the step
+    reduced them) and updated parameters, and on a mesh each leaf's block
+    bounds and the leaves held in blocks."""
+    from repro_torch import bridge, deploy, optim
+    from repro_torch.core import rebranch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    model = deploy.compile_model(cfg, engine="pallas", mesh=mesh)
+    params = model.shard_params(whole)
+    t, f = rebranch.partition(params)
+    opt = optim.init(t)
+    batch = tp_train_batch(cfg, seq)
+    if mesh is not None:
+        batch = steps.local_batch(cfg, mesh, batch, TP_TRAIN_BATCH)
+    step = steps.make_train_step(cfg, optim.AdamWConfig(lr=TP_TRAIN_LR),
+                                 loss_chunks=TP_TRAIN_CHUNKS, model=model,
+                                 compress=compress)
+    _, grads = step.grads(t, f, batch)           # the first step's
+    out = {"grads": {k: v.numpy().copy() for k, v in
+                     bridge.flatten(grads).items()},
+           "loss": [], "grad_norm": []}
+    step.err = None               # the compressed step starts at zero error
+    for i in range(steps_n):
+        t, opt, m = step(t, f, opt, batch)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if i == 0:                # the first update
+            out["updated"] = {k: v.numpy().copy() for k, v in
+                              bridge.flatten(t).items()}
+    if mesh is not None:
+        sh = bridge.flatten(shd.param_shardings(whole, mesh))
+        rows = cfg.rebranch.cim.rows_per_subarray
+        out["bounds"] = {k: shd.param_bounds(k, tuple(v.shape), sh[k], rows,
+                                             cfg.head_dim)
+                         for k, v in bridge.flatten(
+                             rebranch.partition(whole)[0]).items()}
+        out["split"] = sorted(step.split_leaves(mesh))
+    return out
+
+
+def tp_train_world(rank: int, world: int) -> dict:
+    """Every case of :data:`TP_TRAIN_CASES` over 4 gloo ranks, and one
+    compressed step (:data:`TP_TRAIN_COMPRESS`)."""
+    from repro_torch import bridge
+    warnings.simplefilter("ignore")
+    meshes = {s: tp_mesh(s, "gloo") for s in dict.fromkeys(
+        s for _, s, _ in TP_TRAIN_CASES)}
+    out = {"rank": rank}
+    for name, shape, seq in TP_TRAIN_CASES:
+        whole = bridge.to_torch(tp_port_tree(name), "cpu")
+        out[name, shape, seq] = tp_train_run(tp_config(name), whole,
+                                             meshes[shape], seq)
+    name, shape, seq = TP_TRAIN_COMPRESS
+    out["compress"] = tp_train_run(
+        tp_config(name), bridge.to_torch(tp_port_tree(name), "cpu"),
+        meshes[shape], seq, compress=True, steps_n=1)
+    return out
+
+
+def tp_bytes_world(rank: int, world: int) -> dict:
+    """The bytes this rank sends, by kind, over one train step of
+    :data:`TP_BYTES_CASE` (the dry run's step: default AdamW and loss
+    chunks, 'pallas')."""
+    from repro_torch import bridge, deploy, optim
+    from repro_torch.core import rebranch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.optim import compress
+    name, shape, seq = TP_BYTES_CASE
+    cfg, mesh = tp_config(name), tp_mesh(shape, "gloo")
+    model = deploy.compile_model(cfg, engine="pallas", mesh=mesh)
+    t, f = rebranch.partition(model.shard_params(bridge.to_torch(
+        tp_port_tree(name), "cpu")))
+    batch = steps.local_batch(cfg, mesh, tp_train_batch(cfg, seq),
+                              TP_TRAIN_BATCH)
+    step = steps.make_train_step(cfg, model=model)
+    shd.reset_traffic()
+    compress.wire_bytes.clear()
+    with shd.use_mesh(mesh):
+        step(t, f, optim.init(t), batch)
+    return {"bytes_sent": dict(shd.bytes_sent),
+            "wire_bytes": dict(compress.wire_bytes)}

@@ -68,6 +68,7 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.distributed import fault as tfault
 from repro_torch.distributed import sharding as tshd
 from repro_torch.kernels import halo_conv as thalo
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as tsteps
 from repro_torch.optim import compress as tcompress
@@ -394,13 +395,27 @@ def test_param_shardings_pair_each_spec_with_its_mesh():
 
 
 def test_a_model_axis_over_1_and_the_lm_axes_still_raise():
+    """Over a model axis the dense family trains (here one rank's step of
+    a fake (2, 2) world on ``meta``, ``launch.dryrun``); the moe family's
+    train step still raises naming ROADMAP item 5(d)."""
     step = tsteps.BranchStep(lambda p, b: p["w"].sum())
     t = {"w": torch.ones(2)}
+    moe = tdeploy.compile_model(tconfigs.get_smoke("granite_moe_3b"))
+    mt, mf = trebranch.partition(bridge.abstract(
+        lambda: moe.init(seed=0, device="cpu")))
+    moe_step = tsteps.make_train_step(moe.cfg, model=moe)
     with tshd.use_mesh(mesh_lib.AbstractMesh((2, 2))):
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
-            step.grads(t, {"w": None}, {})
+            moe_step.grads(mt, mf, {})
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
             tshd.shard(torch.zeros(2, 4, 4, 3), "expert")
+    with dryrun.dry_world(4):
+        mesh = mesh_lib.make_mesh((2, 2), backend=mesh_lib.FAKE)
+        rec = dryrun.lower_cell("gemma_2b", "train_4k", mesh,
+                                cfg=tconfigs.get_smoke("gemma_2b"),
+                                ranks=[{"data": 1, "model": 1}], seq=16,
+                                gbatch=8)
+    assert rec["flops"] > 0 and rec["bytes_sent"]["reduce_adjoint"] > 0
     with tshd.use_mesh(mesh_lib.AbstractMesh((1, 1))):
         loss, g = step.grads(t, {"w": None}, {})    # one rank: no reduce
     assert float(loss) == 2.0 and torch.equal(g["w"], torch.ones(2))

@@ -66,6 +66,7 @@ from repro.launch import steps as jsteps
 from repro_torch import bridge
 from repro_torch import configs as tconfigs
 from repro_torch import deploy as tdeploy
+from repro_torch.core import rebranch as trebranch
 from repro_torch.distributed import sharding as tshd
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
@@ -386,10 +387,13 @@ def test_what_still_raises():
                  "qwen2_vl_2b", "musicgen_large"):
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
             tdeploy.compile_model(tconfigs.get_smoke(name), mesh=mesh)
-    step = tsteps.BranchStep(lambda p, b: p["w"].sum())
+    moe = tdeploy.compile_model(tconfigs.get_smoke("granite_moe_3b"))
+    t, f = trebranch.partition(bridge.abstract(
+        lambda: moe.init(seed=0, device="cpu")))
+    step = tsteps.make_train_step(moe.cfg, model=moe)
     with tshd.use_mesh(mesh):
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
-            step.grads({"w": torch.ones(2)}, {"w": None}, {})
+            step.grads(t, f, {})          # the dense family trains
         for axis in ("expert", "expert_mlp", "ssm_inner", "kv_seq"):
             with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
                 tshd.shard(torch.zeros(4, 4), None, axis)
