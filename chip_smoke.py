@@ -6085,12 +6085,13 @@ TP_SITES = (("attn", "q", "col"), ("attn", "k", "col"), ("attn", "v", "col"),
 
 
 def tp_config(arch: str):
-    """The FULL config of ``arch`` at phase 32's depth (Gemma-2B's
-    TP_LAYERS, the others' TP_YI_LAYERS)."""
+    """The FULL config of ``arch`` at its tensor-parallel phase's depth
+    (Gemma-2B's TP_LAYERS, Granite-MoE-3B's MOE_TP_LAYERS, the others'
+    TP_YI_LAYERS)."""
     from repro_torch import configs
-    return dataclasses.replace(
-        configs.get(arch),
-        num_layers=TP_LAYERS if arch == "gemma_2b" else TP_YI_LAYERS)
+    layers = {"gemma_2b": TP_LAYERS, MOE_TP_ARCH: MOE_TP_LAYERS}
+    return dataclasses.replace(configs.get(arch),
+                               num_layers=layers.get(arch, TP_YI_LAYERS))
 
 
 def tp_dims(cfg, site: str) -> tuple[int, int]:
@@ -6120,11 +6121,20 @@ def tp_site_layout(cfg, site: str, n: int, r: int):
                              head_dim=cfg.head_dim)
 
 
+def tp_block_sites(cfg) -> list:
+    """The kernel linears of a block in the order it runs them: a dense
+    block's seven, a moe block's attention four (its experts are plain
+    PyTorch stacks; a config with shared experts is not served here)."""
+    if cfg.family == "moe":
+        check(not cfg.num_shared_experts, f"{cfg.name}: shared experts")
+        return [s for b, s, _ in TP_SITES if b == "attn"]
+    return [s for _, s, _ in TP_SITES]
+
+
 def tp_sites(cfg) -> list:
-    """The ROM linears of a dense block in the order it runs them, then an
+    """The kernel linears of a block in the order it runs them, then an
     untied readout."""
-    return [s for _, s, _ in TP_SITES] + (
-        [] if cfg.tie_embeddings else ["lm_head"])
+    return tp_block_sites(cfg) + ([] if cfg.tie_embeddings else ["lm_head"])
 
 
 def tp_rank_geometry(cfg, site: str, n: int, r: int):
@@ -6233,7 +6243,7 @@ def tp_expected_launches(cfg, mesh) -> int:
     readout once."""
     n, r = mesh.shape["model"], mesh.coordinate("model")
     per_layer = sum(tp_rank_geometry(cfg, site, n, r) is not None
-                    for _, site, _ in TP_SITES)
+                    for site in tp_block_sites(cfg))
     return per_layer * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
 
 
@@ -6493,11 +6503,13 @@ def tp_pod_check(arch: str, engine: str, model, local, prompts) -> int:
 
 def tp_serve(arch: str, engine: str, mesh, local, probe, oracle: dict,
              new: int, rank: int, world: int, smi: str,
-             sites: bool = True) -> dict:
+             sites: bool = True, after=None) -> dict:
     """The sharded prefill step and ``new`` serve steps (each fed the
     oracle's token, so every step's prediction is compared), checked
     against the oracle and across ranks, with the kernel calls of one
-    decode step recorded (and timed on rank 0 with the others idle)."""
+    decode step recorded (and timed on rank 0 with the others idle).
+    ``after(model, local, cache, tok)``: a check run last, on the cache
+    and the rank's rows of the next token (its result ``out["after"]``)."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import cim_matmul as cm
@@ -6628,6 +6640,9 @@ def tp_serve(arch: str, engine: str, mesh, local, probe, oracle: dict,
                                           want_toks[lo:hi, new:new + 1], smi)
         out["batch"] = tp_batch_check(model, local, cache,
                                       want_toks[:, new:new + 1])
+    if after is not None:
+        out["after"] = after(model, local, cache,
+                             want_toks[lo:hi, new:new + 1])
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return out
 
@@ -6952,6 +6967,132 @@ def phase_tp_uneven(dev, smi: str, held: dict) -> dict:
           f"new kernel geometries; ranks {spawn_s:.1f} s: "
           + ", ".join(f"{a} {t:.1f} s" for a, t in
                       ranks[0]["arch_s"].items()) + ")")
+    return tp
+
+
+# ---------------------------------------------------------------------------
+# phase 36: the moe family served over a mesh
+# ---------------------------------------------------------------------------
+
+MOE_TP_ARCH = "granite_moe_3b"
+MOE_TP_LAYERS = 4               # Granite-MoE-3B's depth cut (of 32), for the
+                                # script's time limit
+MOE_TP_MESHES = ((1, 4), (2, 2))  # (data, model): E 40 over model 4 and 2,
+                                  # 10 and 20 experts a rank (the "expert"
+                                  # layout); over (2, 2) a decode step's
+                                  # group of 8 tokens spans both data ranks
+MOE_TP_NEW = 8
+# the per-rank kernel-3 geometries (K, N) of the attention linears: q on
+# whole heads (6 and 12 a rank), k and v on their columns, o row-parallel
+# on whole 512-wide k-blocks (sharding.k_layout: its 3 blocks go 1, 1, 1,
+# 0 over model 4, so rank 3 launches no o; 2, 1 over model 2)
+MOE_TP_GEOMS = {(1536, 384), (1536, 128), (512, 1536),
+                (1536, 768), (1536, 256), (1024, 1536)}
+
+
+def moe_trunk_check(probe: dict):
+    """A check for :func:`tp_serve`: one decode step (on a copy of the
+    cache) with layer 0's first stacked expert trunk call (gate)
+    recorded: its rows, those of the rank's experts, bitwise the
+    unsharded trunk's rows for them (layer 0's whole gate ``w_q`` and
+    ``w_scale`` in ``probe``, the other experts' rows zero).  Returns the
+    rank's experts."""
+    def run(model, local, cache, tok):
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.models import moe
+        real, seen = moe.stacked_trunk_matmul, []
+
+        def recording(x, w_q, w_scale):
+            out = real(x, w_q, w_scale)
+            if not seen:
+                seen.append((x, out))
+            return out
+        moe.stacked_trunk_matmul = recording
+        try:
+            model.decode_step(local, tok, copy.deepcopy(cache))
+        finally:
+            moe.stacked_trunk_matmul = real
+        x, out = seen[0]
+        cfg, mesh = model.cfg, model.mesh
+        check(shd.expert_layout(cfg.num_experts, cfg.moe_d_ff, mesh)
+              == "expert", f"{cfg.name}: not the expert layout")
+        lo, hi = shd.h_layout(cfg.num_experts, mesh.shape["model"])[
+            mesh.coordinate("model")]
+        whole = x.new_zeros((cfg.num_experts, *x.shape[1:]))
+        whole[lo:hi] = x
+        want = real(whole, probe["w_q"], probe["w_scale"])[lo:hi]
+        check(out.shape[0] == hi - lo and torch.equal(out, want),
+              f"{cfg.name}: a rank's stacked trunk rows of experts "
+              f"{lo}-{hi} != the unsharded trunk's")
+        return (lo, hi, tuple(out.shape))
+    return run
+
+
+def phase_moe_tp_rank(rank: int, world: int, path: str, smi: str) -> dict:
+    """Phase 36, one spawned rank."""
+    from repro_torch import device as device_lib
+    from repro_torch.kernels import _build
+    check(_build.target("rebranch_matmul").exists(),
+          "rebranch_matmul is not built: the parent builds it before the "
+          "ranks")
+    device_lib.resolve()
+    torch.cuda.reset_peak_memory_stats()
+    oracle = torch.load(path)
+    meshes = tp_meshes(MOE_TP_MESHES)
+    res = {"runs": [], "build_s": []}
+    for shape in MOE_TP_MESHES:
+        mesh = meshes[shape]
+        probe = {}
+
+        def keep(whole):
+            gate = whole["layers"]["moe"]["experts"]["gate"]["rom"]
+            probe.update(w_q=gate["w_q"][0].clone(),
+                         w_scale=gate["w_scale"][0].clone())
+        local, _, build_s = tp_build(
+            tp_model(MOE_TP_ARCH, "pallas_fused", mesh), rank, world,
+            probes=False, with_whole=keep)
+        res["build_s"].append(build_s)
+        res["runs"].append(tp_serve(
+            MOE_TP_ARCH, "pallas_fused", mesh, local, None,
+            oracle[MOE_TP_ARCH], MOE_TP_NEW, rank, world, smi, sites=False,
+            after=moe_trunk_check(probe)))
+        del local, probe
+        torch.cuda.empty_cache()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def phase_moe_tp(dev, smi: str) -> dict:
+    """36. Granite-MoE-3B at full width (cut to MOE_TP_LAYERS layers, bf16,
+    'pallas_fused') served over 4 gloo ranks on the one card, on (data 1,
+    model 4) and (2, 2), whole experts a rank: kernel 3 at the attention's
+    new per-rank geometries in all three modes; the steps held to the
+    port's unsharded steps run first in this process (logits within
+    max(5e-2, 2 x a nudged witness), tokens where the margin is clear),
+    bitwise equal on every rank; each rank's stacked expert trunk rows
+    bitwise the unsharded trunk's; kernel-3 launches per rank per step as
+    counted; each rank's bytes a decode step equal to the dry run's."""
+    t_phase = time.perf_counter()
+    geoms = tp_geometries(((MOE_TP_ARCH, MOE_TP_MESHES),))
+    check(set(geoms) == MOE_TP_GEOMS, f"phase 36 geometries {set(geoms)}")
+    phase_tp_kernels(dev, geoms, "36(a)")
+    print(f"phase 36 on {smi}: {TP_RANKS} gloo ranks on one card; "
+          f"Granite-MoE-3B ({MOE_TP_LAYERS} layers, full width, bf16, 40 "
+          f"experts top-8) on meshes {MOE_TP_MESHES}; {TP_BATCH} prompts of "
+          f"{TP_PROMPT}, {MOE_TP_NEW} decode steps, max_len {TP_MAX_LEN}",
+          flush=True)
+    oracle = tp_oracles(dev, (
+        (MOE_TP_ARCH, "pallas_fused", MOE_TP_NEW, MOE_TP_ARCH),), {})
+    ranks, spawn_s = tp_spawn(phase_moe_tp_rank, TP_RANKS, oracle,
+                              "moe_tp_oracle", smi)
+    tp = tp_report("36", ranks, smi)
+    for i, shape in enumerate(MOE_TP_MESHES):
+        print(f"(36) {shape}: each rank's layer-0 stacked gate trunk "
+              f"(experts, shape) bitwise the unsharded trunk's rows: "
+              f"{[r['runs'][i]['after'] for r in ranks]}")
+        tp_dry_bytes("36", shape, (MOE_TP_ARCH,), tp)
+    print(f"phase 36 {time.perf_counter() - t_phase:.1f} s ({len(geoms)} "
+          f"kernel geometries; ranks {spawn_s:.1f} s)")
     return tp
 
 
@@ -7639,6 +7780,8 @@ def main() -> int:
     lap("34")
     tp_train = phase_tp_train(smi)
     lap("35")
+    tp_serve.update(phase_moe_tp(dev, smi))
+    lap("36")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -7710,7 +7853,7 @@ def main() -> int:
             out["dist_train_launches"] = dist_train[name]["launches"]
             out["dist_train"] = dist_train[name]["kernel"]
         if name in ("rebranch_matmul", "cim_matmul"):
-            # phases 32 and 34: per tensor-parallel run (model, engine,
+            # phases 32, 34 and 36: per tensor-parallel run (model, engine,
             # mesh), each rank's launches and bytes sent per decode step,
             # and rank 0's calls of one
             # decode step timed with the other ranks idle (``ms``,

@@ -207,8 +207,9 @@ class CompiledModel:
         model's mesh: every leaf's block under ``param_shardings`` (GSPMD's
         even layout), the contracting rows of row-parallel ``w_q`` and
         ``C`` as whole k-blocks (``sharding.k_layout``), the attention's q
-        and o on whole heads (``sharding.param_bounds``).  Without a
-        mesh, or on one rank, ``params`` itself."""
+        and o on whole heads, the moe block's experts by their layout
+        (``sharding.param_bounds``).  Without a mesh, or on one rank,
+        ``params`` itself."""
         self._lm_only("shard_params")
         if self.mesh is None or self.mesh.size == 1:
             return params
@@ -216,13 +217,17 @@ class CompiledModel:
 
         def rows_of(path: str) -> int:
             site = ("blocks.attn" if "['attn']" in path else "blocks.mlp"
-                    if "['mlp']" in path else "lm_head")
+                    if "['mlp']" in path else "blocks.moe"
+                    if "['moe']" in path else "lm_head")
             return spec_for(self.cfg, site).cim.rows_per_subarray
 
+        cfg = self.cfg
+        experts = (cfg.num_experts, cfg.moe_d_ff or cfg.d_ff) \
+            if cfg.num_experts else None
         with torch.no_grad():
             return bridge.map_named(params, lambda path, leaf: shd.local_param(
-                path, leaf, shardings[path], rows_of(path),
-                self.cfg.head_dim))
+                path, leaf, shardings[path], rows_of(path), cfg.head_dim,
+                experts))
 
     @_scoped
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None):

@@ -49,9 +49,14 @@ in that layout, whatever the size rule says of their widths.
 The reductions gather every rank's f32 partial (:func:`gather_parts`) and
 add them in rank order (:func:`rank_sum`, ascending k), the same bits on
 every rank; a gloo all-reduce adds each chunk in another order.  Column
-moves go through :func:`move_rows` with ``dim=-1``.  The axes still not
-executed (``expert``, ``expert_mlp``, ``ssm_inner``, ``kv_seq``) raise
-naming the item that ports them.
+moves go through :func:`move_rows` with ``dim=-1``.  The moe block's
+experts take one of the reference's three layouts over the model axis
+(:func:`expert_layout`): whole experts a rank (``expert``), each
+expert's hidden columns (``expert_mlp``), or every expert whole on every
+rank; its large sums go through :func:`sum_parts` and
+:func:`sum_chunk` (a reduce-scatter, and an all-gather where every rank
+needs the whole).  The axes still not executed (``ssm_inner``,
+``kv_seq``) raise naming the item that ports them.
 
 Training over the model axis keeps Megatron's convention: a tensor whole
 on every model rank carries its whole gradient on every rank wherever
@@ -92,7 +97,7 @@ LM_SLICE = "the rest of tensor parallelism (ROADMAP Queue 1 item 5(d))"
 # the logical axes shard() executes
 CNN_AXES = ("cnn_batch", "cnn_h")
 LM_AXES = ("batch", "seq", "seq_sp", "heads", "kv_heads", "mlp", "vocab",
-           "embed")
+           "embed", "expert", "expert_mlp")
 
 # logical axis -> tuple of mesh axis names (tried in order, first that
 # exists in the current mesh wins; missing axes mean "replicated")
@@ -549,6 +554,26 @@ def batch_block(b: int, mesh=None) -> tuple[int, int]:
     return block_bounds((b,), NamedSharding(mesh, P(tuple(axes))))[0]
 
 
+def expert_layout(n_experts: int, ff: int, mesh=None) -> str | None:
+    """How the moe block's experts lie over the model axis (None without
+    one), by the reference's policy (``param_specs``' ``experts`` rule and
+    its size rule): ``"expert"`` where E divides the axis (each rank
+    holds E/m whole experts), else ``"expert_mlp"`` where the expert
+    hidden size ff does (gate and up column-parallel on ff, down
+    row-parallel on it), else ``"whole"`` (every expert whole on every
+    rank)."""
+    mesh = mesh or current_mesh()
+    axis = None if mesh is None else mesh_axis_for("expert", mesh)
+    if axis is None:
+        return None
+    m = mesh.shape[axis]
+    if n_experts % m == 0 and n_experts >= m:
+        return "expert"
+    if ff % m == 0 and ff >= m:
+        return "expert_mlp"
+    return "whole"
+
+
 @dataclasses.dataclass(frozen=True)
 class LinearTP:
     """How one ReBranch linear runs over the model axis.  ``column``: x is
@@ -648,18 +673,15 @@ def rank_sum(parts: list[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
-def sum_parts(g: torch.Tensor, mesh, axis: str, kind: str) -> torch.Tensor:
-    """The rank-order sum over ``axis`` of every rank's ``g``: the bits of
-    :func:`rank_sum` over :func:`gather_parts`, on every rank, at a
-    reduce-scatter's and an all-gather's cost.  Rank q adds the ranks'
-    pieces of chunk q (GSPMD's layout of the flattened ``g``) in rank
-    order, then the sums are gathered: each rank holds one chunk of every
-    rank, not every rank's whole ``g``, and sends 2 (n-1)/n of it."""
+def _scatter_sum(flat: torch.Tensor, layout, mesh, axis: str,
+                 kind: str) -> torch.Tensor:
+    """Chunk ``layout[r]`` of the rank-order sum of every rank's ``flat``
+    (1-D, one length on every rank) for this rank r: rank q's piece of
+    each chunk goes to the chunk's rank, which adds the pieces in rank
+    order (a reduce-scatter)."""
     n, r = mesh.shape[axis], mesh.coordinate(axis)
     group = mesh.group(axis)
-    host = _collective_device(group, g).type != g.device.type
-    flat = g.contiguous().reshape(-1)
-    layout = h_layout(flat.numel(), n)
+    host = _collective_device(group, flat).type != flat.device.type
     lo, hi = layout[r]
     src = flat.cpu() if host else flat
     ops, pieces = [], []
@@ -680,9 +702,37 @@ def sum_parts(g: torch.Tensor, mesh, axis: str, kind: str) -> torch.Tensor:
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    total = rank_sum([p.to(g.device) for p in pieces])
+    return rank_sum([p.to(flat.device) for p in pieces])
+
+
+def sum_parts(g: torch.Tensor, mesh, axis: str, kind: str) -> torch.Tensor:
+    """The rank-order sum over ``axis`` of every rank's ``g``: the bits of
+    :func:`rank_sum` over :func:`gather_parts`, on every rank, at a
+    reduce-scatter's and an all-gather's cost.  Rank q adds the ranks'
+    pieces of chunk q (GSPMD's layout of the flattened ``g``) in rank
+    order, then the sums are gathered: each rank holds one chunk of every
+    rank, not every rank's whole ``g``, and sends 2 (n-1)/n of it."""
+    n = mesh.shape[axis]
+    flat = g.contiguous().reshape(-1)
+    layout = h_layout(flat.numel(), n)
+    total = _scatter_sum(flat, layout, mesh, axis, kind)
     return _exchange(total, layout, [(0, flat.numel())] * n, mesh, axis,
                      kind, 0, add=False).reshape(g.shape)
+
+
+def sum_chunk(g: torch.Tensor, dim: int, layout, mesh, axis: str,
+              kind: str) -> torch.Tensor:
+    """This rank's chunk ``layout[r]`` along ``dim`` of the rank-order sum
+    over ``axis`` of every rank's ``g``: a reduce-scatter (the pieces of
+    :func:`sum_parts`' first half, cut along ``dim``), each element the
+    bits of :func:`rank_sum`."""
+    front = g.movedim(dim, 0).contiguous()
+    per = math.prod(front.shape[1:])
+    lo, hi = layout[mesh.coordinate(axis)]
+    part = _scatter_sum(front.reshape(-1),
+                        [(a * per, b * per) for a, b in layout], mesh, axis,
+                        kind)
+    return part.reshape(hi - lo, *front.shape[1:]).movedim(0, dim)
 
 
 def gather_chunks(g: torch.Tensor, layout, mesh, axis: str, dim: int,
@@ -1076,17 +1126,31 @@ def head_site(path: str) -> str | None:
 
 
 def param_bounds(path: str, shape, sharding: NamedSharding,
-                 rows: int = 128,
-                 head_dim: int | None = None) -> list[tuple[int, int]]:
+                 rows: int = 128, head_dim: int | None = None,
+                 experts: tuple[int, int] | None = None
+                 ) -> list[tuple[int, int]]:
     """:func:`block_bounds` of a parameter leaf, with the contracting rows
     of a row-parallel site dealt as whole k-blocks (:func:`k_layout`; over
     several mesh axes flattened in mesh order).  Over a model axis of
     size > 1 the head sites' leaves (:func:`head_site`) are cut on whole
     heads of ``head_dim`` columns (required for them), whatever the size
     rule says: q's output columns by :func:`head_layout`, o's contracting
-    rows by :func:`k_layout`."""
+    rows by :func:`k_layout`.  The moe block's expert leaves follow
+    :func:`expert_layout` of ``experts`` (E, ff; required for them): a
+    rank of the ``"expert"`` layout holds its experts whole, the shared C
+    and U with them, and the ``"whole"`` layout cuts nothing, whatever the
+    size rule says of C, U or a core alone."""
     m = sharding.mesh
     bounds = block_bounds(shape, sharding)
+    if "['experts']" in path and mesh_axis_for("expert", m):
+        if not experts:
+            raise ValueError(f"{path} follows the expert layout: pass "
+                             f"experts=(E, ff)")
+        layout = expert_layout(*experts, m)
+        if layout == "whole" or (layout == "expert" and any(
+                k in path for k in ("['C']", "['U']"))):
+            return [(0, s) for s in shape]
+        return bounds
     site = head_site(path)
     axis = site and mesh_axis_for("heads", m)
     if axis:
@@ -1111,10 +1175,12 @@ def param_bounds(path: str, shape, sharding: NamedSharding,
 
 
 def local_param(path: str, x: torch.Tensor, sharding: NamedSharding,
-                rows: int = 128, head_dim: int | None = None) -> torch.Tensor:
+                rows: int = 128, head_dim: int | None = None,
+                experts: tuple[int, int] | None = None) -> torch.Tensor:
     """This rank's block of the whole parameter leaf ``x`` at ``path``
     (:func:`param_bounds`)."""
-    return _cut(x, param_bounds(path, x.shape, sharding, rows, head_dim))
+    return _cut(x, param_bounds(path, x.shape, sharding, rows, head_dim,
+                                experts))
 
 
 # ---------------------------------------------------------------------------

@@ -110,6 +110,11 @@ COLLECTIVE_OF = {
     # gradients
     "reduce_adjoint": "all-reduce", "chunk_adjoint": "all-gather",
     "replicate_adjoint": "all-reduce", "grads": "all-reduce",
+    # the moe block over a mesh: its rank-order sums over the model axis
+    # (sharding.sum_parts, and sum_chunk's reduce-scatter onto a chunk)
+    # and the routing counts gathered over the batch axes
+    "expert": "all-reduce", "expert_scatter": "reduce-scatter",
+    "routing": "all-gather",
 }
 
 # ops that read and write nothing (allocation, metadata, scalars)

@@ -34,7 +34,8 @@ the record is the rank with the largest ``peak_bytes_per_dev``
 (``rank``, with every run rank's peak in ``ranks``); ``--fast`` runs
 the first and last model coordinate.  A cell whose step raises naming
 ``sharding.LM_SLICE`` is not ported yet: it prints ``[not ported:
-5(d)(...)]`` with the sub-slice of ROADMAP item 5(d) that raised and is
+5(d)(...)]`` with the sub-slice of ROADMAP item 5(d) that raised (the moe
+family's ``train_4k`` cells: ``5(d)(iii)(b)``, its training) and is
 counted apart; any other exception is a ``[FAIL]``.
 
 ``--shape cnn_serve`` runs the H-sharded CNN cells (DarkNet-19 and
@@ -84,10 +85,10 @@ CNN_SERVE_DEVICES = 8
 FIG12_MODELS = {"darknet19": 3.0, "resnet18": 1.0, "tiny_yolo": 1.0}
 
 # the sub-slices of ROADMAP item 5(d) a cell still waits for: the
-# families (the dense layouts, i, and training over the model axis, ii,
-# are ported)
-SUB_SLICES = {"moe": "iii", "ssm": "iv", "hybrid": "iv", "vlm": "v",
-              "audio": "v"}
+# families (the dense layouts, i, training over the model axis, ii, and
+# the moe family's serving, iii(a), are ported; its training is iii(b))
+SUB_SLICES = {"moe": "5(d)(iii)(b)", "ssm": "5(d)(iv)", "hybrid": "5(d)(iv)",
+              "vlm": "5(d)(v)", "audio": "5(d)(v)"}
 SIZE_TIMEOUT_S = 120
 
 
@@ -432,8 +433,9 @@ def run_fig12(name: str, fast: bool = False):
 
 def sub_slice(arch: str) -> str:
     """The sub-slice of ROADMAP item 5(d) a refused cell waits for: the
-    family's, else the layouts' (i)."""
-    return SUB_SLICES.get(configs.get(arch).family) or "i"
+    family's (the moe family's training, since it serves), else the
+    layouts' (i)."""
+    return SUB_SLICES.get(configs.get(arch).family) or "5(d)(i)"
 
 
 def _not_ported(e: Exception) -> bool:
@@ -493,7 +495,7 @@ def main(argv=None) -> int:
                             print(f"[FAIL] {tag}: {e!r}", flush=True)
                             traceback.print_exc()
                             continue
-                        sub = f"5(d)({sub_slice(arch)})"
+                        sub = sub_slice(arch)
                         refused.append({"arch": arch, "shape": shape_name,
                                         "mesh_name": name, "not_ported": sub,
                                         "error": str(e)})

@@ -396,7 +396,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: optim.AdamWConfig | None = None,
 
     def loss_fn(params, batch):
         mesh = model.mesh or shd.current_mesh()
-        api.check_mesh(cfg, mesh)
+        api.check_mesh(cfg, mesh, training=True)
         with shd.use_mesh(mesh) if mesh is not None else \
                 contextlib.nullcontext():
             feats = model.features(params, batch)

@@ -61,15 +61,25 @@ def decode_step(params, tokens, cfg: ArchConfig, cache, **kw):
     return _mod(cfg).decode_step(params, tokens, cfg, cache, **kw)
 
 
-def check_mesh(cfg: ArchConfig, mesh=None):
+def check_mesh(cfg: ArchConfig, mesh=None, training: bool = False):
     """Raise unless ``cfg`` can run over ``mesh`` (default: the bound
-    one): every family but dense waits for ROADMAP item 5(d)."""
+    one): the dense family serves and trains, the moe family serves
+    (``training``: a train step asks); the others wait for ROADMAP item
+    5(d)."""
     mesh = mesh or shd.current_mesh()
-    if mesh is not None and mesh.size > 1 and cfg.family != "dense":
+    if mesh is None or mesh.size == 1 or cfg.family == "dense":
+        return
+    if cfg.family == "moe" and not training:
+        return
+    if cfg.family == "moe":
         raise NotImplementedError(
-            f"{cfg.name!r} is a {cfg.family!r} config: over a mesh the port "
-            f"serves the dense family; the others come with "
-            f"{shd.LM_SLICE}")
+            f"{cfg.name!r} is a 'moe' config: over a mesh the port serves "
+            f"it but does not train it yet (sub-slice 5(d)(iii)(b)); that "
+            f"comes with {shd.LM_SLICE}")
+    raise NotImplementedError(
+        f"{cfg.name!r} is a {cfg.family!r} config: over a mesh the port "
+        f"serves the dense and moe families; the others come with "
+        f"{shd.LM_SLICE}")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,

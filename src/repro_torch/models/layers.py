@@ -687,13 +687,15 @@ def _bucketed(fn, x):
     return rows.rowwise(fn, x.reshape(-1, x.shape[-1])).reshape(x.shape)
 
 
-def apply_mlp(params, x, cfg: ArchConfig, sp=None):
+def apply_mlp(params, x, cfg: ArchConfig, sp=None, d_ff: int | None = None):
     """Under a model axis column-parallel (gate, up: the rank's ``mlp``
     columns) into row-parallel (down, whole output or, with ``sp``, the
-    rank's seq_sp chunk)."""
+    rank's seq_sp chunk).  ``d_ff``: the hidden width where it is not
+    ``cfg.d_ff`` (the moe block's shared experts), as :func:`init_mlp`
+    takes it: the layout over the model axis follows it."""
     spec = cfg.rebranch
     rows_k = spec.cim.rows_per_subarray
-    d, ff = cfg.d_model, cfg.d_ff
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     tp_in = shd.linear_tp("up", d, ff, rows_k)
     act = F.silu if cfg.mlp_type == "swiglu" else _gelu
     if tp_in is not None:

@@ -22,16 +22,41 @@ reference: the int8 codes are multiplied as f32 on K-chunks of at most
 and so exact in f32 whatever the summation order (on the card too); the
 chunks are added in int32 and cast to f32 once, as the reference's int32
 accumulation is.
+
+Over a mesh (serving) the block follows the reference's expert policy
+(``sharding.expert_layout``):
+
+* ``"expert"`` (E divides the model axis): each rank routes the tokens it
+  holds with the whole router, fills the dispatched stack of its E/m
+  experts only, runs its stacked linears on them and combines its kept
+  choices (ascending expert order) into a partial output; the partials
+  are summed over the model axis in rank order (``sharding.sum_parts``,
+  or ``sum_chunk`` onto the rank's sequence chunk under ``seq_sp``).
+* ``"expert_mlp"``: gate and up on the rank's ff columns; down
+  row-parallel on its ff rows, each row quantised at the whole row's
+  absmax, the integer partials added in int32 before the one scale (the
+  trunk bitwise the unsharded one's), the branch's t1 summed onto the
+  rank's d_c block of the core and its product summed in rank order; the
+  combine is then local.
+* ``"whole"``: every rank runs the unsharded block.
+
+Routing groups are the whole batch's (:func:`token_groups`): a rank
+holding some rows of the batch routes its tokens in the global token
+order, and where a group spans ranks of the batch axes it offsets its
+capacity slots by the other ranks' per-round, per-expert counts (one
+small all-gather); each rank fills only its own tokens' slots.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
 
@@ -72,20 +97,25 @@ def init_expert_linear(gen: torch.Generator, n_exp: int, d_in: int,
     }
 
 
+def int8_bmm_int32(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int8 batched product [E, C, K] x [E, K, N] as int32:
+    f32 products on K-chunks of at most :data:`EXACT_K` (each exact),
+    added in int32."""
+    acc = None
+    for k0 in range(0, x_q.shape[-1], EXACT_K):
+        part = torch.bmm(x_q[..., k0:k0 + EXACT_K].float(),
+                         w_q[:, k0:k0 + EXACT_K].float()).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def int8_bmm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """Exact int8 batched product [E, C, K] x [E, K, N] -> f32 [E, C, N]:
     f32 products on K-chunks of at most :data:`EXACT_K` (each exact),
     added in int32, cast to f32 once."""
-    k = x_q.shape[-1]
-    acc = None
-    for k0 in range(0, k, EXACT_K):
-        part = torch.bmm(x_q[..., k0:k0 + EXACT_K].float(),
-                         w_q[:, k0:k0 + EXACT_K].float())
-        if k <= EXACT_K:
-            return part
-        part = part.to(torch.int32)
-        acc = part if acc is None else acc + part
-    return acc.float()
+    if x_q.shape[-1] <= EXACT_K:
+        return torch.bmm(x_q.float(), w_q.float())
+    return int8_bmm_int32(x_q, w_q).float()
 
 
 class _StackedTrunkMatmul(torch.autograd.Function):
@@ -155,13 +185,108 @@ def _capacity(cfg: ArchConfig) -> int:
     return max(4, -(-c // 4) * 4)          # multiple of 4
 
 
-def route(params, xg, cfg: ArchConfig):
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """The reference's routing groups of a global batch as one rank sees
+    them: the rank routes a frame of ``n`` whole groups of ``g`` tokens
+    (global groups ``first``..``first + n - 1``) in which its ``t`` tokens
+    start at ``off``, followed by the ``pad`` zero tokens that end the
+    last group (the last holder's only).  ``spans`` (set where a group
+    spans ranks of the batch axes ``axes`` of ``mesh``): per batch rank,
+    its (first, last) group, None without tokens; ``rank`` is this one."""
+    g: int
+    n: int
+    first: int = 0
+    off: int = 0
+    t: int = 0
+    pad: int = 0
+    spans: tuple = ()
+    rank: int = 0
+    mesh: object = None
+    axes: tuple = ()
+
+    def own(self, device) -> torch.Tensor | None:
+        """[n, g] whether each frame position is this rank's to route (a
+        token or a pad), None where all are."""
+        if self.off == 0 and self.t + self.pad == self.n * self.g:
+            return None
+        pos = torch.arange(self.n * self.g, device=device)
+        return ((pos >= self.off) & (pos < self.off + self.t + self.pad)
+                ).reshape(self.n, self.g)
+
+    def offsets(self, counts: torch.Tensor):
+        """(before, total) [n, k, E] from this rank's per-round, per-expert
+        counts [n, k, E] of each frame group: the counts of the batch
+        ranks before this one in each group, and the group's whole
+        counts, from the ranks' counts of their first and last groups
+        all-gathered over the batch axes (set ``spans`` first)."""
+        mine = counts.new_zeros((1, 2, *counts.shape[1:]))
+        if self.n:
+            mine[0, 0] = counts[0]
+        if self.n > 1:
+            mine[0, 1] = counts[-1]
+        every = shd.gather_flat(mine, len(self.spans), self.mesh, self.axes,
+                                dim=0, kind="routing")
+        before, total = torch.zeros_like(counts), counts.clone()
+        for q, span in enumerate(self.spans):
+            if q == self.rank or span is None:
+                continue
+            ends = (span[0],) if span[0] == span[1] else span
+            for slot, j in enumerate(ends):
+                if self.first <= j < self.first + self.n:
+                    total[j - self.first] += every[q, slot]
+                    if q < self.rank:
+                        before[j - self.first] += every[q, slot]
+        return before, total
+
+
+def token_groups(b: int, s: int, cfg: ArchConfig, rows=None) -> Groups:
+    """The routing groups of the ``b`` x ``s`` tokens a rank holds: rows
+    ``(lo, hi, B)`` of a batch of B split over the batch axes of the bound
+    mesh (None: ``b`` rows are the whole batch).  The reference groups
+    the global batch's tokens in order, ``g = min(moe_group_size, B*s)``,
+    zero tokens padding the last group."""
+    lo, hi, big = rows or (0, b, b)
+    total = big * s
+    g = max(1, min(cfg.moe_group_size, total))
+    n_all = -(-total // g)
+    pad_all = n_all * g - total
+
+    def span(a: int, e: int):
+        e += pad_all if e == total and e > a else 0
+        return None if e == a else (a // g, -(-e // g) - 1)
+    a = lo * s
+    mine = span(a, hi * s)
+    if mine is None:
+        return Groups(g=g, n=0, first=a // g)
+    first, last = mine
+    base = Groups(g=g, n=last - first + 1, first=first, off=a - first * g,
+                  t=(hi - lo) * s, pad=pad_all if hi * s == total else 0)
+    if rows is None or hi - lo == big:
+        return base
+    mesh = shd.current_mesh()
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    n_b = math.prod(mesh.shape[x] for x in axes)
+    spans = tuple(span(x0 * s, x1 * s) for x0, x1 in shd.h_layout(big, n_b))
+    held = [sp for sp in spans if sp is not None]
+    if all(p[1] < q[0] for p, q in zip(held, held[1:])):
+        return base                  # every group lies on one rank
+    rank = 0
+    for x in axes:
+        rank = rank * mesh.shape[x] + mesh.coordinate(x)
+    return dataclasses.replace(base, spans=spans, rank=rank, mesh=mesh,
+                               axes=axes)
+
+
+def route(params, xg, cfg: ArchConfig, groups: Groups | None = None):
     """The capacity dispatch of token groups xg [G, g, d]:
     (idx [G, g, k] the chosen experts, gates [G, g, k] their normalised
     probabilities, slot [G, g, k] each choice's capacity slot, keep
     [G, g, k] whether it got one).  Priority is token order within each of
     the k rounds, the rounds in order; a dropped choice still counts
-    against its expert, as in the reference."""
+    against its expert, as in the reference.  ``groups``: xg is a rank's
+    frame of the global groups (:func:`token_groups`): only its own
+    positions route, their slots offset by the other ranks' counts."""
     n_groups, g, _ = xg.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     logits = xg.float() @ params["router"]["sram"]["w"]
@@ -171,64 +296,172 @@ def route(params, xg, cfg: ArchConfig):
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = gates[..., :k], idx[..., :k]               # [G, g, k]
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    own = None if groups is None else groups.own(xg.device)
+
+    def one_hot(j):                                         # [G, g, E]
+        oh = F.one_hot(idx[..., j], e)
+        return oh if own is None else oh * own[..., None]
+    before = total = None
+    if groups is not None and groups.spans:
+        before, total = groups.offsets(torch.stack(
+            [one_hot(j).sum(1) for j in range(k)], dim=1))
     counts = torch.zeros((n_groups, e), dtype=torch.int64, device=xg.device)
     slots = []
     for j in range(k):
-        oh = F.one_hot(idx[..., j], e)                      # [G, g, E]
-        pos = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
+        oh = one_hot(j)
+        ahead = counts if total is None else counts + before[:, j]
+        pos = torch.cumsum(oh, dim=1) - oh + ahead[:, None, :]
         slots.append((pos * oh).sum(-1))                    # [G, g]
-        counts = counts + oh.sum(1)
+        counts = counts + (oh.sum(1) if total is None else total[:, j])
     slot = torch.stack(slots, dim=-1)
-    return idx, gates, slot, slot < _capacity(cfg)
+    keep = slot < _capacity(cfg)
+    return idx, gates, slot, keep if own is None else keep & own[..., None]
 
 
-def apply_moe_block(params, x, cfg: ArchConfig):
+def _experts_held(params, cfg: ArchConfig):
+    """(layout, first expert, end expert) of this rank's expert blocks
+    (``sharding.expert_layout``; layout None without a model axis)."""
+    e, ff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    layout = shd.expert_layout(e, ff)
+    lo, hi, cols = 0, e, ff
+    if layout in ("expert", "expert_mlp"):
+        mesh, axis = shd.model_axis()
+        m = mesh.shape[axis]
+        if layout == "expert":
+            lo, hi = shd.h_layout(e, m)[mesh.coordinate(axis)]
+        else:
+            cols = ff // m
+    gate = params["experts"]["gate"]
+    held = (gate["rom"]["w_q"] if "rom" in gate else gate["sram"]["w"]).shape
+    if (held[0], held[2]) != (hi - lo, cols):
+        raise ValueError(
+            f"expert blocks {tuple(held)} are not this rank's under the "
+            f"{layout or 'unsharded'} layout ({hi - lo} experts of ff "
+            f"{cols}): cut them with CompiledModel.shard_params")
+    if layout == "expert_mlp" and "rom" not in gate:
+        raise NotImplementedError(
+            f"SRAM-resident experts split on their hidden size come with "
+            f"{shd.LM_SLICE}")
+    return layout, lo, hi
+
+
+def row_parallel_trunk(x: torch.Tensor, w_q: torch.Tensor, mesh,
+                       axis: str):
+    """A stacked trunk row-parallel on its contraction over ``axis``: x
+    [E, C, k] (the rank's columns of the contraction) and w_q [E, k, N]
+    (its rows).  Every row is quantised at the whole row's absmax (an
+    exact max over the ranks); the integer partials are added in int32 in
+    rank order.  (int32 sums [E, C, N], the row scales): the sums are the
+    unsharded :func:`int8_bmm`'s integers, whatever the split."""
+    absmax = shd.rank_max(x.abs().amax(dim=-1, keepdim=True), mesh, axis)
+    x_q, sx = quant.quantize_activations_at(x, absmax)
+    return shd.sum_parts(int8_bmm_int32(x_q, w_q), mesh, axis,
+                         "expert"), sx
+
+
+def _down_rows(params, h):
+    """The down stack row-parallel on the rank's ff rows (the
+    ``expert_mlp`` layout): the trunk by :func:`row_parallel_trunk` and
+    the one scale, the branch's t1 summed onto the rank's d_c block of
+    the core (whole where the size rule keeps the core whole) and its
+    product ``t1 @ (core @ U)`` summed in rank order, in f32."""
+    mesh, axis = shd.model_axis()
+    rom, sram = params["rom"], params["sram"]
+    trunk, sx = row_parallel_trunk(h, rom["w_q"], mesh, axis)
+    y = (trunk.float() * sx * rom["w_scale"].float()).to(h.dtype)
+    t1 = h.float() @ rom["C"].float()                      # partial
+    core, uf = sram["core"].float(), rom["U"].float()
+    if core.shape[1] != t1.shape[-1]:                      # core on d_c
+        t1 = shd.sum_chunk(t1, 2, shd.h_layout(t1.shape[-1],
+                                                mesh.shape[axis]),
+                           mesh, axis, "expert_scatter")
+        branch = shd.sum_parts(torch.bmm(t1, core @ uf), mesh, axis,
+                               "expert")
+    else:
+        branch = torch.bmm(shd.sum_parts(t1, mesh, axis, "expert"),
+                           core @ uf)
+    return y + branch.to(h.dtype)
+
+
+def apply_moe_block(params, x, cfg: ArchConfig, sp=None, rows=None):
     """x [B, S, d] -> [B, S, d]: routed experts (plus the shared experts
     behind their sigmoid gate).  The combine adds a token's kept choices
     in ascending expert order (the reference's one-hot einsum sums over
     (expert, slot); the order of its few non-zero terms may differ, so a
-    token's output may differ from it in the last f32 bits)."""
+    token's output may differ from it in the last f32 bits).
+
+    Over a mesh (see the module docstring): ``rows`` ``(lo, hi, B)``, this
+    rank's rows of the batch of B (the routing groups are the whole
+    batch's); ``sp``, the seq_sp layout of the residual: ``x`` is the
+    whole sequence and the output this rank's sequence chunk."""
     b, s, d = x.shape
-    t = b * s
-    g = min(cfg.moe_group_size, t)
-    n_groups = -(-t // g)
-    pad = n_groups * g - t
-    xf = x.reshape(t, d)
-    if pad:
-        xf = F.pad(xf, (0, 0, 0, pad))
-    xg = xf.reshape(n_groups, g, d)
-    e, cap = cfg.num_experts, _capacity(cfg)
+    mesh = shd.current_mesh()
+    if rows is None and mesh is not None and shd.batch_axes(mesh):
+        raise NotImplementedError(
+            "the moe block over batch ranks needs the rank's rows of the "
+            "batch (its routing groups are the whole batch's): the serving "
+            f"steps pass them; a forward or a train step comes with "
+            f"{shd.LM_SLICE}")
+    groups = token_groups(b, s, cfg, rows)
+    n, g = groups.n, groups.g
+    xf = x.reshape(b * s, d)
+    if n * g != b * s:
+        xf = F.pad(xf, (0, 0, groups.off, n * g - groups.off - b * s))
+    xg = xf.reshape(n, g, d)
+    cap = _capacity(cfg)
+    layout, e_lo, e_hi = _experts_held(params, cfg)
 
-    idx, gates, slot, keep = route(params, xg, cfg)
-    # flat row of each kept choice in the [E, G*cap] dispatched stack
-    grp = torch.arange(n_groups, device=x.device)[:, None, None]
-    dest = torch.where(keep, idx * (n_groups * cap) + grp * cap + slot, 0)
-    kept = keep.reshape(-1)
-    src = torch.arange(n_groups * g, device=x.device)[:, None].expand(
-        -1, idx.shape[-1]).reshape(-1)[kept]
-    x_exp = xg.new_zeros((e * n_groups * cap, d), dtype=torch.bfloat16)
-    x_exp[dest.reshape(-1)[kept]] = xg.reshape(-1, d)[src].to(torch.bfloat16)
-    x_exp = x_exp.reshape(e, n_groups * cap, d).to(x.dtype)
+    idx, gates, slot, keep = route(params, xg, cfg, groups)
+    mine = keep if (e_lo, e_hi) == (0, cfg.num_experts) else \
+        keep & (idx >= e_lo) & (idx < e_hi)
+    # flat row of each kept choice of a held expert in the [E_held, G*cap]
+    # dispatched stack; the other choices write one spare row, dropped
+    grp = torch.arange(n, device=x.device)[:, None, None]
+    dest = torch.where(mine, (idx - e_lo) * (n * cap) + grp * cap + slot, 0)
+    spare = (e_hi - e_lo) * n * cap
+    x_exp = xg.new_zeros((spare + 1, d), dtype=torch.bfloat16)
+    xb = xg.reshape(-1, d).to(torch.bfloat16)
+    for j in range(idx.shape[-1]):
+        x_exp.index_put_((torch.where(mine[..., j], dest[..., j],
+                                      spare).reshape(-1),), xb)
+    x_exp = x_exp[:spare].reshape(e_hi - e_lo, n * cap, d).to(x.dtype)
 
-    hg = apply_expert_linear(params["experts"]["gate"], x_exp)
-    hu = apply_expert_linear(params["experts"]["up"], x_exp)
-    h = apply_expert_linear(params["experts"]["down"], F.silu(hg) * hu)
+    ex = params["experts"]
+    hg = apply_expert_linear(ex["gate"], x_exp)
+    hu = apply_expert_linear(ex["up"], x_exp)
+    h = F.silu(hg) * hu
+    h = _down_rows(ex["down"], h) if layout == "expert_mlp" else \
+        apply_expert_linear(ex["down"], h)
 
     # combine: each token's kept choices, gate-weighted, by expert order
     order = torch.argsort(idx, dim=-1)
-    dest = torch.gather(dest, -1, order).reshape(n_groups * g, -1)
+    dest = torch.gather(dest, -1, order).reshape(n * g, -1)
     w = (torch.gather(gates, -1, order)
-         * torch.gather(keep, -1, order)).reshape(n_groups * g, -1)
+         * torch.gather(mine, -1, order)).reshape(n * g, -1)
     hf = h.reshape(-1, d).float()
     y = None
     for j in range(dest.shape[1]):
         term = w[:, j:j + 1] * hf[dest[:, j]]
         y = term if y is None else y + term
-    y = y.to(x.dtype)[:t].reshape(b, s, d)
+    y = y[groups.off:groups.off + b * s].reshape(b, s, d)
+    if layout == "expert":            # the ranks' partials, in rank order
+        at = shd.model_axis()
+        y = shd.sum_parts(y, *at, "expert") if sp is None else \
+            shd.sum_chunk(y, 1, sp, *at, "expert_scatter")
+    y = y.to(x.dtype)
+    xs = x
+    if sp is not None:                # this rank's sequence chunk
+        mesh, axis = shd.model_axis()
+        lo, hi = sp[mesh.coordinate(axis)]
+        xs = x.narrow(1, lo, hi - lo)
+        if layout != "expert":
+            y = y.narrow(1, lo, hi - lo)
 
     if "shared" in params:
-        sh = layers.apply_mlp(params["shared"], x, cfg)
-        sg = torch.sigmoid(x.float() @ params["shared_gate"]["sram"]["w"])
+        kw = {} if sp is None else {"sp": sp}
+        sh = layers.apply_mlp(params["shared"], x, cfg, d_ff=(
+            cfg.num_shared_experts * (cfg.moe_d_ff or cfg.d_ff)), **kw)
+        sg = torch.sigmoid(xs.float() @ params["shared_gate"]["sram"]["w"])
         y = y + sh * sg.to(x.dtype)
     return y
 

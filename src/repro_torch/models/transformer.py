@@ -23,13 +23,15 @@ Python on views of the stacked tensors.  As under the reference's scan,
 every layer runs with ``layer_idx`` 0.  Caches are updated in place (see
 ``models.layers``).
 
-Under a mesh (dense family) each rank runs its rows of the batch (the
-steps cut them, ``launch.steps.local_batch``) with its block of the
-parameters and cache (``deploy.CompiledModel.shard_params``,
-``api.init_cache``): the embedding and readout vocab-parallel, attention
-and MLP tensor-parallel (``models.layers``), the residual stream of a
-prefill in the reference's ``seq_sp`` layout (each rank its chunk of the
-sequence, gathered before attention and MLP).  The reference's ``shard``
+Under a mesh (dense family; the moe family's serving steps) each rank
+runs its rows of the batch (the steps cut them,
+``launch.steps.local_batch``) with its block of the parameters and cache
+(``deploy.CompiledModel.shard_params``, ``api.init_cache``): the
+embedding and readout vocab-parallel, attention and MLP tensor-parallel
+(``models.layers``), the moe block by its expert layout (``models.moe``,
+told the rank's rows of the batch), the residual stream of a prefill in
+the reference's ``seq_sp`` layout (each rank its chunk of the sequence,
+gathered before attention and MLP).  The reference's ``shard``
 sites stand where a whole tensor takes a layout; the batch is never cut
 here.  A train step runs the same forward under autograd, each block
 checkpointed when ``cfg.remat`` (:func:`features`), the head's input
@@ -81,12 +83,14 @@ def _block_init(gen, cfg: ArchConfig):
 
 
 def _block_apply(params, x, cfg: ArchConfig, layer_idx: int,
-                 positions=None, cache=None, decode=False, sp=None):
+                 positions=None, cache=None, decode=False, sp=None,
+                 rows=None):
     """One block.  ``sp``: the seq_sp layout of the residual ``x`` over
     the model axis (each rank holds its sequence chunk): the normed input
     of attention and MLP is gathered whole, their row-parallel outputs
     come back as the rank's chunk (the norm scales then meet only the
-    rank's rows: ``sharding.mark_partial``)."""
+    rank's rows: ``sharding.mark_partial``).  ``rows``: ``(lo, hi, B)``,
+    this rank's rows of the batch, for the moe block's routing groups."""
     if sp is not None:
         shd.mark_partial(params["ln1"], params["ln2"])
     h = _unchunk(layers.apply_rmsnorm(params["ln1"], x, cfg.norm_eps), sp)
@@ -97,8 +101,10 @@ def _block_apply(params, x, cfg: ArchConfig, layer_idx: int,
     x = x + h
     h2 = _unchunk(layers.apply_rmsnorm(params["ln2"], x, cfg.norm_eps), sp)
     if cfg.family == "moe":
+        if rows is not None:
+            kw["rows"] = rows
         h2 = moe.apply_moe_block(params["moe"], h2,
-                                 site_cfg(cfg, "blocks.moe"))
+                                 site_cfg(cfg, "blocks.moe"), **kw)
     else:
         h2 = layers.apply_mlp(params["mlp"], h2, site_cfg(cfg, "blocks.mlp"),
                               **kw)
@@ -350,9 +356,13 @@ def _run_layers(params, x, cfg: ArchConfig, cache, positions=None,
     layers read the rank's rows of them, and every row advances by the
     ``s`` tokens of this call, as every row of a step does."""
     cl = cache["layers"]
-    rows = None
-    if cl["length"].shape[1] != x.shape[0]:
-        rows = shd.batch_block(cl["length"].shape[1])
+    rows = moe_rows = None
+    whole = cl["length"].shape[1]
+    if whole != x.shape[0]:
+        rows = shd.batch_block(whole)
+    mesh = shd.current_mesh()
+    if cfg.family == "moe" and mesh is not None and mesh.size > 1:
+        moe_rows = (*shd.batch_block(whole), whole)
     lengths = []
     # on meta (shapes only) every layer runs the same ops on the same
     # shapes (the reference's scanned body): one runs for all of them
@@ -364,7 +374,7 @@ def _run_layers(params, x, cfg: ArchConfig, cache, positions=None,
                 lc = {**lc, "length": lc["length"][rows[0]:rows[1]]}
             x, nc = _block_apply(layer(params["layers"], i), x, cfg, 0,
                                  positions=positions, cache=lc,
-                                 decode=decode, sp=sp)
+                                 decode=decode, sp=sp, rows=moe_rows)
             lengths.append(nc["length"])
     lengths *= cfg.num_layers // n
     if rows is None:

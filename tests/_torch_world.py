@@ -1,7 +1,8 @@
 """Rank functions of the spawned gloo worlds of ``test_torch_sharding.py``,
 ``test_torch_halo_conv.py``, ``test_torch_dist_train.py``,
-``test_torch_tp.py``, ``test_torch_tp_train.py`` and
-``test_torch_dryrun.py``, and the inputs both sides share.
+``test_torch_tp.py``, ``test_torch_tp_train.py``,
+``test_torch_dryrun.py`` and ``test_torch_moe_tp.py``, and the inputs
+both sides share.
 
 The ranks import no JAX: they rebuild the same numpy inputs from seeds,
 run the port on the CPU (plain kernel versions) over 4 ranks, and return
@@ -551,9 +552,9 @@ def tp_port_tree(name: str) -> dict:
                        np.random.default_rng(2))
 
 
-def tp_prompts(vocab: int) -> np.ndarray:
+def tp_prompts(vocab: int, batch: int = TP_BATCH) -> np.ndarray:
     return np.random.default_rng(7).integers(
-        0, vocab, (TP_BATCH, TP_PROMPT)).astype(np.int32)
+        0, vocab, (batch, TP_PROMPT)).astype(np.int32)
 
 
 def tp_site(cfg, params, site: str):
@@ -568,7 +569,8 @@ def tp_site(cfg, params, site: str):
     return leaf, dims[0], dims[1]
 
 
-def tp_steps(cfg, whole, mesh, engine: str, max_len: int = TP_MAX_LEN):
+def tp_steps(cfg, whole, mesh, engine: str, max_len: int = TP_MAX_LEN,
+             batch: int = TP_BATCH):
     """(logits, tokens [B, 1 + TP_STEPS]) of the prefill step and
     TP_STEPS greedy serve steps on the prompts, over ``mesh`` (None: the
     unsharded steps), and (model, local params, cache); the sharding
@@ -576,11 +578,11 @@ def tp_steps(cfg, whole, mesh, engine: str, max_len: int = TP_MAX_LEN):
     from repro_torch import deploy
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps
-    prompts = torch.from_numpy(tp_prompts(cfg.vocab_size))
+    prompts = torch.from_numpy(tp_prompts(cfg.vocab_size, batch))
     model = deploy.compile_model(cfg, engine=engine, mesh=mesh)
     params = model.shard_params(whole)
     logits, cache = steps.make_prefill_step(
-        cfg, TP_BATCH, max_len, model=model, device="cpu")(
+        cfg, batch, max_len, model=model, device="cpu")(
             params, {"tokens": prompts})
     serve = steps.make_serve_step(cfg, model=model)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -914,3 +916,220 @@ def tp_bytes_world(rank: int, world: int) -> dict:
         step(t, f, optim.init(t), batch)
     return {"bytes_sent": dict(shd.bytes_sent),
             "wire_bytes": dict(compress.wire_bytes)}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_moe_tp.py: the moe family served over a mesh
+# ---------------------------------------------------------------------------
+
+# (config, mesh): Granite-MoE's smoke config (E 8) on (1, 4) and (2, 2):
+# whole experts a rank (the "expert" layout; over (2, 2) the decode
+# group of 8 tokens spans both data ranks); Qwen2-MoE's (E 6, ff 64) on
+# (1, 4): each expert's ff columns ("expert_mlp", the down core cut on
+# d_c) and the shared experts' MLP (ff 128); the same with ff 66, which
+# neither E nor ff divide ("whole")
+MOE_TP_CASES = (("granite_moe_3b", (1, 4)), ("granite_moe_3b", (2, 2)),
+                ("qwen2_moe_a2_7b", (1, 4)), ("qwen2_moe_ff66", (1, 4)))
+MOE_TP_LAYOUTS = {"granite_moe_3b": "expert", "qwen2_moe_a2_7b": "expert_mlp",
+                  "qwen2_moe_ff66": "whole"}
+# the routing groups' cases: Granite's smoke config at capacity 4 with a
+# router skewed onto expert 0 (mesh, rows).  6 rows over (2, 2): prefill
+# group 0 (tokens 0-31) spans data rank 0's rows 0-2 and rank 1's row 3,
+# group 1 is rank 1's with the 16 pad tokens; a decode step's group is
+# the 6 tokens of both ranks.  8 rows over (4, 1): prefill group 0 spans
+# ranks 0 and 1, group 1 ranks 2 and 3; a decode step's group of 8 spans
+# all four (ranks 1 and 2 hold its middle)
+MOE_SKEW = "granite_moe_skew"
+MOE_SKEW_CASES = (((2, 2), 6), ((4, 1), 8))
+# the expert_mlp down trunks held bitwise, ff over model 4: the smoke
+# config's and Qwen2-MoE's 1408 (352 rows a rank; the row sums pass
+# 2**24, so the partials cross as int32)
+MOE_TRUNK_FF = (64, 1408)
+
+
+def moe_tp_config(name: str):
+    from repro_torch import configs
+    if name == "qwen2_moe_ff66":
+        return dataclasses.replace(configs.get_smoke("qwen2_moe_a2_7b"),
+                                   moe_d_ff=66)
+    if name == "granite_moe_skew":
+        return dataclasses.replace(configs.get_smoke("granite_moe_3b"),
+                                   moe_capacity_factor=0.25)
+    return configs.get_smoke(name)
+
+
+def moe_tp_tree(name: str) -> dict:
+    """The port's init of ``name`` with seeded non-zero cores (and biases),
+    as numpy; the skewed config's embedding holds code 127 in column 0
+    of every row and its routers weigh that column at 4 on expert 0, so
+    every token's first choice is expert 0."""
+    from repro_torch import bridge, deploy
+    tree = bridge.to_numpy(deploy.compile_model(moe_tp_config(name)).init(
+        seed=0, device="cpu"))
+    tree = with_biases(with_cores(tree, np.random.default_rng(1)),
+                       np.random.default_rng(2))
+    if name == "granite_moe_skew":
+        tree["embed"]["rom"]["table_q"][:, 0] = 127
+        tree["layers"]["moe"]["router"]["sram"]["w"][:, 0, 0] = 4.0
+    return tree
+
+
+class DropCount:
+    """Count the (token, expert) choices each ``moe.route`` call drops,
+    over the positions the rank routes (its tokens and pads)."""
+
+    def __init__(self):
+        self.per_call = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real = real = moe.route
+
+        def route(params, xg, cfg, groups=None):
+            out = real(params, xg, cfg, groups)
+            own = None if groups is None else groups.own(xg.device)
+            dropped = ~out[3] if own is None else ~out[3] & own[..., None]
+            self.per_call.append(int(dropped.sum()))
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.real
+
+
+class SumCheck:
+    """Record every rank-order sum of the moe block (``sharding.sum_parts``
+    and ``sum_chunk`` of the ``expert`` kinds) and hold each to a plain
+    :func:`rank_sum` of the ranks' gathered parts (bitwise)."""
+
+    def __init__(self, mesh):
+        self.mesh, self.calls = mesh, []
+
+    def __enter__(self):
+        from repro_torch.distributed import sharding as shd
+        self.real = parts, chunk = shd.sum_parts, shd.sum_chunk
+
+        def sum_parts(g, mesh, axis, kind):
+            out = parts(g, mesh, axis, kind)
+            if kind.startswith("expert"):
+                self.calls.append((g.clone(), None, out))
+            return out
+
+        def sum_chunk(g, dim, layout, mesh, axis, kind):
+            out = chunk(g, dim, layout, mesh, axis, kind)
+            self.calls.append((g.clone(), (dim, layout), out))
+            return out
+        shd.sum_parts, shd.sum_chunk = sum_parts, sum_chunk
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import sharding as shd
+        shd.sum_parts, shd.sum_chunk = self.real
+
+    def equal(self) -> tuple[int, bool]:
+        """(sums held, every one bitwise the rank-order sum)."""
+        from repro_torch.distributed import sharding as shd
+        ok = True
+        r = self.mesh.coordinate("model")
+        for g, cut, out in self.calls:
+            want = shd.rank_sum(shd.gather_parts(g, self.mesh, "model",
+                                                 "check"))
+            if cut is not None:
+                dim, layout = cut
+                lo, hi = layout[r]
+                want = want.narrow(dim, lo, hi - lo)
+            ok &= torch.equal(want, out)
+        return len(self.calls), ok
+
+
+def moe_down_trunk(ff: int, mesh, whole=None) -> dict:
+    """A down stack row-parallel on ff over the model axis
+    (``moe.row_parallel_trunk``, the rank's ff rows of w_q and columns of
+    x): the int32 sums and the row scales against the unsharded
+    ``int8_bmm`` of x quantised whole (bitwise).  ``whole``: layer 0's
+    down w_q [E, ff, d] of a tree, else +-127-heavy codes whose row sums
+    pass 2**24."""
+    from repro_torch.core import quant
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import moe
+    rng = np.random.default_rng(ff)
+    if whole is None:
+        w_q = torch.from_numpy(rng.choice(np.array(
+            [127, 125, 123, 121], np.int8), size=(2, ff, 24)))
+        x = torch.from_numpy(np.where(
+            rng.random((2, 5, ff)) < 0.9, 3.0,
+            np.clip(rng.normal(size=(2, 5, ff)), -2.9, 2.9))
+            .astype(np.float32))
+    else:
+        w_q = whole
+        x = torch.from_numpy(rng.normal(size=(w_q.shape[0], 5, ff))
+                             .astype(np.float32))
+    lo, hi = shd.h_layout(ff, mesh.shape["model"])[mesh.coordinate("model")]
+    trunk, sx = moe.row_parallel_trunk(x[..., lo:hi].contiguous(),
+                                       w_q[:, lo:hi], mesh, "model")
+    x_q, sx_whole = quant.quantize_activations(x)
+    want = moe.int8_bmm(x_q, w_q)
+    return {"equal": torch.equal(trunk.float(), want)
+            and torch.equal(sx, sx_whole),
+            "past_f32": float(want.abs().max()) > 2 ** 24,
+            "dtype": str(trunk.dtype)}
+
+
+def moe_tp_run(name: str, whole, mesh, engine: str,
+               batch: int = TP_BATCH) -> dict:
+    """The steps of :func:`tp_steps` over ``mesh`` (None: unsharded) with
+    the choices the routing drops per call counted, the bytes of the last
+    serve step, and (over a mesh, ``pallas_fused``) the block's rank-order
+    sums held over a prefill and a decode step."""
+    import copy
+
+    from repro_torch.distributed import sharding as shd
+    cfg = moe_tp_config(name)
+    with DropCount() as drops:
+        res, (model, params, cache) = tp_steps(cfg, whole, mesh, engine,
+                                               batch=batch)
+    out = {"steps": res, "bytes": dict(shd.bytes_sent),
+           "drops": drops.per_call}
+    with shd.use_mesh(mesh):
+        out["layout"] = shd.expert_layout(cfg.num_experts,
+                                          cfg.moe_d_ff or cfg.d_ff)
+    if engine == "pallas_fused" and mesh is not None:
+        prompts = torch.from_numpy(tp_prompts(cfg.vocab_size, batch))
+        lo, hi = shd.batch_block(batch, mesh)
+        with SumCheck(mesh) as sums:
+            fresh = model.init_cache(batch, TP_MAX_LEN, device="cpu")
+            model.prefill(params, {"tokens": prompts[lo:hi]}, fresh)
+            model.decode_step(params, prompts[lo:hi, :1],
+                              copy.deepcopy(cache))
+        out["sums"] = sums.equal()
+    return out
+
+
+def moe_tp_world(rank: int, world: int) -> dict:
+    """Every case of :data:`MOE_TP_CASES` under the three engines, the
+    routing groups' cases (:data:`MOE_SKEW_CASES`), and the expert_mlp
+    down trunks of :data:`MOE_TRUNK_FF`."""
+    from repro_torch import bridge
+    warnings.simplefilter("ignore")
+    shapes = dict.fromkeys([s for _, s in MOE_TP_CASES]
+                           + [s for s, _ in MOE_SKEW_CASES])
+    meshes = {s: tp_mesh(s, "gloo") for s in shapes}
+    out = {"runs": {}, "trunk": {}}
+    for name, shape in MOE_TP_CASES:
+        whole = bridge.to_torch(moe_tp_tree(name), "cpu")
+        for engine in TP_ENGINES:
+            out["runs"][name, shape, engine] = moe_tp_run(
+                name, whole, meshes[shape], engine)
+        if MOE_TP_LAYOUTS[name] == "expert_mlp":
+            w_q = whole["layers"]["moe"]["experts"]["down"]["rom"]["w_q"][0]
+            out["trunk"][name] = moe_down_trunk(w_q.shape[1], meshes[shape],
+                                                w_q)
+    for ff in MOE_TRUNK_FF:
+        out["trunk"][ff] = moe_down_trunk(ff, meshes[(1, 4)])
+    skew = bridge.to_torch(moe_tp_tree(MOE_SKEW), "cpu")
+    out["skew"] = {shape: moe_tp_run(MOE_SKEW, skew, meshes[shape],
+                                     "pallas_fused", batch=batch)
+                   for shape, batch in MOE_SKEW_CASES}
+    return out

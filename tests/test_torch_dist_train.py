@@ -408,7 +408,7 @@ def test_a_model_axis_over_1_and_the_lm_axes_still_raise():
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
             moe_step.grads(mt, mf, {})
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
-            tshd.shard(torch.zeros(2, 4, 4, 3), "expert")
+            tshd.shard(torch.zeros(2, 4, 4, 3), "ssm_inner")
     with dryrun.dry_world(4):
         mesh = mesh_lib.make_mesh((2, 2), backend=mesh_lib.FAKE)
         rec = dryrun.lower_cell("gemma_2b", "train_4k", mesh,

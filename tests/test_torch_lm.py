@@ -387,8 +387,8 @@ def test_unported_families_and_branches_raise(tmp_path):
     """The multi-device item has come: the checkpoints' ``shardings=``
     (elastic restore) reads the checkpoint (here: none yet, so it says
     so), and the train CLI's ``--compress`` trains (one process: nothing
-    to all-reduce).  What still raises names ROADMAP: a moe LM on a mesh
-    (tensor parallelism beyond the dense family, item 5(d)).  The vlm
+    to all-reduce).  What still raises names ROADMAP: an ssm LM on a mesh
+    (tensor parallelism beyond the dense and moe families, item 5(d)).  The vlm
     (M-RoPE) and audio (codebooks)
     branches are ported: configs using them now build."""
     from repro_torch.checkpoint import manager as tckpt
@@ -404,7 +404,7 @@ def test_unported_families_and_branches_raise(tmp_path):
                           "2", "--seq", "8"], device="cpu")
     assert len(losses) == 2 and np.isfinite(losses).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdeploy.compile_model(tconfigs.get_smoke("granite_moe_3b"),
+        tdeploy.compile_model(tconfigs.get_smoke("falcon_mamba_7b"),
                               mesh=tmesh.AbstractMesh((2, 2)))
     for kw in (dict(mrope=True), dict(num_codebooks=2)):
         cfg = dataclasses.replace(tcfg, **kw)

@@ -167,6 +167,10 @@ def test_what_this_slice_does_not_execute_raises():
         assert tshd.shard(x, "cnn_batch", "cnn_h") is x      # size-1 axis
     with tshd.use_mesh(mesh_lib.AbstractMesh((2, 2))):
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
+            tshd.shard(x, "ssm_inner")
+        # executed since the moe family serves over a mesh: a cut needs
+        # a mesh of ranks
+        with pytest.raises(TypeError, match="no process groups"):
             tshd.shard(x, "expert")
         with pytest.raises(TypeError, match="no process groups"):
             tshd.shard(x, "cnn_batch", "cnn_h")
@@ -225,8 +229,11 @@ def test_compile_model_mesh_checks_and_repr():
     with pytest.raises(ValueError, match="pallas_fused"):
         tdeploy.compile_model(cfg, engine="pallas_fused", mesh=mesh)
     with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
-        tdeploy.compile_model(tconfigs.get_smoke("granite_moe_3b"),
+        tdeploy.compile_model(tconfigs.get_smoke("falcon_mamba_7b"),
                               mesh=mesh)
+    # the moe family serves over a mesh (test_torch_moe_tp.py)
+    assert tdeploy.compile_model(tconfigs.get_smoke("granite_moe_3b"),
+                                 mesh=mesh).mesh is mesh
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,9 @@ Held:
     unsharded ``make_prefill_step`` / ``make_serve_step``
     (``int8_native``), logits within ``test_torch_lm.py``'s 5e-2 of the
     absmax and tokens agreeing in >= 99% of (row, step) pairs;
-  * every leaf's rank blocks tiling it whole; what still raises;
+  * every leaf's rank blocks tiling it whole; what still raises (the moe
+    family serves over a mesh but does not train over one; ``expert`` and
+    ``expert_mlp`` are cut, ``ssm_inner`` and ``kv_seq`` raise);
   * the dry run (``launch.dryrun``: each rank's serve step on ``meta``
     over a fake world) sends each rank's bytes of the world's last serve
     step, kind by kind, under ``pallas_fused`` and ``pallas``.
@@ -381,12 +383,24 @@ def test_the_dry_run_sends_each_ranks_bytes_of_a_serve_step(run, name,
         r["traffic"][name, shape, engine] for r in ranks]
 
 
+class _Grouped(_At):
+    """An abstract mesh at one coordinate that ``shard`` may cut on."""
+
+    def group(self, axis):
+        return None
+
+
 def test_what_still_raises():
     mesh = mesh_lib.AbstractMesh((2, 2))
-    for name in ("granite_moe_3b", "falcon_mamba_7b", "hymba_1_5b",
-                 "qwen2_vl_2b", "musicgen_large"):
+    for name in ("falcon_mamba_7b", "hymba_1_5b", "qwen2_vl_2b",
+                 "musicgen_large"):
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
             tdeploy.compile_model(tconfigs.get_smoke(name), mesh=mesh)
+    # the moe family serves over a mesh (test_torch_moe_tp.py) but does not
+    # train over one
+    moe = tdeploy.compile_model(tconfigs.get_smoke("granite_moe_3b"),
+                                mesh=mesh)
+    assert moe.mesh is mesh
     moe = tdeploy.compile_model(tconfigs.get_smoke("granite_moe_3b"))
     t, f = trebranch.partition(bridge.abstract(
         lambda: moe.init(seed=0, device="cpu")))
@@ -394,9 +408,17 @@ def test_what_still_raises():
     with tshd.use_mesh(mesh):
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
             step.grads(t, f, {})          # the dense family trains
-        for axis in ("expert", "expert_mlp", "ssm_inner", "kv_seq"):
+        for axis in ("ssm_inner", "kv_seq"):
             with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
                 tshd.shard(torch.zeros(4, 4), None, axis)
+    # expert and expert_mlp cut by the reference's rules (the size rule:
+    # 3 does not divide the model axis)
+    x = torch.arange(24.0).reshape(4, 6)
+    with tshd.use_mesh(_Grouped((2, 2), (0, 1))):
+        for axis in ("expert", "expert_mlp"):
+            assert torch.equal(tshd.shard(x, axis, None), x[2:])
+            assert torch.equal(tshd.shard(x, None, axis), x[:, 3:])
+            assert torch.equal(tshd.shard(x[:3], axis, None), x[:3])
     cfg = tconfigs.get_smoke("gemma_2b")
     model = tdeploy.compile_model(cfg, mesh=mesh)
     with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
