@@ -452,6 +452,29 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
    --single-pod --fast`` in subprocesses (started first, run beside the
    rest), each exiting 0, their records printed.  Printed: each step's
    FLOPs, bytes, CUDA-event time and the rates they imply.
+37. The moe family trained over a mesh (``models/moe.py``'s adjoints,
+   ``launch/steps.py::make_train_step(global_batch=)``): Granite-MoE-3B
+   at full width cut to 3 of 32 layers, f32, remat on, ``pallas``, over
+   4 gloo ranks on the one card on (data 1, model 4) and (2, 2), whole
+   experts a rank, 3 steps each on 8 x 96 tokens (3 routing groups of
+   256; over data 2 group 1 spans both data ranks).  (a) Kernel 4 at the
+   attention's per-rank geometries at the train step's M, held as 32(a)
+   holds them.  (b) Held: layer 0's moe block alone (8 x 32 tokens, one
+   routing group across the data ranks) within 1e-5 of its absmax from
+   one process running its expert linears on slices of a rank's experts
+   (the rank's GEMM shapes); the step being chaotic at full width, every
+   gradient block within 2 x the distance of a one-process witness whose
+   trunks are nudged by ~1 f32 ulp and the first loss within 1e-3 of one
+   process's; the same step with the block's partial leaves left
+   unmarked (a wrong adjoint) outside the gradient bar, and with the
+   ranks' expert partials unsummed (a wrong forward) outside the loss
+   bar, on every rank; the losses and
+   every leaf held whole (gradient and update) bitwise equal on every
+   rank; the loss falling; the ROM's tensors unmoved and its
+   fingerprint; one kernel-4 launch per attention linear a rank holds in
+   the forward and one in the recompute, none in the backward; every
+   call ``torch.equal`` to its plain version; each rank's bytes a step,
+   kind by kind, equal to the dry run's on a fake world of the mesh.
 
 Each phase that drives a serving path sets every kernel's launch count to
 0 just before it and reads the counts just after.  It needs one card,
@@ -487,8 +510,11 @@ ranks idle (``ms``, ``plain_ms``, ``bound_ms``; kernel 4 also
 ``tp_serve``, per phase-32 and phase-34 run each rank's launches and
 bytes sent per step and rank 0's calls of one decode step timed with
 the other ranks idle (``ms``, ``device_ms``, ``plain_ms``,
-``bound_ms``; kernel 4 also ``library_ms``).  Phases 18-27 run after the
-training phases, 28-32 and 34 last; phase 33 runs after phase 8.
+``bound_ms``; kernel 4 also ``library_ms``); ``cim_matmul`` carries
+``tp_train``, per phase-35 and phase-37 run each rank's launches per step
+and rank 0's calls of one step timed with the other ranks idle.  Phases
+18-27 run after the training phases, 28-32 and 34-37 last; phase 33 runs
+after phase 8.
 """
 
 from __future__ import annotations
@@ -5749,7 +5775,7 @@ def dist_lm_rank(rank: int, world: int, res: dict):
     local = steps.local_batch(cfg, mesh, whole, TRAIN_BATCH)
     make = lambda **kw: steps.make_train_step(
         cfg, optim.AdamWConfig(lr=TRAIN_LR), loss_chunks=TRAIN_CHUNKS,
-        model=model, **kw)
+        model=model, global_batch=TRAIN_BATCH, **kw)
     out = res["lm"] = {"rows": int(local["tokens"].shape[0])}
     dist.barrier()
     if rank == 0:                    # the single-rank step, whole batch
@@ -5870,7 +5896,8 @@ def dist_lm_bf16_rank(rank: int, world: int, res: dict):
           f"rank {rank}'s batch block is not rows {rank * rows}.."
           f"{(rank + 1) * rows - 1} of the whole batch")
     step = steps.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR),
-                                 loss_chunks=TRAIN_CHUNKS, model=model)
+                                 loss_chunks=TRAIN_CHUNKS, model=model,
+                                 global_batch=TRAIN_BATCH)
     out = res["lm_bf16"] = {}
     dist.barrier()
     if rank == 0:
@@ -7129,22 +7156,24 @@ def tpt_step(cfg, model):
     from repro_torch import optim
     from repro_torch.launch import steps
     return steps.make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR),
-                                 model=model)
+                                 model=model, global_batch=TRAIN_BATCH)
 
 
 def tpt_expected_launches(cfg, n: int, r: int) -> int:
     """Kernel-4 launches model rank ``r`` of ``n`` makes a train step: one
-    per ROM linear whose block it holds in the forward, one more in each
-    block's remat recompute, none in the straight-through backward (the
-    readout is the tied table: no kernel)."""
+    per ROM linear whose block it holds in the forward (a moe block's
+    attention four: its experts are plain PyTorch stacks), one more in
+    each block's remat recompute, none in the straight-through backward
+    (the readout is the tied table: no kernel)."""
     per_layer = sum(tp_rank_geometry(cfg, site, n, r) is not None
-                    for _, site, _ in TP_SITES)
+                    for site in tp_block_sites(cfg))
     return 2 * per_layer * cfg.num_layers
 
 
-def tpt_whole_rank(cfg, whole, batch, dev) -> dict:
+def tpt_whole_rank(cfg, whole, batch, dev, witness: bool = False) -> dict:
     """Rank 0's one-process step on the whole batch: gradients (on the
-    host), loss, grad_norm; in bf16 also the nudged witness's gradients."""
+    host), loss, grad_norm; in bf16 (or with ``witness``) also the nudged
+    witness's worst gradient leaf and its loss's relative distance."""
     from repro_torch import bridge, deploy, optim
     from repro_torch.core import rebranch
     model = deploy.compile_model(cfg, engine="pallas")
@@ -7154,10 +7183,12 @@ def tpt_whole_rank(cfg, whole, batch, dev) -> dict:
     _, _, m = step(t, f, optim.init(t), batch)
     out = {"loss": float(loss), "grad_norm": float(m["grad_norm"]),
            "grads": bridge.tree_map(grads, lambda g: g.float().cpu())}
-    if cfg.dtype == "bfloat16":
+    if cfg.dtype == "bfloat16" or witness:
         with nudged_kernels(dev):
-            _, nudged = step.grads(t, f, batch)
+            n_loss, nudged = step.grads(t, f, batch)
         out["witness"] = worst_leaf(nudged, grads)
+        out["witness_loss"] = abs(float(n_loss) - float(loss)) / abs(
+            float(loss))
     return out
 
 
@@ -7191,8 +7222,8 @@ def tpt_run(cfg, whole, mesh, batch, ref: dict, rank: int, world: int,
         calls.append((x_q, w_q, c))
         return kernel(x_q, w_q, c, plan)
 
-    out = {"key": f"gemma-2b-{cfg.dtype}-" + "x".join(
-        str(mesh.shape[a]) for a in mesh.axis_names),
+    out = {"key": tpt_key(cfg, tuple(mesh.shape[a]
+                                      for a in mesh.axis_names)),
         "rows": int(mine["tokens"].shape[0]), "step_ms": [], "loss": [],
         "launches": [], "bytes": [], "wire": []}
 
@@ -7218,8 +7249,14 @@ def tpt_run(cfg, whole, mesh, batch, ref: dict, rank: int, world: int,
         loss, grads = step.grads(t, f, mine)
     finally:
         cm.cim_matmul = kernel
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     t, opt, m = step.update(t, opt, loss, grads)
     end(t0, m)
+    # the first step's split: value_and_grad (forward, remat recompute,
+    # backward) with the gradients' reductions, then AdamW
+    out["split_ms"] = {"grads": (t1 - t0) * 1e3,
+                       "update": out["step_ms"][0] - (t1 - t0) * 1e3}
     out["grad_norm"] = float(m["grad_norm"])
     # (a) every per-rank geometry of the step equal to the plain version
     geoms = {}
@@ -7237,17 +7274,7 @@ def tpt_run(cfg, whole, mesh, batch, ref: dict, rank: int, world: int,
                                   bridge.flatten(grads).items()
                                   if k not in split})), world)
     # every block within the bar of the one-process step's leaf
-    sh = bridge.flatten(shd.param_shardings(whole, mesh))
-    want = bridge.flatten(ref["grads"])
-    worst = (0.0, "")
-    for k, g in bridge.flatten(grads).items():
-        b = shd.param_bounds(k, tuple(want[k].shape), sh[k],
-                             cfg.rebranch.cim.rows_per_subarray, cfg.head_dim)
-        block = want[k][tuple(slice(lo, hi) for lo, hi in b)]
-        rel = ((g.float().cpu() - block).abs().max().item()
-               / max(want[k].abs().max().item(), 1e-30))
-        worst = max(worst, (rel, k))
-    out["grad_rel"] = worst
+    out["grad_rel"] = tpt_worst_block(cfg, whole, mesh, grads, ref)
     out["loss0"] = float(loss)
     for _ in range(TPT_STEPS - 1):
         t0 = begin()
@@ -7263,6 +7290,9 @@ def tpt_run(cfg, whole, mesh, batch, ref: dict, rank: int, world: int,
           f"{out['key']}: losses {out['loss']}")
     agreed(f"{out['key']}: the losses and the first norm",
            (out["loss"], out["grad_norm"]), world)
+    agreed(f"{out['key']}: the leaves held whole after the last update",
+           digests({k: v for k, v in bridge.flatten(t).items()
+                    if k not in split}), world)
     check(same_trunk(rebranch.combine(t, f), trunk, ptrs),
           f"{out['key']}: training copied, replaced or moved a trunk tensor")
     check(fp0 is None or rom.rom_fingerprint(rebranch.combine(t, f)) == fp0,
@@ -7274,6 +7304,27 @@ def tpt_run(cfg, whole, mesh, batch, ref: dict, rank: int, world: int,
         out["kernel"] = pass_times_m(calls, kernel, cm)
     dist.barrier()
     return out
+
+
+def tpt_worst_block(cfg, whole, mesh, grads, ref: dict):
+    """(distance, leaf) of the rank's gradient block farthest from its
+    block of the one-process step's ``ref``, over that leaf's absmax."""
+    from repro_torch import bridge
+    from repro_torch.distributed import sharding as shd
+    sh = bridge.flatten(shd.param_shardings(whole, mesh))
+    want = bridge.flatten(ref["grads"])
+    worst = (0.0, "")
+    experts = ((cfg.num_experts, cfg.moe_d_ff or cfg.d_ff)
+               if cfg.family == "moe" else None)
+    for k, g in bridge.flatten(grads).items():
+        b = shd.param_bounds(k, tuple(want[k].shape), sh[k],
+                             cfg.rebranch.cim.rows_per_subarray, cfg.head_dim,
+                             experts)
+        block = want[k][tuple(slice(lo, hi) for lo, hi in b)]
+        rel = ((g.float().cpu() - block).abs().max().item()
+               / max(want[k].abs().max().item(), 1e-30))
+        worst = max(worst, (rel, k))
+    return worst
 
 
 def phase_tp_train_rank(rank: int, world: int) -> dict:
@@ -7341,6 +7392,12 @@ def phase_tp_train_rank(rank: int, world: int) -> dict:
     return res
 
 
+def tpt_key(cfg, shape) -> str:
+    """A training run's key: the arch, activations and mesh shape."""
+    return (f"{cfg.name.replace('_', '-')}-{cfg.dtype}-"
+            + "x".join(map(str, shape)))
+
+
 def tpt_dry_runs() -> dict:
     """Each run's train step per rank on ``meta`` over a fake world of its
     mesh (``launch.dryrun``): {run key: record}."""
@@ -7352,7 +7409,7 @@ def tpt_dry_runs() -> dict:
         for shape in shapes:
             with dryrun.dry_world(math.prod(shape)):
                 mesh = mesh_lib.make_lm_mesh(*shape, backend=mesh_lib.FAKE)
-                out[f"gemma-2b-{dtype}-" + "x".join(map(str, shape))] = \
+                out[tpt_key(cfg, shape)] = \
                     dryrun.lower_cell(
                         "gemma_2b", "train_4k", mesh, cfg=cfg,
                         ranks=[{"data": d, "model": m}
@@ -7362,27 +7419,23 @@ def tpt_dry_runs() -> dict:
     return out
 
 
-def tpt_dry_bytes(runs: dict, dry: dict):
+def tpt_dry_bytes(runs: dict, dry: dict, phase: str = "35"):
     """The dry runs' (:func:`tpt_dry_runs`) bytes a rank sends a step
     against the gloo ranks', rank by rank and kind by kind, and their
     kernel-4 launches against the ranks'."""
-    for dtype, shapes in TPT_RUNS:
-        for shape in shapes:
-            key = f"gemma-2b-{dtype}-" + "x".join(map(str, shape))
-            sent = [run["bytes"][0] for run in runs[key]]
-            rec = dry[key]
-            got = [r["bytes_sent"] for r in rec["ranks"]]
-            check(got == sent, f"dry run {key}: bytes a rank {got} != the "
-                  f"ranks' {sent}")
-            kernels = rec["kernels"].get("cim_matmul", {}).get("launches")
-            made = runs[key][rec["rank"]]["launches"][0]
-            check(kernels == made, f"dry run {key}: {kernels} kernel-4 "
-                  f"launches, rank {rec['rank']} made {made} a step")
-            print(f"(35) dry run of {key} on a fake {shape} world: every "
-                  f"rank's bytes a step equal the gloo ranks' (rank 0: "
-                  f"{got[0]}); rank {rec['rank']}'s kernel-4 launches "
-                  f"{kernels}; its peak {rec['peak_bytes_per_dev'] / 2 ** 30:.3f}"
-                  f" GiB", flush=True)
+    for key, rec in dry.items():
+        sent = [run["bytes"][0] for run in runs[key]]
+        got = [r["bytes_sent"] for r in rec["ranks"]]
+        check(got == sent, f"dry run {key}: bytes a rank {got} != the "
+              f"ranks' {sent}")
+        kernels = rec["kernels"].get("cim_matmul", {}).get("launches")
+        made = runs[key][rec["rank"]]["launches"][0]
+        check(kernels == made, f"dry run {key}: {kernels} kernel-4 "
+              f"launches, rank {rec['rank']} made {made} a step")
+        print(f"({phase}) dry run of {key} on a fake world: every rank's "
+              f"bytes a step equal the gloo ranks' (rank 0: {got[0]}); rank "
+              f"{rec['rank']}'s kernel-4 launches {kernels}; its peak "
+              f"{rec['peak_bytes_per_dev'] / 2 ** 30:.3f} GiB", flush=True)
 
 
 def phase_tp_train(smi: str) -> dict:
@@ -7450,6 +7503,440 @@ def phase_tp_train(smi: str) -> dict:
           + ", ".join(f"{k} {v:.1f}" for k, v in r0["parts_s"].items())
           + f"; peak device memory per rank "
           f"{[round(r['peak_gib'], 2) for r in ranks]} GiB)")
+    return {key: {"launches": [x["launches"] for x in rs],
+                  "kernel": rs[0].get("kernel")}
+            for key, rs in runs.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 37: the moe family trained over a mesh
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_LAYERS = 3              # Granite-MoE-3B's depth cut (of 32), for
+                                  # the script's time limit
+MOE_TRAIN_SEQ = 96                # 8 x 96 = 768 tokens: 3 routing groups
+                                  # of 256; over data 2 group 1 (tokens
+                                  # 256-511) spans both data ranks
+MOE_TRAIN_MESHES = ((1, 4), (2, 2))   # (data, model): E 40 over model 4
+                                      # and 2, the "expert" layout
+# the per-rank kernel-4 geometries (K, N) of the attention linears: q on
+# whole heads, k and v on their columns, o row-parallel on whole 512-wide
+# k-blocks (1, 1, 1, 0 over model 4; 2, 1 over model 2)
+MOE_TRAIN_GEOMS = {(1536, 384), (1536, 128), (512, 1536),
+                   (1536, 768), (1536, 256), (1024, 1536)}
+
+
+def moe_train_config():
+    """Granite-MoE-3B at full width cut to MOE_TRAIN_LAYERS layers, f32
+    activations (the gradients' 1e-5 gate needs them), remat on."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(MOE_TP_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS, dtype="float32")
+    check(cfg.remat, "Granite-MoE-3B's config trains without remat")
+    return cfg
+
+
+def moe_train_geometries(cfg) -> dict:
+    """:func:`phase_tp_kernels`' geometries of the phase: each rank's
+    (K, N) of kernel 4 at the train step's M (the rank's tokens)."""
+    out = {}
+    for n_data, n in MOE_TRAIN_MESHES:
+        m = TRAIN_BATCH // n_data * MOE_TRAIN_SEQ
+        for site in tp_block_sites(cfg):
+            for g in {tp_rank_geometry(cfg, site, n, r)
+                      for r in range(n)} - {None}:
+                _, m0, who = out.get(g, (0, 0, []))
+                out[g] = (0, max(m0, m), who + [f"{site}@{n_data}x{n}"])
+    return out
+
+
+# the step's first loss against one process's, relative: a mean over 768
+# tokens moves with the chaos more than a nudged witness does (the ranks
+# read 1 to 2.7 x their witness), so it takes the rule of a loss on
+# another rounding path (phases 16-17's card against the CPU)
+MOE_LOSS_RTOL = 1e-3
+MOE_BLOCK_SEED = 37
+# the block check's sequence: 8 x 32 tokens are one routing group of 256,
+# which spans both data ranks of (2, 2); every rank's expert stacks then
+# hold the one process's slot count, so their GEMMs take its shapes
+MOE_BLOCK_SEQ = 32
+
+
+@contextlib.contextmanager
+def experts_in_slices(per: int):
+    """The moe block's expert linears (``moe.apply_expert_linear``) on
+    consecutive slices of ``per`` experts: one process's block at the
+    GEMM shapes of a rank that holds ``per`` experts whole (cuBLAS picks
+    its algorithm by shape, so an expert's bits follow the slice)."""
+    from repro_torch.models import moe
+    whole = moe.apply_expert_linear
+    mine = ("w_q", "w_scale", "core", "w")      # [E, ...]; C and U shared
+
+    def sliced(params, x):
+        return torch.cat([whole(
+            {side: {k: v[lo:lo + per] if k in mine else v
+                    for k, v in leaves.items()}
+             for side, leaves in params.items()}, x[lo:lo + per])
+            for lo in range(0, x.shape[0], per)])
+    moe.apply_expert_linear = sliced
+    try:
+        yield
+    finally:
+        moe.apply_expert_linear = whole
+
+
+def moe_block_grads(cfg, block, x, dy, sp=None, rows=None):
+    """(dx, the trainable leaves' gradients, the leaves marked partial) of
+    ``sum(apply_moe_block(block, x) * dy)``: one moe block's adjoints,
+    under the bound mesh (``sp``, ``rows``) or in one process."""
+    from repro_torch import bridge
+    from repro_torch.core import rebranch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import moe
+    t, f = rebranch.partition(block)
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in bridge.flatten(t).items()}
+    xx = x.detach().requires_grad_(True)
+    kw = {k: v for k, v in (("sp", sp), ("rows", rows)) if v is not None}
+    with torch.enable_grad(), shd.partial_leaves() as seen:
+        params = rebranch.combine(bridge.map_named(t, lambda k, _: leaves[k]),
+                                  f)
+        y = moe.apply_moe_block(params, xx, cfg, **kw)
+        got = torch.autograd.grad((y.float() * dy).sum(),
+                                  [xx, *leaves.values()], allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), got[1:])}
+    return (got[0], bridge.map_named(t, lambda k, _: grads[k]),
+            {k for k, v in leaves.items() if id(v) in seen})
+
+
+def moe_block_inputs(cfg, dev):
+    """Layer 0's moe block input and output gradient, [TRAIN_BATCH,
+    MOE_BLOCK_SEQ, d] each, seeded."""
+    gen = torch.Generator(device=dev).manual_seed(MOE_BLOCK_SEED)
+    shape = (TRAIN_BATCH, MOE_BLOCK_SEQ, cfg.d_model)
+    return (torch.randn(shape, generator=gen, device=dev),
+            torch.randn(shape, generator=gen, device=dev))
+
+
+def moe_block_check(cfg, whole, mesh, ref: dict, dev) -> float:
+    """Layer 0's moe block over ``mesh`` as the train step runs it (the
+    rank's rows of the batch, the residual's seq_sp layout), fed the
+    one-process block's input and output gradient: its dx (summed over
+    the model axis where x came whole into parts) and every gradient
+    block (the partial leaves summed over the model axis, all over the
+    batch axes, as the step reduces them) against the one-process
+    block's ``ref``, whose expert linears ran on slices of this mesh's
+    experts a rank (:func:`experts_in_slices`).  The forward is then the
+    one process's bit for bit up to the partial outputs' sum (the same
+    routing frame, the same GEMM shapes), so no chaos stands between
+    them.  Returns the worst distance over its leaf's absmax, and the
+    leaf."""
+    from repro_torch import bridge, deploy
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    model = deploy.compile_model(cfg, engine="pallas", mesh=mesh)
+    block = transformer.layer(model.shard_params(whole)["layers"], 0)["moe"]
+    x, dy = moe_block_inputs(cfg, dev)
+    lo, hi = shd.batch_block(TRAIN_BATCH, mesh)
+    x, dy = x[lo:hi], dy[lo:hi]
+    with shd.use_mesh(mesh):
+        at = shd.axis_layout("seq_sp", MOE_BLOCK_SEQ)
+        sp = None if at is None else at[2]
+        if sp is not None:
+            c0, c1 = sp[mesh.coordinate("model")]
+            dy = dy[:, c0:c1]
+        dx, grads, partial = moe_block_grads(cfg, block, x, dy, sp,
+                                             (lo, hi, TRAIN_BATCH))
+        if sp is not None:            # x entered parts: the gather's sum
+            dx = shd.sum_parts(dx, mesh, "model", "check")
+        grads = steps.reduce_partial(grads, partial, mesh)
+        _, grads = steps.reduce_grads(torch.zeros((), device=dev), grads,
+                                      mesh)
+        n = math.prod(mesh.shape[a] for a in shd.batch_axes(mesh))
+        grads = bridge.tree_map(grads, lambda g: g * n)   # the ranks' sum
+    check(bool(partial), "phase 37: the moe block marked no leaf partial")
+    sh = bridge.flatten(shd.param_shardings(whole, mesh))
+    experts = (cfg.num_experts, cfg.moe_d_ff)
+    worst = [((dx.cpu() - ref["dx"][lo:hi]).abs().max().item()
+              / ref["dx"].abs().max().item(), "dx")]
+    for k, g in bridge.flatten(grads).items():
+        path = "['layers']['moe']" + k
+        want = ref["grads"][k]
+        b = shd.param_bounds(path, (1, *want.shape), sh[path],
+                             cfg.rebranch.cim.rows_per_subarray,
+                             cfg.head_dim, experts)[1:]
+        block_want = want[tuple(slice(a, z) for a, z in b)]
+        worst.append(((g.cpu() - block_want).abs().max().item()
+                      / max(want.abs().max().item(), 1e-30), k))
+    return max(worst)
+
+
+def phase_moe_train_rank(rank: int, world: int) -> dict:
+    """Phase 37, one spawned rank."""
+    import torch.distributed as dist
+    from repro_torch import bridge, deploy
+    from repro_torch import device as device_lib
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer
+    check(_build.target("cim_matmul").exists(),
+          "cim_matmul is not built: the parent builds it before the ranks")
+    dev = device_lib.resolve()
+    torch.cuda.reset_peak_memory_stats()
+    meshes = tp_meshes(MOE_TRAIN_MESHES)
+    t_rank = time.perf_counter()
+    cfg = moe_train_config()
+    whole = tp_params(deploy.compile_model(cfg, engine="pallas"))
+    batch = synthetic.markov_batch(synthetic.DataConfig(
+        seed=0, vocab_size=cfg.vocab_size, seq_len=MOE_TRAIN_SEQ,
+        global_batch=TRAIN_BATCH), 0, device=dev)
+    ref = block_ref = None
+    if rank == 0:
+        ref = tpt_whole_rank(cfg, whole, batch, dev, witness=True)
+        block_ref = {}
+        for shape in MOE_TRAIN_MESHES:
+            with experts_in_slices(cfg.num_experts // shape[1]):
+                dx, grads, _ = moe_block_grads(
+                    cfg, transformer.layer(whole["layers"], 0)["moe"],
+                    *moe_block_inputs(cfg, dev))
+            block_ref[shape] = {"dx": dx.cpu(), "grads": {
+                k: g.cpu() for k, g in bridge.flatten(grads).items()}}
+    box = [ref, block_ref]
+    dist.broadcast_object_list(box, src=0)
+    ref, block_ref = box
+    # the whole step is chaotic at full width: an ulp moved before the
+    # dispatch's bf16 cast (the reference's) rounds a token's element the
+    # other way, and where that element is its row's absmax every int8
+    # code of the row moves; so the step's gradients are held to the
+    # nudged witness (phase 35's bf16 bar), its first loss to MOE_LOSS_RTOL
+    # and the block alone to GRAD_RTOL
+    grad_bar = max(GRAD_RTOL, TPT_WITNESS_FACTOR * ref["witness"][0])
+    loss_bar = MOE_LOSS_RTOL
+    res = {"runs": [], "one_s": time.perf_counter() - t_rank}
+    for shape in MOE_TRAIN_MESHES:
+        mesh = meshes[shape]
+        block, leaf = moe_block_check(cfg, whole, mesh, block_ref[shape],
+                                      dev)
+        check(block <= GRAD_RTOL,
+              f"phase 37 {shape} rank {rank}: layer 0's moe block adjoints "
+              f"{block:.3e} of their absmax from the one-process block's "
+              f"({leaf})")
+        run = tpt_run(cfg, whole, mesh, batch, ref, rank, world,
+                      not res["runs"])
+        check(run["grad_rel"][0] <= grad_bar,
+              f"{run['key']} rank {rank}: gradient block "
+              f"{run['grad_rel'][1]} is {run['grad_rel'][0]:.3e} of its "
+              f"absmax from the one-process step's, over {grad_bar:.3e} "
+              f"(the nudged witness's {ref['witness'][0]:.3e})")
+        loss_rel = abs(run["loss0"] - ref["loss"]) / abs(ref["loss"])
+        check(loss_rel <= loss_bar,
+              f"{run['key']}: loss {run['loss0']} vs one process "
+              f"{ref['loss']}: {loss_rel:.3e}, over {loss_bar:.0e} (the "
+              f"nudged witness's {ref['witness_loss']:.3e})")
+        check(run["loss"][-1] < run["loss"][0],
+              f"{run['key']}: the loss did not fall: {run['loss']}")
+        run.update(block_rel=block, loss_rel=loss_rel, bars=(grad_bar,
+                                                            loss_bar))
+        run["ref"] = {k: ref[k] for k in ("loss", "grad_norm", "witness",
+                                          "witness_loss")}
+        res["runs"].append(run)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the bar separates a wrong adjoint: the first mesh's step with the
+    # block's partial leaves (the router) left unmarked, so their
+    # gradients stay each rank's part
+    fault = moe_fault_rel(cfg, whole, meshes[MOE_TRAIN_MESHES[0]], batch,
+                          ref)
+    check(fault[0] > grad_bar,
+          f"phase 37 rank {rank}: with the moe block's partial leaves "
+          f"unmarked the worst gradient block is {fault[0]:.3e} ({fault[1]})"
+          f", within the step's bar {grad_bar:.3e}: the bar hides the fault")
+    res["fault"] = fault
+    # the loss bar separates a wrong forward: the same step's loss with
+    # the ranks' partial expert outputs left unsummed
+    lost = moe_unsummed_loss(cfg, whole, meshes[MOE_TRAIN_MESHES[0]], batch)
+    lost_rel = abs(lost - ref["loss"]) / abs(ref["loss"])
+    check(lost_rel > loss_bar,
+          f"phase 37 rank {rank}: with the ranks' expert partials unsummed "
+          f"the first loss is {lost_rel:.3e} of one process's, within the "
+          f"bar {loss_bar:.0e}: the bar hides the fault")
+    res["fault_loss"] = lost_rel
+    res["rank_s"] = time.perf_counter() - t_rank
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def moe_fault_rel(cfg, whole, mesh, batch, ref: dict):
+    """The worst gradient block (:func:`tpt_worst_block`) of one step of
+    ``cfg`` over ``mesh`` with ``moe._mark_partial`` a no-op: a fault of
+    the adjoints the phase's bar must not hide."""
+    from repro_torch import deploy
+    from repro_torch.core import rebranch
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    model = deploy.compile_model(cfg, engine="pallas", mesh=mesh)
+    t, f = rebranch.partition(model.shard_params(whole))
+    mine = steps.local_batch(cfg, mesh, batch, TRAIN_BATCH)
+    marked, moe._mark_partial = moe._mark_partial, lambda *a: None
+    try:
+        _, grads = tpt_step(cfg, model).grads(t, f, mine)
+    finally:
+        moe._mark_partial = marked
+    return tpt_worst_block(cfg, whole, mesh, grads, ref)
+
+
+class _UnsummedExperts:
+    """``sharding`` as the moe block sees it with its ``expert`` partial
+    outputs left unsummed: each rank keeps its own experts' part (its
+    sequence chunk of it under seq_sp)."""
+
+    def __init__(self, shd):
+        self._shd = shd
+
+    def __getattr__(self, name):
+        return getattr(self._shd, name)
+
+    @staticmethod
+    def sum_parts(g, mesh, axis, kind):
+        return g
+
+    @staticmethod
+    def sum_chunk(g, dim, layout, mesh, axis, kind):
+        lo, hi = layout[mesh.coordinate(axis)]
+        return g.narrow(dim, lo, hi - lo)
+
+
+def moe_unsummed_loss(cfg, whole, mesh, batch) -> float:
+    """The first loss of ``cfg``'s step over ``mesh`` (``expert`` layout)
+    with the moe block's partial outputs unsummed: a fault of the forward
+    the phase's loss bar must not hide."""
+    from repro_torch import deploy
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    model = deploy.compile_model(cfg, engine="pallas", mesh=mesh)
+    params = model.shard_params(whole)
+    mine = steps.local_batch(cfg, mesh, batch, TRAIN_BATCH)
+    shd, moe.shd = moe.shd, _UnsummedExperts(moe.shd)
+    try:
+        with torch.no_grad():
+            loss = tpt_step(cfg, model).loss_fn(params, mine)
+    finally:
+        moe.shd = shd
+    return float(loss)
+
+
+def moe_train_dry_runs() -> dict:
+    """Each mesh's train step per rank on ``meta`` over a fake world of
+    it (``launch.dryrun``): {run key: record}."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    cfg, out = moe_train_config(), {}
+    for shape in MOE_TRAIN_MESHES:
+        with dryrun.dry_world(math.prod(shape)):
+            mesh = mesh_lib.make_lm_mesh(*shape, backend=mesh_lib.FAKE)
+            out[tpt_key(cfg, shape)] = dryrun.lower_cell(
+                MOE_TP_ARCH, "train_4k", mesh, cfg=cfg,
+                ranks=[{"data": d, "model": m} for d in range(shape[0])
+                       for m in range(shape[1])],
+                engine="pallas", seq=MOE_TRAIN_SEQ, gbatch=TRAIN_BATCH)
+    return out
+
+
+def phase_moe_train(dev, smi: str) -> dict:
+    """37. The moe family trained over a mesh: Granite-MoE-3B at full
+    width cut to MOE_TRAIN_LAYERS, f32, remat on, 'pallas', over 4 gloo
+    ranks on the one card on (data 1, model 4) and (2, 2), whole experts a
+    rank, TPT_STEPS steps each on TRAIN_BATCH x MOE_TRAIN_SEQ tokens (a
+    routing group across the data ranks): kernel 4 at the attention's
+    per-rank geometries at the train step's M in all three modes; every
+    gradient block held to the one-process step on rank 0's whole batch,
+    the loss and the leaves held whole bitwise equal on every rank, the
+    loss falling, the ROM untouched; kernel-4 launches per rank per step
+    as counted; each rank's bytes a step equal to the dry run's."""
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    cfg = moe_train_config()
+    geoms = moe_train_geometries(cfg)
+    check(set(geoms) == MOE_TRAIN_GEOMS, f"phase 37 geometries {set(geoms)}")
+    phase_tp_kernels(dev, geoms, "37(a)")
+    print(f"phase 37 on {smi}: {DIST_RANKS} gloo ranks on one card; "
+          f"Granite-MoE-3B at full width cut to {MOE_TRAIN_LAYERS} layers "
+          f"(remat on, f32, 40 experts top-8, groups of "
+          f"{cfg.moe_group_size}), {TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens, "
+          f"'pallas', meshes {MOE_TRAIN_MESHES}, {TPT_STEPS} steps each; the "
+          f"ranks time-share the card, so the host times are no scaling "
+          f"figure", flush=True)
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(mesh_lib.spawn, phase_moe_train_rank,
+                              DIST_RANKS, backend="gloo",
+                              deadline_s=TPT_DEADLINE_S)
+        t_dry = time.perf_counter()
+        dry = moe_train_dry_runs()      # meanwhile, on the host
+        t_dry = time.perf_counter() - t_dry
+        ranks = spawned.result()
+    runs = {}
+    for i, run in enumerate(ranks[0]["runs"]):
+        rs = [r["runs"][i] for r in ranks]
+        runs[run["key"]] = rs
+        print(f"(37) {run['key']}: {run['rows']} rows a rank; layer 0's "
+              f"moe block alone (dx and every gradient block) per rank "
+              + ", ".join(f"{x['block_rel']:.3e}" for x in rs)
+              + f" of the absmax from the one-process block's (bar "
+              f"{GRAD_RTOL:.0e}); loss {run['loss0']:.6f} vs one process "
+              f"{run['ref']['loss']:.6f} ({run['loss_rel']:.3e}; the "
+              f"nudged witness's {run['ref']['witness_loss']:.3e}; bar "
+              f"{run['bars'][1]:.0e}), bitwise on every "
+              f"rank with every whole leaf's gradient and update; worst "
+              f"gradient block per rank "
+              + ", ".join(f"{x['grad_rel'][0]:.3e}" for x in rs)
+              + f" of its leaf's absmax ({run['grad_rel'][1]}; the nudged "
+              f"witness {run['ref']['witness'][0]:.3e}, "
+              f"{run['ref']['witness'][1]}; bar {run['bars'][0]:.3e}); "
+              f"grad_norm "
+              f"{run['grad_norm']:.6f} vs {run['ref']['grad_norm']:.6f}; "
+              f"losses {[round(v, 6) for v in run['loss']]}; kernel-4 "
+              f"launches per rank a step {[x['launches'][0] for x in rs]} "
+              f"(forward + recompute, none in the backward), "
+              f"{len(run['geoms'])} geometries on rank 0 torch.equal to the "
+              f"plain version; ROM tensors unmoved"
+              + (", its fingerprint too" if run["fingerprint"] else ""),
+              flush=True)
+        print(f"  step host ms per rank: " + "; ".join(
+            ", ".join(f"{t:.1f}" for t in x["step_ms"]) for x in rs)
+              + f"; step 1 split (grads, update) per rank: " + "; ".join(
+                  f"{x['split_ms']['grads']:.1f}, "
+                  f"{x['split_ms']['update']:.1f}" for x in rs)
+              + f" [{smi}]")
+        print(f"  bytes sent per rank a step by kind: "
+              + "; ".join(str(x["bytes"][0]) for x in rs)
+              + f"; wire bytes {[x['wire'][0] for x in rs]}")
+        k = run.get("kernel")
+        if k is not None:
+            print(f"  kernel 4, rank 0's {run['calls']} calls of a step's "
+                  f"value_and_grad (M, K, N: {run['geoms']}), the others "
+                  f"idle: {k['ms']:.3f} ms, plain {k['plain_ms']:.3f}, "
+                  f"torch._int_mm {k['library_ms']:.3f}, bound "
+                  f"{k['bound_ms']:.3f} ({k['bound_by']}) [{smi}]",
+                  flush=True)
+    print(f"(37) the step's bar separates a wrong adjoint: "
+          f"{tpt_key(cfg, MOE_TRAIN_MESHES[0])} with the moe block's partial "
+          f"leaves unmarked, worst gradient block per rank "
+          + ", ".join(f"{r['fault'][0]:.3e}" for r in ranks)
+          + f" ({ranks[0]['fault'][1]}), each over the bar "
+          f"{ranks[0]['runs'][0]['bars'][0]:.3e}; the loss bar separates a "
+          f"wrong forward: with the ranks' expert partials unsummed the "
+          f"first loss per rank "
+          + ", ".join(f"{r['fault_loss']:.3e}" for r in ranks)
+          + f" of one process's, each over {MOE_LOSS_RTOL:.0e}", flush=True)
+    tpt_dry_bytes(runs, dry, "37")
+    r0 = ranks[0]
+    print(f"phase 37 {time.perf_counter() - t_phase:.1f} s (dry runs "
+          f"{t_dry:.1f} s beside the ranks; rank 0 {r0['rank_s']:.1f} s, "
+          f"its one-process step {r0['one_s']:.1f} s; peak device memory "
+          f"per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB)")
     return {key: {"launches": [x["launches"] for x in rs],
                   "kernel": rs[0].get("kernel")}
             for key, rs in runs.items()}
@@ -7782,6 +8269,8 @@ def main() -> int:
     lap("35")
     tp_serve.update(phase_moe_tp(dev, smi))
     lap("36")
+    tp_train.update(phase_moe_train(dev, smi))
+    lap("37")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches, t):
@@ -7863,11 +8352,11 @@ def main() -> int:
                 k: v for k, v in tp_serve.items()
                 if ("-pallas-" in k) == (name == "cim_matmul")}
         if name == "cim_matmul":
-            # phase 35: per tensor-parallel training run (dtype, mesh),
-            # each rank's launches per step (forward and remat recompute)
-            # and rank 0's calls of one step's value_and_grad timed with
-            # the other ranks idle (ms, plain_ms, library_ms: torch._int_mm
-            # with W column-major, bound_ms)
+            # phases 35 and 37: per tensor-parallel training run (model,
+            # dtype, mesh), each rank's launches per step (forward and remat
+            # recompute) and rank 0's calls of one step's value_and_grad
+            # timed with the other ranks idle (ms, plain_ms, library_ms:
+            # torch._int_mm with W column-major, bound_ms)
             out["tp_train"] = tp_train
             # phase 27: launches over each new family's 10 train steps at
             # the 2-layer cut, and per step (checked: the block linears

@@ -134,9 +134,9 @@ class CompiledModel:
         return api.forward(params, batch, self.cfg)
 
     @_scoped
-    def features(self, params, batch):
+    def features(self, params, batch, **kw):
         self._lm_only("features")
-        return api.features(params, batch, self.cfg)
+        return api.features(params, batch, self.cfg, **kw)
 
     @_scoped
     def apply_head(self, params, x, **kw):
@@ -214,20 +214,33 @@ class CompiledModel:
         if self.mesh is None or self.mesh.size == 1:
             return params
         shardings = bridge.flatten(shd.param_shardings(params, self.mesh))
+        rows_of, head_dim, experts = self._bounds_args()
+        with torch.no_grad():
+            return bridge.map_named(params, lambda path, leaf: shd.local_param(
+                path, leaf, shardings[path], rows_of(path), head_dim,
+                experts))
+
+    def split_leaves(self, params, mesh) -> set:
+        """The leaves of the whole tree ``params`` (shapes will do) that
+        the ranks of ``mesh``'s model axis hold in blocks under
+        :meth:`shard_params`' layout (``sharding.model_split_leaves``)."""
+        self._lm_only("split_leaves")
+        return shd.model_split_leaves(params, mesh, *self._bounds_args())
+
+    def _bounds_args(self):
+        """``sharding.param_bounds``' arguments beyond a leaf's: its rows
+        per subarray by path, the head size, the moe block's (E, ff)."""
+        cfg = self.cfg
 
         def rows_of(path: str) -> int:
             site = ("blocks.attn" if "['attn']" in path else "blocks.mlp"
                     if "['mlp']" in path else "blocks.moe"
                     if "['moe']" in path else "lm_head")
-            return spec_for(self.cfg, site).cim.rows_per_subarray
+            return spec_for(cfg, site).cim.rows_per_subarray
 
-        cfg = self.cfg
         experts = (cfg.num_experts, cfg.moe_d_ff or cfg.d_ff) \
             if cfg.num_experts else None
-        with torch.no_grad():
-            return bridge.map_named(params, lambda path, leaf: shd.local_param(
-                path, leaf, shardings[path], rows_of(path), cfg.head_dim,
-                experts))
+        return rows_of, cfg.head_dim, experts
 
     @_scoped
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None):

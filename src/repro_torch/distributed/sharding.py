@@ -64,10 +64,11 @@ every rank uses it alike, and tensor-parallel work that each rank does
 its own way is entered through *f* (:func:`replicate`: the identity,
 whose adjoint is the rank-order sum of the ranks' partial gradients) or
 through a gather whose adjoint sums (:func:`move_rows`).  So the
-adjoint of :func:`reduce_model` is the identity (a row-parallel site's
-t1, which each rank uses its own way, sums instead:
-``core.rebranch._GatherSum``); that of :func:`reduce_chunk` a gather of
-the chunks' gradients; and :func:`rank_max` stays out of the graph.
+adjoint of :func:`reduce_model` and of :func:`sum_parts` is the identity
+(a row-parallel site's t1, which each rank uses its own way, sums
+instead: ``core.rebranch._GatherSum``); that of :func:`reduce_chunk` and
+of :func:`sum_chunk` a gather of the chunks' gradients; and
+:func:`rank_max` stays out of the graph.
 Trainable leaves held whole but used by each rank its own way are marked
 (:func:`mark_partial`) and their gradients summed by the train step in
 one exchange.  Every adjoint counts what it sends under a ``*_adjoint``
@@ -705,19 +706,56 @@ def _scatter_sum(flat: torch.Tensor, layout, mesh, axis: str,
     return rank_sum([p.to(flat.device) for p in pieces])
 
 
+class _SumParts(torch.autograd.Function):
+    """:func:`sum_parts` into work every rank does alike: each rank's part
+    had the whole sum's gradient, which is this rank's own (the adjoint
+    sends nothing, as :class:`_RankSum`'s)."""
+
+    @staticmethod
+    def forward(ctx, g, mesh, axis, kind):
+        n = mesh.shape[axis]
+        flat = g.contiguous().reshape(-1)
+        layout = h_layout(flat.numel(), n)
+        total = _scatter_sum(flat, layout, mesh, axis, kind)
+        return _exchange(total, layout, [(0, flat.numel())] * n, mesh, axis,
+                         kind, 0, add=False).reshape(g.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None, None
+
+
 def sum_parts(g: torch.Tensor, mesh, axis: str, kind: str) -> torch.Tensor:
     """The rank-order sum over ``axis`` of every rank's ``g``: the bits of
     :func:`rank_sum` over :func:`gather_parts`, on every rank, at a
     reduce-scatter's and an all-gather's cost.  Rank q adds the ranks'
     pieces of chunk q (GSPMD's layout of the flattened ``g``) in rank
     order, then the sums are gathered: each rank holds one chunk of every
-    rank, not every rank's whole ``g``, and sends 2 (n-1)/n of it."""
-    n = mesh.shape[axis]
-    flat = g.contiguous().reshape(-1)
-    layout = h_layout(flat.numel(), n)
-    total = _scatter_sum(flat, layout, mesh, axis, kind)
-    return _exchange(total, layout, [(0, flat.numel())] * n, mesh, axis,
-                     kind, 0, add=False).reshape(g.shape)
+    rank, not every rank's whole ``g``, and sends 2 (n-1)/n of it.
+
+    Differentiable into work every rank does alike (its adjoint the
+    identity); where each rank uses the sum its own way, the caller
+    enters that work through :func:`replicate`."""
+    return _SumParts.apply(g, mesh, axis, kind)
+
+
+class _SumChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, dim, layout, mesh, axis, kind):
+        ctx.geom = (dim, layout, mesh, axis)
+        front = g.movedim(dim, 0).contiguous()
+        per = math.prod(front.shape[1:])
+        lo, hi = layout[mesh.coordinate(axis)]
+        part = _scatter_sum(front.reshape(-1),
+                            [(a * per, b * per) for a, b in layout], mesh,
+                            axis, kind)
+        return part.reshape(hi - lo, *front.shape[1:]).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, layout, mesh, axis = ctx.geom
+        return (gather_chunks(grad, layout, mesh, axis, dim, "chunk_adjoint"),
+                None, None, None, None, None)
 
 
 def sum_chunk(g: torch.Tensor, dim: int, layout, mesh, axis: str,
@@ -725,14 +763,10 @@ def sum_chunk(g: torch.Tensor, dim: int, layout, mesh, axis: str,
     """This rank's chunk ``layout[r]`` along ``dim`` of the rank-order sum
     over ``axis`` of every rank's ``g``: a reduce-scatter (the pieces of
     :func:`sum_parts`' first half, cut along ``dim``), each element the
-    bits of :func:`rank_sum`."""
-    front = g.movedim(dim, 0).contiguous()
-    per = math.prod(front.shape[1:])
-    lo, hi = layout[mesh.coordinate(axis)]
-    part = _scatter_sum(front.reshape(-1),
-                        [(a * per, b * per) for a, b in layout], mesh, axis,
-                        kind)
-    return part.reshape(hi - lo, *front.shape[1:]).movedim(0, dim)
+    bits of :func:`rank_sum`.  Differentiable: every rank's part had the
+    whole sum's gradient, so the adjoint gathers the chunks' gradients
+    (``"chunk_adjoint"``), as :func:`reduce_chunk`'s does."""
+    return _SumChunk.apply(g, dim, list(layout), mesh, axis, kind)
 
 
 def gather_chunks(g: torch.Tensor, layout, mesh, axis: str, dim: int,
@@ -877,24 +911,37 @@ def mark_partial(*trees):
                 seen.add(id(t if t._base is None else t._base))
 
 
-def model_split_leaves(params, mesh) -> set:
+class _Seat:
+    """``mesh`` as rank ``c`` of its axis ``axis`` sees it: the axis
+    names, sizes and coordinates :func:`param_bounds` reads."""
+
+    def __init__(self, mesh, axis: str, c: int):
+        self.axis_names, self.shape, self.size = (mesh.axis_names,
+                                                  mesh.shape, mesh.size)
+        self._mesh, self._axis, self._c = mesh, axis, c
+
+    def coordinate(self, axis: str) -> int:
+        return self._c if axis == self._axis else self._mesh.coordinate(axis)
+
+
+def model_split_leaves(params, mesh, rows, head_dim: int | None,
+                       experts: tuple[int, int] | None) -> set:
     """The paths of the leaves of the whole tree ``params`` that the ranks
-    of ``mesh``'s model axis hold in blocks (their spec names the axis, or
-    :func:`param_bounds` cuts them on whole heads); every other leaf is
-    whole on each model rank."""
+    of ``mesh``'s model axis hold in blocks: those :func:`param_bounds`
+    (``rows(path)``, ``head_dim`` and ``experts`` as it takes them) cuts
+    on some rank of the axis; every other leaf is whole on each model
+    rank."""
     at = model_axis(mesh)
     if at is None:
         return set()
-    axis = at[1]
-    heads = mesh_axis_for("heads", mesh) is not None
-
-    def names(part):
-        return part if isinstance(part, tuple) else (part,)
+    seats = [_Seat(mesh, at[1], c) for c in range(mesh.shape[at[1]])]
     out = set()
     for path, leaf in bridge.flatten(params).items():
-        spec = _spec_of(path, leaf, mesh)
-        if (heads and head_site(path)) or any(
-                axis in names(p) for p in spec if p is not None):
+        shape, spec = tuple(leaf.shape), _spec_of(path, leaf, mesh)
+        whole = [(0, n) for n in shape]
+        if any(param_bounds(path, shape, NamedSharding(seat, spec),
+                            rows(path), head_dim, experts) != whole
+               for seat in seats):
             out.add(path)
     return out
 

@@ -34,9 +34,8 @@ the record is the rank with the largest ``peak_bytes_per_dev``
 (``rank``, with every run rank's peak in ``ranks``); ``--fast`` runs
 the first and last model coordinate.  A cell whose step raises naming
 ``sharding.LM_SLICE`` is not ported yet: it prints ``[not ported:
-5(d)(...)]`` with the sub-slice of ROADMAP item 5(d) that raised (the moe
-family's ``train_4k`` cells: ``5(d)(iii)(b)``, its training) and is
-counted apart; any other exception is a ``[FAIL]``.
+5(d)(...)]`` with the sub-slice of ROADMAP item 5(d) that raised (the
+family's) and is counted apart; any other exception is a ``[FAIL]``.
 
 ``--shape cnn_serve`` runs the H-sharded CNN cells (DarkNet-19 and
 ResNet-18 on 'pallas_sharded', :data:`CNN_SERVE`) over a fake world of 8
@@ -86,9 +85,9 @@ FIG12_MODELS = {"darknet19": 3.0, "resnet18": 1.0, "tiny_yolo": 1.0}
 
 # the sub-slices of ROADMAP item 5(d) a cell still waits for: the
 # families (the dense layouts, i, training over the model axis, ii, and
-# the moe family's serving, iii(a), are ported; its training is iii(b))
-SUB_SLICES = {"moe": "5(d)(iii)(b)", "ssm": "5(d)(iv)", "hybrid": "5(d)(iv)",
-              "vlm": "5(d)(v)", "audio": "5(d)(v)"}
+# the moe family's serving and training, iii, are ported)
+SUB_SLICES = {"ssm": "5(d)(iv)", "hybrid": "5(d)(iv)", "vlm": "5(d)(v)",
+              "audio": "5(d)(v)"}
 SIZE_TIMEOUT_S = 120
 
 
@@ -262,8 +261,8 @@ def lm_rank(cfg, kind: str, seq: int, gbatch: int, mesh, whole,
     """One rank's step of an LM cell over ``mesh`` (a :class:`RankMesh`)
     from the ``whole`` meta tree, measured (:func:`measure`).  A train
     cell runs ``launch.steps.make_train_step``'s step as it runs on a
-    rank: the rank's rows of the batch, ``cfg.remat`` (its layers
-    checkpointed; on meta one layer runs for all, its backward and
+    rank: the rank's rows of the batch of ``gbatch``, ``cfg.remat`` (its
+    layers checkpointed; on meta one layer runs for all, its backward and
     recompute counted per layer), the vocab-parallel loss, the
     gradients' reductions and AdamW."""
     model = deploy.compile_model(cfg, engine=engine, mesh=mesh)
@@ -273,7 +272,8 @@ def lm_rank(cfg, kind: str, seq: int, gbatch: int, mesh, whole,
         trainable, frozen = rebranch.partition(params)
         args = (trainable, frozen, optim.init(trainable),
                 steps_lib.local_batch(cfg, mesh, specs, gbatch))
-        step = steps_lib.make_train_step(cfg, model=model)
+        step = steps_lib.make_train_step(cfg, model=model,
+                                         global_batch=gbatch)
 
         def run():
             with shd.use_mesh(mesh):
@@ -433,8 +433,7 @@ def run_fig12(name: str, fast: bool = False):
 
 def sub_slice(arch: str) -> str:
     """The sub-slice of ROADMAP item 5(d) a refused cell waits for: the
-    family's (the moe family's training, since it serves), else the
-    layouts' (i)."""
+    family's, else the layouts' (i)."""
     return SUB_SLICES.get(configs.get(arch).family) or "5(d)(i)"
 
 

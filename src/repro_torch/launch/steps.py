@@ -186,7 +186,7 @@ def token_cross_entropy(logits, labels):
 
 
 def chunked_readout_loss(params, feats, labels, cfg: ArchConfig,
-                         num_chunks: int = 8, model=None):
+                         num_chunks: int = 8, model=None, count=None):
     """ln_f + readout + CE in sequence chunks, each under a non-reentrant
     ``torch.utils.checkpoint`` (the port of the reference's checkpointed
     scan): the full-vocab logits exist for one chunk at a time, and the
@@ -194,7 +194,8 @@ def chunked_readout_loss(params, feats, labels, cfg: ArchConfig,
     largest divisor of S at or below ``num_chunks``, as the reference's.
     Labels are [B, S] or [B, S, Q] (multi-codebook logits [B, S, Q, V]).
     Over a model axis a vocab-parallel readout's logits stay the rank's
-    columns (:func:`_ce_sum_vocab`): whole logits are never formed."""
+    columns (:func:`_ce_sum_vocab`): whole logits are never formed.  The
+    sum is divided by ``count`` (default: the labels' own count)."""
     model = model or deploy.compile_model(cfg)
     s = feats.shape[1]
     nc = num_chunks
@@ -215,7 +216,7 @@ def chunked_readout_loss(params, feats, labels, cfg: ArchConfig,
     for i in range(nc):
         total = total + transformer.checkpointed(
             chunk, feats[:, i * w:(i + 1) * w], labels[:, i * w:(i + 1) * w])
-    return total / labels.numel()
+    return total / (labels.numel() if count is None else count)
 
 
 # ---------------------------------------------------------------------------
@@ -384,33 +385,68 @@ class BranchStep:
 
 def make_train_step(cfg: ArchConfig, opt_cfg: optim.AdamWConfig | None = None,
                     lr_fn=None, loss_chunks: int = 8, model=None, *,
-                    compress: bool = False) -> BranchStep:
+                    compress: bool = False,
+                    global_batch: int | None = None) -> BranchStep:
     """The LM train step: a :class:`BranchStep` on the chunked readout
     loss of ``model.features``.  Under a mesh (bound, or the model's)
     each rank passes its block of the batch (:func:`local_batch`) and of
-    the parameters (``CompiledModel.shard_params``); the loss is the mean
-    over the batch ranks of each rank's mean, the global mean when the
-    blocks are equal.  Only the dense family trains over a mesh
-    (``api.check_mesh``)."""
+    the parameters (``CompiledModel.shard_params``), and over batch axes
+    ``global_batch``, the batch's whole size B (a rank's block does not
+    fix it: GSPMD's uneven layout gives 2 rows to rank 0 of 4 for any B
+    from 5 to 8).  The loss is the global mean over the batch's tokens
+    whatever the layout: each rank divides its token sum by the global
+    count over the number of batch ranks (on equal blocks its own
+    count), so the step's mean over the batch ranks is the global mean
+    (a rank without rows adds zeros), and the moe block routes the whole
+    batch's groups (``rows=(lo, hi, B)``).  The dense and moe families
+    train over a mesh (``api.check_mesh``)."""
     model = model or deploy.compile_model(cfg)
 
     def loss_fn(params, batch):
         mesh = model.mesh or shd.current_mesh()
-        api.check_mesh(cfg, mesh, training=True)
+        api.check_mesh(cfg, mesh)
+        labels = batch["labels"]
+        kw, count = {}, None
+        if train_mesh(mesh) is not None:
+            big = _global_rows(mesh, labels.shape[0], global_batch)
+            lo, hi = shd.batch_block(big, mesh)
+            kw["rows"] = (lo, hi, big)
+            if hi - lo < big:   # else the batch is whole on every rank
+                count = big * math.prod(labels.shape[1:]) / math.prod(
+                    mesh.shape[a] for a in shd.batch_axes(mesh))
         with shd.use_mesh(mesh) if mesh is not None else \
                 contextlib.nullcontext():
-            feats = model.features(params, batch)
-            return chunked_readout_loss(params, feats, batch["labels"], cfg,
-                                        loss_chunks, model=model)
+            feats = model.features(params, batch, **kw)
+            return chunked_readout_loss(params, feats, labels, cfg,
+                                        loss_chunks, model=model,
+                                        count=count)
 
     def split(mesh):
         with cost.untracked():              # shapes only
             shapes = bridge.abstract(lambda: model.init(seed=0,
                                                         device="cpu"))
-        return shd.model_split_leaves(shapes, mesh)
+        return model.split_leaves(shapes, mesh)
 
     return BranchStep(loss_fn, opt_cfg, lr_fn, compress=compress,
                       split=split, mesh=model.mesh)
+
+
+def _global_rows(mesh, rows: int, global_batch: int | None) -> int:
+    """The batch's whole size B from a rank's ``rows`` of it: B itself
+    where the mesh splits no batch; else ``global_batch``, checked
+    against the rank's block."""
+    axes = shd.batch_axes(mesh)
+    if global_batch is None:
+        if axes:
+            raise ValueError(
+                f"a train step over the batch axes {axes} needs the "
+                f"batch's whole size: make_train_step(global_batch=B)")
+        return rows
+    lo, hi = shd.batch_block(global_batch, mesh)
+    if hi - lo != rows:
+        raise ValueError(f"{rows} rows are not this rank's block "
+                         f"{(lo, hi)} of a batch of {global_batch}")
+    return global_batch
 
 
 def gather_rows(x: torch.Tensor, mesh, global_batch: int) -> torch.Tensor:

@@ -93,7 +93,7 @@ def _train(args, dev, mesh):
     opt_cfg = optim.AdamWConfig(lr=args.lr)
     train_step = steps_lib.make_train_step(
         cfg, opt_cfg, lr_fn=lr_fn, loss_chunks=4, model=model,
-        compress=args.compress)
+        compress=args.compress, global_batch=args.batch)
 
     start = 0
     if args.resume and args.ckpt_dir and ckpt.latest_steps(args.ckpt_dir):

@@ -45,8 +45,8 @@ def forward(params, batch, cfg: ArchConfig):
     return _mod(cfg).forward(params, batch, cfg)
 
 
-def features(params, batch, cfg: ArchConfig):
-    return _mod(cfg).features(params, batch, cfg)
+def features(params, batch, cfg: ArchConfig, **kw):
+    return _mod(cfg).features(params, batch, cfg, **kw)
 
 
 def apply_head(params, x, cfg: ArchConfig, **kw):
@@ -61,25 +61,17 @@ def decode_step(params, tokens, cfg: ArchConfig, cache, **kw):
     return _mod(cfg).decode_step(params, tokens, cfg, cache, **kw)
 
 
-def check_mesh(cfg: ArchConfig, mesh=None, training: bool = False):
+def check_mesh(cfg: ArchConfig, mesh=None):
     """Raise unless ``cfg`` can run over ``mesh`` (default: the bound
-    one): the dense family serves and trains, the moe family serves
-    (``training``: a train step asks); the others wait for ROADMAP item
-    5(d)."""
+    one): the dense and moe families serve and train; the others wait
+    for ROADMAP item 5(d)."""
     mesh = mesh or shd.current_mesh()
-    if mesh is None or mesh.size == 1 or cfg.family == "dense":
+    if mesh is None or mesh.size == 1 or cfg.family in ("dense", "moe"):
         return
-    if cfg.family == "moe" and not training:
-        return
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name!r} is a 'moe' config: over a mesh the port serves "
-            f"it but does not train it yet (sub-slice 5(d)(iii)(b)); that "
-            f"comes with {shd.LM_SLICE}")
     raise NotImplementedError(
         f"{cfg.name!r} is a {cfg.family!r} config: over a mesh the port "
-        f"serves the dense and moe families; the others come with "
-        f"{shd.LM_SLICE}")
+        f"serves and trains the dense and moe families; the others come "
+        f"with {shd.LM_SLICE}")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,

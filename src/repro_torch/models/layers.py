@@ -343,6 +343,13 @@ def _positions(b: int, s: int, cache, positions, device):
     return steps[None].expand(b, s)
 
 
+def _offset(length):
+    """A prefill's first position: row 0's cache length; 0 for a block of
+    no rows (a data rank that GSPMD's uneven layout leaves empty writes
+    and attends nothing, but runs every op and exchange of the others)."""
+    return length[0] if length.numel() else 0
+
+
 def _attend(q, k, v, cfg: ArchConfig, layer_idx: int, positions, cache,
             decode: bool, group=None):
     """RoPE, the cache update and attention of projected q [B, S, H, Dh]
@@ -386,7 +393,7 @@ def _attend(q, k, v, cfg: ArchConfig, layer_idx: int, positions, cache,
             # attend over the updated cache view (cached prefix ++ this
             # chunk at its offset); offset is row 0's length, as the
             # reference (admission prefills are B=1)
-            offset = cache["length"][0]
+            offset = _offset(cache["length"])
             idx = offset + steps
             k_att = cache["k"].to(k.dtype).index_copy(1, idx, k)
             v_att = cache["v"].to(v.dtype).index_copy(1, idx, v)
@@ -560,7 +567,7 @@ def _attend_seq_split(q, k, v, cfg: ArchConfig, positions, cache,
     view = shd.move_rows(view, shd.h_layout(s_max, n), [(0, s_max)] * n,
                          mesh, axis, "gather", dim=2)
     if s < s_max:
-        offset = length[0]
+        offset = _offset(length)
         idx = offset + torch.arange(s, device=q.device)
         kv_new = torch.stack([k, v])
         att = view.to(k.dtype).index_copy(2, idx, kv_new)

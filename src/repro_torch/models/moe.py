@@ -44,7 +44,20 @@ Routing groups are the whole batch's (:func:`token_groups`): a rank
 holding some rows of the batch routes its tokens in the global token
 order, and where a group spans ranks of the batch axes it offsets its
 capacity slots by the other ranks' per-round, per-expert counts (one
-small all-gather); each rank fills only its own tokens' slots.
+small all-gather, which a rank without rows joins too); each rank fills
+only its own tokens' slots.
+
+Training over a mesh keeps ``sharding``'s convention (Megatron's): a
+tensor whole on every model rank carries its whole gradient wherever
+every rank uses it alike.  The partial outputs' sum feeds such work (its
+adjoint the identity; under ``seq_sp`` a gather of the chunks'
+gradients); where a rank uses a whole tensor its own way it enters it
+through ``sharding.replicate`` (an ``expert`` rank's routing and
+dispatch, which reach its experts only; ``expert_mlp``'s gate and up on
+the rank's ff columns, or under ``seq_sp`` the combine on its chunk),
+and the leaves so used are marked partial (:func:`_mark_partial`).  The
+row-parallel down's trunk is straight-through on the rank's ff rows
+(:class:`_RowTrunkSTE`); the routing counts carry no gradient.
 """
 
 from __future__ import annotations
@@ -257,11 +270,13 @@ def token_groups(b: int, s: int, cfg: ArchConfig, rows=None) -> Groups:
         return None if e == a else (a // g, -(-e // g) - 1)
     a = lo * s
     mine = span(a, hi * s)
-    if mine is None:
-        return Groups(g=g, n=0, first=a // g)
-    first, last = mine
-    base = Groups(g=g, n=last - first + 1, first=first, off=a - first * g,
-                  t=(hi - lo) * s, pad=pad_all if hi * s == total else 0)
+    if mine is None:                 # no rows: routes nothing, but joins
+        base = Groups(g=g, n=0, first=a // g)       # the counts' exchange
+    else:
+        first, last = mine
+        base = Groups(g=g, n=last - first + 1, first=first,
+                      off=a - first * g, t=(hi - lo) * s,
+                      pad=pad_all if hi * s == total else 0)
     if rows is None or hi - lo == big:
         return base
     mesh = shd.current_mesh()
@@ -359,16 +374,38 @@ def row_parallel_trunk(x: torch.Tensor, w_q: torch.Tensor, mesh,
                          "expert"), sx
 
 
+class _RowTrunkSTE(torch.autograd.Function):
+    """A row-parallel stacked trunk's output from its reduced int32 sums
+    (:func:`row_parallel_trunk`): the one scale, as the unsharded trunk
+    applies it, with the reference's straight-through backward for this
+    rank's ff rows, ``dh = g @ (w_q * w_scale)^T`` (``g`` whole on every
+    rank: no exchange), as :class:`_StackedTrunkMatmul`'s unsharded."""
+
+    @staticmethod
+    def forward(ctx, h, trunk, sx, w_q, w_scale):
+        ctx.save_for_backward(w_q, w_scale)
+        return (trunk.float() * sx * w_scale.float()).to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, w_scale = ctx.saved_tensors
+        w_deq = w_q.to(g.dtype) * w_scale.to(g.dtype)      # [E, k, d]
+        return g @ w_deq.transpose(1, 2), None, None, None, None
+
+
 def _down_rows(params, h):
     """The down stack row-parallel on the rank's ff rows (the
     ``expert_mlp`` layout): the trunk by :func:`row_parallel_trunk` and
     the one scale, the branch's t1 summed onto the rank's d_c block of
     the core (whole where the size rule keeps the core whole) and its
-    product ``t1 @ (core @ U)`` summed in rank order, in f32."""
+    product ``t1 @ (core @ U)`` summed in rank order, in f32.  The output
+    feeds work every rank does alike: the sums' adjoints send nothing
+    (t1's reduce-scatter gathers its chunks' gradients) and the trunk's
+    is straight-through on the rank's rows (:class:`_RowTrunkSTE`)."""
     mesh, axis = shd.model_axis()
     rom, sram = params["rom"], params["sram"]
-    trunk, sx = row_parallel_trunk(h, rom["w_q"], mesh, axis)
-    y = (trunk.float() * sx * rom["w_scale"].float()).to(h.dtype)
+    trunk, sx = row_parallel_trunk(h.detach(), rom["w_q"], mesh, axis)
+    y = _RowTrunkSTE.apply(h, trunk, sx, rom["w_q"], rom["w_scale"])
     t1 = h.float() @ rom["C"].float()                      # partial
     core, uf = sram["core"].float(), rom["U"].float()
     if core.shape[1] != t1.shape[-1]:                      # core on d_c
@@ -381,6 +418,36 @@ def _down_rows(params, h):
         branch = torch.bmm(shd.sum_parts(t1, mesh, axis, "expert"),
                            core @ uf)
     return y + branch.to(h.dtype)
+
+
+class _Dispatch(torch.autograd.Function):
+    """The dispatched expert stack from the routed tokens ``xt`` [T, d]:
+    each kept choice's token, through bf16 as the reference's dispatch
+    einsum takes it, into its row ``rows[t, j]`` of [n_rows, d] (the
+    other choices write one spare row, dropped), back in ``xt``'s dtype.
+    The backward gives a token the f32 sum of its choices' row gradients
+    in choice order, not rounded to bf16: where ranks hold different
+    experts, their partial sums then differ from one process's only in
+    the order of the f32 adds."""
+
+    @staticmethod
+    def forward(ctx, xt, rows, n_rows):
+        stack = xt.new_zeros((n_rows + 1, xt.shape[1]), dtype=torch.bfloat16)
+        xb = xt.to(torch.bfloat16)
+        for j in range(rows.shape[1]):
+            stack.index_put_((rows[:, j],), xb)
+        ctx.save_for_backward(rows)
+        return stack[:n_rows].to(xt.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        g = F.pad(g, (0, 0, 0, 1))                        # the spare row: 0
+        dx = None
+        for j in range(rows.shape[1]):
+            term = g[rows[:, j]]
+            dx = term if dx is None else dx + term
+        return dx, None, None
 
 
 def apply_moe_block(params, x, cfg: ArchConfig, sp=None, rows=None):
@@ -397,19 +464,23 @@ def apply_moe_block(params, x, cfg: ArchConfig, sp=None, rows=None):
     b, s, d = x.shape
     mesh = shd.current_mesh()
     if rows is None and mesh is not None and shd.batch_axes(mesh):
-        raise NotImplementedError(
+        raise ValueError(
             "the moe block over batch ranks needs the rank's rows of the "
-            "batch (its routing groups are the whole batch's): the serving "
-            f"steps pass them; a forward or a train step comes with "
-            f"{shd.LM_SLICE}")
+            "batch (its routing groups are the whole batch's): pass rows="
+            "(lo, hi, B), as the serving and train steps do")
     groups = token_groups(b, s, cfg, rows)
     n, g = groups.n, groups.g
-    xf = x.reshape(b * s, d)
+    cap = _capacity(cfg)
+    layout, e_lo, e_hi = _experts_held(params, cfg)
+    _mark_partial(params, layout, sp)
+    # the routing and dispatch of an "expert" rank reach its experts only:
+    # its gradient there is a part (Megatron's f); under seq_sp x comes
+    # from a gather whose adjoint sums the parts already
+    xr = shd.replicate(x) if layout == "expert" and sp is None else x
+    xf = xr.reshape(b * s, d)
     if n * g != b * s:
         xf = F.pad(xf, (0, 0, groups.off, n * g - groups.off - b * s))
     xg = xf.reshape(n, g, d)
-    cap = _capacity(cfg)
-    layout, e_lo, e_hi = _experts_held(params, cfg)
 
     idx, gates, slot, keep = route(params, xg, cfg, groups)
     mine = keep if (e_lo, e_hi) == (0, cfg.num_experts) else \
@@ -419,28 +490,32 @@ def apply_moe_block(params, x, cfg: ArchConfig, sp=None, rows=None):
     grp = torch.arange(n, device=x.device)[:, None, None]
     dest = torch.where(mine, (idx - e_lo) * (n * cap) + grp * cap + slot, 0)
     spare = (e_hi - e_lo) * n * cap
-    x_exp = xg.new_zeros((spare + 1, d), dtype=torch.bfloat16)
-    xb = xg.reshape(-1, d).to(torch.bfloat16)
-    for j in range(idx.shape[-1]):
-        x_exp.index_put_((torch.where(mine[..., j], dest[..., j],
-                                      spare).reshape(-1),), xb)
-    x_exp = x_exp[:spare].reshape(e_hi - e_lo, n * cap, d).to(x.dtype)
+    k = idx.shape[-1]
+    x_exp = _Dispatch.apply(xg.reshape(-1, d),
+                            torch.where(mine, dest, spare).reshape(n * g, k),
+                            spare).reshape(e_hi - e_lo, n * cap, d)
+    if layout == "expert_mlp" and sp is None:
+        x_exp = shd.replicate(x_exp)   # into the rank's ff columns
 
     ex = params["experts"]
     hg = apply_expert_linear(ex["gate"], x_exp)
     hu = apply_expert_linear(ex["up"], x_exp)
     h = F.silu(hg) * hu
-    h = _down_rows(ex["down"], h) if layout == "expert_mlp" else \
-        apply_expert_linear(ex["down"], h)
+    if layout == "expert_mlp":
+        h = _down_rows(ex["down"], h)
+        if sp is not None:             # combined, then cut to the rank's
+            h = shd.replicate(h)       # sequence chunk: its own use
+    else:
+        h = apply_expert_linear(ex["down"], h)
 
     # combine: each token's kept choices, gate-weighted, by expert order
     order = torch.argsort(idx, dim=-1)
-    dest = torch.gather(dest, -1, order).reshape(n * g, -1)
+    dest = torch.gather(dest, -1, order).reshape(n * g, k)
     w = (torch.gather(gates, -1, order)
-         * torch.gather(mine, -1, order)).reshape(n * g, -1)
+         * torch.gather(mine, -1, order)).reshape(n * g, k)
     hf = h.reshape(-1, d).float()
     y = None
-    for j in range(dest.shape[1]):
+    for j in range(k):
         term = w[:, j:j + 1] * hf[dest[:, j]]
         y = term if y is None else y + term
     y = y[groups.off:groups.off + b * s].reshape(b, s, d)
@@ -464,6 +539,28 @@ def apply_moe_block(params, x, cfg: ArchConfig, sp=None, rows=None):
         sg = torch.sigmoid(xs.float() @ params["shared_gate"]["sram"]["w"])
         y = y + sh * sg.to(x.dtype)
     return y
+
+
+def _mark_partial(params, layout, sp):
+    """Mark the block's trainable leaves that each model rank holds whole
+    but uses its own way (``sharding.mark_partial``; their gradients are
+    summed by the train step): the router where a rank combines only its
+    experts' choices (``expert``) or only its sequence chunk (``sp``),
+    the column-parallel gate and up cores of ``expert_mlp`` (U cut on
+    ff), every expert leaf of ``whole`` under ``sp``, and the shared
+    gate under ``sp`` (it meets the rank's chunk)."""
+    if layout is None:
+        return
+    ex = params["experts"]
+    if layout == "expert" or sp is not None:
+        shd.mark_partial(params["router"]["sram"])
+    if layout == "expert_mlp":
+        shd.mark_partial(ex["gate"]["sram"], ex["up"]["sram"])
+    if sp is not None:
+        if layout == "whole":
+            shd.mark_partial(*(ex[k]["sram"] for k in ex))
+        if "shared_gate" in params:
+            shd.mark_partial(params["shared_gate"]["sram"])
 
 
 def aux_load_balance_loss(params, x, cfg: ArchConfig):

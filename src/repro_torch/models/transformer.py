@@ -23,7 +23,7 @@ Python on views of the stacked tensors.  As under the reference's scan,
 every layer runs with ``layer_idx`` 0.  Caches are updated in place (see
 ``models.layers``).
 
-Under a mesh (dense family; the moe family's serving steps) each rank
+Under a mesh (the dense and moe families) each rank
 runs its rows of the batch (the steps cut them,
 ``launch.steps.local_batch``) with its block of the parameters and cache
 (``deploy.CompiledModel.shard_params``, ``api.init_cache``): the
@@ -272,20 +272,25 @@ def checkpointed(fn, *args):
             preserve_rng_state=False)
 
 
-def _remat_block(block, x, cfg: ArchConfig, positions, sp):
+def _remat_block(block, x, cfg: ArchConfig, positions, sp, rows=None):
     """One block checkpointed (:func:`checkpointed`; the reference's
     ``jax.checkpoint``), recomputed first in its backward
-    (:class:`_Recompute`)."""
+    (:class:`_Recompute`): a moe block's recompute routes again, its
+    counts' exchange included, in the same order on every rank."""
     def run(blk, xx):
         return _Recompute.apply(
-            _block_apply(blk, xx, cfg, 0, positions=positions, sp=sp)[0])
+            _block_apply(blk, xx, cfg, 0, positions=positions, sp=sp,
+                         rows=rows)[0])
     return checkpointed(run, block, x)
 
 
-def features(params, batch, cfg: ArchConfig):
+def features(params, batch, cfg: ArchConfig, rows=None):
     """Forward through the blocks only (pre-ln_f hidden states).  When
     autograd records and ``cfg.remat``, each block runs checkpointed
-    (:func:`_remat_block`), as the reference's training forward."""
+    (:func:`_remat_block`), as the reference's training forward.
+    ``rows``: ``(lo, hi, B)``, this rank's rows of a batch of B under a
+    mesh (``launch.steps.make_train_step`` passes them), for the moe
+    block's routing groups."""
     _check_family(cfg)
     x, sp = _seq_parallel(_embed_inputs(params, batch, cfg))
     positions = batch.get("positions")
@@ -293,18 +298,18 @@ def features(params, batch, cfg: ArchConfig):
         t.requires_grad for t in bridge.flatten(params["layers"]).values())
     blocks = unstack(params["layers"], cfg.num_layers)
     if remat and x.device.type == "meta":
-        x = _meta_layers(blocks[0], x, cfg, positions, sp)
+        x = _meta_layers(blocks[0], x, cfg, positions, sp, rows)
     elif remat:
         for block in blocks:
-            x = _remat_block(block, x, cfg, positions, sp)
+            x = _remat_block(block, x, cfg, positions, sp, rows)
     else:
         for block in blocks:
             x = _block_apply(block, x, cfg, 0, positions=positions,
-                             sp=sp)[0]
+                             sp=sp, rows=rows)[0]
     return _unchunk(x, sp, replicated=True)
 
 
-def _meta_layers(block, x, cfg: ArchConfig, positions, sp):
+def _meta_layers(block, x, cfg: ArchConfig, positions, sp, rows=None):
     """The checkpointed layers on ``meta`` (shapes only; a dry run): every
     layer runs the same ops on the same shapes, so layer 0 runs for all,
     its forward, recompute and backward counted ``num_layers`` times
@@ -320,7 +325,8 @@ def _meta_layers(block, x, cfg: ArchConfig, positions, sp):
     leaves = dict(zip(named, marked[1:]))
     block = bridge.map_named(block, lambda k, _: leaves[k])
     with cost.repeated(n):
-        return close(_remat_block(block, marked[0], cfg, positions, sp))
+        return close(_remat_block(block, marked[0], cfg, positions, sp,
+                                  rows))
 
 
 def forward(params, batch, cfg: ArchConfig):

@@ -1,8 +1,8 @@
 """Rank functions of the spawned gloo worlds of ``test_torch_sharding.py``,
 ``test_torch_halo_conv.py``, ``test_torch_dist_train.py``,
 ``test_torch_tp.py``, ``test_torch_tp_train.py``,
-``test_torch_dryrun.py`` and ``test_torch_moe_tp.py``, and the inputs
-both sides share.
+``test_torch_dryrun.py``, ``test_torch_moe_tp.py`` and
+``test_torch_moe_tp_train.py``, and the inputs both sides share.
 
 The ranks import no JAX: they rebuild the same numpy inputs from seeds,
 run the port on the CPU (plain kernel versions) over 4 ranks, and return
@@ -418,7 +418,8 @@ def train_world(rank: int, world: int, lm_path: str, ckpt_dir: str,
         for compressed in (False, True):
             step = steps.make_train_step(cfg, optim.AdamWConfig(lr=1e-3),
                                          loss_chunks=2, model=model,
-                                         compress=compressed)
+                                         compress=compressed,
+                                         global_batch=LM_BATCH)
             compress.wire_bytes.clear()
             loss, grads = step.grads(trainable, frozen, batch)
             wire = dict(compress.wire_bytes)
@@ -850,7 +851,8 @@ def tp_train_run(cfg, whole, mesh, seq: int, compress: bool = False,
         batch = steps.local_batch(cfg, mesh, batch, TP_TRAIN_BATCH)
     step = steps.make_train_step(cfg, optim.AdamWConfig(lr=TP_TRAIN_LR),
                                  loss_chunks=TP_TRAIN_CHUNKS, model=model,
-                                 compress=compress)
+                                 compress=compress,
+                                 global_batch=TP_TRAIN_BATCH)
     _, grads = step.grads(t, f, batch)           # the first step's
     out = {"grads": {k: v.numpy().copy() for k, v in
                      bridge.flatten(grads).items()},
@@ -1132,4 +1134,162 @@ def moe_tp_world(rank: int, world: int) -> dict:
     out["skew"] = {shape: moe_tp_run(MOE_SKEW, skew, meshes[shape],
                                      "pallas_fused", batch=batch)
                    for shape, batch in MOE_SKEW_CASES}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_moe_tp_train.py: the moe family trained over a mesh, and a
+# data rank without rows
+# ---------------------------------------------------------------------------
+
+# (config, mesh, sequence length): Granite-MoE's smoke config (E 8, whole
+# experts a rank) on (1, 4) and on (2, 2), where 8 rows of 12 tokens make
+# 3 routing groups of 32 and data rank 0's tokens 0-47 cut group 1;
+# Qwen2-MoE's (E 6, ff 64: each expert's ff columns, its shared experts'
+# MLP); the same with ff 66 (every expert whole on every rank).  At 16
+# tokens the residual stream takes seq_sp over model 4 (each rank its
+# chunk); at 15 it stays whole (Megatron's f into the expert layouts)
+MOE_TRAIN_CASES = (("granite_moe_3b", (1, 4), 16),
+                   ("granite_moe_3b", (2, 2), 12),
+                   ("qwen2_moe_a2_7b", (1, 4), 16),
+                   ("qwen2_moe_ff66", (1, 4), 16),
+                   ("granite_moe_3b", (1, 4), 15),
+                   ("qwen2_moe_a2_7b", (1, 4), 15))
+MOE_TRAIN_BATCH, MOE_TRAIN_STEPS, MOE_TRAIN_LR = 8, 2, 1e-3
+# a data rank without rows: 6 rows over data 4 go 2, 2, 2, 0 and 5 rows
+# 2, 2, 1, 0 (GSPMD's uneven layout, ``sharding.batch_block``)
+EMPTY_MESH = (4, 1)
+EMPTY_SERVE = (("gemma_2b", 6), ("granite_moe_3b", 6))
+EMPTY_TRAIN = (6, 5)
+
+
+def moe_train_batch(cfg, seq: int, rows: int = MOE_TRAIN_BATCH):
+    from repro_torch.data import synthetic
+    dcfg = synthetic.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                seq_len=seq, global_batch=rows)
+    return synthetic.markov_batch(dcfg, 0, device="cpu")
+
+
+def _bounds(cfg, whole, mesh) -> dict:
+    """Each trainable leaf's block bounds on this rank."""
+    from repro_torch import bridge
+    from repro_torch.core import rebranch
+    from repro_torch.distributed import sharding as shd
+    sh = bridge.flatten(shd.param_shardings(whole, mesh))
+    experts = ((cfg.num_experts, cfg.moe_d_ff or cfg.d_ff)
+               if cfg.family == "moe" else None)
+    return {k: shd.param_bounds(k, tuple(v.shape), sh[k],
+                                cfg.rebranch.cim.rows_per_subarray,
+                                cfg.head_dim, experts)
+            for k, v in bridge.flatten(rebranch.partition(whole)[0]).items()}
+
+
+def moe_train_run(cfg, whole, mesh, seq: int, rows: int = MOE_TRAIN_BATCH,
+                  steps_n: int = MOE_TRAIN_STEPS, remat_off: bool = True
+                  ) -> dict:
+    """``steps_n`` 'pallas' train steps of ``cfg`` (default loss chunks,
+    the dry run's) on ``rows`` sequences from the whole tree ``whole``
+    (None mesh: one process on the whole batch): each step's loss, the
+    first step's gradients, update and bytes sent by kind (its grads and
+    update, as one call sends), and with ``remat_off`` the first
+    gradients again with remat off; on a mesh the leaves' bounds and the
+    leaves held in blocks."""
+    from repro_torch import bridge, deploy, optim
+    from repro_torch.core import rebranch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    model = deploy.compile_model(cfg, engine="pallas", mesh=mesh)
+    t, f = rebranch.partition(model.shard_params(whole))
+    opt = optim.init(t)
+    batch = moe_train_batch(cfg, seq, rows)
+    if mesh is not None:
+        batch = steps.local_batch(cfg, mesh, batch, rows)
+    step = steps.make_train_step(cfg, optim.AdamWConfig(lr=MOE_TRAIN_LR),
+                                 model=model, global_batch=rows)
+    shd.reset_traffic()
+    loss, grads = step.grads(t, f, batch)
+    t, opt, m = step.update(t, opt, loss, grads)
+    out = {"bytes": dict(shd.bytes_sent), "loss": [float(m["loss"])],
+           "grad_norm": float(m["grad_norm"]),
+           "grads": {k: v.numpy().copy()
+                     for k, v in bridge.flatten(grads).items()},
+           "updated": {k: v.numpy().copy()
+                       for k, v in bridge.flatten(t).items()}}
+    for _ in range(steps_n - 1):
+        t, opt, m = step(t, f, opt, batch)
+        out["loss"].append(float(m["loss"]))
+    if remat_off:
+        off = dataclasses.replace(cfg, remat=False)
+        t0, _ = rebranch.partition(model.shard_params(whole))
+        l_off, g_off = steps.make_train_step(
+            off, optim.AdamWConfig(lr=MOE_TRAIN_LR),
+            model=deploy.compile_model(off, engine="pallas", mesh=mesh),
+            global_batch=rows).grads(t0, f, batch)
+        out["remat_equal"] = bool(torch.equal(l_off, loss)) and all(
+            torch.equal(g, grads_k) for g, grads_k in zip(
+                bridge.flatten(g_off).values(),
+                bridge.flatten(grads).values()))
+    if mesh is not None:
+        out["bounds"] = _bounds(cfg, whole, mesh)
+        out["split"] = sorted(step.split_leaves(mesh))
+        with shd.use_mesh(mesh):
+            out["layout"] = shd.expert_layout(cfg.num_experts,
+                                              cfg.moe_d_ff or cfg.d_ff)
+    return out
+
+
+def empty_train_run(rows: int, mesh) -> dict:
+    """One 'pallas' train step's loss and gradients of Gemma-2B's smoke
+    config on ``rows`` sequences of 16 (None mesh: one process)."""
+    from repro_torch import bridge, deploy, optim
+    from repro_torch.core import rebranch
+    from repro_torch.launch import steps
+    cfg = tp_config("gemma_2b")
+    model = deploy.compile_model(cfg, engine="pallas", mesh=mesh)
+    whole = bridge.to_torch(tp_port_tree("gemma_2b"), "cpu")
+    t, f = rebranch.partition(model.shard_params(whole))
+    batch = moe_train_batch(cfg, 16, rows)
+    if mesh is not None:
+        batch = steps.local_batch(cfg, mesh, batch, rows)
+    loss, grads = steps.make_train_step(
+        cfg, optim.AdamWConfig(lr=MOE_TRAIN_LR), model=model,
+        global_batch=rows).grads(t, f, batch)
+    return {"rows": int(batch["tokens"].shape[0]), "loss": float(loss),
+            "grads": {k: v.numpy().copy()
+                      for k, v in bridge.flatten(grads).items()}}
+
+
+def empty_serve_run(name: str, rows: int, mesh) -> tuple:
+    """(logits, tokens) of :func:`tp_steps` ('pallas') on ``rows``
+    prompts of config ``name`` (dense or moe), over ``mesh`` or (None)
+    in one process."""
+    from repro_torch import bridge
+    if name == "gemma_2b":
+        cfg, tree = tp_config(name), tp_port_tree(name)
+    else:
+        cfg, tree = moe_tp_config(name), moe_tp_tree(name)
+    return tp_steps(cfg, bridge.to_torch(tree, "cpu"), mesh, "pallas",
+                    batch=rows)[0]
+
+
+def moe_train_world(rank: int, world: int) -> dict:
+    """Every case of :data:`MOE_TRAIN_CASES` over 4 gloo ranks, then a
+    data rank without rows (:data:`EMPTY_MESH`): the serving steps of
+    :data:`EMPTY_SERVE` and a dense train step on each of
+    :data:`EMPTY_TRAIN` rows."""
+    from repro_torch import bridge
+    warnings.simplefilter("ignore")
+    shapes = dict.fromkeys([s for _, s, _ in MOE_TRAIN_CASES]
+                           + [EMPTY_MESH])
+    meshes = {s: tp_mesh(s, "gloo") for s in shapes}
+    out = {"rank": rank, "runs": {}, "serve": {}, "train": {}}
+    for name, shape, seq in MOE_TRAIN_CASES:
+        whole = bridge.to_torch(moe_tp_tree(name), "cpu")
+        out["runs"][name, shape, seq] = moe_train_run(
+            moe_tp_config(name), whole, meshes[shape], seq)
+    mesh = meshes[EMPTY_MESH]
+    for name, rows in EMPTY_SERVE:
+        out["serve"][name, rows] = empty_serve_run(name, rows, mesh)
+    for rows in EMPTY_TRAIN:
+        out["train"][rows] = empty_train_run(rows, mesh)
     return out

@@ -396,17 +396,18 @@ def test_param_shardings_pair_each_spec_with_its_mesh():
 
 def test_a_model_axis_over_1_and_the_lm_axes_still_raise():
     """Over a model axis the dense family trains (here one rank's step of
-    a fake (2, 2) world on ``meta``, ``launch.dryrun``); the moe family's
-    train step still raises naming ROADMAP item 5(d)."""
+    a fake (2, 2) world on ``meta``, ``launch.dryrun``); the ssm family's
+    train step still raises naming ROADMAP item 5(d) (the moe family
+    trains over a mesh since ``test_torch_moe_tp_train.py``)."""
     step = tsteps.BranchStep(lambda p, b: p["w"].sum())
     t = {"w": torch.ones(2)}
-    moe = tdeploy.compile_model(tconfigs.get_smoke("granite_moe_3b"))
-    mt, mf = trebranch.partition(bridge.abstract(
-        lambda: moe.init(seed=0, device="cpu")))
-    moe_step = tsteps.make_train_step(moe.cfg, model=moe)
+    ssm = tdeploy.compile_model(tconfigs.get_smoke("falcon_mamba_7b"))
+    st, sf = trebranch.partition(bridge.abstract(
+        lambda: ssm.init(seed=0, device="cpu")))
+    ssm_step = tsteps.make_train_step(ssm.cfg, model=ssm)
     with tshd.use_mesh(mesh_lib.AbstractMesh((2, 2))):
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
-            moe_step.grads(mt, mf, {})
+            ssm_step.grads(st, sf, {})
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
             tshd.shard(torch.zeros(2, 4, 4, 3), "ssm_inner")
     with dryrun.dry_world(4):

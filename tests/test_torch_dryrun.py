@@ -19,9 +19,9 @@ Held:
   * ``main`` on a cell that waits for ROADMAP item 5(d) prints ``not
     ported`` with its sub-slice and returns 0, and runs the dense
     ``decode_32k`` cells that waited for sub-slice (i) (uneven heads, a
-    batch over pod x data) and the moe serving cells that waited for
-    (iii) (its ``train_4k`` waits for (iii)(b)); the fake backend only
-    inside a dry world.
+    batch over pod x data) and the moe cells that waited for (iii),
+    serving and ``train_4k``; the fake backend only inside a dry
+    world.
 
 A fixture ends any fake world a test leaves behind.  The per-rank bytes
 against a real world's are held where the worlds run:
@@ -172,8 +172,9 @@ def test_main_runs_the_moe_serving_cells(capsys):
     """Granite-MoE-3B and Qwen2-MoE-A2.7B: the ``prefill_32k`` and
     ``decode_32k`` cells on both meshes run (the first and last model
     rank; E 40 and 60 over model 16: the expert_mlp layout), each rank's
-    bytes by kind in its record; ``train_4k`` waits for the moe family's
-    training, sub-slice 5(d)(iii)(b)."""
+    bytes by kind in its record.  The family waits for no sub-slice of
+    its own: its ``train_4k`` cells run since (iii)(b)
+    (:func:`test_main_runs_the_dense_train_cells` runs Granite-MoE's)."""
     recs = {}
     for arch in ("granite_moe_3b", "qwen2_moe_a2_7b"):
         for shape in ("prefill_32k", "decode_32k"):
@@ -187,10 +188,7 @@ def test_main_runs_the_moe_serving_cells(capsys):
             assert r["bytes_sent"]["expert"] > 0, (arch, shape)
             # decode: 128 rows over 16 data ranks, one group of 128 tokens
             assert ("routing" in r["bytes_sent"]) == (shape == "decode_32k")
-    assert dryrun.main(["--arch", "qwen2_moe_a2_7b", "--shape", "train_4k",
-                        "--single-pod"]) == 0
-    out = capsys.readouterr().out
-    assert "[not ported: 5(d)(iii)(b)] qwen2_moe_a2_7b x train_4k" in out
+    assert dryrun.sub_slice("qwen2_moe_a2_7b") == "5(d)(i)"   # none of its own
     assert not dist.is_initialized()
 
 
@@ -246,15 +244,18 @@ def test_a_train_step_sends_what_a_gloo_world_sends():
 
 
 def test_main_runs_the_dense_train_cells(capsys):
-    """Gemma-2B's ``train_4k`` cell on 16x16 (first and last model rank);
-    a moe config's still waits for the moe family's training, sub-slice
-    (iii)(b)."""
+    """Gemma-2B's and Granite-MoE-3B's ``train_4k`` cells on 16x16 (first
+    and last model rank; the moe family trains since sub-slice (iii)(b));
+    Falcon-Mamba's still waits for the ssm family, sub-slice (iv)."""
     assert dryrun.main(["--arch", "gemma_2b", "--shape", "train_4k",
                         "--fast", "--single-pod"]) == 0
     assert dryrun.main(["--arch", "granite_moe_3b", "--shape", "train_4k",
+                        "--fast", "--single-pod"]) == 0
+    assert dryrun.main(["--arch", "falcon_mamba_7b", "--shape", "train_4k",
                         "--single-pod"]) == 0
     out = capsys.readouterr().out
     assert "[ok] gemma_2b x train_4k x single_pod:" in out
-    assert "[not ported: 5(d)(iii)(b)] granite_moe_3b x train_4k" in out
+    assert "[ok] granite_moe_3b x train_4k x single_pod:" in out
+    assert "[not ported: 5(d)(iv)] falcon_mamba_7b x train_4k" in out
     assert "[FAIL]" not in out
     assert not dist.is_initialized()

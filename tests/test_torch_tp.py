@@ -396,8 +396,9 @@ def test_what_still_raises():
                  "musicgen_large"):
         with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
             tdeploy.compile_model(tconfigs.get_smoke(name), mesh=mesh)
-    # the moe family serves over a mesh (test_torch_moe_tp.py) but does not
-    # train over one
+    # the moe family serves over a mesh (test_torch_moe_tp.py) and trains
+    # over one (test_torch_moe_tp_train.py): its train step passes the
+    # family check and asks for the batch's whole size over batch axes
     moe = tdeploy.compile_model(tconfigs.get_smoke("granite_moe_3b"),
                                 mesh=mesh)
     assert moe.mesh is mesh
@@ -405,9 +406,10 @@ def test_what_still_raises():
     t, f = trebranch.partition(bridge.abstract(
         lambda: moe.init(seed=0, device="cpu")))
     step = tsteps.make_train_step(moe.cfg, model=moe)
+    labels = {"labels": torch.zeros((2, 4), dtype=torch.int32)}
     with tshd.use_mesh(mesh):
-        with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
-            step.grads(t, f, {})          # the dense family trains
+        with pytest.raises(ValueError, match="global_batch"):
+            step.grads(t, f, labels)
         for axis in ("ssm_inner", "kv_seq"):
             with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
                 tshd.shard(torch.zeros(4, 4), None, axis)
